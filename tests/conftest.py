@@ -33,6 +33,12 @@ def _load_known_failures() -> set[str]:
 _KNOWN = _load_known_failures()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernel tests); "
+        "skipped inside a fixture where none is present")
+
+
 def pytest_collection_modifyitems(config, items):
     for item in items:
         if item.nodeid in _KNOWN:
