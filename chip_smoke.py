@@ -48,6 +48,9 @@ KERNELS = {   # counter name -> (CUDA source, the Pallas kernel it replaces)
     "chunk_walk_compact": (f"{CSRC}/chunk_walk.cu", f"{REF_KERNEL}:183"),
 }
 REAL_RTOL = 1e-4   # real-valued f32 sums in another order
+# soc-LiveJournal1 scale (SNAP: 4.8M vertices, 69M edges)
+VERTICES = 2 ** 22
+EDGES = 2 ** 26
 BLOCKS_PER_SM = 2  # physical blocks (CTAs) per SM: num_blocks of every plan
 
 
@@ -183,23 +186,22 @@ def phase_build():
                 log(f"  {stem}: {entry}: {line.strip()}")
 
 
-def phase_data(args, num_blocks: int):
+def phase_data(seed: int, num_blocks: int):
     import numpy as np
     import torch
     from repro_torch.sparse import CSR, Graph, random_csr
 
-    rows = 2 ** args.log2_vertices
     (A, gen_s) = wall_s(lambda: random_csr(
-        rows, rows, 2 ** args.log2_edges, skew=1.3, empty_frac=0.3,
-        seed=args.seed, device="cuda"))
+        VERTICES, VERTICES, EDGES, skew=1.3, empty_frac=0.3, seed=seed,
+        device="cuda"))
     # graph weights as benchmarks/fig_graph.py builds them: |v| + 0.05
     g = Graph(CSR(A.row_offsets, A.col_indices, A.values.abs() + 0.05,
                   A.shape, A.nnz))
-    x = torch.from_numpy(np.random.default_rng(args.seed + 1)
-                         .standard_normal(rows).astype(np.float32)).cuda()
+    x = torch.from_numpy(np.random.default_rng(seed + 1)
+                         .standard_normal(VERTICES).astype(np.float32)).cuda()
     degrees = g.out_degrees().cpu().numpy()
     log(f"data: V={g.num_vertices} E={g.num_edges} (requested "
-        f"2**{args.log2_edges}; rows clipped at V columns), "
+        f"{EDGES}; rows clipped at V columns), "
         f"non-empty rows {int((degrees > 0).sum())}, max out-degree "
         f"{int(degrees.max())}, generated in {gen_s:.1f} s, "
         f"CSR {tensor_bytes(A) / 2**20:.1f} MiB + graph weights "
@@ -241,45 +243,24 @@ def build_plans(g, num_blocks: int):
     return plans
 
 
-def tile_operands(spec, part, values, mask):
-    """The operands ``native_chunk_tile_reduce`` hands the tiles kernel."""
-    import torch
-    from repro_torch.core import execute as E
-    window, local = E._window_sizes(spec, part)
-    chunks, counts, max_chunks = E._queue_operands(part)
-    args = (E._padded(values, window, 0.0),
-            E._padded(spec.atom_tile_ids(), window, spec.num_tiles),
-            part.atom_starts, part.tile_starts, chunks, counts,
-            None if mask is None else E._padded(mask.to(torch.int32),
-                                                window, 0))
-    return args, dict(window=window, local_tiles=local,
-                      max_chunks=max_chunks)
-
-
 def phase_parity_and_times(A, x, g, plans, num_blocks: int, seed: int):
     """K1-K4 at the main path's shapes: parity, then timings."""
-    import numpy as np
     import torch
     from repro_torch.core import execute as E
     from repro_torch.kernels.spmv_merge import kernel as K
     from repro_torch.kernels.spmv_merge import ops as O
-    from repro_torch.kernels.spmv_merge import ref as R
+    from repro_torch.sparse import CSR
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = {}
 
     # -- K1: the merge-path stream of spmv_merge_path(A, x, num_blocks) ----
-    block_items = max(O._round_up(-(-(A.shape[0] + A.nnz) // num_blocks),
-                                  128), 128)
-    total = O._round_up(A.shape[0] + A.nnz, block_items)
+    block_items = O.merge_block_items(A, num_blocks)
 
     def stream_of(values, xv):
-        vals, srows = R.merge_stream_ref(A.row_offsets, A.col_indices,
-                                         values, xv, A.shape[0], A.nnz,
-                                         total)
-        base = torch.clamp(srows[::block_items],
-                           max=A.shape[0] - 1).contiguous()
-        return vals, srows, base
+        return O.merge_stream_operands(
+            CSR(A.row_offsets, A.col_indices, values, A.shape, A.nnz), xv,
+            block_items=block_items)
 
     kw1 = dict(block_items=block_items)
     s_unit = stream_of(unit_values(A.values), unit_values(x))
@@ -288,11 +269,12 @@ def phase_parity_and_times(A, x, g, plans, num_blocks: int, seed: int):
             K.merge_block_partials_ref(*s_unit, **kw1), exact=True)
     del s_unit
     s_real = stream_of(A.values, x)
-    err1 = compare("spmv_merge_stream (real)",
-                   K.merge_block_partials(*s_real, **kw1),
+    partials = K.merge_block_partials(*s_real, **kw1)
+    err1 = compare("spmv_merge_stream (real)", partials,
                    K.merge_block_partials_ref(*s_real, **kw1), exact=False)
-    grid = total // block_items
-    r_loc = O._round_up(block_items + 1, 128)
+    total = int(s_real[0].shape[0])
+    grid, r_loc = (int(n) for n in partials.shape)
+    del partials
     bytes1 = total * 8 + grid * 4 + grid * r_loc * 4
     a_csr = torch.sparse_csr_tensor(A.row_offsets, A.col_indices, A.values,
                                     A.shape)
@@ -319,9 +301,10 @@ def phase_parity_and_times(A, x, g, plans, num_blocks: int, seed: int):
                  ("sum", unit_values(plan.weight - 0.5), None, True),
                  ("min", cand, mask, True), ("max", cand, mask, True)]
         for combiner, values, m, exact in cases:
-            args, kw = tile_operands(spec, part, values, m)
-            got = K.chunk_walk_reduce(*args, combiner=combiner, **kw)
-            want = K.chunk_walk_reduce_ref(*args, combiner=combiner, **kw)
+            args, kw = E.chunk_walk_operands(spec, part, values,
+                                             combiner=combiner, atom_mask=m)
+            got = K.chunk_walk_reduce(*args, **kw)
+            want = K.chunk_walk_reduce_ref(*args, **kw)
             tag = f"chunk_walk_tiles {schedule}/{combiner}"
             tag += "/masked" if m is not None else ""
             tag += "/integer-valued" if exact and combiner == "sum" else ""
@@ -329,7 +312,7 @@ def phase_parity_and_times(A, x, g, plans, num_blocks: int, seed: int):
             errs2.append(err)
             del got, want
         if schedule == "chunked_lpt":
-            args, kw = tile_operands(spec, part, plan.weight, None)
+            args, kw = E.chunk_walk_operands(spec, part, plan.weight)
             tids = spec.atom_tile_ids()
             num_chunks = part.num_blocks
             rows["chunk_walk_tiles"] = dict(
@@ -340,9 +323,10 @@ def phase_parity_and_times(A, x, g, plans, num_blocks: int, seed: int):
                 library_ms=cuda_ms(lambda: torch.zeros(
                     spec.num_tiles, device="cuda").index_add_(
                         0, tids, plan.weight)))
-            args_m, kw_m = tile_operands(spec, part, cand, mask)
-            masked_ms = cuda_ms(lambda: K.chunk_walk_reduce(
-                *args_m, combiner="min", **kw_m))
+            args_m, kw_m = E.chunk_walk_operands(spec, part, cand,
+                                                 combiner="min",
+                                                 atom_mask=mask)
+            masked_ms = cuda_ms(lambda: K.chunk_walk_reduce(*args_m, **kw_m))
             log(f"K2 shapes ({schedule}): {spec.num_atoms} atoms, "
                 f"{num_chunks} chunks on {part.num_physical_blocks} blocks, "
                 f"window {kw['window']}, local tiles {kw['local_tiles']}; "
@@ -357,13 +341,9 @@ def phase_parity_and_times(A, x, g, plans, num_blocks: int, seed: int):
     mask = frontier[plan.push_src]
     dist = torch.rand(g.num_vertices, generator=gen, device="cuda")
     cand = dist[plan.push_src] + plan.push_weight
-    window, local = E._window_sizes(spec, part)
-    chunks, counts, max_chunks = E._queue_operands(part)
-    args3 = (E._padded(cand, window, float("inf")), None, part.atom_starts,
-             part.tile_starts, chunks, counts,
-             E._padded(mask.to(torch.int32), window, 0))
-    kw3 = dict(window=window, local_tiles=local, max_chunks=max_chunks,
-               combiner="min", emit="atoms")
+    args3, kw3 = E.chunk_walk_operands(spec, part, cand, combiner="min",
+                                       emit="atoms", atom_mask=mask)
+    window = kw3["window"]
     compare("chunk_walk_atoms chunked_lpt/min/masked",
             K.chunk_walk_reduce(*args3, **kw3),
             K.chunk_walk_reduce_ref(*args3, **kw3), exact=True)
@@ -388,16 +368,9 @@ def phase_parity_and_times(A, x, g, plans, num_blocks: int, seed: int):
     idx, count = E.compact_active_atoms(mask, capacity)
     check(int(count) <= capacity, "K4 parity mask overflows the capacity")
     num_chunks = part.num_blocks
-    window = E._compact_window(num_chunks, capacity)
-    starts = E.compact_chunk_starts(num_chunks, capacity, idx.device)
-    chunks, counts, max_chunks = E._queue_operands(part)
-    vals = E._padded(cand, window, float("inf"))
-    idx_padded = E._padded(torch.clamp(idx, max=spec.num_atoms), window,
-                           spec.num_atoms)
-    args4 = (vals, None, starts, torch.zeros_like(starts), chunks, counts,
-             None, idx_padded)
-    kw4 = dict(window=window, local_tiles=1, max_chunks=max_chunks,
-               combiner="min", emit="compact")
+    args4, kw4 = E.chunk_walk_operands(spec, part, cand, combiner="min",
+                                       emit="compact", idx=idx)
+    window = kw4["window"]
     compare("chunk_walk_compact chunked_lpt/min",
             K.chunk_walk_reduce(*args4, **kw4),
             K.chunk_walk_reduce_ref(*args4, **kw4), exact=True)
@@ -407,7 +380,7 @@ def phase_parity_and_times(A, x, g, plans, num_blocks: int, seed: int):
         ms=cuda_ms(lambda: K.chunk_walk_reduce(*args4, **kw4)),
         plain_ms=cuda_ms(lambda: K.chunk_walk_reduce_ref(*args4, **kw4),
                          iters=3),
-        library_ms=cuda_ms(lambda: torch.index_select(vals, 0, idx)))
+        library_ms=cuda_ms(lambda: torch.index_select(args4[0], 0, idx)))
     log(f"K4 shapes: capacity {capacity} ({int(count)} active), windows "
         f"[{num_chunks}, {window}]")
     return rows
@@ -526,8 +499,6 @@ def phase_profile(g, plans, source: int) -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--log2-vertices", type=int, default=22)
-    parser.add_argument("--log2-edges", type=int, default=26)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by operation for one "
@@ -548,7 +519,7 @@ def main(argv=None) -> int:
     card_line, sms = phase_card()
     phase_build()
     num_blocks = BLOCKS_PER_SM * sms
-    A, g, x, source = phase_data(args, num_blocks)
+    A, g, x, source = phase_data(args.seed, num_blocks)
     plans = build_plans(g, num_blocks)
     rows = phase_parity_and_times(A, x, g, plans, num_blocks, args.seed)
     launches, e2e = phase_main(A, x, g, plans, num_blocks, source)

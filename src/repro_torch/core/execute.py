@@ -212,6 +212,48 @@ def _check_native(part: Partition, dtype: torch.dtype) -> None:
                          "(see supports_native_execution)")
 
 
+def chunk_walk_operands(spec: WorkSpec, part: Partition,
+                        values: torch.Tensor, *, combiner: str = "sum",
+                        emit: str = "tiles",
+                        atom_mask: torch.Tensor | None = None,
+                        idx: torch.Tensor | None = None):
+    """``(args, kwargs)`` of the chunk-walk kernel launch the native
+    executors make for the atom values ``values`` (f32 ``[num_atoms]``):
+    ``chunk_walk_reduce(*args, **kwargs)``.
+
+    Values, tile ids and the mask are padded by one window (padding is
+    never inside a chunk).  ``emit="compact"`` takes the compacted index
+    list ``idx`` instead of a mask and walks even chunk splits of it; its
+    padded slots point at the identity padding of ``values``.
+    """
+    identity = COMBINER_IDENTITY[combiner]
+    chunks, counts, max_chunks = _queue_operands(part)
+    if emit == "compact":
+        num_chunks = int(part.atom_starts.shape[0]) - 1
+        window = _compact_window(num_chunks, int(idx.shape[0]))
+        starts = compact_chunk_starts(num_chunks, int(idx.shape[0]),
+                                      idx.device)
+        idx_padded = _padded(torch.clamp(idx, max=spec.num_atoms), window,
+                             spec.num_atoms)
+        args = (_padded(values, window, identity), None, starts,
+                torch.zeros_like(starts), chunks, counts, None, idx_padded)
+        return args, dict(window=window, local_tiles=1,
+                          max_chunks=max_chunks, combiner=combiner,
+                          emit=emit)
+    window, local_tiles = _window_sizes(spec, part)
+    tids = None
+    if emit == "tiles":
+        tids = _padded(spec.atom_tile_ids(), window, spec.num_tiles)
+    mask = None
+    if atom_mask is not None:
+        mask = _padded(atom_mask.to(torch.int32), window, 0)
+    args = (_padded(values, window, identity), tids,
+            part.atom_starts.to(torch.int32),
+            part.tile_starts.to(torch.int32), chunks, counts, mask)
+    return args, dict(window=window, local_tiles=local_tiles,
+                      max_chunks=max_chunks, combiner=combiner, emit=emit)
+
+
 def native_chunk_tile_reduce(spec: WorkSpec, part: Partition, atom_fn: AtomFn,
                              dtype: torch.dtype = torch.float32, *,
                              combiner: str = "sum",
@@ -219,10 +261,10 @@ def native_chunk_tile_reduce(spec: WorkSpec, part: Partition, atom_fn: AtomFn,
                              ) -> torch.Tensor:
     """Device-side execution: the chunk-walk kernel in ``tiles`` mode.
 
-    Materializes the atom transform and the atom -> tile map once, pads
-    both by one window (padding is never inside a chunk), launches one CTA
-    per physical block, and resolves cross-chunk tiles with the shared
-    fixup.  ``atom_mask`` rides into the kernel as an int32 operand.
+    Materializes the atom transform and the atom -> tile map once
+    (:func:`chunk_walk_operands`), launches one CTA per physical block, and
+    resolves cross-chunk tiles with the shared fixup.  ``atom_mask`` rides
+    into the kernel as an int32 operand.
     """
     identity = _check_combiner(combiner, dtype)
     _check_native(part, dtype)
@@ -231,19 +273,11 @@ def native_chunk_tile_reduce(spec: WorkSpec, part: Partition, atom_fn: AtomFn,
                           device=spec.device)
     from repro_torch.kernels.spmv_merge.kernel import chunk_walk_reduce
 
-    window, local_tiles = _window_sizes(spec, part)
-    chunks, counts, max_chunks = _queue_operands(part)
-    values = _padded(_atom_values(spec, atom_fn, dtype), window, identity)
-    tids = _padded(spec.atom_tile_ids(), window, spec.num_tiles)
-    mask = None
-    if atom_mask is not None:
-        mask = _padded(atom_mask.to(torch.int32), window, 0)
-    partials = chunk_walk_reduce(
-        values, tids, part.atom_starts.to(torch.int32),
-        part.tile_starts.to(torch.int32), chunks, counts, mask,
-        window=window, local_tiles=local_tiles, max_chunks=max_chunks,
-        combiner=combiner)
-    return fixup_partials(spec, part, partials, local_tiles, combiner)
+    args, kw = chunk_walk_operands(spec, part,
+                                   _atom_values(spec, atom_fn, dtype),
+                                   combiner=combiner, atom_mask=atom_mask)
+    return fixup_partials(spec, part, chunk_walk_reduce(*args, **kw),
+                          kw["local_tiles"], combiner)
 
 
 # ---------------------------------------------------------------------------
@@ -283,22 +317,17 @@ def native_chunk_value_windows(spec: WorkSpec, part: Partition,
     :func:`blocked_value_windows`, written by the queue-walking CTAs."""
     identity = _check_combiner(combiner, dtype)
     _check_native(part, dtype)
-    window, local_tiles = _window_sizes(spec, part)
     if spec.num_atoms == 0:
+        window, _ = _window_sizes(spec, part)
         return torch.full((part.num_blocks, window), identity, dtype=dtype,
                           device=spec.device)
     from repro_torch.kernels.spmv_merge.kernel import chunk_walk_reduce
 
-    chunks, counts, max_chunks = _queue_operands(part)
-    values = _padded(_atom_values(spec, atom_fn, dtype), window, identity)
-    mask = None
-    if atom_mask is not None:
-        mask = _padded(atom_mask.to(torch.int32), window, 0)
-    return chunk_walk_reduce(
-        values, None, part.atom_starts.to(torch.int32),
-        part.tile_starts.to(torch.int32), chunks, counts, mask,
-        window=window, local_tiles=local_tiles, max_chunks=max_chunks,
-        combiner=combiner, emit="atoms")
+    args, kw = chunk_walk_operands(spec, part,
+                                   _atom_values(spec, atom_fn, dtype),
+                                   combiner=combiner, emit="atoms",
+                                   atom_mask=atom_mask)
+    return chunk_walk_reduce(*args, **kw)
 
 
 def scatter_value_windows(spec: WorkSpec, part: Partition,
@@ -384,23 +413,14 @@ def native_compact_value_windows(spec: WorkSpec, part: Partition,
     """The chunk-walk kernel in ``compact`` mode: the partition's queues
     walk even chunk splits of the compacted index list, and each slot
     gathers its value through it."""
-    identity = _check_combiner(combiner, dtype)
+    _check_combiner(combiner, dtype)
     _check_native(part, dtype)
     from repro_torch.kernels.spmv_merge.kernel import chunk_walk_reduce
 
-    num_chunks = int(part.atom_starts.shape[0]) - 1
-    capacity = int(idx.shape[0])
-    window = _compact_window(num_chunks, capacity)
-    starts = compact_chunk_starts(num_chunks, capacity, idx.device)
-    chunks, counts, max_chunks = _queue_operands(part)
-    # the identity padding doubles as the target of padded index slots
-    values = _padded(_atom_values(spec, atom_fn, dtype), window, identity)
-    idx_padded = _padded(torch.clamp(idx, max=spec.num_atoms), window,
-                         spec.num_atoms)
-    return chunk_walk_reduce(
-        values, None, starts, torch.zeros_like(starts), chunks, counts,
-        None, idx_padded, window=window, local_tiles=1,
-        max_chunks=max_chunks, combiner=combiner, emit="compact")
+    args, kw = chunk_walk_operands(spec, part,
+                                   _atom_values(spec, atom_fn, dtype),
+                                   combiner=combiner, emit="compact", idx=idx)
+    return chunk_walk_reduce(*args, **kw)
 
 
 def scatter_compact_windows(spec: WorkSpec, windows: torch.Tensor,

@@ -21,8 +21,16 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _spmv_merge_path(A, x: torch.Tensor, *, block_items: int
-                     ) -> torch.Tensor:
+def merge_block_items(A, num_blocks: int) -> int:
+    """Stream items per block that cut ``A``'s merged (rows + nnz) stream
+    into ``num_blocks`` blocks (a multiple of 128)."""
+    return max(_round_up(-(-(A.shape[0] + A.nnz) // num_blocks), 128), 128)
+
+
+def merge_stream_operands(A, x: torch.Tensor, *, block_items: int):
+    """``(stream_vals, stream_rows, row_base)``: the merge-path block
+    kernel's operands for ``y = A @ x``, as :func:`spmv_merge_path` builds
+    them."""
     num_rows = A.shape[0]
     total = _round_up(max(num_rows + A.nnz, 1), block_items)
     stream_vals, stream_rows = _ref.merge_stream_ref(
@@ -32,9 +40,7 @@ def _spmv_merge_path(A, x: torch.Tensor, *, block_items: int
     # a block may begin on padding (row == num_rows): clamp its base so
     # its bins stay in range (its values are all zero regardless)
     row_base = torch.clamp(row_base, max=max(num_rows - 1, 0)).contiguous()
-    return _kernel.spmv_merge_stream(stream_vals, stream_rows, row_base,
-                                     num_rows=num_rows,
-                                     block_items=block_items)
+    return stream_vals, stream_rows, row_base
 
 
 def spmv_merge_path(A, x: torch.Tensor, *, num_blocks: int | None = None,
@@ -84,6 +90,7 @@ def spmv_merge_path(A, x: torch.Tensor, *, num_blocks: int | None = None,
                 from repro_torch.core.dynamic import DEFAULT_CHUNK_FACTOR
                 num_blocks = min(DEFAULT_CHUNK_FACTOR * nb, max(A.nnz, 1))
     if num_blocks is not None:
-        block_items = max(_round_up(-(-(A.shape[0] + A.nnz) // num_blocks),
-                                    128), 128)
-    return _spmv_merge_path(A, x, block_items=block_items)
+        block_items = merge_block_items(A, num_blocks)
+    return _kernel.spmv_merge_stream(
+        *merge_stream_operands(A, x, block_items=block_items),
+        num_rows=A.shape[0], block_items=block_items)

@@ -31,8 +31,8 @@ def spmv(A: CSR, x: torch.Tensor, *,
     """Load-balanced SpMV ``y = A @ x``.
 
     ``schedule=None`` applies the paper's §6.2 heuristic.  ``impl``:
-    ``"blocked"`` (the pure blocked executor), ``"kernel"`` (the
-    merge-path CUDA kernel; the reference's ``"pallas"``) or
+    ``"blocked"`` (the pure blocked executor), ``"pallas"`` (the
+    reference's name, kept: the merge-path CUDA kernel) or
     ``"reference"``.
     """
     if schedule is None:
@@ -40,7 +40,7 @@ def spmv(A: CSR, x: torch.Tensor, *,
     schedule = Schedule(schedule)
     if impl == "reference":
         return spmv_reference(A, x)
-    if impl == "kernel":
+    if impl == "pallas":
         from repro_torch.kernels.spmv_merge import ops as kops
         return kops.spmv_merge_path(A, x, num_blocks=num_blocks)
     if impl != "blocked":
@@ -56,7 +56,9 @@ def spmm(A: CSR, B: torch.Tensor, *,
          num_blocks: int = DEFAULT_BLOCKS) -> torch.Tensor:
     """SpMM ``C = A @ B`` — the paper's Listing 4: one extra loop over the
     columns of B around the unchanged SpMV computation, with the partition
-    built once per call and shared by every column."""
+    built once per call and shared by every column.  Each column runs on
+    the default execution path (the chunk-walk kernel where the partition
+    supports it)."""
     if schedule is None:
         schedule = choose_schedule(A.shape[0], A.nnz)
     spec = A.workspec()
@@ -66,7 +68,7 @@ def spmm(A: CSR, B: torch.Tensor, *,
     for j in range(B.shape[1]):
         b = B[:, j]   # atom_fn runs inside the call, so the loop cell is safe
         columns.append(execute_tile_reduce(
-            spec, part, lambda nz: vals[nz] * b[cols[nz]], path="pure"))
+            spec, part, lambda nz: vals[nz] * b[cols[nz]]))
     if not columns:
         return torch.zeros((A.shape[0], 0), dtype=torch.float32,
                            device=A.device)

@@ -17,6 +17,7 @@ worker collects the same tests.
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib
 import sys
 
@@ -26,17 +27,17 @@ import torch
 CPU = torch.device("cpu")
 
 
-def _zoo():
+@functools.cache
+def zoo() -> dict:
+    """Every tile-size zoo entry of ``_conformance``, plus the empty spec,
+    an all-empty one and a larger power law.  Built on first call, since
+    ``_conformance`` imports JAX and the card tests import this module
+    where only the port is installed."""
     from _conformance import HAZARD_WORKLOADS, WORKLOADS
     return {**WORKLOADS, **HAZARD_WORKLOADS, "empty": [],
             "all_empty_tiles": [0, 0, 0],
             "powerlaw_big": (np.random.default_rng(0).zipf(1.6, 300) % 97)
             .tolist()}
-
-
-#: Every tile-size zoo entry of ``_conformance``, plus the empty spec, an
-#: all-empty one and a larger power law.
-ZOO = _zoo()
 
 #: (schedule, chunk policy): the six registered schedules, the chunked
 #: queue under both policies, and a group-mapped alias.

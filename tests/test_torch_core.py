@@ -11,14 +11,14 @@ import pytest
 import repro.core as J
 import repro_torch.core as T
 
-from _torch_parity import (CPU, ZOO, assert_same_partition, np_of,
-                           spec_pair, t32)
+from _torch_parity import (CPU, assert_same_partition, np_of, spec_pair,
+                           t32, zoo)
 
 
 class TestWorkSpec:
-    @pytest.mark.parametrize("name", sorted(ZOO))
+    @pytest.mark.parametrize("name", sorted(zoo()))
     def test_derived_arrays(self, name):
-        jspec, tspec = spec_pair(ZOO[name])
+        jspec, tspec = spec_pair(zoo()[name])
         assert (tspec.num_atoms, tspec.num_tiles) == (jspec.num_atoms,
                                                        jspec.num_tiles)
         np.testing.assert_array_equal(np_of(tspec.atom_tile_ids()),
@@ -65,7 +65,7 @@ class TestCostModel:
     @pytest.mark.parametrize("name", ["uniform", "one_heavy", "powerlaw",
                                       "empty_runs", "powerlaw_big"])
     def test_models_equal(self, name):
-        jspec, tspec = spec_pair(ZOO[name])
+        jspec, tspec = spec_pair(zoo()[name])
         for schedule in ("thread_mapped", "group_mapped", "nonzero_split",
                          "merge_path", "chunked", "adaptive"):
             for path in ("pure", "native"):
@@ -91,8 +91,8 @@ class TestCostModel:
             J.landscape(jspec, 8, include_dynamic=True)
 
     def test_direction_threshold_and_capacity(self):
-        jpull, tpull = spec_pair(ZOO["powerlaw_big"])
-        jpush, tpush = spec_pair(ZOO["powerlaw"] * 40)
+        jpull, tpull = spec_pair(zoo()["powerlaw_big"])
+        jpush, tpush = spec_pair(zoo()["powerlaw"] * 40)
         for pull_s, push_s in [("merge_path", "chunked"),
                                ("group_mapped", "adaptive")]:
             want = J.estimate_direction_threshold(
@@ -120,7 +120,7 @@ class TestAutotune:
         memo = {}
         for name in ("uniform", "one_heavy", "powerlaw", "empty_runs",
                      "powerlaw_big", "empty"):
-            jspec, tspec = spec_pair(ZOO[name])
+            jspec, tspec = spec_pair(zoo()[name])
             for num_blocks in (4, 32):
                 want = J.select_plan(jspec, num_blocks, workload=workload)
                 got = T.select_plan(tspec, num_blocks, workload=workload,
@@ -137,7 +137,7 @@ class TestAutotune:
     def test_select_schedule_and_auto_partition(self, tmp_path, monkeypatch):
         monkeypatch.setenv("REPRO_AUTOTUNE_CACHE",
                            str(tmp_path / "autotune.json"))
-        jspec, tspec = spec_pair(ZOO["powerlaw_big"])
+        jspec, tspec = spec_pair(zoo()["powerlaw_big"])
         assert T.select_schedule(tspec, 16, cache=None).value == \
             J.select_schedule(jspec, 16).value
         assert_same_partition(J.make_partition(jspec, "auto", 16),

@@ -19,7 +19,7 @@ import repro_torch.core as T
 from repro_torch.kernels.spmv_merge import kernel as TK
 from repro_torch.kernels.spmv_merge import ops as TO
 from repro_torch.sparse import (Graph, bfs, delta_stepping, pagerank,
-                                random_csr, spmv_reference, sssp)
+                                random_csr, spmm, spmv_reference, sssp)
 
 from _torch_parity import assert_bitwise
 
@@ -98,21 +98,15 @@ def test_chunk_walk_partials_match_plain(card, combiner):
     vals = torch.from_numpy(rng.integers(-8, 9, spec.num_atoms)
                             .astype(np.float32)).to(card)
     mask = torch.from_numpy(rng.random(spec.num_atoms) < 0.5).to(card)
-    window, local = T.execute._window_sizes(spec, part)
-    chunks, counts, max_chunks = T.execute._queue_operands(part)
-    pad = lambda x, f: torch.cat([x, x.new_full((window,), f)])
-    args = (pad(vals, 0.0), pad(spec.atom_tile_ids(), spec.num_tiles),
-            part.atom_starts, part.tile_starts, chunks, counts,
-            pad(mask.to(torch.int32), 0))
-    kw = dict(window=window, local_tiles=local, max_chunks=max_chunks,
-              combiner=combiner)
-    got = TK.chunk_walk_reduce(*args, **kw)
-    torch.cuda.synchronize()
-    assert_bitwise(got, TK.chunk_walk_reduce_ref(*args, **kw))
-    for emit in ("atoms",):
-        args2 = (args[0], None) + args[2:]
-        assert_bitwise(TK.chunk_walk_reduce(*args2, **kw, emit=emit),
-                       TK.chunk_walk_reduce_ref(*args2, **kw, emit=emit))
+    idx, _ = T.compact_active_atoms(mask, spec.num_atoms // 2)
+    for emit, extra in (("tiles", dict(atom_mask=mask)),
+                        ("atoms", dict(atom_mask=mask)),
+                        ("compact", dict(idx=idx))):
+        args, kw = T.execute.chunk_walk_operands(
+            spec, part, vals, combiner=combiner, emit=emit, **extra)
+        got = TK.chunk_walk_reduce(*args, **kw)
+        torch.cuda.synchronize()
+        assert_bitwise(got, TK.chunk_walk_reduce_ref(*args, **kw), emit)
 
 
 def test_sum_kernel_is_deterministic(card):
@@ -159,6 +153,18 @@ def test_spmv_merge_path(card, schedule):
     torch.testing.assert_close(y, spmv_reference(A, x), rtol=1e-5, atol=1e-4)
     name = "spmv_merge_stream" if schedule is None else "chunk_walk_tiles"
     assert TK.LAUNCHES[name] == before[name] + 1
+
+
+def test_spmm_runs_the_tiles_kernel(card):
+    make = lambda device: random_csr(2000, 1500, 30_000, skew=1.3,
+                                     empty_frac=0.3, seed=6, device=device)
+    B = torch.from_numpy(np.random.default_rng(7).standard_normal((1500, 3))
+                         .astype(np.float32))
+    want = spmm(make("cpu"), B)
+    before = TK.LAUNCHES["chunk_walk_tiles"]
+    got = spmm(make(card), B.to(card))
+    assert TK.LAUNCHES["chunk_walk_tiles"] == before + 3
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
 
 
 def test_graph_drivers_match_cpu(card):

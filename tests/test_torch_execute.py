@@ -18,7 +18,7 @@ from repro_torch.kernels.spmv_merge import kernel as TK
 from repro_torch.kernels.spmv_merge import ref as TR
 
 from _conformance import int_valued_atom_values
-from _torch_parity import ZOO, assert_bitwise, np_of, spec_pair, t32
+from _torch_parity import assert_bitwise, np_of, spec_pair, t32, zoo
 
 SIX = ("thread_mapped", "group_mapped", "nonzero_split", "merge_path",
        "chunked", "adaptive")
@@ -32,7 +32,7 @@ NUM_OUT = 9
 
 def _case(name, seed=0):
     """(jspec, tspec, values, mask, out_ids) for one zoo workload."""
-    jspec, tspec = spec_pair(ZOO[name])
+    jspec, tspec = spec_pair(zoo()[name])
     n = jspec.num_atoms
     rng = np.random.default_rng(seed + 1)
     vals = int_valued_atom_values(n, seed)[:max(n, 1)]

@@ -2,7 +2,7 @@
 
 * ``src/repro_torch`` and ``chip_smoke.py`` import no JAX and nothing of
   the JAX package ``repro`` (checked on the AST, and by importing the port
-  in a fresh interpreter);
+  in a fresh interpreter); nor do the card tests;
 * constructors called without ``device=`` mean the card, and raise where
   there is none — there is no silent CPU fallback;
 * a kernel wrapper runs its plain version only for CPU tensors, and counts
@@ -63,6 +63,19 @@ def test_port_imports_without_jax():
             "('jax', 'repro')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_card_tests_import_without_jax():
+    """The cuda-marked tests run where only the port is installed."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = sys.modules['repro'] = None\n"
+            "import test_torch_cuda\n")
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(REPO / "src"),
+                                           str(REPO / "tests")]))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -13,18 +13,18 @@ import repro_torch.core as T
 from repro_torch.interop import (partition_from_arrays, partition_to_arrays,
                                  workspec_from_arrays)
 
-from _torch_parity import (SCHEDULES, ZOO, assert_same_partition, np_of,
-                           spec_pair, t32)
+from _torch_parity import (SCHEDULES, assert_same_partition, np_of,
+                           spec_pair, t32, zoo)
 
 
 class TestPartitions:
     @pytest.mark.parametrize("num_blocks", [4, 64])
     @pytest.mark.parametrize("schedule,policy", SCHEDULES)
-    @pytest.mark.parametrize("name", sorted(ZOO))
+    @pytest.mark.parametrize("name", sorted(zoo()))
     def test_integer_equal(self, name, schedule, policy, num_blocks):
         """Every field, span hints and inverted queues included; 64
         blocks is num_blocks >> num_atoms for most of the zoo."""
-        jspec, tspec = spec_pair(ZOO[name])
+        jspec, tspec = spec_pair(zoo()[name])
         jpart = J.make_partition(jspec, schedule, num_blocks,
                                  chunk_policy=policy)
         tpart = T.make_partition(tspec, schedule, num_blocks,
@@ -32,7 +32,7 @@ class TestPartitions:
         assert_same_partition(jpart, tpart)
 
     def test_interop_round_trip(self):
-        jspec, _ = spec_pair(ZOO["powerlaw"])
+        jspec, _ = spec_pair(zoo()["powerlaw"])
         jpart = J.make_partition(jspec, "chunked", 4)
         tpart = partition_from_arrays(partition_to_arrays(jpart),
                                       device="cpu")
@@ -47,7 +47,7 @@ class TestPartitions:
             np_of(J.assign_chunks(jnp.asarray(cost), 3, "lpt")))
 
     def test_adaptive_memo(self):
-        _, tspec = spec_pair(ZOO["one_heavy"])
+        _, tspec = spec_pair(zoo()["one_heavy"])
         T.clear_adaptive_cache()
         before = T.adaptive_inspection_count()
         first = T.adaptive_partition(tspec, 4)

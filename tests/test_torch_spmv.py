@@ -125,7 +125,7 @@ class TestSpMV:
         want = np_of(rs.spmv_reference(jA, jnp.asarray(x)))
         np.testing.assert_allclose(np_of(TS.spmv_reference(tA, t32(x))),
                                    want, rtol=RTOL, atol=ATOL)
-        for impl in ("blocked", "kernel", "reference"):
+        for impl in ("blocked", "pallas", "reference"):
             for schedule in (None, "merge_path", "thread_mapped"):
                 got = TS.spmv(tA, t32(x), schedule=schedule, impl=impl)
                 np.testing.assert_allclose(np_of(got), want, rtol=RTOL,
@@ -139,4 +139,4 @@ class TestSpMV:
             float(rs.spvv(jnp.asarray(x[:3]), jnp.asarray(idx),
                           jnp.asarray(x))), rtol=RTOL)
         with pytest.raises(ValueError, match="impl"):
-            TS.spmv(tA, t32(x), impl="pallas")
+            TS.spmv(tA, t32(x), impl="kernel")
