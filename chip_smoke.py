@@ -1,28 +1,49 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card, and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card, and check them.
 
 Run from the repository root with no arguments (``python3 chip_smoke.py``).
 Phases, in order; any failure exits non-zero:
 
 1. card    — nvidia-smi's name and power limit, torch's device name;
-2. build   — nvcc builds every CUDA source of the port (in parallel) and
-   prints the ``-Xptxas -v`` register / shared-memory lines;
+2. build   — nvcc builds every CUDA source of the port (one process per
+   source, all started together) and prints the ``-Xptxas -v`` register /
+   shared-memory lines;
 3. data    — a scale-free graph at soc-LiveJournal1 scale (2**22 vertices,
    2**26 edges requested, skew 1.3, 30% empty rows: the repo's
    ``scalefree_web`` class), made from ``--seed``; the SpMV uses the same
    CSR with its own values;
-4. parity  — each kernel (K1-K4) at the main path's shapes against its
-   plain PyTorch version: bitwise for min/max and integer-valued sums,
+4. parity  — each slice-1 kernel (K1-K4) at the main path's shapes against
+   its plain PyTorch version: bitwise for min/max and integer-valued sums,
    rtol 1e-4 for real-valued sums;
-5. main    — the launch counters are zeroed, then the entry points run:
-   ``spmv_merge_path`` (merge-path stream and ``chunked_lpt``), ``bfs``
-   with parents, ``sssp``, ``delta_stepping`` and ``pagerank``, each on
-   ``chunked_lpt`` and ``merge_path`` with ``path="native"``; every
-   kernel's counter must have risen.  Then ``schedule="auto"`` once;
-6. times   — each kernel (CUDA events) beside its byte bound, its plain
-   version and a PyTorch library call where one computes the same thing;
+5. main    — the launch counters are zeroed, then the graph entry points
+   run: ``spmv_merge_path`` (merge-path stream and ``chunked_lpt``),
+   ``bfs`` with parents, ``sssp``, ``delta_stepping`` and ``pagerank``,
+   each on ``chunked_lpt`` and ``merge_path`` with ``path="native"``;
+   every kernel's counter must have risen.  Then ``schedule="auto"`` once;
+6. moe/forest data — one MoE layer at OLMoE-1B-7B width (d_model 2048,
+   64 experts of d_ff 1024, top-8; f32 weights from ``--seed``) on one
+   4,096-token sequence, routed plainly (skew 0) and with the router's
+   columns biased by ``-0.5 * arange(64)`` (skew 0.5); and a forest of
+   11,855 random binary trees (SST's sentence count, 1-56 leaves) at
+   feature width 128, integer-valued inputs and weights;
+7. segmm parity — K5 and K6 at the MoE's ``w1`` shapes (``bm=128``) and at
+   the forest's level-GEMM shapes (``bm=8``, ``K=N=128``) against their
+   plain versions: bitwise on integer-valued operands, rtol 1e-4 on real
+   ones, and K6 bitwise equal to K5 on real ones;
+8. moe     — counters zeroed; ``MoELayer`` (``moe_sorted``) at both
+   skews on ``group_mapped``, ``chunked_rr`` and ``chunked_lpt`` x
+   native/pure, plus ``"auto"``: outputs bitwise equal, equal to ``moe_capacity`` with a
+   capacity that drops nothing (rtol/atol 2e-3), ``aux`` equal, three
+   segmm launches per call;
+9. wavefront — counters zeroed; ``treelstm_forest`` with a clip activation
+   on ``chunked_lpt`` and ``merge_path`` (native), and
+   ``build_wavefront(path="pure")`` + ``treelstm_embed``: bitwise equal to
+   each other and to a sequential per-node NumPy oracle on 256 trees; then
+   one ``tanh`` run;
+10. times  — each kernel (CUDA events) beside its bound, its plain version
+   and a PyTorch library call where one computes the same thing;
    end-to-end times of the entry points;
-7. the ``kernels:`` summary, the JSON kernels line, and the final
+11. the ``kernels:`` summary, the JSON kernels line, and the final
    ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -39,19 +60,36 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOP_PER_S = 67e12             # H100 SXM f32 without tensor cores
 REF_KERNEL = "src/repro/kernels/spmv_merge/kernel.py"
 CSRC = "src/repro_torch/kernels/spmv_merge/csrc"
+SEGMM_REF = "src/repro/kernels/segmm/kernel.py"
+SEGMM_CSRC = "src/repro_torch/kernels/segmm/csrc"
 KERNELS = {   # counter name -> (CUDA source, the Pallas kernel it replaces)
     "spmv_merge_stream": (f"{CSRC}/merge_stream.cu", f"{REF_KERNEL}:63"),
     "chunk_walk_tiles": (f"{CSRC}/chunk_walk.cu", f"{REF_KERNEL}:217"),
     "chunk_walk_atoms": (f"{CSRC}/chunk_walk.cu", f"{REF_KERNEL}:192"),
     "chunk_walk_compact": (f"{CSRC}/chunk_walk.cu", f"{REF_KERNEL}:183"),
+    "segmented_matmul": (f"{SEGMM_CSRC}/segmm.cu", f"{SEGMM_REF}:50"),
+    "segmented_matmul_chunked": (f"{SEGMM_CSRC}/segmm.cu",
+                                 f"{SEGMM_REF}:128"),
 }
 REAL_RTOL = 1e-4   # real-valued f32 sums in another order
 # soc-LiveJournal1 scale (SNAP: 4.8M vertices, 69M edges)
 VERTICES = 2 ** 22
 EDGES = 2 ** 26
 BLOCKS_PER_SM = 2  # physical blocks (CTAs) per SM: num_blocks of every plan
+# Path A: one MoE layer at OLMoE-1B-7B width on one train_4k sequence
+MOE_ARCH = "olmoe_1b_7b"
+MOE_TOKENS = 4096
+MOE_SKEWS = (0.0, 0.5)     # router column bias -skew * arange(E)
+MOE_TOL = 2e-3             # sorted vs capacity dispatch (tests/test_models.py)
+# Path B: a TreeLSTM forest at Stanford Sentiment Treebank scale
+FOREST_TREES = 11_855      # SST sentences
+FOREST_MAX_LEAVES = 56
+FOREST_MEAN_LEAVES = 19
+FOREST_WIDTH = 128         # the level GEMM needs K % min(128, K) == 0
+FOREST_ORACLE_TREES = 256
 
 
 def log(*parts) -> None:
@@ -172,9 +210,11 @@ def phase_card():
 
 
 def phase_build():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.segmm import kernel as SK
     from repro_torch.kernels.spmv_merge import kernel as K
     t0 = time.perf_counter()
-    reports = K.build()
+    reports = _build.build(K.SOURCES + SK.SOURCES)
     log(f"build: {len(reports)} sources in "
         f"{time.perf_counter() - t0:.1f} s")
     for stem, report in reports.items():
@@ -468,16 +508,419 @@ def phase_auto(g, num_blocks: int, source: int):
         f"directions {counts.tolist()}")
 
 
-def phase_profile(g, plans, source: int) -> None:
-    """Device time by operation for one ``bfs`` and one ``pagerank``
-    (``--profile``): how much of each call the kernels are."""
+# ---------------------------------------------------------------------------
+# slice 2: the MoE layer (path A) and the TreeLSTM forest (path B)
+# ---------------------------------------------------------------------------
+
+def reset_all_counts() -> None:
+    from repro_torch.kernels.segmm import kernel as SK
+    from repro_torch.kernels.spmv_merge import kernel as K
+    K.reset_launch_counts()
+    SK.reset_launch_counts()
+
+
+def all_counts() -> dict:
+    from repro_torch.kernels.segmm import kernel as SK
+    from repro_torch.kernels.spmv_merge import kernel as K
+    return {**K.LAUNCHES, **SK.LAUNCHES}
+
+
+def segmm_launches() -> int:
+    from repro_torch.kernels.segmm import kernel as SK
+    return sum(SK.LAUNCHES.values())
+
+
+def phase_moe_data(seed: int):
+    """One MoE layer per skew (shared weights, biased router) and the
+    4,096-token input, all drawn on the card from ``seed``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import MoELayer, _router
+
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base, secs = wall_s(lambda: MoELayer.from_config(cfg, gen,
+                                                     device="cuda"))
+    x = torch.randn((1, MOE_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda") * 0.5
+    expert_bytes = sum(base.params()[n].numel() * 4
+                       for n in ("w1", "w3", "w2"))
+    log(f"moe data: {cfg.name} d_model={cfg.d_model} d_ff={cfg.d_ff} "
+        f"experts={cfg.num_experts} top_k={cfg.top_k}; expert weights "
+        f"{expert_bytes / 2**30:.2f} GiB f32, drawn in {secs:.2f} s; "
+        f"x {tuple(x.shape)}")
+    layers = {}
+    for skew in MOE_SKEWS:
+        bias = -skew * torch.arange(cfg.num_experts, device="cuda",
+                                    dtype=torch.float32)
+        params = dict(base.params())
+        params["router"] = params["router"] + bias[None, :]
+        layers[skew] = MoELayer(params, num_experts=cfg.num_experts,
+                                top_k=cfg.top_k, dispatch="sorted")
+        idx, _, _ = _router(params, x.reshape(-1, cfg.d_model),
+                            cfg.num_experts, cfg.top_k)
+        sizes = torch.bincount(idx.reshape(-1).long(),
+                               minlength=cfg.num_experts)
+        top = torch.topk(sizes, 8).indices.sort().values.tolist()
+        log(f"moe routing skew {skew}: {int((sizes > 0).sum())} experts "
+            f"hold tokens, atoms per expert min {int(sizes.min())} / max "
+            f"{int(sizes.max())}, busiest experts {top}")
+    return dict(cfg=cfg, x=x, layers=layers)
+
+
+def random_binary_tree(leaves: int, rng):
+    """Parent of each node of a random binary tree with ``leaves`` leaves
+    (uniform split points); node 0 is the root, children follow parents."""
+    import numpy as np
+    parent = [-1]
+    stack = [(0, leaves)]
+    while stack:
+        node, n = stack.pop()
+        if n == 1:
+            continue
+        left = int(rng.integers(1, n))
+        for part in (left, n - left):
+            parent.append(node)
+            stack.append((len(parent) - 1, part))
+    return np.asarray(parent, np.int64)
+
+
+def phase_forest_data(seed: int):
+    """The SST-scale forest (11,855 trees, child -> parent edges) as port
+    graphs on the card, node ops (leaf 0, internal 1), and integer-valued
+    inputs and TreeLSTM weights."""
+    import numpy as np
+    import torch
+    from repro_torch.sparse import CSR, Graph
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 2)
+    # right-skewed sentence lengths (gamma, shape 4) clipped to [1, 56]
+    leaves = np.clip(np.rint(rng.gamma(4.0, FOREST_MEAN_LEAVES / 4.0,
+                                       FOREST_TREES)),
+                     1, FOREST_MAX_LEAVES).astype(np.int64)
+    parents = [random_binary_tree(int(n), rng) for n in leaves]
+    trees, ops = [], []
+    for par in parents:
+        n = par.shape[0]
+        has_parent = par >= 0
+        offsets = np.concatenate([[0], np.cumsum(has_parent)])
+        trees.append(Graph(CSR.from_numpy(
+            offsets, par[has_parent], np.ones(int(has_parent.sum())),
+            (n, n), device="cuda")))
+        children = np.bincount(par[has_parent], minlength=n)
+        ops.append((children > 0).astype(np.int32))
+    ops = np.concatenate(ops)
+    V = int(ops.shape[0])
+    K = FOREST_WIDTH
+    x = rng.integers(-2, 3, (V, K)).astype(np.float32)
+    w = rng.integers(-1, 2, (2, K, K)).astype(np.float32)
+    b = rng.integers(-2, 3, (2, K)).astype(np.float32)
+    log(f"forest data: {FOREST_TREES} trees, leaves {int(leaves.min())}-"
+        f"{int(leaves.max())} (mean {leaves.mean():.2f}), {V} nodes, "
+        f"{V - FOREST_TREES} edges, width {K}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(parents=parents, trees=trees, ops=ops, x=x, w=w, b=b, V=V)
+
+
+def clip16(z):
+    """The exact bounded activation of the integer-valued forest runs."""
+    import torch
+    return torch.clamp(z, -16.0, 16.0)
+
+
+def forest_oracle(forest, node_offsets, h, roots) -> None:
+    """Sequential per-node NumPy evaluation of the first
+    FOREST_ORACLE_TREES trees; every node state and root must equal
+    ``h``/``roots`` bitwise."""
+    import numpy as np
+    x, w, b, ops = forest["x"], forest["w"], forest["b"], forest["ops"]
+    h = h.cpu().numpy()
+    roots = roots.cpu().numpy()
+    for t in range(FOREST_ORACLE_TREES):
+        par = forest["parents"][t]
+        off = int(node_offsets[t])
+        n = par.shape[0]
+        comb = x[off:off + n].copy()
+        want = np.zeros_like(comb)
+        for v in range(n - 1, -1, -1):       # children before parents
+            op = ops[off + v]
+            want[v] = np.clip(comb[v] @ w[op] + b[op], np.float32(-16.0),
+                              np.float32(16.0))
+            if par[v] >= 0:
+                comb[par[v]] += want[v]
+        check(np.array_equal(want.view(np.uint32),
+                             h[off:off + n].view(np.uint32)),
+              f"wavefront: tree {t} differs from the sequential oracle")
+        check(np.array_equal(want[0].view(np.uint32),
+                             roots[t].view(np.uint32)),
+              f"wavefront: root of tree {t} differs from the oracle")
+    log(f"wavefront: {FOREST_ORACLE_TREES} trees bitwise equal to the "
+        f"sequential per-node oracle")
+
+
+def segmm_cases(moe, forest, seed: int):
+    """(name, tokens, expert ids, rhs, experts, bm) for the parity and
+    timing of K5/K6: the MoE layer's w1 GEMM (skew 0 routing) and the
+    forest's level GEMM (integer forest inputs; real ones made here)."""
+    import torch
+    from repro_torch.models.moe import _router
+    from repro_torch.models.treelstm import init_treelstm
+
+    cfg = moe["cfg"]
+    params = moe["layers"][0.0].params()
+    x2d = moe["x"].reshape(-1, cfg.d_model)
+    idx, _, _ = _router(params, x2d, cfg.num_experts, cfg.top_k)
+    atom_token = torch.arange(x2d.shape[0], device="cuda").repeat_interleave(
+        cfg.top_k)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    tree_w = init_treelstm(gen, FOREST_WIDTH, device="cuda")["w"]
+    tree_x = torch.randn((forest["V"], FOREST_WIDTH), generator=gen,
+                         device="cuda")
+    return [("moe w1", x2d[atom_token], idx.reshape(-1), params["w1"],
+             cfg.num_experts, 128),
+            ("forest level", tree_x, torch.from_numpy(forest["ops"]).cuda(),
+             tree_w, 2, 8)]
+
+
+def phase_segmm_parity(cases):
+    """K5 and K6 against their plain versions at both paths' shapes;
+    returns the largest real-valued error and each case's operands."""
+    from repro_torch.kernels.segmm import kernel as SK
+    from repro_torch.kernels.segmm import ops as SO
+
+    errs, prepared = [], {}
+    for name, tokens, experts, rhs, num_experts, bm in cases:
+        def operands(t):
+            return (SO.segmm_operands(t, experts, num_experts=num_experts,
+                                      bm=bm, schedule="group_mapped",
+                                      path="pure"),
+                    SO.segmm_operands(t, experts, num_experts=num_experts,
+                                      bm=bm, schedule="chunked_lpt",
+                                      path="native"))
+        for label, t, r, exact in (("integer-valued", unit_values(tokens),
+                                    unit_values(rhs), True),
+                                   ("real", tokens, rhs, False)):
+            o5, o6 = operands(t)
+            k5 = SK.segmented_matmul(o5.lhs, r, o5.block_expert, bm=bm)
+            errs.append(compare(
+                f"segmented_matmul {name} ({label})", k5,
+                SK.segmented_matmul_plain(o5.lhs, r, o5.block_expert,
+                                          bm=bm), exact=exact))
+            chunks, counts, cmax = o6.queue
+            k6 = SK.segmented_matmul_chunked(o6.lhs, r, o6.block_expert,
+                                             chunks, counts, bm=bm,
+                                             max_chunks=cmax)
+            errs.append(compare(
+                f"segmented_matmul_chunked {name} ({label})", k6,
+                SK.segmented_matmul_chunked_plain(
+                    o6.lhs, r, o6.block_expert, chunks, counts, bm=bm,
+                    max_chunks=cmax), exact=exact))
+            if not exact:
+                compare(f"segmented_matmul_chunked == segmented_matmul "
+                        f"{name} (real)", k6, k5, exact=True)
+                prepared[name] = (o5, o6, r)
+            del k5, k6
+        o5, o6, _ = prepared[name]
+        log(f"segmm {name}: tokens {tuple(tokens.shape)}, M_pad "
+            f"{o5.lhs.shape[0]} ({o5.num_blocks} M-blocks of {bm}), rhs "
+            f"{tuple(rhs.shape)}, K6 queues {o6.queue[1].numel()} x "
+            f"{o6.queue[2]} blocks")
+    return max(errs), prepared
+
+
+def phase_moe(moe, e2e):
+    """Path A: ``MoELayer`` (dispatch="sorted") on every policy x path and
+    "auto", both skews; the launch counts of the run."""
+    import torch
+    from repro_torch.kernels.segmm import ops as SO
+    from repro_torch.models.moe import moe_capacity
+
+    cfg, x = moe["cfg"], moe["x"]
+    runs = [(s, p) for s in SO.SCHEDULE_POLICIES for p in ("native", "pure")]
+    runs.append(("auto", "auto"))
+    reset_all_counts()
+    for skew, layer in moe["layers"].items():
+        outs = []
+        for schedule, path in runs:
+            layer.schedule, layer.execution_path = schedule, path
+            before = segmm_launches()
+            (out, aux), secs = wall_s(lambda: layer(x))
+            check(segmm_launches() == before + 3,
+                  f"moe {schedule}/{path}: expected 3 segmm launches")
+            check(out.shape == x.shape and bool(torch.isfinite(out).all()),
+                  f"moe {schedule}/{path}: bad output")
+            e2e[f"moe_sorted[skew {skew}, {schedule}@{path}]"] = secs
+            outs.append((f"{schedule}@{path}", out, aux))
+        first_name, first, first_aux = outs[0]
+        for tag, out, aux in outs[1:]:
+            check(torch.equal(out.view(torch.int32),
+                              first.view(torch.int32)),
+                  f"moe skew {skew}: {tag} != {first_name} bitwise")
+            check(float(aux) == float(first_aux),
+                  f"moe skew {skew}: aux of {tag} differs")
+        cap, cap_aux = moe_capacity(
+            layer.params(), x, num_experts=cfg.num_experts, top_k=cfg.top_k,
+            capacity_factor=float(cfg.num_experts / cfg.top_k))
+        err = float((cap - first).abs().max())
+        ok = bool(((cap - first).abs()
+                   <= MOE_TOL + MOE_TOL * first.abs()).all())
+        check(ok, f"moe skew {skew}: sorted vs capacity err {err}")
+        check(float(cap_aux) == float(first_aux),
+              f"moe skew {skew}: capacity aux differs")
+        del cap
+        auto = SO.resolve_schedule(layer_atoms(layer, x, cfg),
+                                   cfg.num_experts)
+        log(f"moe skew {skew}: {len(outs)} runs bitwise equal, aux "
+            f"{float(first_aux)!r}, max |sorted - capacity| {err!r} "
+            f"(atol/rtol {MOE_TOL}); auto picked {auto}")
+    counts = all_counts()
+    log("moe launches: " + json.dumps(counts))
+    for name in ("segmented_matmul", "segmented_matmul_chunked"):
+        check(counts[name] > 0, f"{name} was never launched by the MoE path")
+    return counts
+
+
+def layer_atoms(layer, x, cfg):
+    """The routed expert id of every atom of ``layer`` on ``x``."""
+    from repro_torch.models.moe import _router
+    idx, _, _ = _router(layer.params(), x.reshape(-1, cfg.d_model),
+                        cfg.num_experts, cfg.top_k)
+    return idx.reshape(-1)
+
+
+def phase_wavefront(forest, seed: int, e2e):
+    """Path B: ``treelstm_forest`` on chunked_lpt and merge_path (native),
+    the pure path through ``build_wavefront`` + ``treelstm_embed``, the
+    oracle, then one tanh run; the launch counts of the run."""
+    import numpy as np
+    import torch
+    from repro_torch.interop import treelstm_params_from_arrays
+    from repro_torch.models.treelstm import (init_treelstm, tree_roots,
+                                             treelstm_embed, treelstm_forest)
+    from repro_torch.sparse.wavefront import build_wavefront
+
+    params = treelstm_params_from_arrays({"w": forest["w"], "b": forest["b"]},
+                                         device="cuda")
+    x = torch.from_numpy(forest["x"]).cuda()
+    ops = torch.from_numpy(forest["ops"]).cuda()
+    reset_all_counts()
+    roots = {}
+    for schedule in ("chunked_lpt", "merge_path"):
+        before = all_counts()
+        (r, packed), secs = wall_s(lambda: treelstm_forest(
+            params, forest["trees"], x, ops, schedule=schedule,
+            activation=clip16))
+        roots[f"{schedule}@native"] = r
+        e2e[f"treelstm_forest[{schedule}]"] = secs
+        after = all_counts()
+        rose = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        log(f"wavefront treelstm_forest[{schedule}]: {secs:.3f} s, "
+            f"launches {json.dumps(rose)}")
+    wplan, build_s = wall_s(lambda: build_wavefront(
+        packed.dag, schedule="chunked_lpt", path="pure"))
+    h, eval_s = wall_s(lambda: treelstm_embed(params, wplan, x, ops,
+                                              activation=clip16))
+    e2e["build_wavefront[chunked_lpt@pure]"] = build_s
+    e2e["treelstm_embed[chunked_lpt@pure]"] = eval_s
+    root_ids = torch.from_numpy(tree_roots(wplan)).cuda()
+    roots["chunked_lpt@pure"] = h[root_ids]
+    counts = np.asarray(wplan.level_counts)
+    log(f"wavefront plan: {wplan.num_nodes} nodes, "
+        f"{wplan.num_dependencies} dependencies, {wplan.num_levels} "
+        f"levels (nodes per level {counts.tolist()}); pure build "
+        f"{build_s:.3f} s, eval {eval_s:.3f} s")
+    first = roots["chunked_lpt@native"]
+    check(first.shape == (FOREST_TREES, FOREST_WIDTH), "wavefront: shape")
+    for tag, r in roots.items():
+        check(torch.equal(r.view(torch.int32), first.view(torch.int32)),
+              f"wavefront: {tag} roots != chunked_lpt@native bitwise")
+    log(f"wavefront: roots bitwise equal across {sorted(roots)}")
+    forest_oracle(forest, packed.node_offsets, h, first)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    tparams = init_treelstm(gen, FOREST_WIDTH, device="cuda")
+    tx = torch.randn((forest["V"], FOREST_WIDTH), generator=gen,
+                     device="cuda")
+    (troots, _), secs = wall_s(lambda: treelstm_forest(
+        tparams, forest["trees"], tx, ops))
+    e2e["treelstm_forest[auto, tanh]"] = secs
+    check(troots.shape == (FOREST_TREES, FOREST_WIDTH)
+          and bool(torch.isfinite(troots).all())
+          and float(troots.abs().max()) <= 1.0, "wavefront: tanh roots")
+    log(f"wavefront tanh: {secs:.3f} s, roots finite in [-1, 1], mean "
+        f"|h| {float(troots.abs().mean())!r}")
+    counts = all_counts()
+    log("wavefront launches: " + json.dumps(counts))
+    for name in ("segmented_matmul", "segmented_matmul_chunked",
+                 "chunk_walk_tiles"):
+        check(counts[name] > 0,
+              f"{name} was never launched by the wavefront path")
+    return counts
+
+
+def phase_segmm_times(cases, prepared):
+    """K5/K6 times at both cases' shapes (CUDA events) beside the bound,
+    the plain version and ``torch.bmm`` (TF32 off) on the gathered expert
+    weights; the MoE w1 case fills the kernels line."""
+    import torch
+    from repro_torch.kernels.segmm import kernel as SK
+
+    rows = {}
+    for name, tokens, experts, _, _, bm in cases:
+        o5, o6, rhs = prepared[name]
+        atoms, k_dim = tokens.shape
+        n_dim = rhs.shape[2]
+        busy = int(torch.unique(experts).numel())
+        flops = 2 * atoms * k_dim * n_dim
+        nbytes = (atoms * k_dim * tokens.element_size()
+                  + busy * k_dim * n_dim * rhs.element_size()
+                  + atoms * n_dim * 4)
+        bound_flops = flops / F32_FLOP_PER_S * 1e3
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(bound_flops, bound_bytes)
+        bound_by = "operations" if bound_flops >= bound_bytes else "bytes"
+        nblk = o5.num_blocks
+        lhs_b = o5.lhs.view(nblk, bm, k_dim)
+        rhs_g = rhs[o5.block_expert.long()]
+        library = cuda_ms(lambda: torch.bmm(lhs_b, rhs_g), iters=3)
+        del rhs_g
+        chunks, counts, cmax = o6.queue
+        calls = {
+            "segmented_matmul": (
+                lambda: SK.segmented_matmul(o5.lhs, rhs, o5.block_expert,
+                                            bm=bm),
+                lambda: SK.segmented_matmul_plain(o5.lhs, rhs,
+                                                  o5.block_expert, bm=bm)),
+            "segmented_matmul_chunked": (
+                lambda: SK.segmented_matmul_chunked(
+                    o6.lhs, rhs, o6.block_expert, chunks, counts, bm=bm,
+                    max_chunks=cmax),
+                lambda: SK.segmented_matmul_chunked_plain(
+                    o6.lhs, rhs, o6.block_expert, chunks, counts, bm=bm,
+                    max_chunks=cmax))}
+        for kname, (kernel, plain) in calls.items():
+            row = dict(ms=cuda_ms(kernel, iters=5),
+                       plain_ms=cuda_ms(plain, iters=3), library_ms=library,
+                       bound_ms=bound, bound_by=bound_by, flops=flops,
+                       bytes=nbytes)
+            log(f"time {kname} [{name}]: {row['ms']:.4f} ms (bound "
+                f"{bound:.4f} ms by {bound_by}: {flops} flop at 67 TFLOP/s "
+                f"= {bound_flops:.4f} ms, {nbytes} bytes at 3.35 TB/s = "
+                f"{bound_bytes:.4f} ms; plain {row['plain_ms']:.3f} ms; "
+                f"torch.bmm {library:.3f} ms; {busy} experts hold tokens)")
+            if name == "moe w1":
+                rows[kname] = row
+    return rows
+
+
+def phase_profile(calls) -> None:
+    """Device time by operation for each ``(name, call)`` (``--profile``):
+    how much of each call the kernels are."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.sparse import bfs, pagerank
-    plan = plans["chunked_lpt"][0]
-    for name, call in (("bfs", lambda: bfs(g, source, plan=plan)),
-                       ("pagerank", lambda: pagerank(g, plan=plan))):
+    for name, call in calls:
         call()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -488,7 +931,7 @@ def phase_profile(g, plans, source: int) -> None:
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
         device_us = sum(e.self_device_time_total for e in events)
-        log(f"profile {name}[chunked_lpt]: wall {secs * 1e3:.1f} ms, device "
+        log(f"profile {name}: wall {secs * 1e3:.1f} ms, device "
             f"busy {device_us / 1e3:.1f} ms "
             f"({100 * device_us / 1e3 / (secs * 1e3):.0f}%)")
         events.sort(key=lambda e: e.self_device_time_total, reverse=True)
@@ -502,7 +945,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by operation for one "
-                             "bfs and one pagerank")
+                             "bfs, pagerank, MoE layer and TreeLSTM "
+                             "evaluation")
     args = parser.parse_args(argv)
 
     import torch
@@ -525,23 +969,67 @@ def main(argv=None) -> int:
     launches, e2e = phase_main(A, x, g, plans, num_blocks, source)
     phase_auto(g, num_blocks, source)
     if args.profile:
-        phase_profile(g, plans, source)
+        from repro_torch.sparse import bfs, pagerank
+        plan = plans["chunked_lpt"][0]
+        phase_profile([("bfs[chunked_lpt]",
+                        lambda: bfs(g, source, plan=plan)),
+                       ("pagerank[chunked_lpt]",
+                        lambda: pagerank(g, plan=plan))])
     for name, secs in e2e.items():
+        log(f"e2e {name}: {secs * 1e3:.1f} ms")
+    for name, row in rows.items():
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["bound_by"] = "bytes"
+    del A, g, x, plans
+    torch.cuda.empty_cache()
+
+    # slice 2: the segmented-GEMM kernels under the MoE layer and the
+    # TreeLSTM wavefront
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    moe = phase_moe_data(args.seed)
+    forest = phase_forest_data(args.seed)
+    cases = segmm_cases(moe, forest, args.seed)
+    err, prepared = phase_segmm_parity(cases)
+    e2e2 = {}
+    moe_counts = phase_moe(moe, e2e2)
+    wave_counts = phase_wavefront(forest, args.seed, e2e2)
+    seg_rows = phase_segmm_times(cases, prepared)
+    for name, row in seg_rows.items():
+        row["err"] = err
+        rows[name] = row
+        launches[name] = moe_counts[name] + wave_counts[name]
+        log(f"main-path launches {name}: {moe_counts[name]} (moe) + "
+            f"{wave_counts[name]} (wavefront)")
+    if args.profile:
+        from repro_torch.models.treelstm import treelstm_forest
+        layer = moe["layers"][0.0]
+        layer.schedule, layer.execution_path = "chunked_lpt", "native"
+        wave_x = torch.from_numpy(forest["x"]).cuda()
+        wave_ops = torch.from_numpy(forest["ops"]).cuda()
+        from repro_torch.interop import treelstm_params_from_arrays
+        wave_params = treelstm_params_from_arrays(
+            {"w": forest["w"], "b": forest["b"]}, device="cuda")
+        phase_profile([
+            ("moe[skew 0, chunked_lpt@native]", lambda: layer(moe["x"])),
+            ("treelstm_forest[chunked_lpt]", lambda: treelstm_forest(
+                wave_params, forest["trees"], wave_x, wave_ops,
+                schedule="chunked_lpt", activation=clip16))])
+    for name, secs in e2e2.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
 
     kernels = []
     for name, (source_file, replaces) in KERNELS.items():
         row = rows[name]
-        bound = row["bytes"] / HBM_BYTES_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": source_file,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": row["err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": row["library_ms"]})
-        log(f"time {name}: {row['ms']:.4f} ms (bound {bound:.4f} ms from "
-            f"{row['bytes']} bytes at 3.35 TB/s; plain {row['plain_ms']:.3f}"
-            f" ms; library {row['library_ms']})")
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+        log(f"time {name}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f} "
+            f"ms by {row['bound_by']}; plain {row['plain_ms']:.3f} ms; "
+            f"library {row['library_ms']})")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log("kernels: " + ", ".join(f"{k['name']} launches={k['launches']}"
                                 for k in kernels))

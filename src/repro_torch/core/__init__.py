@@ -42,6 +42,8 @@ from repro_torch.core.balance import (
     ADVANCE_DELTA_PUSH_ATOM_WORK,
     ADVANCE_PUSH_ATOM_WORK,
     COMPACT_GATHER_WORK,
+    WAVEFRONT_ATOM_WORK,
+    WAVEFRONT_PUSH_ATOM_WORK,
     ImbalanceStats,
     block_cost_terms,
     choose_schedule,
@@ -88,7 +90,8 @@ __all__ = [
     "scatter_compact_windows", "compact_active_atoms", "compact_chunk_starts",
     "ImbalanceStats", "ADVANCE_ATOM_WORK", "ADVANCE_PUSH_ATOM_WORK",
     "ADVANCE_DELTA_ATOM_WORK", "ADVANCE_DELTA_PUSH_ATOM_WORK",
-    "COMPACT_GATHER_WORK", "estimate_compact_capacity",
+    "COMPACT_GATHER_WORK", "WAVEFRONT_ATOM_WORK", "WAVEFRONT_PUSH_ATOM_WORK",
+    "estimate_compact_capacity",
     "modeled_advance_cost", "block_cost_terms",
     "estimate_direction_threshold",
     "choose_schedule", "landscape", "modeled_block_cost", "modeled_cost",

@@ -18,7 +18,8 @@ from repro_torch.core.balance import (ADVANCE_ATOM_WORK,
                                       ADVANCE_DELTA_ATOM_WORK,
                                       ADVANCE_DELTA_PUSH_ATOM_WORK,
                                       ADVANCE_PUSH_ATOM_WORK, ImbalanceStats,
-                                      modeled_cost)
+                                      WAVEFRONT_ATOM_WORK,
+                                      WAVEFRONT_PUSH_ATOM_WORK, modeled_cost)
 from repro_torch.core.execute import ExecutionPath
 from repro_torch.core.schedules import Schedule
 from repro_torch.core.work import WorkSpec
@@ -62,7 +63,9 @@ REGISTERED_PLANS: Sequence[Plan] = tuple(
 WORKLOAD_ATOM_WORK = {"reduce": 1, "advance": ADVANCE_ATOM_WORK,
                       "advance_push": ADVANCE_PUSH_ATOM_WORK,
                       "advance_delta": ADVANCE_DELTA_ATOM_WORK,
-                      "advance_delta_push": ADVANCE_DELTA_PUSH_ATOM_WORK}
+                      "advance_delta_push": ADVANCE_DELTA_PUSH_ATOM_WORK,
+                      "wavefront": WAVEFRONT_ATOM_WORK,
+                      "wavefront_push": WAVEFRONT_PUSH_ATOM_WORK}
 
 
 def shape_key(spec: WorkSpec, num_blocks: int,

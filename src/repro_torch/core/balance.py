@@ -30,6 +30,9 @@ ADVANCE_PUSH_ATOM_WORK = 4  # push advance: value + destination gather +
                          # scatter-combine share, per *active* out-edge
 ADVANCE_DELTA_ATOM_WORK = 3  # bucketed pull advance: + bucket-mask select
 ADVANCE_DELTA_PUSH_ATOM_WORK = ADVANCE_PUSH_ATOM_WORK + 1  # bucketed push
+WAVEFRONT_ATOM_WORK = 3  # wavefront dependency combine: resolved-mask load
+                         # + select + feature-row gather share per in-edge
+WAVEFRONT_PUSH_ATOM_WORK = ADVANCE_PUSH_ATOM_WORK + 1  # wavefront push
 COMPACT_GATHER_WORK = 1  # compacted push windows: one extra indirection
 COMPACT_BUILD_OVERHEAD = 8  # per-block share of building the compact index
 

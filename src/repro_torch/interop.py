@@ -1,13 +1,14 @@
 """Carry the reference's state into the port.
 
-This system has no weights: its state is the matrix or graph plus the
-inspector's partitions.  These helpers take that state as numpy arrays
-(what ``np.asarray`` gives for the reference's arrays) and build the
-port's objects, so both sides can compute on the same partition.
+The load-balancing core has no weights: its state is the matrix or graph
+plus the inspector's partitions.  The models (the MoE layer, the TreeLSTM)
+have weights.  These helpers take that state as numpy arrays (what
+``np.asarray`` gives for the reference's arrays) and build the port's
+objects, so both sides compute on the same partition and the same weights.
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -74,3 +75,32 @@ def partition_to_arrays(part) -> dict:
             value = value.cpu().numpy()
         out[name] = None if value is None else np.asarray(value)
     return out
+
+
+def _weights(params: Mapping[str, object], names, optional,
+             device) -> Dict[str, torch.Tensor]:
+    missing = [n for n in names if n not in params]
+    if missing:
+        raise KeyError(f"parameter dict lacks {missing}")
+    dev = resolve_device(device)
+    out = {}
+    for name in (*names, *optional):
+        if name in params:
+            out[name] = torch.from_numpy(np.array(params[name])).to(dev)
+    return out
+
+
+def moe_params_from_arrays(params: Mapping[str, object], *,
+                           device=None) -> Dict[str, torch.Tensor]:
+    """A reference ``moe_init`` parameter dict (arrays as numpy) -> the
+    port's MoE parameters on ``device``, dtypes kept (shared-expert
+    weights where present)."""
+    return _weights(params, ("router", "w1", "w3", "w2"),
+                    ("sw1", "sw3", "sw2"), device)
+
+
+def treelstm_params_from_arrays(params: Mapping[str, object], *,
+                                device=None) -> Dict[str, torch.Tensor]:
+    """A reference ``init_treelstm`` dict (``w`` ``[O, F, F]``, ``b``
+    ``[O, F]``) -> the port's TreeLSTM parameters on ``device``."""
+    return _weights(params, ("w", "b"), (), device)

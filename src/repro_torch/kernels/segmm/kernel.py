@@ -1,0 +1,258 @@
+"""Wrappers of the two segmented-matmul CUDA kernels, each beside its plain
+version.
+
+============================  ==================  ==========================
+launch counter                CUDA source         replaces (reference)
+============================  ==================  ==========================
+``segmented_matmul``          ``csrc/segmm.cu``   ``segmented_matmul``
+``segmented_matmul_chunked``  ``csrc/segmm.cu``   ``segmented_matmul_chunked``
+============================  ==================  ==========================
+
+A wrapper checks its operands as the reference does (``m_pad % bm == 0``,
+``bk = min(bk, K)``, ``bn = min(bn, N)``, ``K % bk == 0``, ``N % bn == 0``),
+allocates the output, and for CUDA tensors launches the kernel on the
+current stream and adds one to :data:`LAUNCHES`; for CPU tensors it runs
+the plain version beside it (``*_plain``), which is also what the kernel is
+tested against.  Other devices raise.  ``bn``/``bk`` only have to pass the
+checks: the kernels pick their own tiles, and every output element is one
+ascending-k float32 FMA chain whatever ``bm``, ``bn`` and ``bk`` are.
+
+An M-block whose expert id lies outside ``[0, E)`` gets zero rows, and so
+do the rows of M-blocks that no queue pops in the chunked variant.
+"""
+from __future__ import annotations
+
+import ctypes
+import pathlib
+
+import torch
+
+from repro_torch.kernels import _build
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+
+#: Every CUDA source of this package, built in parallel by :func:`build`.
+SOURCES = (CSRC / "segmm.cu",)
+
+#: Kernel launches since the last :func:`reset_launch_counts`.
+LAUNCHES = {"segmented_matmul": 0, "segmented_matmul_chunked": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "segmm_blocks": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    "segmm_queues": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _P, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def build() -> dict:
+    """Compile every source now; ``{stem: ptxas report}``."""
+    return _build.build(SOURCES)
+
+
+def _launch(name: str, *args) -> None:
+    fn = getattr(_build.load(CSRC / "segmm.cu"), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
+
+
+def _int32(x: int, what: str) -> int:
+    if not 0 <= x < 2 ** 31:
+        raise ValueError(f"{what}={x} does not fit the kernel's int32")
+    return x
+
+
+def _on_card(device: torch.device) -> bool:
+    """True for CUDA (launch the kernel), False for CPU (plain version)."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {device}")
+
+
+def _check_int32(t, name: str, device: torch.device,
+                 length: int | None = None) -> None:
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+        raise TypeError(f"{name} must be an int32 tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D tensor")
+    if length is not None and t.shape[0] != length:
+        raise ValueError(f"{name} has {t.shape[0]} entries, expected "
+                         f"{length}")
+
+
+def _check_operands(lhs_padded: torch.Tensor, rhs: torch.Tensor,
+                    block_expert: torch.Tensor, bm: int, bn: int,
+                    bk: int) -> tuple[int, int, int, int]:
+    """The reference's shape assertions plus type/device/layout checks;
+    returns ``(m_pad, K, N, E)``."""
+    device = lhs_padded.device
+    for t, name, dim in ((lhs_padded, "lhs_padded", 2), (rhs, "rhs", 3)):
+        if not isinstance(t, torch.Tensor) or t.dtype not in _DTYPE_CODE:
+            raise TypeError(f"{name} must be a float32 or bfloat16 tensor")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dim() != dim or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dim}-D tensor")
+    m_pad, k_dim = lhs_padded.shape
+    e_dim, rk, n_dim = rhs.shape
+    if rk != k_dim:
+        raise ValueError(f"rhs depth {rk} != lhs width {k_dim}")
+    if bm < 1 or m_pad % bm:
+        raise ValueError(f"m_pad={m_pad} is not a multiple of bm={bm}")
+    bk, bn = min(bk, k_dim), min(bn, n_dim)
+    if bk < 1 or bn < 1 or k_dim % bk or n_dim % bn:
+        raise ValueError(f"K={k_dim} and N={n_dim} must be multiples of "
+                         f"bk={bk} and bn={bn}")
+    _check_int32(block_expert, "block_expert", device, m_pad // bm)
+    return m_pad, k_dim, n_dim, e_dim
+
+
+# ---------------------------------------------------------------------------
+# K5: one CTA per (M-block, N tile).
+# ---------------------------------------------------------------------------
+
+def segmented_matmul(lhs_padded: torch.Tensor, rhs: torch.Tensor,
+                     block_expert: torch.Tensor, *, bm: int = 128,
+                     bn: int = 128, bk: int = 512) -> torch.Tensor:
+    """``out[i*bm:(i+1)*bm] = lhs[i*bm:(i+1)*bm] @ rhs[block_expert[i]]``.
+
+    ``lhs_padded``: ``[M_pad, K]`` f32/bf16, tokens sorted by expert and
+    group-padded so every M-block maps to one expert.  ``rhs``: ``[E, K,
+    N]`` f32/bf16.  ``block_expert``: int32 ``[M_pad // bm]``.  Returns f32
+    ``[M_pad, N]``.
+    """
+    m_pad, k_dim, n_dim, e_dim = _check_operands(lhs_padded, rhs,
+                                                 block_expert, bm, bn, bk)
+    if not _on_card(lhs_padded.device):
+        return segmented_matmul_plain(lhs_padded, rhs, block_expert, bm=bm,
+                                      bn=bn, bk=bk)
+    out = torch.empty((m_pad, n_dim), dtype=torch.float32,
+                      device=lhs_padded.device)
+    _launch("segmm_blocks", lhs_padded.data_ptr(),
+            _DTYPE_CODE[lhs_padded.dtype], rhs.data_ptr(),
+            _DTYPE_CODE[rhs.dtype], block_expert.data_ptr(),
+            _int32(m_pad // bm, "M-blocks"), _int32(bm, "bm"),
+            _int32(k_dim, "K"), _int32(n_dim, "N"), _int32(e_dim, "E"),
+            out.data_ptr())
+    LAUNCHES["segmented_matmul"] += 1
+    return out
+
+
+def _block_products(lhs_padded: torch.Tensor, rhs: torch.Tensor,
+                    block_expert: torch.Tensor, blocks: torch.Tensor,
+                    bm: int) -> torch.Tensor:
+    """f32 ``[M_pad, N]``: the product rows of the M-blocks ``blocks``
+    (int64), zero elsewhere; one matmul per expert that holds blocks."""
+    m_pad, k_dim = lhs_padded.shape
+    e_dim, _, n_dim = rhs.shape
+    nblk = m_pad // bm
+    out = torch.zeros((nblk, bm, n_dim), dtype=torch.float32,
+                      device=lhs_padded.device)
+    lhs_blocks = lhs_padded.view(nblk, bm, k_dim)
+    experts = block_expert.long()[blocks]
+    valid = (experts >= 0) & (experts < e_dim)
+    for e in torch.unique(experts[valid]).tolist():
+        sel = blocks[experts == e]
+        out[sel] = torch.matmul(lhs_blocks[sel].float(), rhs[e].float())
+    return out.view(m_pad, n_dim)
+
+
+def segmented_matmul_plain(lhs_padded: torch.Tensor, rhs: torch.Tensor,
+                           block_expert: torch.Tensor, *, bm: int = 128,
+                           bn: int = 128, bk: int = 512) -> torch.Tensor:
+    """Plain version of :func:`segmented_matmul`."""
+    m_pad, *_ = _check_operands(lhs_padded, rhs, block_expert, bm, bn, bk)
+    blocks = torch.arange(m_pad // bm, device=lhs_padded.device)
+    return _block_products(lhs_padded, rhs, block_expert, blocks, bm)
+
+
+# ---------------------------------------------------------------------------
+# K6: one CTA per (physical queue, N tile), walking its M-blocks.
+# ---------------------------------------------------------------------------
+
+def _check_queue(block_chunks_flat, chunk_counts, device,
+                 max_chunks: int) -> int:
+    _check_int32(chunk_counts, "chunk_counts", device)
+    num_physical = int(chunk_counts.shape[0])
+    if max_chunks < 1:
+        raise ValueError(f"max_chunks must be >= 1, got {max_chunks}")
+    _check_int32(block_chunks_flat, "block_chunks_flat", device,
+                 num_physical * max_chunks)
+    return num_physical
+
+
+def segmented_matmul_chunked(lhs_padded: torch.Tensor, rhs: torch.Tensor,
+                             block_expert: torch.Tensor,
+                             block_chunks_flat: torch.Tensor,
+                             chunk_counts: torch.Tensor, *, bm: int = 128,
+                             bn: int = 128, bk: int = 512,
+                             max_chunks: int = 1) -> torch.Tensor:
+    """Chunk-walking segmented matmul over ``P`` physical queues.
+
+    Same contract as :func:`segmented_matmul` plus the queue:
+    ``block_chunks_flat`` int32 ``[P * max_chunks]`` lists each queue's
+    M-blocks in pop order, ``chunk_counts`` int32 ``[P]`` the true queue
+    lengths.  Output rows are in the original M-block order, bitwise equal
+    to :func:`segmented_matmul` for every M-block some queue pops.
+    """
+    m_pad, k_dim, n_dim, e_dim = _check_operands(lhs_padded, rhs,
+                                                 block_expert, bm, bn, bk)
+    num_physical = _check_queue(block_chunks_flat, chunk_counts,
+                                lhs_padded.device, max_chunks)
+    if not _on_card(lhs_padded.device):
+        return segmented_matmul_chunked_plain(
+            lhs_padded, rhs, block_expert, block_chunks_flat, chunk_counts,
+            bm=bm, bn=bn, bk=bk, max_chunks=max_chunks)
+    out = torch.zeros((m_pad, n_dim), dtype=torch.float32,
+                      device=lhs_padded.device)
+    _launch("segmm_queues", lhs_padded.data_ptr(),
+            _DTYPE_CODE[lhs_padded.dtype], rhs.data_ptr(),
+            _DTYPE_CODE[rhs.dtype], block_expert.data_ptr(),
+            block_chunks_flat.data_ptr(), chunk_counts.data_ptr(),
+            _int32(num_physical, "num_physical"),
+            _int32(max_chunks, "max_chunks"),
+            _int32(m_pad // bm, "M-blocks"), _int32(bm, "bm"),
+            _int32(k_dim, "K"), _int32(n_dim, "N"), _int32(e_dim, "E"),
+            out.data_ptr())
+    LAUNCHES["segmented_matmul_chunked"] += 1
+    return out
+
+
+def _popped_blocks(block_chunks_flat: torch.Tensor,
+                   chunk_counts: torch.Tensor, max_chunks: int,
+                   num_blocks: int) -> torch.Tensor:
+    """Sorted int64 ids of the M-blocks some queue pops."""
+    queues = block_chunks_flat.long().view(-1, max_chunks)
+    slot = torch.arange(max_chunks, device=queues.device)
+    popped = queues[slot[None, :] < chunk_counts.long()[:, None]]
+    popped = popped[(popped >= 0) & (popped < num_blocks)]
+    return torch.unique(popped)
+
+
+def segmented_matmul_chunked_plain(lhs_padded, rhs, block_expert,
+                                   block_chunks_flat, chunk_counts, *,
+                                   bm: int = 128, bn: int = 128,
+                                   bk: int = 512,
+                                   max_chunks: int = 1) -> torch.Tensor:
+    """Plain version of :func:`segmented_matmul_chunked`."""
+    m_pad, *_ = _check_operands(lhs_padded, rhs, block_expert, bm, bn, bk)
+    _check_queue(block_chunks_flat, chunk_counts, lhs_padded.device,
+                 max_chunks)
+    blocks = _popped_blocks(block_chunks_flat, chunk_counts, max_chunks,
+                            m_pad // bm)
+    return _block_products(lhs_padded, rhs, block_expert, blocks, bm)

@@ -177,7 +177,8 @@ def _resolve_direction_plan(spec: WorkSpec, schedule, path, num_blocks: int,
 
 #: Push-direction sibling of each frontier-masked workload family.
 _PUSH_WORKLOADS = {"advance": "advance_push",
-                   "advance_delta": "advance_delta_push"}
+                   "advance_delta": "advance_delta_push",
+                   "wavefront": "wavefront_push"}
 
 
 def build_advance(graph, *, schedule: Schedule | str = "auto",

@@ -4,13 +4,14 @@ The same numpy inputs go through the JAX reference (``repro``) and the
 PyTorch port (``repro_torch``, on the CPU), and the outputs are compared as
 numpy arrays.
 
-``repro.sparse`` imports ``repro.compat``, whose import-time batching-rule
-registration trips over the installed jax (its ``primitive_batchers`` table
-is a proxy that ``in`` cannot test).  :func:`reference_sparse` imports it
-with that table swapped for a throwaway dict and restores the table at once
-— the rule it would register exists in this jax already — and on exit
-drops the ``repro`` modules it loaded, so later test files in the same
-worker see the reference exactly as they would without it.  Enter it in a
+``repro.sparse``, ``repro.models``, ``repro.kernels.segmm.ops`` and the
+other modules that import ``repro.compat`` trip over the installed jax at
+import (``compat``'s batching-rule registration tests ``in`` on a proxy
+table).  :func:`reference_modules` imports any list of reference modules
+with that table swapped for a throwaway dict, restores the table at once —
+the rule it would register exists in this jax already — and on exit drops
+the ``repro`` modules it loaded, so later test files in the same worker see
+the reference exactly as they would without it.  Enter it in a
 module-scoped fixture, never at import or collection time, so every test
 worker collects the same tests.
 """
@@ -61,9 +62,9 @@ def assert_same_partition(jpart, tpart) -> None:
 
 
 @contextlib.contextmanager
-def reference_sparse():
-    """``repro.sparse`` (and ``repro.compat``), importable on this jax, for
-    the duration of the context."""
+def reference_modules(*names: str):
+    """The reference modules ``names`` (dotted), imported on this jax, for
+    the duration of the context; yields them in order."""
     from jax.interpreters import batching
     before = set(sys.modules)
     saved = batching.primitive_batchers
@@ -73,7 +74,7 @@ def reference_sparse():
     finally:
         batching.primitive_batchers = saved
     try:
-        yield importlib.import_module("repro.sparse")
+        yield tuple(importlib.import_module(name) for name in names)
     finally:
         for name in sorted(set(sys.modules) - before, reverse=True):
             if name.split(".")[0] != "repro":
@@ -82,6 +83,14 @@ def reference_sparse():
             parent, _, child = name.rpartition(".")
             if getattr(sys.modules.get(parent), child, None) is module:
                 delattr(sys.modules[parent], child)
+
+
+@contextlib.contextmanager
+def reference_sparse():
+    """``repro.sparse`` (and ``repro.compat``), importable on this jax, for
+    the duration of the context."""
+    with reference_modules("repro.sparse") as (module,):
+        yield module
 
 
 def np_of(x) -> np.ndarray:

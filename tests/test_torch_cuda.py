@@ -9,13 +9,17 @@ JAX's caches).
 
 Integer-valued sums and min/max are compared bitwise; real-valued sums to
 a relative 1e-5 (the plain versions add in atomic order on the card, the
-kernels in a fixed order).
+kernels in a fixed order).  The segmented-matmul kernels (K5/K6) are held
+to their plain versions bitwise on integer-valued operands and to rtol
+1e-4 on real ones (5e-2 for bfloat16), and to each other bitwise.
 """
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.core as T
+from repro_torch.kernels.segmm import kernel as SK
+from repro_torch.kernels.segmm import ops as SO
 from repro_torch.kernels.spmv_merge import kernel as TK
 from repro_torch.kernels.spmv_merge import ops as TO
 from repro_torch.sparse import (Graph, bfs, delta_stepping, pagerank,
@@ -186,3 +190,175 @@ def test_graph_drivers_match_cpu(card):
                 assert_bitwise(got.float(), want.float())
         torch.testing.assert_close(pagerank(gg, **kw).cpu(),
                                    pagerank(gc, **kw), rtol=1e-5, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# K5/K6: the segmented matmul.
+# ---------------------------------------------------------------------------
+
+#: (T, K, N, E, bm): MoE-like blocks, the level GEMM's bm = 8, ragged N and
+#: K tails, one expert, many experts.
+SEGMM_SHAPES = [(1000, 256, 384, 8, 128), (700, 128, 128, 2, 8),
+                (300, 72, 100, 5, 32), (512, 64, 48, 1, 128),
+                (150, 40, 24, 16, 16), (260, 136, 130, 3, 256)]
+POLICY_PATHS = [(s, p) for s in SO.SCHEDULE_POLICIES
+                for p in ("pure", "native")]
+
+
+def _segmm_data(T, K, N, E, integer, card, seed=0, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    if integer:
+        draw = lambda *shape: torch.randint(-3, 4, shape, generator=gen
+                                            ).float()
+    else:
+        draw = lambda *shape: torch.randn(*shape, generator=gen)
+    tokens = draw(T, K).to(dtype).to(card)
+    eot = torch.randint(0, E, (T,), generator=gen, dtype=torch.int32
+                        ).to(card)
+    return tokens, eot, draw(E, K, N).to(dtype).to(card)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("shape", SEGMM_SHAPES, ids=str)
+def test_segmm_kernels_match_plain(card, shape, integer):
+    T, K, N, E, bm = shape
+    tokens, eot, rhs = _segmm_data(T, K, N, E, integer, card)
+    outs = []
+    for schedule, path in POLICY_PATHS:
+        ops = SO.segmm_operands(tokens, eot, num_experts=E, bm=bm,
+                                schedule=schedule, path=path)
+        name = ("segmented_matmul_chunked" if ops.queue is not None
+                else "segmented_matmul")
+        before = dict(SK.LAUNCHES)
+        got = SO.run_segmm(ops, rhs, bn=N, bk=K)
+        assert SK.LAUNCHES[name] == before[name] + 1
+        assert sum(SK.LAUNCHES.values()) == sum(before.values()) + 1
+        if ops.queue is None:
+            plain = SK.segmented_matmul_plain(ops.lhs, rhs, ops.block_expert,
+                                              bm=bm, bn=N, bk=K)
+        else:
+            plain = SK.segmented_matmul_chunked_plain(
+                ops.lhs, rhs, ops.block_expert, *ops.queue[:2], bm=bm, bn=N,
+                bk=K, max_chunks=ops.queue[2])
+        torch.cuda.synchronize()
+        tag = f"{schedule}/{path}"
+        if integer:
+            assert_bitwise(got, plain, tag)
+        else:
+            torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4,
+                                       msg=tag)
+        outs.append(got[ops.rows])
+    for (schedule, path), out in zip(POLICY_PATHS, outs):
+        assert_bitwise(out, outs[0], f"{schedule}/{path} vs group_mapped")
+
+
+@pytest.mark.parametrize("bm", [8, 128])
+def test_segmm_chunked_equals_blocks_on_real_data(card, bm):
+    tokens, eot, rhs = _segmm_data(2000, 256, 256, 6, False, card, seed=1)
+    ops = SO.segmm_operands(tokens, eot, num_experts=6, bm=bm,
+                            schedule="group_mapped", path="pure")
+    blocks = ops.num_blocks
+    for queues in (1, 8, blocks):
+        cmax = -(-blocks // queues)
+        order = torch.randperm(blocks, generator=torch.Generator()
+                               .manual_seed(queues)).to(card)
+        chunks = torch.zeros(queues * cmax, dtype=torch.int32, device=card)
+        chunks[:blocks] = order.to(torch.int32)
+        counts = torch.full((queues,), cmax, dtype=torch.int32, device=card)
+        counts[-1] = blocks - cmax * (queues - 1)
+        # queue q pops slots [q * cmax, q * cmax + counts[q])
+        got = SK.segmented_matmul_chunked(ops.lhs, rhs, ops.block_expert,
+                                          chunks, counts, bm=bm,
+                                          max_chunks=cmax)
+        want = SK.segmented_matmul(ops.lhs, rhs, ops.block_expert, bm=bm,
+                                   bn=64, bk=32)
+        assert_bitwise(got, want, f"{queues} queues")
+
+
+def test_segmm_bf16(card):
+    for lhs_dtype, rhs_dtype in ((torch.bfloat16, torch.bfloat16),
+                                 (torch.bfloat16, torch.float32),
+                                 (torch.float32, torch.bfloat16)):
+        tokens, eot, rhs = _segmm_data(400, 96, 160, 4, False, card, seed=2)
+        tokens, rhs = tokens.to(lhs_dtype), rhs.to(rhs_dtype)
+        want = SO.grouped_matmul(tokens.cpu(), eot.cpu(), rhs.cpu(),
+                                 num_experts=4, bm=32, bn=160)
+        for schedule, path in POLICY_PATHS:
+            got = SO.grouped_matmul(tokens, eot, rhs, num_experts=4, bm=32,
+                                    bn=160, schedule=schedule,
+                                    execution_path=path)
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2)
+
+
+def test_segmm_zero_rows_for_bad_experts_and_unpopped_blocks(card):
+    lhs = torch.ones((4 * 8, 8), device=card)
+    rhs = torch.ones((2, 8, 8), device=card)
+    be = torch.tensor([0, 1, 5, -1], dtype=torch.int32, device=card)
+    out = SK.segmented_matmul(lhs, rhs, be, bm=8)
+    assert_bitwise(out, SK.segmented_matmul_plain(lhs, rhs, be, bm=8))
+    chunked = SK.segmented_matmul_chunked(
+        lhs, rhs, be, torch.tensor([1, 0], dtype=torch.int32, device=card),
+        torch.tensor([1], dtype=torch.int32, device=card), bm=8,
+        max_chunks=2)
+    assert (chunked[8:16] == 8).all() and (chunked[:8] == 0).all()
+
+
+def test_moe_sorted_policies_bitwise_and_counted(card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    cfg = get_config("olmoe_1b_7b").reduced(d_model=128, d_ff=256,
+                                            num_experts=16, top_k=4)
+    params, _ = M.moe_init(torch.Generator().manual_seed(0), cfg.d_model,
+                           cfg.d_ff, cfg.num_experts, 0, cfg.activation,
+                           device=card)
+    x = torch.randn(2, 300, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(card)
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k)
+    base, aux = M.moe_sorted(params, x, **kw)
+    for schedule, path in POLICY_PATHS + [("auto", "auto")]:
+        before = sum(SK.LAUNCHES.values())
+        out, aux2 = M.moe_sorted(params, x, schedule=schedule,
+                                 execution_path=path, **kw)
+        assert sum(SK.LAUNCHES.values()) == before + 3
+        assert_bitwise(out, base, f"{schedule}/{path}")
+        assert float(aux2) == float(aux)
+    cap, cap_aux = M.moe_capacity(params, x, capacity_factor=float(
+        cfg.num_experts / cfg.top_k), **kw)
+    torch.testing.assert_close(base, cap, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(aux, cap_aux, rtol=1e-5, atol=0)
+
+
+def test_wavefront_on_the_card_matches_cpu(card):
+    from repro_torch.sparse import wavefront as W
+    rng = np.random.default_rng(0)
+    trees = []
+    for n in rng.integers(1, 12, 40):
+        w = np.zeros((2 * n - 1, 2 * n - 1), np.float32)
+        for child in range(1, 2 * n - 1):
+            w[child, (child - 1) // 2] = 1.0
+        trees.append(w)
+    V = sum(t.shape[0] for t in trees)
+    K = 128
+    x = rng.integers(-2, 3, (V, K)).astype(np.float32)
+    ws = rng.integers(-1, 2, (2, K, K)).astype(np.float32)
+    b = rng.integers(-2, 3, (2, K)).astype(np.float32)
+    ops = rng.integers(0, 2, V).astype(np.int32)
+    clip = lambda z: torch.clamp(z, -16.0, 16.0)
+    outs = {}
+    for device in ("cpu", card):
+        packed = W.pack_forest([Graph.from_dense(t, device=device)
+                                for t in trees])
+        for schedule in ("chunked_lpt", "merge_path"):
+            for path in ("native", "pure"):
+                wp = W.build_wavefront(packed.dag, schedule=schedule,
+                                       path=path)
+                before = dict(SK.LAUNCHES)
+                outs[device, schedule, path] = W.wavefront_eval(
+                    wp, x, ops, ws, bias=b, activation=clip).cpu()
+                if device != "cpu":
+                    assert sum(SK.LAUNCHES.values()) == \
+                        sum(before.values()) + wp.num_levels
+    first = outs["cpu", "chunked_lpt", "native"]
+    for key, out in outs.items():
+        assert_bitwise(out, first, str(key))

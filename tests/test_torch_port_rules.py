@@ -25,6 +25,7 @@ from repro_torch import resolve_device
 from repro_torch.core import WorkSpec
 from repro_torch.interop import csr_from_arrays, workspec_from_arrays
 from repro_torch.kernels import _build
+from repro_torch.kernels.segmm import kernel as SK
 from repro_torch.kernels.spmv_merge import kernel as TK
 from repro_torch.sparse import CSR, Graph, random_csr, suite_like_corpus
 
@@ -59,6 +60,9 @@ def test_port_imports_without_jax():
     code = ("import sys\n"
             "import repro_torch.sparse, repro_torch.interop\n"
             "import repro_torch.kernels.spmv_merge.ops\n"
+            "import repro_torch.kernels.segmm.ops, repro_torch.configs\n"
+            "import repro_torch.models.moe, repro_torch.models.treelstm\n"
+            "import repro_torch.sparse.wavefront, repro_torch.data.packing\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]\n"
             "assert not bad, bad\n")
@@ -117,6 +121,21 @@ def test_wrappers_take_plain_version_only_on_cpu():
     with pytest.raises(ValueError, match="device"):
         TK.merge_block_partials(stream.to("meta"), rows.to("meta"),
                                 base.to("meta"), block_items=128)
+    seg_before = dict(SK.LAUNCHES)
+    lhs, rhs = torch.ones(16, 8), torch.ones(2, 8, 8)
+    experts = torch.tensor([0, 1], dtype=torch.int32)
+    queue = (torch.tensor([1, 0], dtype=torch.int32),
+             torch.tensor([2], dtype=torch.int32))
+    assert (SK.segmented_matmul(lhs, rhs, experts, bm=8) == 8).all()
+    assert (SK.segmented_matmul_chunked(lhs, rhs, experts, *queue, bm=8,
+                                        max_chunks=2) == 8).all()
+    assert SK.LAUNCHES == seg_before
+    meta = [t.to("meta") for t in (lhs, rhs, experts)]
+    with pytest.raises(ValueError, match="device"):
+        SK.segmented_matmul(*meta, bm=8)
+    with pytest.raises(ValueError, match="device"):
+        SK.segmented_matmul_chunked(*meta, *[q.to("meta") for q in queue],
+                                    bm=8, max_chunks=2)
 
 
 def test_build_needs_nvcc():
