@@ -43,7 +43,32 @@ Phases, in order; any failure exits non-zero:
 10. times  — each kernel (CUDA events) beside its bound, its plain version
    and a PyTorch library call where one computes the same thing;
    end-to-end times of the entry points;
-11. the ``kernels:`` summary, the JSON kernels line, and the final
+11. flash parity — K7 (``flash_swa``) against its plain version at
+   H2O-Danube3-4B's attention shapes (B 1, S 8192, 32/8 heads of 120,
+   window 4096) in float32 (atol/rtol 2e-5) and bfloat16 (rtol 1e-2, atol
+   1e-4 against the float32 plain version on the same bf16-rounded
+   inputs), at the edges ``window == S``, ``S == window == qc`` and
+   ``Hkv == H``, and against the port's own ``_attend`` over the
+   whole 8,192-token sequence (8 GiB of float32 scores, freed after);
+12. lm data — H2O-Danube3-4B at full width and depth (24 layers, d_model
+   3840, 3,961,839,360 parameters), weights drawn from ``--seed`` on the
+   card and cast once to bfloat16;
+13. serve — counters zeroed; ``DecoderLM.prefill`` of one 32,768-token
+   prompt (the ``prefill_32k`` shape, batch cut from 32 to 1) in bfloat16
+   with a 4,096-slot ring cache, then 32 greedy ``decode_step`` +
+   ``sample_logits`` steps: K7 launched once per layer in the prefill and
+   never in decode, every id in the vocabulary, every logit finite;
+14. consistency — the reference's prefill/decode check
+   (``tests/test_models.py``) at full width, depth cut to 2, float32: a
+   6,144-token prefill (banded) and 1,024 teacher-forced decode steps
+   against ``forward`` on all 7,168 tokens, at position 6,143 and every
+   128th after it, rtol/atol 2e-3;
+15. swa times — K7 at the prefill's launch shape (S 32,768, bfloat16)
+   beside its bound, its plain version and cuDNN's
+   ``scaled_dot_product_attention`` with the band mask; K7's output there
+   held to the float32 plain version (bfloat16 limits above) and to SDPA
+   (3e-2);
+16. the ``kernels:`` summary, the JSON kernels line, and the final
    ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -61,6 +86,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12             # H100 SXM f32 without tensor cores
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 REF_KERNEL = "src/repro/kernels/spmv_merge/kernel.py"
 CSRC = "src/repro_torch/kernels/spmv_merge/csrc"
 SEGMM_REF = "src/repro/kernels/segmm/kernel.py"
@@ -73,6 +99,8 @@ KERNELS = {   # counter name -> (CUDA source, the Pallas kernel it replaces)
     "segmented_matmul": (f"{SEGMM_CSRC}/segmm.cu", f"{SEGMM_REF}:50"),
     "segmented_matmul_chunked": (f"{SEGMM_CSRC}/segmm.cu",
                                  f"{SEGMM_REF}:128"),
+    "flash_swa": ("src/repro_torch/kernels/flash_swa/csrc/flash_swa.cu",
+                  "src/repro/kernels/flash_swa/kernel.py:79"),
 }
 REAL_RTOL = 1e-4   # real-valued f32 sums in another order
 # soc-LiveJournal1 scale (SNAP: 4.8M vertices, 69M edges)
@@ -90,6 +118,23 @@ FOREST_MAX_LEAVES = 56
 FOREST_MEAN_LEAVES = 19
 FOREST_WIDTH = 128         # the level GEMM needs K % min(128, K) == 0
 FOREST_ORACLE_TREES = 256
+# Path C: H2O-Danube3-4B serving (banded sliding-window attention, K7)
+DEVICE = "cuda"
+LM_ARCH = "h2o_danube3_4b"
+PROMPT = 32_768            # prefill_32k's sequence; batch cut from 32 to 1
+DECODE_STEPS = 32
+SWA_PARITY_S = 8192
+SWA_TOL_F32 = 2e-5         # tests/test_flash_swa.py
+# bfloat16 K7 against the float32 plain version on the same bf16-rounded
+# inputs: the one true error is the output's bf16 rounding (<= 2^-9 relative)
+SWA_RTOL_BF16 = 1e-2
+SWA_ATOL_BF16 = 1e-4
+SDPA_TOL = 3e-2            # cuDNN SDPA (bf16 probabilities) against K7
+CONSIST_LAYERS = 2
+CONSIST_PROMPT = 6144      # banded: > attn_query_chunk + sliding_window
+CONSIST_DECODE = 1024
+CONSIST_EVERY = 128
+LM_TOL = 2e-3              # tests/test_models.py prefill/decode parity
 
 
 def log(*parts) -> None:
@@ -211,10 +256,11 @@ def phase_card():
 
 def phase_build():
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_swa import kernel as FK
     from repro_torch.kernels.segmm import kernel as SK
     from repro_torch.kernels.spmv_merge import kernel as K
     t0 = time.perf_counter()
-    reports = _build.build(K.SOURCES + SK.SOURCES)
+    reports = _build.build(K.SOURCES + SK.SOURCES + FK.SOURCES)
     log(f"build: {len(reports)} sources in "
         f"{time.perf_counter() - t0:.1f} s")
     for stem, report in reports.items():
@@ -513,16 +559,19 @@ def phase_auto(g, num_blocks: int, source: int):
 # ---------------------------------------------------------------------------
 
 def reset_all_counts() -> None:
+    from repro_torch.kernels.flash_swa import kernel as FK
     from repro_torch.kernels.segmm import kernel as SK
     from repro_torch.kernels.spmv_merge import kernel as K
     K.reset_launch_counts()
     SK.reset_launch_counts()
+    FK.reset_launch_counts()
 
 
 def all_counts() -> dict:
+    from repro_torch.kernels.flash_swa import kernel as FK
     from repro_torch.kernels.segmm import kernel as SK
     from repro_torch.kernels.spmv_merge import kernel as K
-    return {**K.LAUNCHES, **SK.LAUNCHES}
+    return {**K.LAUNCHES, **SK.LAUNCHES, **FK.LAUNCHES}
 
 
 def segmm_launches() -> int:
@@ -914,6 +963,320 @@ def phase_segmm_times(cases, prepared):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# slice 3: H2O-Danube3-4B serving on the banded attention kernel (path C)
+# ---------------------------------------------------------------------------
+
+def swa_launches() -> int:
+    from repro_torch.kernels.flash_swa import kernel as FK
+    return FK.LAUNCHES["flash_swa"]
+
+
+def check_close(name: str, got, want, tol: float, atol: float = None
+                ) -> float:
+    """``|got - want| <= atol + tol * |want|`` everywhere (finite, same
+    shape; ``atol`` defaults to ``tol``); returns the max absolute error."""
+    import torch
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} vs "
+          f"{tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+    atol = tol if atol is None else atol
+    diff = (got - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    limit = f"atol/rtol {tol}" if atol == tol else f"rtol {tol}, atol {atol}"
+    check(bool((diff <= atol + tol * want.abs()).all()),
+          f"{name}: max abs err {err} above {limit}")
+    log(f"parity {name}: max abs err {err!r} ({limit})")
+    return err
+
+
+def band_pairs(s: int, window: int) -> int:
+    """(query, key) pairs inside a causal band: sum_i min(i + 1, window)."""
+    n = min(s, window)
+    return n * (n + 1) // 2 + (s - n) * window
+
+
+def phase_swa_parity(cfg, seed: int) -> float:
+    """K7 against its plain version at ``cfg``'s attention shapes, the
+    edges, and the model's ``_attend`` core; returns the largest error."""
+    import torch
+    from repro_torch.kernels.flash_swa import kernel as FK
+    from repro_torch.models.layers import _attend, _repeat_kv
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    window, qc = cfg.sliding_window, cfg.attn_query_chunk
+
+    def draw(s, heads):
+        return torch.randn((1, s, heads, hd), generator=gen, device=DEVICE)
+
+    errs = []
+    cases = [(f"S {SWA_PARITY_S}", SWA_PARITY_S, h, hkv, window),
+             ("window == S", 2 * qc, h, hkv, 2 * qc),
+             ("S == window == qc", qc, h, hkv, qc),
+             ("Hkv == H", 2 * qc, hkv, hkv, qc)]
+    for name, s, nh, nkv, w in cases:
+        tag = f"flash_swa [{name}, {nh}/{nkv} heads of {hd}, window {w}]"
+        q, k, v = draw(s, nh), draw(s, nkv), draw(s, nkv)
+        got = FK.flash_swa(q, k, v, window=w, qc=qc)
+        errs.append(check_close(f"{tag} f32", got, FK.flash_swa_plain(
+            q, k, v, window=w, qc=qc), SWA_TOL_F32))
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        want = FK.flash_swa_plain(qb.float(), kb.float(), vb.float(),
+                                  window=w, qc=qc)
+        errs.append(check_close(f"{tag} bf16", FK.flash_swa(
+            qb, kb, vb, window=w, qc=qc), want, SWA_RTOL_BF16,
+            SWA_ATOL_BF16))
+        if s == SWA_PARITY_S:
+            # the model's masked-softmax core over the whole sequence:
+            # [1, H, S, S] float32 scores, freed right after
+            pos = torch.arange(s, dtype=torch.int32, device=DEVICE)[None]
+            groups = nh // nkv
+            core = _attend(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
+                           pos, pos, hd ** -0.5, w)
+            errs.append(check_close(f"flash_swa == _attend [S {s}] f32", got,
+                                    core, SWA_TOL_F32))
+            del core
+        del q, k, v, qb, kb, vb, got, want
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return max(errs)
+
+
+def phase_lm_data(cfg, seed: int):
+    """The whole model at ``cfg``'s widths and depth, weights drawn from
+    ``seed`` on the card and cast once to bfloat16."""
+    import torch
+    from repro_torch.models.lm import DecoderLM, param_count
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 6)
+    model, secs = wall_s(lambda: DecoderLM.from_config(
+        cfg, gen, device=DEVICE, dtype=torch.bfloat16))
+    n = sum(p.numel() for p in model.parameters())
+    check(n == param_count(cfg), f"lm: {n} parameters, expected "
+          f"{param_count(cfg)}")
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"lm data: {cfg.name} {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"window {cfg.sliding_window}, query chunk {cfg.attn_query_chunk}: "
+        f"{n} parameters, {nbytes / 2**30:.2f} GiB bf16, drawn and cast in "
+        f"{secs:.1f} s")
+    return model
+
+
+def phase_serve(model, seed: int, e2e) -> dict:
+    """Path C: prefill one ``PROMPT``-token prompt, then ``DECODE_STEPS``
+    greedy steps, counted; returns the prompt and the counts."""
+    import torch
+    from repro_torch.serve.decode import sample_logits
+
+    cfg = model.cfg
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    prompt = torch.randint(0, cfg.vocab_size, (1, PROMPT), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    bf16 = torch.bfloat16
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    (logits, cache), pre_s = wall_s(lambda: model.prefill(
+        prompt, dtype=bf16, cache_len=PROMPT + DECODE_STEPS))
+    prefill_counts = all_counts()
+    check(prefill_counts["flash_swa"] == cfg.num_layers,
+          f"serve: {prefill_counts['flash_swa']} K7 launches in the prefill, "
+          f"expected one per layer ({cfg.num_layers})")
+    ring = min(PROMPT + DECODE_STEPS, cfg.sliding_window)
+    check(tuple(cache["k"].shape) == (cfg.num_layers, 1, ring,
+                                      cfg.num_kv_heads,
+                                      cfg.resolved_head_dim),
+          f"serve: cache shape {tuple(cache['k'].shape)}")
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+    finite = torch.isfinite(logits).all()
+    tok = sample_logits(None, logits, 0.0, vocab_size=cfg.vocab_size)
+
+    def decode():
+        nonlocal tok, finite
+        outs = [tok]
+        for i in range(DECODE_STEPS):
+            step_logits, _ = model.decode_step(tok, PROMPT + i, cache,
+                                               dtype=bf16)
+            finite = finite & torch.isfinite(step_logits).all()
+            tok = sample_logits(None, step_logits, 0.0,
+                                vocab_size=cfg.vocab_size)
+            outs.append(tok)
+        return torch.cat(outs, dim=1)
+
+    ids, dec_s = wall_s(decode)
+    counts = all_counts()
+    check(counts == prefill_counts, "serve: a kernel was launched in decode")
+    check(bool(finite), "serve: non-finite logits")
+    check(bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
+          "serve: a sampled id lies outside the vocabulary")
+    peak = (torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0)
+    e2e[f"prefill[{cfg.name}, {PROMPT} tokens]"] = pre_s
+    e2e[f"decode[{cfg.name}, {DECODE_STEPS} steps]"] = dec_s
+    log(f"serve {cfg.name}: prefill {PROMPT} tokens in {pre_s * 1e3:.1f} ms "
+        f"({PROMPT / pre_s:.0f} tokens/s), K7 launches {counts['flash_swa']}; "
+        f"{DECODE_STEPS} greedy decode steps in {dec_s * 1e3:.1f} ms "
+        f"({dec_s * 1e3 / DECODE_STEPS:.2f} ms/token, "
+        f"{DECODE_STEPS / dec_s:.1f} tokens/s, batch 1); ring cache {ring} "
+        f"slots, {cache_bytes / 2**20:.0f} MiB; peak device memory "
+        f"{peak / 2**30:.2f} GiB; ids {ids[0, :8].tolist()}...")
+    log("serve launches: " + json.dumps(counts))
+    return dict(prompt=prompt, launches=counts["flash_swa"])
+
+
+def phase_consistency(cfg, seed: int) -> None:
+    """The reference's prefill + decode == forward check at ``cfg``'s
+    width, depth cut to ``CONSIST_LAYERS``, in float32."""
+    import torch
+    from repro_torch.models.lm import (decode_step, forward, init_params,
+                                       prefill)
+
+    cfg = dataclasses.replace(cfg, num_layers=CONSIST_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 8)
+    params, _ = init_params(cfg, gen, device=DEVICE)
+    total = CONSIST_PROMPT + CONSIST_DECODE
+    tokens = torch.randint(0, cfg.vocab_size, (1, total), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    before = swa_launches()
+    want, _ = forward(params, cfg, tokens, dtype=f32)
+    logits, cache = prefill(params, cfg, tokens[:, :CONSIST_PROMPT],
+                            dtype=f32, cache_len=total)
+    check(swa_launches() == before + 2 * cfg.num_layers,
+          "consistency: forward and prefill must each launch K7 per layer")
+    errs = [check_close(f"prefill vs forward [pos {CONSIST_PROMPT - 1}]",
+                        logits[:, 0], want[:, CONSIST_PROMPT - 1], LM_TOL)]
+    for t in range(CONSIST_PROMPT, total):
+        logits, cache = decode_step(params, cfg, tokens[:, t:t + 1], t,
+                                    cache, dtype=f32)
+        if (t - CONSIST_PROMPT + 1) % CONSIST_EVERY == 0:
+            errs.append(check_close(f"decode vs forward [pos {t}]",
+                                    logits[:, 0], want[:, t], LM_TOL))
+    check(swa_launches() == before + 2 * cfg.num_layers,
+          "consistency: decode launched K7")
+    log(f"consistency {cfg.name} x {cfg.num_layers} layers (f32): "
+        f"{CONSIST_PROMPT}-token banded prefill + {CONSIST_DECODE} decode "
+        f"steps through a {cache['k'].shape[2]}-slot ring == forward on "
+        f"{total} tokens at {len(errs)} positions, max abs err "
+        f"{max(errs)!r} (atol/rtol {LM_TOL}), {time.perf_counter() - t0:.1f}"
+        f" s")
+
+
+def sdpa_call(q, k, v, mask):
+    """``scaled_dot_product_attention`` with the boolean band mask and GQA,
+    on cuDNN: the one backend that takes both at S 32,768 (MATH would
+    build the ``[1, 32, S, S]`` scores).  A CPU rehearsal runs MATH."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    backend = (SDPBackend.CUDNN_ATTENTION if DEVICE == "cuda"
+               else SDPBackend.MATH)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))    # [B, H, S, hd]
+
+    def call():
+        with sdpa_kernel([backend]):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+    return call, backend.name
+
+
+def phase_swa_times(cfg, seed: int) -> dict:
+    """K7 at the prefill's launch shape (CUDA events) beside its bound, its
+    plain version and SDPA with the band mask."""
+    import torch
+    from repro_torch.kernels.flash_swa import kernel as FK
+
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    window, qc = cfg.sliding_window, cfg.attn_query_chunk
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
+
+    q, k, v = (torch.randn((1, PROMPT, heads, hd), generator=gen,
+                           device=DEVICE).to(torch.bfloat16)
+               for heads in (h, hkv, hkv))
+    kernel_ms = cuda_ms(lambda: FK.flash_swa(q, k, v, window=window, qc=qc),
+                        warmup=1, iters=5)
+    plain_ms = cuda_ms(lambda: FK.flash_swa_plain(q, k, v, window=window,
+                                                  qc=qc), warmup=1, iters=2)
+    got = FK.flash_swa(q, k, v, window=window, qc=qc)
+    err = check_close(f"flash_swa [S {PROMPT}] bf16", got, FK.flash_swa_plain(
+        q.float(), k.float(), v.float(), window=window, qc=qc),
+        SWA_RTOL_BF16, SWA_ATOL_BF16)
+    pairs = band_pairs(PROMPT, window)
+    flops = 4 * hd * h * pairs
+    nbytes = 2 * PROMPT * hd * (2 * h + 2 * hkv)
+    bound_bf16 = flops / BF16_FLOP_PER_S * 1e3
+    bound_f32 = flops / F32_FLOP_PER_S * 1e3
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(bound_bf16, bound_bytes)
+    bound_by = "operations" if bound_bf16 >= bound_bytes else "bytes"
+
+    # the library call: SDPA with the [S, S] band as a boolean mask
+    i = torch.arange(PROMPT, device=DEVICE)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    call, backend = sdpa_call(q, k, v, band)
+    check_close(f"sdpa ({backend}) vs flash_swa [S {PROMPT}] bf16", call(),
+                got, SDPA_TOL)
+    library_ms = cuda_ms(call, warmup=1, iters=3)
+    del band, got
+    log(f"time flash_swa [S {PROMPT}, {h}/{hkv} heads of {hd}, window "
+        f"{window}, bf16]: {kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} "
+        f"TFLOP/s); bound {bound:.4f} ms by {bound_by} ({pairs} band pairs "
+        f"per head, {flops} flop at 989 TFLOP/s bf16 = {bound_bf16:.4f} ms, "
+        f"at 67 TFLOP/s f32 = {bound_f32:.4f} ms; {nbytes} bytes at 3.35 "
+        f"TB/s = {bound_bytes:.4f} ms); plain {plain_ms:.3f} ms; library "
+        f"{library_ms:.4f} ms (scaled_dot_product_attention, {backend}, with "
+        f"the band mask)")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound, bound_by=bound_by, err=err)
+
+
+def run_slice3(seed: int, profile: bool) -> tuple:
+    """Path C end to end: ``(K7 row, main-path launches, e2e seconds)``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve.decode import sample_logits
+
+    cfg = get_config(LM_ARCH)
+    e2e = {}
+    err = phase_swa_parity(cfg, seed)
+    model = phase_lm_data(cfg, seed)
+    serve = phase_serve(model, seed, e2e)
+    if profile:
+        prompt, bf16 = serve["prompt"], torch.bfloat16
+
+        def prefill():
+            return model.prefill(prompt, dtype=bf16,
+                                 cache_len=PROMPT + DECODE_STEPS)
+
+        def decode():
+            # greedy steps on the prompt's cache (rewriting the same slots)
+            tok = sample_logits(None, logits, 0.0, vocab_size=cfg.vocab_size)
+            for i in range(DECODE_STEPS):
+                step_logits, _ = model.decode_step(tok, PROMPT + i, cache,
+                                                   dtype=bf16)
+                tok = sample_logits(None, step_logits, 0.0,
+                                    vocab_size=cfg.vocab_size)
+            return tok
+
+        logits, cache = prefill()
+        phase_profile([(f"prefill[{cfg.name}, {PROMPT} tokens]", prefill),
+                       (f"decode[{cfg.name}, {DECODE_STEPS} steps]", decode)])
+        del logits, cache
+    del model, serve["prompt"]
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    phase_consistency(cfg, seed)
+    row = phase_swa_times(cfg, seed)
+    row["err"] = max(err, row["err"])
+    return row, serve["launches"], e2e
+
+
 def phase_profile(calls) -> None:
     """Device time by operation for each ``(name, call)`` (``--profile``):
     how much of each call the kernels are."""
@@ -921,19 +1284,22 @@ def phase_profile(calls) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for name, call in calls:
-        call()
-        torch.cuda.synchronize()
+        _, bare = wall_s(call)           # also the warm-up
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, secs = wall_s(call)
         # device-side events only (kernels, copies, fills): one stream, so
-        # their sum is the device's busy time
+        # their sum is the device's busy time; the idle share is taken
+        # against the unprofiled wall time, which the profiler's own host
+        # cost does not inflate
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
-        device_us = sum(e.self_device_time_total for e in events)
-        log(f"profile {name}: wall {secs * 1e3:.1f} ms, device "
-            f"busy {device_us / 1e3:.1f} ms "
-            f"({100 * device_us / 1e3 / (secs * 1e3):.0f}%)")
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        log(f"profile {name}: wall {secs * 1e3:.1f} ms profiled, "
+            f"{bare * 1e3:.1f} ms unprofiled; device busy {busy:.1f} ms "
+            f"({100 * busy / (secs * 1e3):.0f}% of the profiled wall); idle "
+            f"share {max(0.0, 1 - busy / (bare * 1e3)):.3f} of the "
+            f"unprofiled wall")
         events.sort(key=lambda e: e.self_device_time_total, reverse=True)
         for e in events[:10]:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
@@ -945,8 +1311,9 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by operation for one "
-                             "bfs, pagerank, MoE layer and TreeLSTM "
-                             "evaluation")
+                             "bfs, pagerank, MoE layer, TreeLSTM "
+                             "evaluation, Danube prefill and Danube "
+                             "decode")
     args = parser.parse_args(argv)
 
     import torch
@@ -1016,6 +1383,15 @@ def main(argv=None) -> int:
                 wave_params, forest["trees"], wave_x, wave_ops,
                 schedule="chunked_lpt", activation=clip16))])
     for name, secs in e2e2.items():
+        log(f"e2e {name}: {secs * 1e3:.1f} ms")
+    del moe, forest, cases, prepared
+    torch.cuda.empty_cache()
+
+    # slice 3: the banded attention kernel under H2O-Danube3-4B serving
+    rows["flash_swa"], launches["flash_swa"], e2e3 = run_slice3(
+        args.seed, args.profile)
+    log(f"main-path launches flash_swa: {launches['flash_swa']} (prefill)")
+    for name, secs in e2e3.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
 
     kernels = []

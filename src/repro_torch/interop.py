@@ -1,8 +1,8 @@
 """Carry the reference's state into the port.
 
 The load-balancing core has no weights: its state is the matrix or graph
-plus the inspector's partitions.  The models (the MoE layer, the TreeLSTM)
-have weights.  These helpers take that state as numpy arrays (what
+plus the inspector's partitions.  The models (the MoE layer, the TreeLSTM,
+the decoder LM) have weights.  These helpers take that state as numpy arrays (what
 ``np.asarray`` gives for the reference's arrays) and build the port's
 objects, so both sides compute on the same partition and the same weights.
 """
@@ -104,3 +104,25 @@ def treelstm_params_from_arrays(params: Mapping[str, object], *,
     """A reference ``init_treelstm`` dict (``w`` ``[O, F, F]``, ``b``
     ``[O, F]``) -> the port's TreeLSTM parameters on ``device``."""
     return _weights(params, ("w", "b"), (), device)
+
+
+#: Top-level entries every LM parameter tree has.
+LM_REQUIRED = ("embed", "lm_head", "ln_f", "layers")
+
+
+def lm_params_from_arrays(params: Mapping[str, object], *,
+                          device=None) -> Dict[str, object]:
+    """A reference ``lm.init_params`` tree (nested dicts, arrays as numpy,
+    layer parameters stacked ``[L, ...]``) -> the port's tree on
+    ``device``, the same nesting, shapes and dtypes."""
+    missing = [n for n in LM_REQUIRED if n not in params]
+    if missing:
+        raise KeyError(f"LM parameter tree lacks {missing}")
+    dev = resolve_device(device)
+
+    def convert(tree):
+        if isinstance(tree, Mapping):
+            return {name: convert(value) for name, value in tree.items()}
+        return torch.from_numpy(np.array(tree)).to(dev)
+
+    return convert(params)

@@ -1,1 +1,3 @@
-"""Models on the load-balanced kernels: the MoE layer and the TreeLSTM."""
+"""Models: the decoder LM (``lm``: every family of ``configs``, on the
+layers of ``layers``, ``ssm`` and ``moe``), the MoE layer on the
+load-balanced segmented GEMM, and the TreeLSTM."""

@@ -11,13 +11,19 @@ Integer-valued sums and min/max are compared bitwise; real-valued sums to
 a relative 1e-5 (the plain versions add in atomic order on the card, the
 kernels in a fixed order).  The segmented-matmul kernels (K5/K6) are held
 to their plain versions bitwise on integer-valued operands and to rtol
-1e-4 on real ones (5e-2 for bfloat16), and to each other bitwise.
+1e-4 on real ones (5e-2 for bfloat16), and to each other bitwise.  The
+banded sliding-window attention kernel (K7) is held to its plain version
+at atol/rtol 2e-5 in float32, and for bfloat16 inputs to the float32 plain
+version on the same bf16-rounded inputs at rtol 1e-2, atol 1e-4: the only
+true error there is the bf16 rounding of the output (at most 2^-9
+relative).
 """
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.core as T
+from repro_torch.kernels.flash_swa import kernel as FK
 from repro_torch.kernels.segmm import kernel as SK
 from repro_torch.kernels.segmm import ops as SO
 from repro_torch.kernels.spmv_merge import kernel as TK
@@ -362,3 +368,49 @@ def test_wavefront_on_the_card_matches_cpu(card):
     first = outs["cpu", "chunked_lpt", "native"]
     for key, out in outs.items():
         assert_bitwise(out, first, str(key))
+
+
+# ---------------------------------------------------------------------------
+# K7: banded sliding-window attention.
+# ---------------------------------------------------------------------------
+
+#: (S, H, Hkv, hd, window, qc): Danube's head_dim 120 and GQA 4:1, Hymba's
+#: 64 and 5:1, window == qc and window == S, S not a multiple of the
+#: kernel's 64-row tile.
+SWA_SHAPES = [(1024, 8, 2, 120, 256, 128), (512, 10, 2, 64, 128, 128),
+              (512, 4, 1, 120, 64, 64), (384, 5, 1, 64, 384, 128),
+              (96, 4, 4, 64, 32, 32), (256, 8, 2, 120, 256, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SWA_SHAPES, ids=str)
+def test_flash_swa_matches_plain(card, shape, dtype):
+    S, H, Hkv, hd, window, qc = shape
+    gen = torch.Generator().manual_seed(S + H + hd)
+    q, k, v = (torch.randn(2, S, heads, hd, generator=gen).to(dtype).to(card)
+               for heads in (H, Hkv, Hkv))
+    before = FK.LAUNCHES["flash_swa"]
+    got = FK.flash_swa(q, k, v, window=window, qc=qc)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_swa"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = FK.flash_swa_plain(q.float(), k.float(), v.float(),
+                              window=window, qc=qc)
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 1e-4)
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+def test_banded_attention_launches_k7_once(card):
+    from repro_torch.models import layers as L
+    gen = torch.Generator().manual_seed(0)
+    params, _ = L.attention_init(gen, 256, 8, 2, 120, False, device="cpu")
+    x = torch.randn(1, 512, 256, generator=gen)
+    pos = torch.arange(512, dtype=torch.int32)[None]
+    kw = dict(num_heads=8, num_kv_heads=2, head_dim=120, rope_theta=1e4,
+              sliding_window=128, query_chunk=64, swa_banded=True)
+    want = L.attention(params, x, pos, **kw)
+    before = FK.LAUNCHES["flash_swa"]
+    got = L.attention({n: p.to(card) for n, p in params.items()},
+                      x.to(card), pos.to(card), **kw)
+    assert FK.LAUNCHES["flash_swa"] == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -22,11 +22,15 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import get_config
 from repro_torch.core import WorkSpec
-from repro_torch.interop import csr_from_arrays, workspec_from_arrays
+from repro_torch.interop import (csr_from_arrays, lm_params_from_arrays,
+                                 workspec_from_arrays)
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_swa import kernel as FK
 from repro_torch.kernels.segmm import kernel as SK
 from repro_torch.kernels.spmv_merge import kernel as TK
+from repro_torch.models.lm import init_cache
 from repro_torch.sparse import CSR, Graph, random_csr, suite_like_corpus
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -63,6 +67,11 @@ def test_port_imports_without_jax():
             "import repro_torch.kernels.segmm.ops, repro_torch.configs\n"
             "import repro_torch.models.moe, repro_torch.models.treelstm\n"
             "import repro_torch.sparse.wavefront, repro_torch.data.packing\n"
+            "import repro_torch.kernels.flash_swa.ops\n"
+            "import repro_torch.kernels.flash_swa.ref\n"
+            "import repro_torch.models.lm, repro_torch.models.ssm\n"
+            "import repro_torch.models.frontends\n"
+            "import repro_torch.serve.decode, repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]\n"
             "assert not bad, bad\n")
@@ -97,6 +106,10 @@ def test_constructors_default_to_the_card():
         lambda: WorkSpec.from_segment_offsets(offsets, num_atoms=3),
         lambda: csr_from_arrays(offsets, [0, 1, 0], [1.0, 2.0, 3.0], (2, 2)),
         lambda: workspec_from_arrays(offsets),
+        lambda: lm_params_from_arrays({"embed": np.zeros((2, 2)),
+                                       "lm_head": np.zeros((2, 2)),
+                                       "ln_f": {}, "layers": {}})["embed"],
+        lambda: init_cache(get_config("h2o_danube3_4b").reduced(), 1, 4)["k"],
     ]
     for make in makers:
         if torch.cuda.is_available():
@@ -136,6 +149,14 @@ def test_wrappers_take_plain_version_only_on_cpu():
     with pytest.raises(ValueError, match="device"):
         SK.segmented_matmul_chunked(*meta, *[q.to("meta") for q in queue],
                                     bm=8, max_chunks=2)
+    swa_before = dict(FK.LAUNCHES)
+    q = torch.ones(1, 16, 4, 8)
+    kv = torch.ones(1, 16, 2, 8)
+    assert torch.allclose(FK.flash_swa(q, kv, kv, window=8, qc=8), q)
+    assert FK.LAUNCHES == swa_before
+    with pytest.raises(ValueError, match="device"):
+        FK.flash_swa(q.to("meta"), kv.to("meta"), kv.to("meta"), window=8,
+                     qc=8)
 
 
 def test_build_needs_nvcc():
