@@ -41,8 +41,10 @@ Phases, in order; any failure exits non-zero:
    each other and to a sequential per-node NumPy oracle on 256 trees; then
    one ``tanh`` run;
 10. times  — each kernel (CUDA events) beside its bound, its plain version
-   and a PyTorch library call where one computes the same thing;
-   end-to-end times of the entry points;
+   and a PyTorch library call where one computes the same thing (K5/K6 at
+   both segmm shapes, with their TFLOP/s, share of the f32 peak, ratio to
+   ``torch.bmm`` and K6's team and CTA count); end-to-end times of the
+   entry points;
 11. flash parity — K7 (``flash_swa``) against its plain version at
    H2O-Danube3-4B's attention shapes (B 1, S 8192, 32/8 heads of 120,
    window 4096) in float32 (atol/rtol 2e-5) and bfloat16 (rtol 1e-2, atol
@@ -911,7 +913,9 @@ def phase_wavefront(forest, seed: int, e2e):
 def phase_segmm_times(cases, prepared):
     """K5/K6 times at both cases' shapes (CUDA events) beside the bound,
     the plain version and ``torch.bmm`` (TF32 off) on the gathered expert
-    weights; the MoE w1 case fills the kernels line."""
+    weights, with the achieved TFLOP/s (on the routed rows), its share of
+    the 67 TFLOP/s float32 peak, the ratio to ``torch.bmm`` and K6's team
+    and CTA count; the MoE w1 case fills the kernels line."""
     import torch
     from repro_torch.kernels.segmm import kernel as SK
 
@@ -935,6 +939,8 @@ def phase_segmm_times(cases, prepared):
         library = cuda_ms(lambda: torch.bmm(lhs_b, rhs_g), iters=3)
         del rhs_g
         chunks, counts, cmax = o6.queue
+        team, ctas = SK.queues_grid(int(counts.numel()), cmax, bm,
+                                    rhs.shape[2])
         calls = {
             "segmented_matmul": (
                 lambda: SK.segmented_matmul(o5.lhs, rhs, o5.block_expert,
@@ -953,11 +959,17 @@ def phase_segmm_times(cases, prepared):
                        plain_ms=cuda_ms(plain, iters=3), library_ms=library,
                        bound_ms=bound, bound_by=bound_by, flops=flops,
                        bytes=nbytes)
-            log(f"time {kname} [{name}]: {row['ms']:.4f} ms (bound "
-                f"{bound:.4f} ms by {bound_by}: {flops} flop at 67 TFLOP/s "
-                f"= {bound_flops:.4f} ms, {nbytes} bytes at 3.35 TB/s = "
-                f"{bound_bytes:.4f} ms; plain {row['plain_ms']:.3f} ms; "
-                f"torch.bmm {library:.3f} ms; {busy} experts hold tokens)")
+            tflops = flops / row["ms"] / 1e9
+            geometry = (f"; K6 team {team}, {ctas} CTAs"
+                        if kname == "segmented_matmul_chunked" else "")
+            log(f"time {kname} [{name}]: {row['ms']:.4f} ms, "
+                f"{tflops:.2f} TFLOP/s ({100 * tflops / 67:.1f}% of the "
+                f"67 TFLOP/s f32 peak), {row['ms'] / library:.3f}x "
+                f"torch.bmm (bound {bound:.4f} ms by {bound_by}: {flops} "
+                f"flop at 67 TFLOP/s = {bound_flops:.4f} ms, {nbytes} bytes "
+                f"at 3.35 TB/s = {bound_bytes:.4f} ms; plain "
+                f"{row['plain_ms']:.3f} ms; torch.bmm {library:.3f} ms; "
+                f"{busy} experts hold tokens{geometry})")
             if name == "moe w1":
                 rows[kname] = row
     return rows

@@ -17,6 +17,14 @@ tested against.  Other devices raise.  ``bn``/``bk`` only have to pass the
 checks: the kernels pick their own tiles, and every output element is one
 ascending-k float32 FMA chain whatever ``bm``, ``bn`` and ``bk`` are.
 
+Launch geometry (plain Python, so the CPU tests reach it): both kernels
+compute 128 x 128 output tiles from groups of :func:`block_group` M-blocks.
+K5 runs one CTA per (group of consecutive M-blocks, N tile).  K6 keeps the
+schedule's physical queues and their pop order, and drains each (queue, N
+tile) pair with a team of CTAs (:func:`queue_team`), CTA ``t`` popping slot
+group ``t`` (:func:`queue_pops`), so that the queues fill the card instead
+of running one CTA each.
+
 An M-block whose expert id lies outside ``[0, E)`` gets zero rows, and so
 do the rows of M-blocks that no queue pops in the chunked variant.
 """
@@ -39,11 +47,18 @@ LAUNCHES = {"segmented_matmul": 0, "segmented_matmul_chunked": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+#: Output tile of both kernels (``kTM`` x ``kTN`` in ``csrc/segmm.cu``).
+TILE_M = TILE_N = 128
+
+#: CUDA's limit on a 1-D grid (``gridDim.x``).
+MAX_GRID = 2 ** 31 - 1
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "segmm_blocks": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    "segmm_blocks": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                     _P],
     "segmm_queues": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _P, _P],
+                     _I, _I, _I, _P, _P],
 }
 
 
@@ -57,20 +72,91 @@ def build() -> dict:
     return _build.build(SOURCES)
 
 
-def _launch(name: str, *args) -> None:
+def _fn(name: str):
     fn = getattr(_build.load(CSRC / "segmm.cu"), name)
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    return fn
+
+
+def _launch(name: str, *args) -> None:
+    rc = _fn(name)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry.
+# ---------------------------------------------------------------------------
+
+def block_group(bm: int) -> int:
+    """M-blocks a CTA takes at once: enough to fill a ``TILE_M``-row tile
+    when ``bm < TILE_M`` (16 at the wavefront's ``bm = 8``), else one."""
+    return max(1, TILE_M // bm)
+
+
+def column_tiles(n_dim: int) -> int:
+    """N tiles of ``TILE_N`` columns."""
+    return -(-n_dim // TILE_N)
+
+
+def blocks_grid(num_blocks: int, bm: int, n_dim: int) -> int:
+    """K5's 1-D grid: one CTA per (group of consecutive M-blocks, N
+    tile)."""
+    return -(-num_blocks // block_group(bm)) * column_tiles(n_dim)
+
+
+def queue_team(max_chunks: int, bm: int) -> int:
+    """K6's CTAs per (queue, N tile): one per slot group of
+    :func:`block_group` slots, ``ceil(max_chunks / group)``.  Every slot
+    group costs the same (one segmm: the same bm, K and N), so the team
+    balances as a work queue would."""
+    return -(-max_chunks // block_group(bm))
+
+
+def queues_grid(num_physical: int, max_chunks: int, bm: int,
+                n_dim: int) -> tuple[int, int]:
+    """``(team, CTAs)`` of K6's 1-D grid, as ``segmm_queues`` sizes it."""
+    team = queue_team(max_chunks, bm)
+    return team, num_physical * team * column_tiles(n_dim)
+
+
+def queue_pops(cta: int, *, num_physical: int, n_tiles: int, counts,
+               max_chunks: int, bm: int) -> tuple:
+    """``(queue, N tile, slots)`` that K6's CTA ``cta`` pops, in order:
+    the same decode as ``segmm_kernel``'s (N tile fastest, then queue,
+    then team member ``t``, which takes slot group ``t`` of ``group``
+    slots below ``min(counts[queue], max_chunks)``)."""
+    group = block_group(bm)
+    tile, rest = cta % n_tiles, cta // n_tiles
+    queue, member = rest % num_physical, rest // num_physical
+    count = min(int(counts[queue]), max_chunks)
+    slots = list(range(member * group, min(member * group + group, count)))
+    return queue, tile, slots
+
+
+def _vector_copies(lhs: torch.Tensor, rhs: torch.Tensor) -> int:
+    """1 when the kernel may copy its operands in 16-byte quads and store
+    float4s (K % 4 == 0, N % 4 == 0 and every float32 operand 16-byte
+    aligned), else 0 (4-byte loads and copies, scalar stores: the same
+    arithmetic)."""
+    aligned = all(t.dtype != torch.float32 or t.data_ptr() % 16 == 0
+                  for t in (lhs, rhs))
+    return int(lhs.shape[1] % 4 == 0 and rhs.shape[2] % 4 == 0 and aligned)
 
 
 def _int32(x: int, what: str) -> int:
     if not 0 <= x < 2 ** 31:
         raise ValueError(f"{what}={x} does not fit the kernel's int32")
     return x
+
+
+def _grid(ctas: int) -> int:
+    if ctas > MAX_GRID:
+        raise ValueError(f"{ctas} CTAs exceed CUDA's 1-D grid limit "
+                         f"{MAX_GRID}")
+    return ctas
 
 
 def _on_card(device: torch.device) -> bool:
@@ -123,7 +209,7 @@ def _check_operands(lhs_padded: torch.Tensor, rhs: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K5: one CTA per (M-block, N tile).
+# K5: one CTA per (group of consecutive M-blocks, N tile).
 # ---------------------------------------------------------------------------
 
 def segmented_matmul(lhs_padded: torch.Tensor, rhs: torch.Tensor,
@@ -143,11 +229,14 @@ def segmented_matmul(lhs_padded: torch.Tensor, rhs: torch.Tensor,
                                       bn=bn, bk=bk)
     out = torch.empty((m_pad, n_dim), dtype=torch.float32,
                       device=lhs_padded.device)
+    _int32(m_pad, "M_pad")
+    _grid(blocks_grid(m_pad // bm, bm, n_dim))
     _launch("segmm_blocks", lhs_padded.data_ptr(),
             _DTYPE_CODE[lhs_padded.dtype], rhs.data_ptr(),
             _DTYPE_CODE[rhs.dtype], block_expert.data_ptr(),
             _int32(m_pad // bm, "M-blocks"), _int32(bm, "bm"),
-            _int32(k_dim, "K"), _int32(n_dim, "N"), _int32(e_dim, "E"),
+            block_group(bm), _int32(k_dim, "K"), _int32(n_dim, "N"),
+            _int32(e_dim, "E"), _vector_copies(lhs_padded, rhs),
             out.data_ptr())
     LAUNCHES["segmented_matmul"] += 1
     return out
@@ -182,7 +271,7 @@ def segmented_matmul_plain(lhs_padded: torch.Tensor, rhs: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K6: one CTA per (physical queue, N tile), walking its M-blocks.
+# K6: a team of CTAs per (physical queue, N tile), one slot group each.
 # ---------------------------------------------------------------------------
 
 def _check_queue(block_chunks_flat, chunk_counts, device,
@@ -208,7 +297,10 @@ def segmented_matmul_chunked(lhs_padded: torch.Tensor, rhs: torch.Tensor,
     ``block_chunks_flat`` int32 ``[P * max_chunks]`` lists each queue's
     M-blocks in pop order, ``chunk_counts`` int32 ``[P]`` the true queue
     lengths.  Output rows are in the original M-block order, bitwise equal
-    to :func:`segmented_matmul` for every M-block some queue pops.
+    to :func:`segmented_matmul` for every M-block some queue pops, zero
+    elsewhere.  On the card each queue is drained by a team of CTAs per N
+    tile (:func:`queues_grid`); the queues and their order are the
+    schedule's, untouched.
     """
     m_pad, k_dim, n_dim, e_dim = _check_operands(lhs_padded, rhs,
                                                  block_expert, bm, bn, bk)
@@ -220,6 +312,8 @@ def segmented_matmul_chunked(lhs_padded: torch.Tensor, rhs: torch.Tensor,
             bm=bm, bn=bn, bk=bk, max_chunks=max_chunks)
     out = torch.zeros((m_pad, n_dim), dtype=torch.float32,
                       device=lhs_padded.device)
+    _int32(m_pad, "M_pad")
+    _grid(queues_grid(num_physical, max_chunks, bm, n_dim)[1])
     _launch("segmm_queues", lhs_padded.data_ptr(),
             _DTYPE_CODE[lhs_padded.dtype], rhs.data_ptr(),
             _DTYPE_CODE[rhs.dtype], block_expert.data_ptr(),
@@ -227,7 +321,8 @@ def segmented_matmul_chunked(lhs_padded: torch.Tensor, rhs: torch.Tensor,
             _int32(num_physical, "num_physical"),
             _int32(max_chunks, "max_chunks"),
             _int32(m_pad // bm, "M-blocks"), _int32(bm, "bm"),
-            _int32(k_dim, "K"), _int32(n_dim, "N"), _int32(e_dim, "E"),
+            block_group(bm), _int32(k_dim, "K"), _int32(n_dim, "N"),
+            _int32(e_dim, "E"), _vector_copies(lhs_padded, rhs),
             out.data_ptr())
     LAUNCHES["segmented_matmul_chunked"] += 1
     return out

@@ -310,6 +310,146 @@ def test_segmm_zero_rows_for_bad_experts_and_unpopped_blocks(card):
     assert (chunked[8:16] == 8).all() and (chunked[:8] == 0).all()
 
 
+# K6's team geometry and K5's tile edges: K6 is held bitwise to K5 on the
+# popped M-blocks, and both to their plain versions (bitwise on
+# integer-valued operands, whose every sum is exact in float32).
+
+def _draw(shape, integer, gen, card, dtype=torch.float32, misaligned=False):
+    vals = (torch.randint(-3, 4, shape, generator=gen).float() if integer
+            else torch.randn(*shape, generator=gen)).to(dtype)
+    if not misaligned:
+        return vals.to(card)
+    flat = torch.empty(vals.numel() + 1, dtype=dtype, device=card)[1:]
+    flat.copy_(vals.reshape(-1))
+    return flat.view(shape)
+
+
+def _check_k5_k6(lhs, rhs, be, chunks, counts, cmax, bm, integer, tag):
+    k_dim, n_dim = lhs.shape[1], rhs.shape[2]
+    kw = dict(bm=bm, bn=n_dim, bk=k_dim)
+    k5 = SK.segmented_matmul(lhs, rhs, be, **kw)
+    plain = SK.segmented_matmul_plain(lhs, rhs, be, **kw)
+    k6 = SK.segmented_matmul_chunked(lhs, rhs, be, chunks, counts,
+                                     max_chunks=cmax, **kw)
+    plain6 = SK.segmented_matmul_chunked_plain(lhs, rhs, be, chunks, counts,
+                                               max_chunks=cmax, **kw)
+    torch.cuda.synchronize()
+    if integer:
+        assert_bitwise(k5, plain, f"{tag}: K5 vs plain")
+        assert_bitwise(k6, plain6, f"{tag}: K6 vs plain")
+    else:
+        torch.testing.assert_close(k5, plain, rtol=1e-4, atol=1e-4,
+                                   msg=f"{tag}: K5 vs plain")
+    popped = SK._popped_blocks(chunks, counts, cmax, be.shape[0])
+    rows = (popped[:, None] * bm
+            + torch.arange(bm, device=popped.device)).reshape(-1)
+    assert_bitwise(k6[rows], k5[rows], f"{tag}: K6 vs K5")
+    unpopped = torch.ones(k6.shape[0], dtype=torch.bool, device=k6.device)
+    unpopped[rows] = False
+    assert bool((k6[unpopped] == 0).all()), f"{tag}: unpopped rows"
+
+
+def _queues(lengths, cmax, nblk, gen, card):
+    """Queue layout with the given lengths: distinct M-blocks in the popped
+    slots, junk (ids out of range and real ids) past each queue's end."""
+    order = torch.randperm(nblk, generator=gen)
+    chunks = torch.randint(-2, nblk + 2, (len(lengths), cmax), generator=gen)
+    start = 0
+    for q, n in enumerate(lengths):
+        chunks[q, :n] = order[start:start + n]
+        start += n
+    assert start <= nblk
+    return (chunks.reshape(-1).to(torch.int32).to(card),
+            torch.tensor(lengths, dtype=torch.int32, device=card))
+
+
+#: (name, bm, K, N, E, queue lengths, max_chunks, unpopped M-blocks).
+QUEUE_CASES = [
+    ("lengths_0_and_1", 128, 64, 256, 3, [0, 1, 0, 1, 1, 0, 0, 1], 1, 2),
+    ("shorter_than_team", 128, 72, 1024, 4,
+     [1, 3, 40, 40, 0, 2, 39, 40], 40, 5),
+    ("team_of_one", 8, 136, 128, 2, [1] * 300, 1, 0),
+    ("counts_at_max", 32, 72, 100, 5, [9, 9, 9], 9, 3),
+    ("bm8_long_queues", 8, 128, 130, 2, [700, 699, 700, 698], 700, 10),
+    ("no_queues", 8, 64, 128, 2, [], 1, 4),
+]
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case", QUEUE_CASES, ids=lambda c: c[0])
+def test_k6_team_geometry(card, case, integer):
+    name, bm, k_dim, n_dim, e_dim, lengths, cmax, spare = case
+    gen = torch.Generator().manual_seed(len(lengths) + bm)
+    nblk = sum(lengths) + spare
+    lhs = _draw((nblk * bm, k_dim), integer, gen, card)
+    rhs = _draw((e_dim, k_dim, n_dim), integer, gen, card)
+    be = torch.randint(0, e_dim, (nblk,), generator=gen,
+                       dtype=torch.int32).sort().values.to(card)
+    chunks, counts = _queues(lengths, cmax, nblk, gen, card)
+    team, ctas = SK.queues_grid(len(lengths), cmax, bm, n_dim)
+    assert ctas == len(lengths) * team * SK.column_tiles(n_dim)
+    if name == "shorter_than_team":
+        assert 0 < 1 < team, team
+    if name == "team_of_one":
+        assert team == 1
+    _check_k5_k6(lhs, rhs, be, chunks, counts, cmax, bm, integer, name)
+
+
+@pytest.mark.parametrize("bm", [8, 128])
+@pytest.mark.parametrize("k_dim,n_dim", [(72, 24), (136, 100), (72, 130),
+                                         (136, 128), (16, 4), (3, 7)])
+def test_segmm_k_and_n_tails(card, k_dim, n_dim, bm):
+    gen = torch.Generator().manual_seed(k_dim * n_dim + bm)
+    nblk, e_dim = 37, 3
+    lhs = _draw((nblk * bm, k_dim), True, gen, card)
+    rhs = _draw((e_dim, k_dim, n_dim), True, gen, card)
+    be = torch.randint(-1, e_dim + 1, (nblk,), generator=gen,
+                       dtype=torch.int32).to(card)
+    chunks, counts = _queues([10, 10, 9, 8], 10, nblk, gen, card)
+    _check_k5_k6(lhs, rhs, be, chunks, counts, 10, bm, True,
+                 f"K={k_dim} N={n_dim} bm={bm}")
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("lhs_dtype,rhs_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+def test_segmm_operand_types_and_alignment(card, lhs_dtype, rhs_dtype,
+                                           misaligned):
+    gen = torch.Generator().manual_seed(7)
+    for integer in (True, False):
+        for bm, k_dim, n_dim in ((128, 136, 256), (8, 128, 128)):
+            nblk = 24
+            lhs = _draw((nblk * bm, k_dim), integer, gen, card, lhs_dtype,
+                        misaligned)
+            rhs = _draw((3, k_dim, n_dim), integer, gen, card, rhs_dtype,
+                        misaligned)
+            if misaligned:
+                assert lhs.data_ptr() % 16 and rhs.data_ptr() % 16
+            be = torch.randint(0, 3, (nblk,), generator=gen,
+                               dtype=torch.int32).to(card)
+            chunks, counts = _queues([8, 8, 8], 8, nblk, gen, card)
+            _check_k5_k6(lhs, rhs, be, chunks, counts, 8, bm, integer,
+                         f"{lhs_dtype}/{rhs_dtype} bm={bm} "
+                         f"misaligned={misaligned} integer={integer}")
+
+
+def test_segmm_more_than_65535_m_blocks(card):
+    gen = torch.Generator().manual_seed(3)
+    bm, nblk, k_dim, n_dim = 8, 70_001, 32, 48
+    lhs = _draw((nblk * bm, k_dim), True, gen, card)
+    rhs = _draw((2, k_dim, n_dim), True, gen, card)
+    be = (torch.arange(nblk, device=card) * 2 // nblk).to(torch.int32)
+    queues = 8
+    cmax = -(-nblk // queues)
+    slot = (torch.arange(queues)[:, None]
+            + torch.arange(cmax)[None, :] * queues)
+    counts = (slot < nblk).sum(1).to(torch.int32).to(card)
+    chunks = slot.clamp(max=nblk - 1).reshape(-1).to(torch.int32).to(card)
+    _check_k5_k6(lhs, rhs, be, chunks, counts, cmax, bm, True,
+                 "70,001 M-blocks")
+
+
 def test_moe_sorted_policies_bitwise_and_counted(card):
     from repro_torch.configs import get_config
     from repro_torch.models import moe as M

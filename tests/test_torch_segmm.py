@@ -253,3 +253,81 @@ def test_grouped_matmul_oracle_matches_reference(ref):
                                          torch.from_numpy(eot),
                                          torch.from_numpy(rhs)),
                    np.asarray(ref[1].grouped_matmul_ref(tokens, eot, rhs)))
+
+
+class TestLaunchGeometry:
+    """K5/K6 launch geometry (plain Python: no card needed) at the smoke
+    run's shapes, against an H100's 132 SMs and a smaller card's 58."""
+
+    #: (atoms, experts, bm, N) of the MoE's w1 and w2 GEMMs (4,096 tokens x
+    #: top-8 over 64 experts, bm 128, N 1,024 / 2,048) and the forest's
+    #: level GEMM (438,443 nodes, 2 ops, bm 8, N 128).
+    SHAPES = {"moe_w1": (4096 * 8, 64, 128, 1024),
+              "moe_w2": (4096 * 8, 64, 128, 2048),
+              "forest_level": (438_443, 2, 8, 128)}
+
+    @classmethod
+    def _queue(cls, shape):
+        """The native chunked_lpt queue ``segmm_operands`` lays out for
+        ``shape``; the queue does not depend on K, so tokens are 1 wide."""
+        rng = np.random.default_rng(0)
+        atoms, experts, bm, n_dim = cls.SHAPES[shape]
+        eot = torch.from_numpy(rng.integers(0, experts, atoms))
+        ops = TO.segmm_operands(torch.zeros((atoms, 1)), eot,
+                                num_experts=experts, bm=bm,
+                                schedule="chunked_lpt", path="native")
+        _, counts, cmax = ops.queue
+        return ops.num_blocks, counts.tolist(), cmax, bm, n_dim
+
+    @pytest.mark.parametrize("sms", [132, 58])
+    @pytest.mark.parametrize("shape", sorted(SHAPES))
+    def test_team_pops_every_slot_once(self, shape, sms):
+        nblk, counts, cmax, bm, n_dim = self._queue(shape)
+        num_physical, tiles = len(counts), TK.column_tiles(n_dim)
+        team, ctas = TK.queues_grid(num_physical, cmax, bm, n_dim)
+        assert 1 <= team <= cmax
+        assert ctas == num_physical * team * tiles
+        assert sms <= ctas <= TK.MAX_GRID
+        popped = {}
+        for cta in range(ctas):
+            q, tile, slots = TK.queue_pops(
+                cta, num_physical=num_physical, n_tiles=tiles,
+                counts=counts, max_chunks=cmax, bm=bm)
+            assert slots == sorted(slots)
+            assert len(slots) <= TK.block_group(bm)
+            for s in slots:
+                key = (q, tile, s)
+                assert key not in popped, key
+                popped[key] = cta
+        want = {(q, tile, s) for q in range(num_physical)
+                for tile in range(tiles) for s in range(counts[q])}
+        assert set(popped) == want
+        assert sum(counts) == nblk
+
+    @pytest.mark.parametrize("shape", sorted(SHAPES))
+    def test_k5_grid(self, shape):
+        nblk, _, _, bm, n_dim = self._queue(shape)
+        grid = TK.blocks_grid(nblk, bm, n_dim)
+        group = TK.block_group(bm)
+        assert 132 <= grid <= TK.MAX_GRID
+        assert (grid // TK.column_tiles(n_dim) - 1) * group < nblk <= (
+            grid // TK.column_tiles(n_dim)) * group
+
+    @pytest.mark.parametrize("bm,group", [(8, 16), (16, 8), (32, 4),
+                                          (100, 1), (128, 1), (256, 1)])
+    def test_block_group_fills_one_tile(self, bm, group):
+        assert TK.block_group(bm) == group
+        assert bm * group <= TK.TILE_M or group == 1
+
+    @pytest.mark.parametrize("num_physical,cmax,bm,n_dim,team,ctas", [
+        (8, 40, 128, 1024, 40, 2560),     # MoE w1: one M-block per CTA
+        (8, 41, 128, 2048, 41, 5248),
+        (8, 6851, 8, 128, 429, 3432),     # the forest: 16 M-blocks per CTA
+        (8, 16, 8, 130, 1, 16),           # a team of one, two N tiles
+        (8, 17, 8, 128, 2, 16),
+        (4, 3, 256, 100, 3, 12),          # N below one tile
+        (0, 1, 8, 128, 1, 0),             # no queues: no CTA
+    ])
+    def test_queues_grid(self, num_physical, cmax, bm, n_dim, team, ctas):
+        assert TK.queue_team(cmax, bm) == team
+        assert TK.queues_grid(num_physical, cmax, bm, n_dim) == (team, ctas)
