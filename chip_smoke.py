@@ -14,9 +14,11 @@ Phases, in order; any failure exits non-zero:
    CSR with its own values;
 4. parity  — each slice-1 kernel (K1-K4) at the main path's shapes against
    its plain PyTorch version: bitwise for min/max and integer-valued sums,
-   rtol 1e-4 for real-valued sums;
+   rtol 1e-4 for real-valued sums; K1 (the merge-path SpMV over the CSR)
+   against the reference's blocked formulation, timed for the whole ``y``
+   beside ``torch``'s sparse CSR ``A @ x``;
 5. main    — the launch counters are zeroed, then the graph entry points
-   run: ``spmv_merge_path`` (merge-path stream and ``chunked_lpt``),
+   run: ``spmv_merge_path`` (``schedule=None`` and ``chunked_lpt``),
    ``bfs`` with parents, ``sssp``, ``delta_stepping`` and ``pagerank``,
    each on ``chunked_lpt`` and ``merge_path`` with ``path="native"``;
    every kernel's counter must have risen.  Then ``schedule="auto"`` once;
@@ -94,7 +96,7 @@ CSRC = "src/repro_torch/kernels/spmv_merge/csrc"
 SEGMM_REF = "src/repro/kernels/segmm/kernel.py"
 SEGMM_CSRC = "src/repro_torch/kernels/segmm/csrc"
 KERNELS = {   # counter name -> (CUDA source, the Pallas kernel it replaces)
-    "spmv_merge_stream": (f"{CSRC}/merge_stream.cu", f"{REF_KERNEL}:63"),
+    "spmv_merge_stream": (f"{CSRC}/merge_path.cu", f"{REF_KERNEL}:63"),
     "chunk_walk_tiles": (f"{CSRC}/chunk_walk.cu", f"{REF_KERNEL}:217"),
     "chunk_walk_atoms": (f"{CSRC}/chunk_walk.cu", f"{REF_KERNEL}:192"),
     "chunk_walk_compact": (f"{CSRC}/chunk_walk.cu", f"{REF_KERNEL}:183"),
@@ -342,39 +344,39 @@ def phase_parity_and_times(A, x, g, plans, num_blocks: int, seed: int):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = {}
 
-    # -- K1: the merge-path stream of spmv_merge_path(A, x, num_blocks) ----
-    block_items = O.merge_block_items(A, num_blocks)
-
-    def stream_of(values, xv):
-        return O.merge_stream_operands(
-            CSR(A.row_offsets, A.col_indices, values, A.shape, A.nnz), xv,
-            block_items=block_items)
-
-    kw1 = dict(block_items=block_items)
-    s_unit = stream_of(unit_values(A.values), unit_values(x))
+    # -- K1: the merge-path SpMV of spmv_merge_path(A, x) -----------------
+    num_rows, num_cols, nnz = A.shape[0], A.shape[1], A.nnz
+    kw1 = dict(num_rows=num_rows,
+               block_items=O.merge_block_items(A, num_blocks))
+    csr = (A.row_offsets, A.col_indices)
+    unit = (unit_values(A.values), unit_values(x))
     compare("spmv_merge_stream (integer-valued)",
-            K.merge_block_partials(*s_unit, **kw1),
-            K.merge_block_partials_ref(*s_unit, **kw1), exact=True)
-    del s_unit
-    s_real = stream_of(A.values, x)
-    partials = K.merge_block_partials(*s_real, **kw1)
-    err1 = compare("spmv_merge_stream (real)", partials,
-                   K.merge_block_partials_ref(*s_real, **kw1), exact=False)
-    total = int(s_real[0].shape[0])
-    grid, r_loc = (int(n) for n in partials.shape)
-    del partials
-    bytes1 = total * 8 + grid * 4 + grid * r_loc * 4
+            K.spmv_merge_csr(*csr, *unit, num_cols=num_cols, **kw1),
+            K.spmv_merge_csr_ref(*csr, *unit, **kw1), exact=True)
+    del unit
+    err1 = compare("spmv_merge_stream (real)",
+                   K.spmv_merge_csr(*csr, A.values, x, num_cols=num_cols,
+                                    **kw1),
+                   K.spmv_merge_csr_ref(*csr, A.values, x, **kw1),
+                   exact=False)
     a_csr = torch.sparse_csr_tensor(A.row_offsets, A.col_indices, A.values,
                                     A.shape)
+    # bytes: the CSR and x read once, y written once (the reference's
+    # stream formulation moves 8 * G * block_items + 4 * G + 4 * G * r_loc)
     rows["spmv_merge_stream"] = dict(
-        err=err1, bytes=bytes1,
-        ms=cuda_ms(lambda: K.merge_block_partials(*s_real, **kw1)),
-        plain_ms=cuda_ms(lambda: K.merge_block_partials_ref(*s_real, **kw1),
-                         iters=3),
+        err=err1, bytes=4 * (num_rows + 1) + 8 * nnz + 4 * num_cols
+        + 4 * num_rows,
+        ms=cuda_ms(lambda: K.spmv_merge_csr(*csr, A.values, x,
+                                            num_cols=num_cols, **kw1)),
+        plain_ms=cuda_ms(lambda: K.spmv_merge_csr_ref(*csr, A.values, x,
+                                                      **kw1), iters=3),
         library_ms=cuda_ms(lambda: a_csr @ x))
-    log(f"K1 shapes: stream {total} items, grid {grid} x block_items "
-        f"{block_items}, partials [{grid}, {r_loc}]")
-    del s_real, a_csr
+    tile = K.merge_path_tile()
+    log(f"K1 shapes: {num_rows} rows + {nnz} non-zeros = "
+        f"{num_rows + nnz} merge items, tile {tile} items, grid "
+        f"{-(-(num_rows + nnz) // tile)} CTAs, then the carry kernel; the "
+        f"plain version's blocks: {kw1['block_items']} items")
+    del a_csr
 
     # -- K2: pull advances (PageRank's unmasked sum, SSSP's masked min) ----
     errs2 = []
@@ -486,14 +488,18 @@ def phase_main(A, x, g, plans, num_blocks: int, source: int):
     want = spmv_reference(A, x)
     K.reset_launch_counts()
     for schedule in (None, "chunked_lpt"):
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         y, secs = wall_s(lambda: O.spmv_merge_path(A, x, schedule=schedule,
                                                    num_blocks=num_blocks))
+        transient = torch.cuda.max_memory_allocated() - held
         err = max_abs_err(y, want)
         scale = float(want.abs().max())
         check(y.shape == want.shape and err <= REAL_RTOL * scale,
               f"spmv_merge_path(schedule={schedule}): err {err}")
         e2e[f"spmv_merge_path[{schedule or 'merge_stream'}]"] = secs
-        log(f"main spmv_merge_path(schedule={schedule}): {secs:.3f} s, "
+        log(f"main spmv_merge_path(schedule={schedule}): {secs * 1e3:.3f} "
+            f"ms, peak transient device memory {transient / 2**20:.1f} MiB, "
             f"max abs err vs spmv_reference {err!r} (scale {scale!r})")
     for schedule, (plan, dplan) in plans.items():
         (depth, parent, counts), secs = wall_s(lambda: bfs(

@@ -1,7 +1,8 @@
 // Shared device code of the merge-path and chunk-walk kernels: the
-// combiners and a block-wide reduction of a window of atoms whose bin keys
-// are non-decreasing (tile-sorted atoms, merge-path stream rows) into
-// per-bin results.
+// combiners, a block-wide reduction of a window of atoms whose bin keys
+// are non-decreasing (tile-sorted atoms) into per-bin results, and the
+// segmented sums over sorted keys that the merge-path kernel combines its
+// threads' open rows with.
 //
 // Design.  The TPU kernels reduce a window with a one-hot matrix product
 // (a matrix-unit idiom); here the window is read once, coalesced.  The
@@ -134,6 +135,47 @@ __device__ void reduce_sorted_window(const float* __restrict__ vals,
     if (key != kNoKey && key >= 0 && key < L) out[key] = finish<C>(acc);
   }
   __syncthreads();
+}
+
+// Inclusive segmented sum over the warp: lanes with equal keys form one run
+// (keys non-decreasing in lane order), added earliest lane first.
+__device__ __forceinline__ float warp_seg_sum(int key, float val) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v_up = __shfl_up_sync(full, val, off);
+    const int k_up = __shfl_up_sync(full, key, off);
+    if (lane >= off && k_up == key) val = v_up + val;
+  }
+  return val;
+}
+
+// The same over a block of NT threads (keys non-decreasing in thread
+// order).  s_key and s_val hold one entry per warp.  Every thread of the
+// block calls this (it synchronises).
+template <int NT>
+__device__ float block_seg_sum(int key, float val, int* s_key,
+                               float* s_val) {
+  constexpr int kBlockWarps = NT / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  val = warp_seg_sum(key, val);
+  if (lane == 31) {
+    s_key[warp] = key;
+    s_val[warp] = val;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int k = lane < kBlockWarps ? s_key[lane] : INT_MAX;
+    const float v = warp_seg_sum(k, lane < kBlockWarps ? s_val[lane] : 0.0f);
+    if (lane < kBlockWarps) s_val[lane] = v;
+  }
+  __syncthreads();
+  // keys are sorted: an equal key in the previous warp's last lane means
+  // this lane's run reaches back across the whole of its own warp
+  if (warp > 0 && s_key[warp - 1] == key) val = s_val[warp - 1] + val;
+  return val;
 }
 
 }  // namespace segreduce

@@ -3,7 +3,7 @@
 ========================  ==========================  =====================
 launch counter            CUDA source                 replaces (reference)
 ========================  ==========================  =====================
-``spmv_merge_stream``     ``csrc/merge_stream.cu``    ``spmv_merge_stream``
+``spmv_merge_stream``     ``csrc/merge_path.cu``      ``spmv_merge_stream``
 ``chunk_walk_tiles``      ``csrc/chunk_walk.cu``      ``chunk_walk_reduce``
                                                       ``emit="tiles"``
 ``chunk_walk_atoms``      ``csrc/chunk_walk.cu``      ``emit="atoms"``
@@ -21,6 +21,7 @@ against.  Other devices raise.  The plain versions reduce with
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
 
 import torch
@@ -28,11 +29,12 @@ import torch
 from repro_torch.core.segops import (IDENTITY, segment_reduce, segment_sum,
                                      window_slots)
 from repro_torch.kernels import _build
+from repro_torch.kernels.spmv_merge import ref as _ref
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 
 #: Every CUDA source of this package, built in parallel by :func:`build`.
-SOURCES = (CSRC / "merge_stream.cu", CSRC / "chunk_walk.cu")
+SOURCES = (CSRC / "merge_path.cu", CSRC / "chunk_walk.cu")
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES = {"spmv_merge_stream": 0, "chunk_walk_tiles": 0,
@@ -43,7 +45,8 @@ _EMITS = ("tiles", "atoms", "compact")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "spmv_merge_stream_partials": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "spmv_merge_csr": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "spmv_merge_csr_tile": [],
     "chunk_walk_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P, _P],
     "chunk_walk_atoms": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -115,49 +118,88 @@ def _on_card(device: torch.device) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# K1: merge-path SpMV blocks.
+# K1: merge-path SpMV.
 # ---------------------------------------------------------------------------
 
-def merge_block_partials(stream_vals: torch.Tensor, stream_rows: torch.Tensor,
-                         row_base: torch.Tensor, *,
-                         block_items: int) -> torch.Tensor:
-    """Per-block row partials ``[G, r_loc]`` of the merged stream.
+@functools.cache
+def merge_path_tile() -> int:
+    """Merge items (rows + non-zeros) per CTA of the card's K1."""
+    return int(_function("merge_path", "spmv_merge_csr_tile")())
 
-    ``stream_vals`` f32 ``[G * block_items]``, ``stream_rows`` int32 (the
-    global row of each item, non-decreasing), ``row_base`` int32 ``[G]``
-    (block ``b``'s first row).  Bin ``r - row_base[b]`` of row ``b`` sums
-    the block's items of row ``r``; ``r_loc = round_up(block_items + 1,
-    128)`` as in the reference.
+
+def spmv_merge_csr(row_offsets: torch.Tensor, col_indices: torch.Tensor,
+                   values: torch.Tensor, x: torch.Tensor, *, num_rows: int,
+                   num_cols: int, block_items: int = 512) -> torch.Tensor:
+    """``y = A @ x`` for the CSR ``(row_offsets, col_indices, values)``
+    of shape ``(num_rows, num_cols)``: f32 ``[num_rows]``.
+
+    ``row_offsets`` int32 ``[num_rows + 1]`` (``row_offsets[-1]`` equal to
+    the non-zero count), ``col_indices`` int32 and ``values`` f32
+    ``[nnz]``, ``x`` f32 with at least ``num_cols`` entries.  On the card
+    the kernel cuts the merge path into its own tiles
+    (:func:`merge_path_tile`); ``block_items`` sets the blocks of the plain
+    version (:func:`spmv_merge_csr_ref`) only.
     """
-    device = stream_vals.device
-    total = int(stream_vals.shape[0])
-    if block_items < 1 or total % block_items:
-        raise ValueError(f"stream length {total} is not a multiple of "
-                         f"block_items={block_items}")
-    grid = total // block_items
-    _check(stream_vals, "stream_vals", torch.float32, device)
-    _check(stream_rows, "stream_rows", torch.int32, device, total)
-    _check(row_base, "row_base", torch.int32, device, grid)
-    r_loc = _round_up(block_items + 1, 128)
+    device = row_offsets.device
+    nnz = int(values.shape[0])
+    _check(row_offsets, "row_offsets", torch.int32, device, num_rows + 1)
+    _check(col_indices, "col_indices", torch.int32, device, nnz)
+    _check(values, "values", torch.float32, device, nnz)
+    _check(x, "x", torch.float32, device)
+    if x.shape[0] < num_cols:
+        raise ValueError(f"x has {x.shape[0]} entries, fewer than the "
+                         f"{num_cols} columns")
+    if block_items < 1:
+        raise ValueError(f"block_items={block_items} must be positive")
+    total = _int32(num_rows + nnz, "num_rows + nnz")
     if not _on_card(device):
-        return merge_block_partials_ref(stream_vals, stream_rows, row_base,
-                                        block_items=block_items)
-    out = torch.empty((grid, r_loc), dtype=torch.float32, device=device)
-    if grid:
-        _launch("merge_stream", "spmv_merge_stream_partials",
-                stream_vals.data_ptr(), stream_rows.data_ptr(),
-                row_base.data_ptr(), _int32(grid, "grid"),
-                _int32(block_items, "block_items"), _int32(r_loc, "r_loc"),
-                out.data_ptr())
-        LAUNCHES["spmv_merge_stream"] += 1
-    return out
+        return spmv_merge_csr_ref(row_offsets, col_indices, values, x,
+                                  num_rows=num_rows, block_items=block_items)
+    y = torch.empty(num_rows, dtype=torch.float32, device=device)
+    if total == 0:
+        return y
+    grid = -(-total // merge_path_tile())
+    carry_row = torch.empty(grid, dtype=torch.int32, device=device)
+    carry_val = torch.empty(grid, dtype=torch.float32, device=device)
+    _launch("merge_path", "spmv_merge_csr", row_offsets.data_ptr(),
+            col_indices.data_ptr(), values.data_ptr(), x.data_ptr(),
+            num_rows, nnz, carry_row.data_ptr(), carry_val.data_ptr(),
+            y.data_ptr())
+    LAUNCHES["spmv_merge_stream"] += 1
+    return y
+
+
+def spmv_merge_csr_ref(row_offsets: torch.Tensor, col_indices: torch.Tensor,
+                       values: torch.Tensor, x: torch.Tensor, *,
+                       num_rows: int, block_items: int = 512) -> torch.Tensor:
+    """Plain version of :func:`spmv_merge_csr`: the reference's blocked
+    formulation — the merged stream cut into ``block_items`` windows, per
+    block row partials, and the segment-sum fixup."""
+    nnz = int(values.shape[0])
+    total = _round_up(max(num_rows + nnz, 1), block_items)
+    stream_vals, stream_rows = _ref.merge_stream_ref(
+        row_offsets, col_indices, values, x, num_rows, nnz, total)
+    # a block may begin on padding (row == num_rows): clamp its base so its
+    # bins stay in range (its values are all zero regardless)
+    row_base = torch.clamp(stream_rows[::block_items],
+                           max=max(num_rows - 1, 0)).contiguous()
+    return spmv_merge_stream_ref(stream_vals, stream_rows, row_base,
+                                 num_rows=num_rows, block_items=block_items)
 
 
 def merge_block_partials_ref(stream_vals: torch.Tensor,
                              stream_rows: torch.Tensor,
                              row_base: torch.Tensor, *,
                              block_items: int) -> torch.Tensor:
-    """Plain version of :func:`merge_block_partials`."""
+    """Per-block row partials ``[G, r_loc]`` of the merged stream, as the
+    reference's block kernel writes them.
+
+    ``stream_vals`` f32 ``[G * block_items]``, ``stream_rows`` int32 (the
+    global row of each item, non-decreasing), ``row_base`` int32 ``[G]``
+    (block ``b``'s first row).  Bin ``r - row_base[b]`` of row ``b`` sums
+    the block's items of row ``r``; ``r_loc = round_up(block_items + 1,
+    128)``.
+    """
     total = int(stream_vals.shape[0])
     grid = total // block_items
     r_loc = _round_up(block_items + 1, 128)
@@ -169,19 +211,11 @@ def merge_block_partials_ref(stream_vals: torch.Tensor,
         grid, r_loc)
 
 
-def spmv_merge_stream(stream_vals: torch.Tensor, stream_rows: torch.Tensor,
-                      row_base: torch.Tensor, *, num_rows: int,
-                      block_items: int = 512) -> torch.Tensor:
-    """Run the block kernel over a pre-built merge stream and fix up the
-    rows that cross blocks; returns ``y`` ``[num_rows]``."""
-    partials = merge_block_partials(stream_vals, stream_rows, row_base,
-                                    block_items=block_items)
-    return _merge_fixup(partials, row_base, num_rows)
-
-
 def spmv_merge_stream_ref(stream_vals, stream_rows, row_base, *,
                           num_rows: int, block_items: int = 512):
-    """Plain version of :func:`spmv_merge_stream`."""
+    """The reference's ``spmv_merge_stream`` over a pre-built merge stream:
+    block partials, then the rows that cross blocks fixed up; returns ``y``
+    ``[num_rows]``."""
     partials = merge_block_partials_ref(stream_vals, stream_rows, row_base,
                                         block_items=block_items)
     return _merge_fixup(partials, row_base, num_rows)
@@ -224,7 +258,10 @@ def chunk_walk_reduce(vals_padded: torch.Tensor,
     window]`` (compact mode only: the compacted atom ids, whose chunk
     bounds ``atom_starts`` then cover).  Same contract as the reference's
     ``chunk_walk_reduce``; cross-chunk tiles are left to the caller's
-    fixup.
+    fixup.  On the card only the rows of chunks that some queue pops are
+    written (the output is ``torch.empty``); the plain version fills the
+    others with the identity, and the reference leaves them undefined.
+    Every partition the port builds pops every chunk.
     """
     if combiner not in _COMBINER_CODE:
         raise ValueError(f"unknown combiner: {combiner!r}")

@@ -7,7 +7,6 @@ from repro_torch.core.execute import (ExecutionPath, choose_execution_path,
                                       execute_tile_reduce)
 from repro_torch.core.schedules import Schedule, make_partition
 from repro_torch.kernels.spmv_merge import kernel as _kernel
-from repro_torch.kernels.spmv_merge import ref as _ref
 
 #: Grid the autotuner scores against when no explicit num_blocks is given.
 DEFAULT_NUM_BLOCKS = 64
@@ -27,22 +26,6 @@ def merge_block_items(A, num_blocks: int) -> int:
     return max(_round_up(-(-(A.shape[0] + A.nnz) // num_blocks), 128), 128)
 
 
-def merge_stream_operands(A, x: torch.Tensor, *, block_items: int):
-    """``(stream_vals, stream_rows, row_base)``: the merge-path block
-    kernel's operands for ``y = A @ x``, as :func:`spmv_merge_path` builds
-    them."""
-    num_rows = A.shape[0]
-    total = _round_up(max(num_rows + A.nnz, 1), block_items)
-    stream_vals, stream_rows = _ref.merge_stream_ref(
-        A.row_offsets, A.col_indices, A.values, x, num_rows, A.nnz, total)
-    grid = total // block_items
-    row_base = stream_rows[::block_items][:grid]
-    # a block may begin on padding (row == num_rows): clamp its base so
-    # its bins stay in range (its values are all zero regardless)
-    row_base = torch.clamp(row_base, max=max(num_rows - 1, 0)).contiguous()
-    return stream_vals, stream_rows, row_base
-
-
 def spmv_merge_path(A, x: torch.Tensor, *, num_blocks: int | None = None,
                     block_items: int = 512,
                     schedule: Schedule | str | None = None,
@@ -50,17 +33,19 @@ def spmv_merge_path(A, x: torch.Tensor, *, num_blocks: int | None = None,
                     ) -> torch.Tensor:
     """Merge-path SpMV ``y = A @ x`` for a :class:`repro_torch.sparse.CSR`.
 
-    ``schedule=None`` runs the merge-path block kernel over the merged
-    (rows + nnz) stream; ``num_blocks`` (if given) overrides
-    ``block_items`` to target that grid.
+    ``schedule=None`` runs the merge-path kernel over the CSR.
+    ``block_items``, or ``num_blocks`` (which overrides it to target that
+    grid), cuts the blocks of the plain version — the CPU path, the
+    reference's blocked formulation; on the card the kernel cuts the merge
+    path into its own tiles.
 
     ``schedule`` set runs the chunk-walk executor over a Partition instead:
     ``"auto"`` asks the cost-model autotuner for a (schedule, path) plan;
     ``"chunked"``/``"chunked_lpt"``/``"chunked_rr"``/``"adaptive"`` build
     that dynamic partition.  With ``execution_path="auto"`` or
     ``"native"`` they run on the chunk-walk kernel; ``"pure"`` keeps the
-    reference's fallback, the merge-stream kernel at chunk granularity.
-    Other explicit schedules set the merge-stream grid to ``num_blocks``.
+    reference's fallback, the merge-path SpMV on the chunk-level grid.
+    Other explicit schedules set that grid to ``num_blocks``.
     """
     if schedule is not None:
         policy = _CHUNK_POLICIES.get(str(schedule))
@@ -91,6 +76,7 @@ def spmv_merge_path(A, x: torch.Tensor, *, num_blocks: int | None = None,
                 num_blocks = min(DEFAULT_CHUNK_FACTOR * nb, max(A.nnz, 1))
     if num_blocks is not None:
         block_items = merge_block_items(A, num_blocks)
-    return _kernel.spmv_merge_stream(
-        *merge_stream_operands(A, x, block_items=block_items),
-        num_rows=A.shape[0], block_items=block_items)
+    return _kernel.spmv_merge_csr(
+        A.row_offsets, A.col_indices, A.values.float().contiguous(),
+        x.float().contiguous(), num_rows=A.shape[0], num_cols=A.shape[1],
+        block_items=block_items)

@@ -9,7 +9,8 @@ JAX's caches).
 
 Integer-valued sums and min/max are compared bitwise; real-valued sums to
 a relative 1e-5 (the plain versions add in atomic order on the card, the
-kernels in a fixed order).  The segmented-matmul kernels (K5/K6) are held
+kernels in a fixed order); the merge-path SpMV (K1) likewise, and the
+compacted gather (K4) bitwise, being a copy.  The segmented-matmul kernels (K5/K6) are held
 to their plain versions bitwise on integer-valued operands and to rtol
 1e-4 on real ones (5e-2 for bfloat16), and to each other bitwise.  The
 banded sliding-window attention kernel (K7) is held to its plain version
@@ -163,6 +164,165 @@ def test_spmv_merge_path(card, schedule):
     torch.testing.assert_close(y, spmv_reference(A, x), rtol=1e-5, atol=1e-4)
     name = "spmv_merge_stream" if schedule is None else "chunk_walk_tiles"
     assert TK.LAUNCHES[name] == before[name] + 1
+
+
+# ---------------------------------------------------------------------------
+# K1: the merge-path SpMV straight from the CSR.
+# ---------------------------------------------------------------------------
+
+#: Row sizes and column counts of the merge-path hazards: no rows, rows but
+#: no non-zeros, only the last row non-empty, V + nnz not a multiple of 128,
+#: long empty runs between hubs, one-non-zero rows across many tiles.
+MERGE_CSRS = {
+    "no_rows": ([], 7),
+    "no_nonzeros": ([0] * 5000, 7),
+    "last_row_only": ([0] * 4000 + [300], 50),
+    "odd_total": ([5, 0, 3] * 401 + [1], 40),
+    "empty_runs": (([0] * 3000 + [7000]) * 3 + [2], 900),
+    "singletons": ([1] * 20_000, 300),
+}
+
+
+def _merge_csr(sizes, num_cols, card, *, integer=True, seed=0):
+    rng = np.random.default_rng(seed)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    nnz = int(offsets[-1])
+    cols = rng.integers(0, num_cols, nnz).astype(np.int32)
+    if integer:
+        vals, x = rng.integers(-4, 5, nnz), rng.integers(-3, 4, num_cols)
+    else:
+        vals, x = rng.standard_normal(nnz), rng.standard_normal(num_cols)
+    as_card = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+    return (as_card(offsets), as_card(cols), as_card(vals.astype(np.float32)),
+            as_card(x.astype(np.float32)))
+
+
+def _check_merge_path(operands, num_rows, num_cols, integer, tag):
+    kw = dict(num_rows=num_rows, num_cols=num_cols)
+    before = TK.LAUNCHES["spmv_merge_stream"]
+    got = TK.spmv_merge_csr(*operands, **kw)
+    launched = num_rows + int(operands[2].shape[0]) > 0   # else nothing to do
+    assert TK.LAUNCHES["spmv_merge_stream"] == before + launched
+    want = TK.spmv_merge_csr_ref(*operands, num_rows=num_rows)
+    torch.cuda.synchronize()
+    if integer:
+        assert_bitwise(got, want, tag)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, msg=tag)
+    return got
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("name", sorted(MERGE_CSRS))
+def test_merge_path_matches_plain(card, name, integer):
+    sizes, num_cols = MERGE_CSRS[name]
+    ops = _merge_csr(sizes, num_cols, card, integer=integer)
+    _check_merge_path(ops, len(sizes), num_cols, integer, name)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_merge_path_power_law(card, integer):
+    A = random_csr(3000, 3000, 60_000, skew=1.3, empty_frac=0.3, seed=4,
+                   device=card)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(3000).astype(np.float32)
+                         ).to(card)
+    values = A.values
+    if integer:
+        values, x = values.sign(), x.sign()
+    _check_merge_path((A.row_offsets, A.col_indices, values, x), 3000, 3000,
+                      integer, "power_law")
+
+
+@pytest.mark.parametrize("spans", [(65,), (600,), (300, 260)], ids=str)
+def test_merge_path_hub_row_over_64_tiles(card, spans):
+    """Rows longer than 64 tiles; past 256 tiles a row's carries cross the
+    carry kernel's CTAs.  Integer-valued: bitwise.  Real-valued rows of
+    ~10**6 terms cancel to ~10**-3 of their absolute sum, and the plain
+    version adds in atomic order on the card, so there the kernel is held
+    to the exact (float64) sum, within 1e-5 of each row's absolute sum."""
+    tile = TK.merge_path_tile()
+    sizes = [3] * 10
+    for span in spans:
+        sizes += [span * tile + 17] + [0] * 5 + [2] * 10
+    ops = _merge_csr(sizes, 5000, card, integer=True, seed=1)
+    _check_merge_path(ops, len(sizes), 5000, True, "hub")
+    ops = _merge_csr(sizes, 5000, card, integer=False, seed=1)
+    got = TK.spmv_merge_csr(*ops, num_rows=len(sizes), num_cols=5000)
+    offsets, cols, vals, x = (t.cpu().numpy() for t in ops)
+    terms = vals.astype(np.float64) * x[cols].astype(np.float64)
+    rows = np.repeat(np.arange(len(sizes)), np.diff(offsets))
+    exact, scale = np.zeros(len(sizes)), np.zeros(len(sizes))
+    np.add.at(exact, rows, terms)
+    np.add.at(scale, rows, np.abs(terms))
+    err = np.abs(got.cpu().numpy() - exact)
+    assert (err <= 1e-5 * scale).all(), float((err / scale).max())
+
+
+def test_merge_path_negative_zero_products_give_positive_zero(card):
+    offsets, cols, _, _ = _merge_csr([2, 0, 1] * 700 + [5000], 30, card)
+    vals = torch.full(cols.shape, -1.0, device=card)
+    x = torch.zeros(30, device=card)
+    got = _check_merge_path((offsets, cols, vals, x), 2101, 30, True, "-0")
+    assert (got.view(torch.int32) == 0).all()
+
+
+def test_merge_path_is_deterministic(card):
+    ops = _merge_csr([3] * 10 + [50_000] + [1] * 5000, 4000, card,
+                     integer=False, seed=2)
+    runs = [TK.spmv_merge_csr(*ops, num_rows=5011, num_cols=4000)
+            for _ in range(3)]
+    for r in runs[1:]:
+        assert_bitwise(r, runs[0])
+
+
+# ---------------------------------------------------------------------------
+# K4: the compacted gather.
+# ---------------------------------------------------------------------------
+
+#: (name, chunk lengths, window, queue lengths): the window not a multiple
+#: of 4, a window under one 4,096-slot slice, several slices, capacity under
+#: the chunk count (empty chunks), chunk starts off multiples of 4, queues
+#: of unequal length.
+COMPACT_CASES = [
+    ("aligned_slices", [9000] * 6 + [8000], 9000, [3, 1, 0, 3]),
+    ("window_mod4", [1003] * 9 + [500], 1003, [4, 4, 2]),
+    ("under_one_slice", [100] * 50, 100, [13, 13, 12, 12]),
+    ("capacity_under_chunks", [1] * 5 + [0] * 7, 1, [5, 0, 7]),
+    ("unaligned_starts", [5, 4097, 3, 0, 4100, 1, 4101, 7], 4101, [1, 2, 5]),
+]
+
+
+@pytest.mark.parametrize("combiner", ["sum", "min", "max"])
+@pytest.mark.parametrize("case", COMPACT_CASES, ids=lambda c: c[0])
+def test_chunk_walk_compact_matches_plain(card, case, combiner):
+    _, lengths, window, queue_lengths = case
+    rng = np.random.default_rng(len(lengths))
+    num_chunks = len(lengths)
+    assert sum(queue_lengths) == num_chunks
+    starts = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    capacity, n = int(starts[-1]), 50_000
+    vals = rng.standard_normal(n + window).astype(np.float32)
+    vals[n:] = T.COMBINER_IDENTITY[combiner]
+    idx = rng.integers(0, n + 1, capacity + window).astype(np.int32)
+    order = rng.permutation(num_chunks)
+    max_chunks = max(queue_lengths)
+    queues = np.zeros((len(queue_lengths), max_chunks), np.int32)
+    at = 0
+    for p, m in enumerate(queue_lengths):
+        queues[p, :m] = order[at:at + m]
+        at += m
+    as_card = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+    args = (as_card(vals), None, as_card(starts),
+            as_card(np.zeros_like(starts)), as_card(queues.reshape(-1)),
+            as_card(np.asarray(queue_lengths, np.int32)), None, as_card(idx))
+    kw = dict(window=window, local_tiles=1, max_chunks=max_chunks,
+              combiner=combiner, emit="compact")
+    before = TK.LAUNCHES["chunk_walk_compact"]
+    got = TK.chunk_walk_reduce(*args, **kw)
+    assert TK.LAUNCHES["chunk_walk_compact"] == before + 1
+    torch.cuda.synchronize()
+    assert_bitwise(got, TK.chunk_walk_reduce_ref(*args, **kw))
 
 
 def test_spmm_runs_the_tiles_kernel(card):

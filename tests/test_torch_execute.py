@@ -229,7 +229,8 @@ class TestKernelPlainVersions:
 
     @pytest.mark.parametrize("block_items", [128, 256])
     def test_merge_stream(self, block_items):
-        """K1 (+ its fixup) on an integer-valued merge stream."""
+        """K1's plain version (the blocked formulation + its fixup) on an
+        integer-valued merge stream, and the K1 wrapper on the CSR."""
         rng = np.random.default_rng(7)
         sizes = rng.zipf(1.5, 120) % 40
         sizes[rng.random(120) < 0.2] = 0
@@ -251,9 +252,12 @@ class TestKernelPlainVersions:
         want = JK.spmv_merge_stream(js[0], js[1], jnp.asarray(row_base),
                                     num_rows=120, block_items=block_items,
                                     interpret=True)
-        for run in (TK.spmv_merge_stream_ref, TK.spmv_merge_stream):
-            assert_bitwise(run(ts[0], ts[1], t32(row_base), num_rows=120,
-                               block_items=block_items), want)
+        assert_bitwise(TK.spmv_merge_stream_ref(
+            ts[0], ts[1], t32(row_base), num_rows=120,
+            block_items=block_items), want)
+        assert_bitwise(TK.spmv_merge_csr(
+            t32(offsets), t32(cols), t32(values), t32(x), num_rows=120,
+            num_cols=50, block_items=block_items), want)
         assert_bitwise(TR.spmv_ref(t32(offsets), t32(cols), t32(values),
                                    t32(x), 120),
                        JR.spmv_ref(jnp.asarray(offsets), jnp.asarray(cols),
@@ -271,4 +275,5 @@ class TestKernelPlainVersions:
             TK.chunk_walk_reduce(v, i, starts, starts, starts[:1],
                                  starts[:1], emit="rows", **ok)
         with pytest.raises(ValueError, match="block_items"):
-            TK.merge_block_partials(v, i, starts[:1], block_items=3)
+            TK.spmv_merge_csr(starts, i, v, v, num_rows=1, num_cols=8,
+                              block_items=0)

@@ -126,14 +126,13 @@ def test_constructors_default_to_the_card():
 
 def test_wrappers_take_plain_version_only_on_cpu():
     before = dict(TK.LAUNCHES)
-    stream = torch.zeros(256)
-    rows = torch.zeros(256, dtype=torch.int32)
-    base = torch.zeros(2, dtype=torch.int32)
-    out = TK.merge_block_partials(stream, rows, base, block_items=128)
-    assert out.shape == (2, 256) and TK.LAUNCHES == before
+    csr = (torch.arange(3, dtype=torch.int32) * 2,
+           torch.zeros(4, dtype=torch.int32), torch.ones(4), torch.ones(3))
+    out = TK.spmv_merge_csr(*csr, num_rows=2, num_cols=3, block_items=128)
+    assert out.shape == (2,) and TK.LAUNCHES == before
     with pytest.raises(ValueError, match="device"):
-        TK.merge_block_partials(stream.to("meta"), rows.to("meta"),
-                                base.to("meta"), block_items=128)
+        TK.spmv_merge_csr(*[t.to("meta") for t in csr], num_rows=2,
+                          num_cols=3, block_items=128)
     seg_before = dict(SK.LAUNCHES)
     lhs, rhs = torch.ones(16, 8), torch.ones(2, 8, 8)
     experts = torch.tensor([0, 1], dtype=torch.int32)
