@@ -21,63 +21,75 @@ Phases, in order; any failure exits non-zero:
    run: ``spmv_merge_path`` (``schedule=None`` and ``chunked_lpt``),
    ``bfs`` with parents, ``sssp``, ``delta_stepping`` and ``pagerank``,
    each on ``chunked_lpt`` and ``merge_path`` with ``path="native"``;
-   every kernel's counter must have risen.  Then ``schedule="auto"`` once;
-6. moe/forest data — one MoE layer at OLMoE-1B-7B width (d_model 2048,
+   every kernel's counter must have risen (``segment_sum_sorted``, the
+   ordered float segment sum under every fixup, included).  Then
+   ``schedule="auto"`` once;
+6. determinism — ``pagerank`` and ``spmv_merge_path`` on ``chunked_lpt``
+   twice each, bitwise equal (the graph's hub row spans ~100 chunks),
+   timed beside the same calls with the float sums on
+   ``index_add_`` (atomic order, as before the ordered sum); and
+   ``segment_sum_sorted`` at PageRank's fixup shape against its plain
+   version (bitwise on integer-valued data, rtol 1e-4 on real data),
+   timed with and without its sort, beside ``index_add_``;
+7. moe/forest data — one MoE layer at OLMoE-1B-7B width (d_model 2048,
    64 experts of d_ff 1024, top-8; f32 weights from ``--seed``) on one
    4,096-token sequence, routed plainly (skew 0) and with the router's
    columns biased by ``-0.5 * arange(64)`` (skew 0.5); and a forest of
    11,855 random binary trees (SST's sentence count, 1-56 leaves) at
    feature width 128, integer-valued inputs and weights;
-7. segmm parity — K5 and K6 at the MoE's ``w1`` shapes (``bm=128``) and at
+8. segmm parity — K5 and K6 at the MoE's ``w1`` shapes (``bm=128``) and at
    the forest's level-GEMM shapes (``bm=8``, ``K=N=128``) against their
    plain versions: bitwise on integer-valued operands, rtol 1e-4 on real
    ones, and K6 bitwise equal to K5 on real ones;
-8. moe     — counters zeroed; ``MoELayer`` (``moe_sorted``) at both
+9. moe     — counters zeroed; ``MoELayer`` (``moe_sorted``) at both
    skews on ``group_mapped``, ``chunked_rr`` and ``chunked_lpt`` x
    native/pure, plus ``"auto"``: outputs bitwise equal, equal to ``moe_capacity`` with a
    capacity that drops nothing (rtol/atol 2e-3), ``aux`` equal, three
    segmm launches per call;
-9. wavefront — counters zeroed; ``treelstm_forest`` with a clip activation
+10. wavefront — counters zeroed; ``treelstm_forest`` with a clip activation
    on ``chunked_lpt`` and ``merge_path`` (native), and
    ``build_wavefront(path="pure")`` + ``treelstm_embed``: bitwise equal to
    each other and to a sequential per-node NumPy oracle on 256 trees; then
    one ``tanh`` run;
-10. times  — each kernel (CUDA events) beside its bound, its plain version
+11. times  — each kernel (CUDA events) beside its bound, its plain version
    and a PyTorch library call where one computes the same thing (K5/K6 at
    both segmm shapes, with their TFLOP/s, share of the f32 peak, ratio to
    ``torch.bmm`` and K6's team and CTA count); end-to-end times of the
    entry points;
-11. flash parity — K7 (``flash_swa``) against its plain version at
+12. flash parity — K7 (``flash_swa``) against its plain version at
    H2O-Danube3-4B's attention shapes (B 1, S 8192, 32/8 heads of 120,
    window 4096) in float32 (atol/rtol 2e-5) and bfloat16 (rtol 1e-2, atol
    1e-4 against the float32 plain version on the same bf16-rounded
    inputs), at the edges ``window == S``, ``S == window == qc`` and
    ``Hkv == H``, and against the port's own ``_attend`` over the
    whole 8,192-token sequence (8 GiB of float32 scores, freed after);
-12. lm data — H2O-Danube3-4B at full width and depth (24 layers, d_model
+13. lm data — H2O-Danube3-4B at full width and depth (24 layers, d_model
    3840, 3,961,839,360 parameters), weights drawn from ``--seed`` on the
    card and cast once to bfloat16;
-13. serve — counters zeroed; ``DecoderLM.prefill`` of one 32,768-token
+14. serve — counters zeroed; ``DecoderLM.prefill`` of one 32,768-token
    prompt (the ``prefill_32k`` shape, batch cut from 32 to 1) in bfloat16
    with a 4,096-slot ring cache, then 32 greedy ``decode_step`` +
    ``sample_logits`` steps: K7 launched once per layer in the prefill and
-   never in decode, every id in the vocabulary, every logit finite;
-14. consistency — the reference's prefill/decode check
+   never in decode, all 24 on the tensor-core kernel (``flash_swa_mma``),
+   every id in the vocabulary, every logit finite;
+15. consistency — the reference's prefill/decode check
    (``tests/test_models.py``) at full width, depth cut to 2, float32: a
    6,144-token prefill (banded) and 1,024 teacher-forced decode steps
    against ``forward`` on all 7,168 tokens, at position 6,143 and every
    128th after it, rtol/atol 2e-3;
-15. swa times — K7 at the prefill's launch shape (S 32,768, bfloat16)
-   beside its bound, its plain version and cuDNN's
-   ``scaled_dot_product_attention`` with the band mask; K7's output there
-   held to the float32 plain version (bfloat16 limits above) and to SDPA
-   (3e-2);
-16. the ``kernels:`` summary, the JSON kernels line, and the final
+16. swa times — K7 at the prefill's launch shape (S 32,768, bfloat16: the
+   tensor-core kernel) beside its bound, the flop it executes, its plain
+   version and cuDNN's ``scaled_dot_product_attention`` with the band
+   mask; K7's output there held to the float32 plain version (bfloat16
+   limits above) and to SDPA (3e-2); then the float32 K7 (the CUDA-core
+   kernel) at the same shape;
+17. the ``kernels:`` summary, the JSON kernels line, and the final
    ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -103,7 +115,7 @@ KERNELS = {   # counter name -> (CUDA source, the Pallas kernel it replaces)
     "segmented_matmul": (f"{SEGMM_CSRC}/segmm.cu", f"{SEGMM_REF}:50"),
     "segmented_matmul_chunked": (f"{SEGMM_CSRC}/segmm.cu",
                                  f"{SEGMM_REF}:128"),
-    "flash_swa": ("src/repro_torch/kernels/flash_swa/csrc/flash_swa.cu",
+    "flash_swa": ("src/repro_torch/kernels/flash_swa/csrc/flash_swa_mma.cu",
                   "src/repro/kernels/flash_swa/kernel.py:79"),
 }
 REAL_RTOL = 1e-4   # real-valued f32 sums in another order
@@ -546,6 +558,106 @@ def phase_main(A, x, g, plans, num_blocks: int, source: int):
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
     return launches, e2e
+
+
+@contextlib.contextmanager
+def atomic_sums():
+    """The port's float segment sums on the card through ``index_add_``
+    (atomic order), as they were before the ordered sum: the "before"
+    of :func:`phase_determinism`."""
+    import torch
+    from repro_torch.core import segops
+    ordered = segops.ordered_sum
+
+    def atomic(values, segment_ids, num_segments):
+        out = torch.zeros(num_segments, dtype=values.dtype,
+                          device=values.device)
+        return out.index_add_(0, segment_ids.to(torch.int64), values)
+
+    segops.ordered_sum = atomic
+    try:
+        yield
+    finally:
+        segops.ordered_sum = ordered
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def phase_determinism(A, x, g, plans, num_blocks: int, seed: int) -> dict:
+    """Ordered float sums: PageRank and the chunked SpMV bitwise across
+    two runs, each timed beside the same call on ``index_add_`` sums;
+    ``segment_sum_sorted`` at PageRank's fixup shape against its plain
+    version, timed.  Returns e2e seconds."""
+    import torch
+    from repro_torch.core import execute as E
+    from repro_torch.core import segops
+    from repro_torch.kernels.spmv_merge import kernel as K
+    from repro_torch.kernels.spmv_merge import ops as O
+    from repro_torch.sparse import pagerank
+
+    plan = plans["chunked_lpt"][0]
+    spec, part = plan.spec, plan.part
+    hub = int(g.out_degrees().max())
+    window, local_tiles = E._window_sizes(spec, part)
+    log(f"determinism: the hub row's {hub} non-zeros span "
+        f"{-(-hub // window)} chunks of chunked_lpt (window {window})")
+    calls = {
+        "pagerank[chunked_lpt]": lambda: pagerank(g, plan=plan),
+        "spmv_merge_path[chunked_lpt]": lambda: O.spmv_merge_path(
+            A, x, schedule="chunked_lpt", num_blocks=num_blocks)}
+    e2e = {}
+    for name, call in calls.items():
+        before = K.LAUNCHES["segment_sum_sorted"]
+        (a, s1), (b, s2) = wall_s(call), wall_s(call)
+        launched = K.LAUNCHES["segment_sum_sorted"] - before
+        check(same_bits(a, b), f"determinism: {name} differs between two "
+              f"runs")
+        with atomic_sums():
+            (c, s3), (d, s4) = wall_s(call), wall_s(call)
+        e2e[f"{name} ordered sums"] = s1
+        e2e[f"{name} index_add_ sums"] = s3
+        log(f"determinism {name}: two runs bitwise equal, "
+            f"{launched // 2} segment_sum_sorted launches a call; "
+            f"{s1 * 1e3:.3f} / {s2 * 1e3:.3f} ms with the ordered sums, "
+            f"{s3 * 1e3:.3f} / {s4 * 1e3:.3f} ms with index_add_ (atomic "
+            f"order; its two runs "
+            f"{'bitwise equal' if same_bits(c, d) else 'differ'})")
+        del a, b, c, d
+
+    # segment_sum_sorted at PageRank's fixup shape (fixup_partials' ids)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    gtid = part.tile_starts[:-1, None].long() + torch.arange(
+        local_tiles, device="cuda")[None, :]
+    ids = torch.where(gtid < spec.num_tiles, gtid,
+                      spec.num_tiles).reshape(-1)
+    num = spec.num_tiles + 1
+    keys, order = torch.sort(ids.to(torch.int32), stable=True)
+    n = int(ids.numel())
+    vals = torch.randn(n, generator=gen, device="cuda")
+    unit = unit_values(vals)
+    compare("segment_sum_sorted (integer-valued)",
+            K.segment_sum_sorted(unit, keys, num, order=order),
+            K.segment_sum_sorted_ref(unit, keys, num, order=order),
+            exact=True)
+    err = compare("segment_sum_sorted (real)",
+                  K.segment_sum_sorted(vals, keys, num, order=order),
+                  K.segment_sum_sorted_ref(vals, keys, num, order=order),
+                  exact=False)
+    ms = cuda_ms(lambda: K.segment_sum_sorted(vals, keys, num, order=order))
+    # what a fixup now runs: the id cast, the stable sort, the kernel
+    sort_ms = cuda_ms(lambda: segops.ordered_sum(vals, ids, num))
+    nbytes = 4 * n + 8 * n + 4 * n + 4 * num
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    library = cuda_ms(lambda: torch.zeros(num, device="cuda").index_add_(
+        0, ids, vals))
+    log(f"time segment_sum_sorted [PageRank's fixup: {n} partials into "
+        f"{num} segments]: {ms:.4f} ms (bound {bound:.4f} ms by bytes, "
+        f"{nbytes} B); with its stable sort {sort_ms:.4f} ms; library "
+        f"{library:.4f} ms (index_add_, atomic order); max abs err {err!r}")
+    return e2e
 
 
 def phase_auto(g, num_blocks: int, source: int):
@@ -1017,6 +1129,25 @@ def band_pairs(s: int, window: int) -> int:
     return n * (n + 1) // 2 + (s - n) * window
 
 
+def mma_executed_flop(s: int, window: int, heads: int, hd: int) -> int:
+    """Flop the tensor-core K7 (``csrc/flash_swa_mma.cu``) executes: per
+    (128-row query tile, head), every 64-row KV tile of its band whole —
+    ``Q K^T`` over the head padded to a multiple of 16, ``P V`` twice (the
+    split ``P``) over ``ceil(hd / 8)`` n8 tiles (rounded as the kernel's
+    widths are: 4, 8, 12, 15 or 16)."""
+    bq, bk = 128, 64          # the kernel's kBQ and kBK
+    tiles = 0
+    for q0 in range(0, s, bq):
+        q_last = min(q0 + bq, s) - 1
+        kt0 = max(0, q0 - window + 1) // bk * bk
+        tiles += (q_last - kt0) // bk + 1
+    n8 = -(-hd // 8)
+    n8 = next(w for w in (4, 8, 12, 15, 16) if n8 <= w)
+    padded = 16 * -(-n8 // 2)
+    per_tile = 2 * bq * bk * padded + 2 * (2 * bq * bk * 8 * n8)
+    return heads * tiles * per_tile
+
+
 def phase_swa_parity(cfg, seed: int) -> float:
     """K7 against its plain version at ``cfg``'s attention shapes, the
     edges, and the model's ``_attend`` core; returns the largest error."""
@@ -1106,6 +1237,10 @@ def phase_serve(model, seed: int, e2e) -> dict:
     check(prefill_counts["flash_swa"] == cfg.num_layers,
           f"serve: {prefill_counts['flash_swa']} K7 launches in the prefill, "
           f"expected one per layer ({cfg.num_layers})")
+    check(prefill_counts["flash_swa_mma"] == cfg.num_layers,
+          f"serve: {prefill_counts['flash_swa_mma']} of the prefill's K7 "
+          f"launches on the tensor-core kernel, expected all "
+          f"{cfg.num_layers}")
     ring = min(PROMPT + DECODE_STEPS, cfg.sliding_window)
     check(tuple(cache["k"].shape) == (cfg.num_layers, 1, ring,
                                       cfg.num_kv_heads,
@@ -1137,7 +1272,8 @@ def phase_serve(model, seed: int, e2e) -> dict:
     e2e[f"prefill[{cfg.name}, {PROMPT} tokens]"] = pre_s
     e2e[f"decode[{cfg.name}, {DECODE_STEPS} steps]"] = dec_s
     log(f"serve {cfg.name}: prefill {PROMPT} tokens in {pre_s * 1e3:.1f} ms "
-        f"({PROMPT / pre_s:.0f} tokens/s), K7 launches {counts['flash_swa']}; "
+        f"({PROMPT / pre_s:.0f} tokens/s), K7 launches {counts['flash_swa']} "
+        f"({counts['flash_swa_mma']} tensor-core); "
         f"{DECODE_STEPS} greedy decode steps in {dec_s * 1e3:.1f} ms "
         f"({dec_s * 1e3 / DECODE_STEPS:.2f} ms/token, "
         f"{DECODE_STEPS / dec_s:.1f} tokens/s, batch 1); ring cache {ring} "
@@ -1227,6 +1363,7 @@ def phase_swa_times(cfg, seed: int) -> dict:
         SWA_RTOL_BF16, SWA_ATOL_BF16)
     pairs = band_pairs(PROMPT, window)
     flops = 4 * hd * h * pairs
+    executed = mma_executed_flop(PROMPT, window, h, hd)
     nbytes = 2 * PROMPT * hd * (2 * h + 2 * hkv)
     bound_bf16 = flops / BF16_FLOP_PER_S * 1e3
     bound_f32 = flops / F32_FLOP_PER_S * 1e3
@@ -1243,13 +1380,24 @@ def phase_swa_times(cfg, seed: int) -> dict:
     library_ms = cuda_ms(call, warmup=1, iters=3)
     del band, got
     log(f"time flash_swa [S {PROMPT}, {h}/{hkv} heads of {hd}, window "
-        f"{window}, bf16]: {kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} "
-        f"TFLOP/s); bound {bound:.4f} ms by {bound_by} ({pairs} band pairs "
+        f"{window}, bf16, tensor cores]: {kernel_ms:.4f} ms "
+        f"({flops / kernel_ms / 1e9:.1f} TFLOP/s useful; executes {executed}"
+        f" flop, {executed / flops:.3f}x, {executed / kernel_ms / 1e9:.1f} "
+        f"TFLOP/s executed); bound {bound:.4f} ms by {bound_by} ({pairs} "
+        f"band pairs "
         f"per head, {flops} flop at 989 TFLOP/s bf16 = {bound_bf16:.4f} ms, "
         f"at 67 TFLOP/s f32 = {bound_f32:.4f} ms; {nbytes} bytes at 3.35 "
         f"TB/s = {bound_bytes:.4f} ms); plain {plain_ms:.3f} ms; library "
         f"{library_ms:.4f} ms (scaled_dot_product_attention, {backend}, with "
         f"the band mask)")
+    # the float32 K7 (the CUDA-core kernel) at the same shape
+    q, k, v = (t.float() for t in (q, k, v))
+    f32_ms = cuda_ms(lambda: FK.flash_swa(q, k, v, window=window, qc=qc),
+                     warmup=1, iters=3)
+    log(f"time flash_swa [S {PROMPT}, {h}/{hkv} heads of {hd}, window "
+        f"{window}, f32, CUDA cores]: {f32_ms:.4f} ms "
+        f"({flops / f32_ms / 1e9:.1f} TFLOP/s; bound {bound_f32:.4f} ms at "
+        f"67 TFLOP/s f32)")
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound, bound_by=bound_by, err=err)
 
@@ -1353,6 +1501,7 @@ def main(argv=None) -> int:
     rows = phase_parity_and_times(A, x, g, plans, num_blocks, args.seed)
     launches, e2e = phase_main(A, x, g, plans, num_blocks, source)
     phase_auto(g, num_blocks, source)
+    e2e.update(phase_determinism(A, x, g, plans, num_blocks, args.seed))
     if args.profile:
         from repro_torch.sparse import bfs, pagerank
         plan = plans["chunked_lpt"][0]

@@ -154,8 +154,8 @@ def blocked_tile_reduce(spec: WorkSpec, part: Partition, atom_fn: AtomFn,
     """Blocked execution faithful to the partition, in PyTorch.
 
     Each block reduces the atoms of its window into ``local_tiles`` bins
-    (one ``index_add_``/``scatter_reduce_`` over ``block * L + local``
-    bins: ``O(atoms + blocks * L)`` memory, no one-hot); cross-block tiles
+    (one ``segment_reduce`` over ``block * L + local`` bins: ``O(atoms +
+    blocks * L)`` memory, no one-hot); cross-block tiles
     are combined by :func:`fixup_partials`.  Masked atoms drop out.
     """
     identity = _check_combiner(combiner, dtype)

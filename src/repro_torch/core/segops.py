@@ -20,10 +20,16 @@ def segment_reduce(combiner: str, values: torch.Tensor,
     """Segmented ``sum``/``min``/``max``; empty segments hold the identity.
 
     Ids outside ``[0, num_segments)`` are not allowed (route dropped
-    values to an extra overflow segment and slice it off).  On CUDA the
-    float ``sum`` adds in atomic order, so it is exact only for exactly
-    summable values; ``min``/``max`` are exact regardless.
+    values to an extra overflow segment and slice it off).  Every result
+    has the same bits on every run: ``min``/``max`` and integer sums are
+    exact in any order (``scatter_reduce_``/``index_add_``); a float
+    ``sum`` adds in ascending position (``index_add_`` on the CPU) or, on
+    the card, in the order of a stable sort of the ids
+    (:func:`ordered_sum`).
     """
+    if (combiner == "sum" and values.is_floating_point()
+            and values.device.type == "cuda"):
+        return ordered_sum(values, segment_ids, num_segments)
     ids = segment_ids.to(torch.int64)
     if combiner == "sum":
         out = torch.zeros(num_segments, dtype=values.dtype,
@@ -33,6 +39,25 @@ def segment_reduce(combiner: str, values: torch.Tensor,
                      device=values.device)
     return out.scatter_reduce_(0, ids, values, _SCATTER_REDUCE[combiner],
                                include_self=True)
+
+
+def ordered_sum(values: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Float segment sum of 1-D ``values`` in a fixed order: the items
+    sorted by id with a stable sort (unique, so the same on every run),
+    then summed run by run by the ``segment_sum_sorted`` kernel (on CPU
+    tensors its plain version).  float16/bfloat16 values are summed in
+    float32 and rounded once."""
+    # imported here: the kernels' module imports this one
+    from repro_torch.kernels.spmv_merge.kernel import segment_sum_sorted
+    if values.dim() != 1:
+        raise ValueError(f"the ordered sum takes 1-D values, got shape "
+                         f"{tuple(values.shape)}")
+    keys, order = torch.sort(segment_ids.to(torch.int32), stable=True)
+    wide = (values if values.dtype in (torch.float32, torch.float64)
+            else values.float())
+    return segment_sum_sorted(wide.contiguous(), keys, num_segments,
+                              order=order).to(values.dtype)
 
 
 def window_slots(starts: torch.Tensor, n: int, window: int):
@@ -79,6 +104,6 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
     return exp / torch.clamp(denom[ids], min=1e-30)
 
 
-def exclusive_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+def exclusive_cumsum(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """Exclusive prefix sum — the group-mapped schedule's setup primitive."""
-    return torch.cumsum(x, dim=dim) - x
+    return torch.cumsum(x, dim=axis) - x

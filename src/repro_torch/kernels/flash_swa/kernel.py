@@ -1,20 +1,27 @@
-"""Wrapper of the banded sliding-window attention CUDA kernel (K7), beside
-its plain version.
+"""Wrappers of the banded sliding-window attention CUDA kernels (K7),
+beside their plain version.
 
-===============  ======================  ===============================
-launch counter   CUDA source             replaces (reference)
-===============  ======================  ===============================
-``flash_swa``    ``csrc/flash_swa.cu``   ``kernels/flash_swa/kernel.py::
-                                         flash_swa``
-===============  ======================  ===============================
+=================  ==========================  ===========================
+launch counter     CUDA source                 inputs
+=================  ==========================  ===========================
+``flash_swa_mma``  ``csrc/flash_swa_mma.cu``   bfloat16, ``hd <= 128``
+                                               (tensor cores)
+``flash_swa``      ``csrc/flash_swa.cu``       float32, or bfloat16 with
+                                               ``128 < hd <= 256`` (CUDA
+                                               cores); it also counts
+                                               every launch of the other
+=================  ==========================  ===========================
 
+Both replace the reference's ``kernels/flash_swa/kernel.py::flash_swa``.
 :func:`flash_swa` checks its operands as the reference does (``S % qc ==
-0`` and ``window % qc == 0``; ``qc`` is only checked: the kernel picks its
-own 64-row tiles), allocates the output, and for CUDA tensors launches the
-kernel on the current stream and adds one to :data:`LAUNCHES`; for CPU
-tensors it runs :func:`flash_swa_plain`, which is also what the kernel is
-tested against.  Other devices raise.  Unlike the reference kernel it takes
-GQA operands directly (``k``/``v`` with ``Hkv`` heads, ``H % Hkv == 0``).
+0`` and ``window % qc == 0``; ``qc`` is only checked: the kernels pick
+their own tiles), allocates the output, and for CUDA tensors
+launches the kernel that :func:`kernel_for` names on the current stream
+and adds one to its counters in :data:`LAUNCHES`; for CPU tensors it runs
+:func:`flash_swa_plain`, which is also what the kernels are tested
+against.  Other devices raise.  Unlike the reference kernel it takes GQA
+operands directly (``k``/``v`` with ``Hkv`` heads, ``H % Hkv == 0``).
+float32 stays off the tensor cores: TF32 would round its inputs.
 """
 from __future__ import annotations
 
@@ -28,20 +35,31 @@ from repro_torch.kernels import _build
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 
 #: Every CUDA source of this package, built in parallel by :func:`build`.
-SOURCES = (CSRC / "flash_swa.cu",)
+SOURCES = (CSRC / "flash_swa.cu", CSRC / "flash_swa_mma.cu")
 
-#: Kernel launches since the last :func:`reset_launch_counts`.
-LAUNCHES = {"flash_swa": 0}
+#: Kernel launches since the last :func:`reset_launch_counts`:
+#: ``flash_swa`` counts every K7 launch, ``flash_swa_mma`` those of the
+#: tensor-core kernel.
+LAUNCHES = {"flash_swa": 0, "flash_swa_mma": 0}
 
-#: Widest head the kernel takes (its accumulators are 8 columns a lane).
+#: Widest head the CUDA-core kernel takes (its accumulators are 8 columns a
+#: lane).
 MAX_HEAD_DIM = 256
+
+#: Widest head the tensor-core kernel takes (its output tile lives in
+#: registers).
+MMA_MAX_HEAD_DIM = 128
 
 NEG_INF = -1e30
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "flash_swa_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "flash_swa_mma_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                          _P],
+}
 
 
 def reset_launch_counts() -> None:
@@ -82,6 +100,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
     return b, s, h, hkv, hd
 
 
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The counter of the kernel that takes ``dtype`` inputs with heads of
+    ``head_dim``: ``"flash_swa_mma"`` or ``"flash_swa"``."""
+    if dtype == torch.bfloat16 and head_dim <= MMA_MAX_HEAD_DIM:
+        return "flash_swa_mma"
+    return "flash_swa"
+
+
+def _function(source: pathlib.Path, name: str):
+    fn = getattr(_build.load(source), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _on_card(device: torch.device) -> bool:
     """True for CUDA (launch the kernel), False for CPU (plain version)."""
     if device.type == "cuda":
@@ -104,16 +137,24 @@ def flash_swa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM}: the kernel does "
                          f"not take it")
     out = torch.empty_like(q)
-    fn = _build.load(SOURCES[0]).flash_swa_fwd
-    fn.argtypes = _SIGNATURE
-    fn.restype = ctypes.c_int
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], b, s, h, hkv, hd, min(window, s),
-            hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    name = kernel_for(q.dtype, hd)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if name == "flash_swa_mma":
+        # 16-byte cp.async rows need hd % 8 == 0 and aligned bases
+        vec = int(hd % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+        rc = _function(SOURCES[1], "flash_swa_mma_fwd")(
+            *ptrs, b, s, h, hkv, hd, min(window, s), hd ** -0.5, vec, stream)
+    else:
+        rc = _function(SOURCES[0], "flash_swa_fwd")(
+            *ptrs, _DTYPE_CODE[q.dtype], b, s, h, hkv, hd, min(window, s),
+            hd ** -0.5, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_swa: kernel launch failed with CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
     LAUNCHES["flash_swa"] += 1
+    if name == "flash_swa_mma":
+        LAUNCHES["flash_swa_mma"] += 1
     return out
 
 

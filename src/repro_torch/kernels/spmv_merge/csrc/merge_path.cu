@@ -43,10 +43,11 @@
 //   threads: a CTA-wide segmented scan of the threads' open rows gives its
 //   carry-in.  The row still open at the tile's end goes out as a carry
 //   (row, partial) to a per-tile scratch array.
-// * Carries: a second kernel adds every run of equal carry rows (they are
-//   non-decreasing in tile order) into y with a segmented scan, one carry
-//   per thread; a run longer than a CTA's share is summed by the CTA where
-//   it ends, walking back over the earlier carries.
+// * Carries: a second kernel (segreduce::add_carries_kernel) adds every
+//   run of equal carry rows (they are non-decreasing in tile order) into y
+//   with a segmented scan, one carry per thread; a run longer than a CTA's
+//   share is summed by the CTA where it ends, walking back over the
+//   earlier carries.
 // * Every row is written exactly once by the first kernel; no atomics, so
 //   y has the same bits on every run.
 #include "segreduce.cuh"
@@ -60,33 +61,9 @@ constexpr int kThreads = 256;
 constexpr int kItems = 8;                       // merge items per thread
 constexpr int kTile = kThreads * kItems;        // merge items per CTA
 constexpr int kBlocksPerSM = 6;
-constexpr int kFixThreads = 256;                // carries per CTA, one each
-constexpr int kBackItems = 8;                   // look-back loads per thread
-constexpr int kNoRow = -1;
-constexpr unsigned kFull = 0xffffffffu;
 
 using segreduce::block_seg_sum;
-
-// Rows fully consumed before merge diagonal d: the number of rows i whose
-// end sits before d on the path, #{i < num_rows : row_end[i] + i < d}.
-// One warp, 32 probes per round.
-__device__ int warp_rows_before(const int* __restrict__ row_end,
-                                int num_rows, int d) {
-  const int lane = threadIdx.x & 31;
-  int lo = 0;
-  int hi = d < num_rows ? d : num_rows;          // the answer is in [lo, hi]
-  while (lo < hi) {
-    const int p = lo + static_cast<int>(
-        (static_cast<long long>(hi - lo) * (lane + 1)) / 33);
-    const bool before = __ldg(row_end + p) + p < d;
-    const int c = __popc(__ballot_sync(kFull, before));
-    const int p_below = __shfl_sync(kFull, p, c > 0 ? c - 1 : 0);
-    const int p_above = __shfl_sync(kFull, p, c < 32 ? c : 31);
-    if (c > 0) lo = p_below + 1;
-    if (c < 32) hi = p_above;
-  }
-  return lo;
-}
+using segreduce::kCarryThreads;
 
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 merge_path_kernel(const int* __restrict__ row_offsets,
@@ -109,7 +86,8 @@ merge_path_kernel(const int* __restrict__ row_offsets,
   const int warp = tid >> 5;
   if (warp < 2) {
     const int d = warp == 0 ? d0 : d1;
-    const int r = warp_rows_before(row_offsets + 1, num_rows, d);
+    // rows fully consumed before d
+    const int r = segreduce::warp_merge_search(row_offsets + 1, num_rows, d);
     if ((tid & 31) == 0) {
       s_coord[2 * warp] = r;
       s_coord[2 * warp + 1] = d - r < nnz ? d - r : nnz;
@@ -200,69 +178,6 @@ merge_path_kernel(const int* __restrict__ row_offsets,
   }
 }
 
-// y[r] += the sum of the carries of row r, for every row some tile left
-// open.  CTA c takes carries [c * kFixThreads, (c + 1) * kFixThreads), one
-// per thread, and adds each run of equal rows that ends there (a
-// segmented scan; the rows are non-decreasing).  The chunk's first run may
-// have begun in earlier chunks (a row longer than many tiles): then the
-// CTA first sums those earlier carries, kBackItems per thread at a time.
-__global__ void __launch_bounds__(kFixThreads)
-merge_path_carries_kernel(const int* __restrict__ carry_row,
-                          const float* __restrict__ carry_val, int grid,
-                          int num_rows, float* __restrict__ y) {
-  __shared__ int s_wkey[kFixThreads / 32];
-  __shared__ float s_wval[kFixThreads / 32];
-  __shared__ float s_part[kFixThreads];
-  const int tid = static_cast<int>(threadIdx.x);
-  const int c0 = static_cast<int>(blockIdx.x) * kFixThreads;
-  const int c1 = grid - c0 > kFixThreads ? c0 + kFixThreads : grid;
-  const int b = c0 + tid;
-  const int row = b < c1 ? carry_row[b] : INT_MAX;
-  const float val = b < c1 ? carry_val[b] : 0.0f;
-  const int after = b + 1 < grid ? carry_row[b + 1] : INT_MAX;
-  const float sum = block_seg_sum<kFixThreads>(row, val, s_wkey, s_wval);
-
-  // the earlier part of the chunk's first run, where that run ends here
-  const int first = carry_row[c0];
-  const int past = c1 < grid ? carry_row[c1] : INT_MAX;
-  const bool look_back = c0 > 0 && carry_row[c0 - 1] == first &&
-                         (carry_row[c1 - 1] != first || past != first);
-  float back = 0.0f;
-  if (look_back) {                               // uniform over the CTA
-    float part = 0.0f;
-    for (int base = c0 - 1 - tid;; base -= kFixThreads * kBackItems) {
-      int r[kBackItems];
-      float v[kBackItems];
-#pragma unroll
-      for (int i = 0; i < kBackItems; ++i) {
-        const int p = base - i * kFixThreads;
-        r[i] = p >= 0 ? carry_row[p] : kNoRow;
-        v[i] = p >= 0 ? carry_val[p] : 0.0f;
-      }
-      bool all_in = true;
-#pragma unroll
-      for (int i = 0; i < kBackItems; ++i) {
-        if (r[i] == first) {
-          part = part + v[i];
-        } else {
-          all_in = false;
-        }
-      }
-      if (!__syncthreads_and(all_in)) break;
-    }
-    s_part[tid] = part;
-    __syncthreads();
-    for (int half = kFixThreads / 2; half > 0; half >>= 1) {
-      if (tid < half) s_part[tid] = s_part[tid] + s_part[tid + half];
-      __syncthreads();
-    }
-    back = s_part[0];
-  }
-  if (b < c1 && after != row && row < num_rows) {
-    y[row] = y[row] + (row == first ? back + sum : sum);
-  }
-}
-
 }  // namespace
 
 extern "C" int spmv_merge_csr_tile() { return kTile; }
@@ -283,8 +198,8 @@ extern "C" int spmv_merge_csr(const int* row_offsets, const int* cols,
       row_offsets, cols, vals, x, num_rows, nnz, y, carry_row, carry_val);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_path_carries_kernel<<<(grid + kFixThreads - 1) / kFixThreads,
-                              kFixThreads, 0, stream>>>(carry_row, carry_val,
-                                                        grid, num_rows, y);
+  segreduce::add_carries_kernel<float>
+      <<<(grid + kCarryThreads - 1) / kCarryThreads, kCarryThreads, 0,
+         stream>>>(carry_row, carry_val, grid, num_rows, y);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Wrappers of the four CUDA kernels, each beside its plain version.
+"""Wrappers of the five CUDA kernels, each beside its plain version.
 
 ========================  ==========================  =====================
 launch counter            CUDA source                 replaces (reference)
@@ -8,6 +8,10 @@ launch counter            CUDA source                 replaces (reference)
                                                       ``emit="tiles"``
 ``chunk_walk_atoms``      ``csrc/chunk_walk.cu``      ``emit="atoms"``
 ``chunk_walk_compact``    ``csrc/chunk_walk.cu``      ``emit="compact"``
+``segment_sum_sorted``    ``csrc/segsum.cu``          none: the ordered
+                                                      float segment sum of
+                                                      ``core.segops`` on
+                                                      the card
 ========================  ==========================  =====================
 
 A wrapper checks its operands, allocates the output with ``torch.empty``,
@@ -15,8 +19,9 @@ and for CUDA tensors launches the kernel on the current stream and adds one
 to :data:`LAUNCHES`; for CPU tensors it runs the plain version (the
 ``*_ref`` function beside it), which is also what the kernel is tested
 against.  Other devices raise.  The plain versions reduce with
-``index_add_``/``scatter_reduce_`` into flattened bins, in
-``O(operands + output)`` memory.
+``core.segops.segment_reduce`` into flattened bins, in ``O(operands +
+output)`` memory; on the card its float sums go through
+:func:`segment_sum_sorted`.
 """
 from __future__ import annotations
 
@@ -34,14 +39,17 @@ from repro_torch.kernels.spmv_merge import ref as _ref
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 
 #: Every CUDA source of this package, built in parallel by :func:`build`.
-SOURCES = (CSRC / "merge_path.cu", CSRC / "chunk_walk.cu")
+SOURCES = (CSRC / "merge_path.cu", CSRC / "chunk_walk.cu",
+           CSRC / "segsum.cu")
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES = {"spmv_merge_stream": 0, "chunk_walk_tiles": 0,
-            "chunk_walk_atoms": 0, "chunk_walk_compact": 0}
+            "chunk_walk_atoms": 0, "chunk_walk_compact": 0,
+            "segment_sum_sorted": 0}
 
 _COMBINER_CODE = {"sum": 0, "min": 1, "max": 2}
 _EMITS = ("tiles", "atoms", "compact")
+_SUM_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -51,6 +59,8 @@ _SIGNATURES = {
                          _P, _P],
     "chunk_walk_atoms": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "chunk_walk_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "segment_sum_sorted": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "segment_sum_sorted_tile": [],
 }
 
 
@@ -376,3 +386,62 @@ def chunk_walk_reduce_ref(vals_padded, tids_padded, atom_starts, tile_starts,
     flat = (chunk * window + offset)[inside]
     out.view(-1)[flat] = values[inside]
     return out
+
+
+# ---------------------------------------------------------------------------
+# The ordered segment sum (port glue: no TPU kernel).
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def segment_sum_tile() -> int:
+    """Path items (segments + items) per CTA of the card's ordered sum."""
+    return int(_function("segsum", "segment_sum_sorted_tile")())
+
+
+def segment_sum_sorted(values: torch.Tensor, keys: torch.Tensor,
+                       num_segments: int,
+                       order: torch.Tensor) -> torch.Tensor:
+    """``out[s]`` = the sum of the items whose key is ``s``, added in item
+    order; 0 for an empty segment.  ``[num_segments]`` in ``values.dtype``.
+
+    ``keys`` int32 ``[n]``, non-decreasing, in ``[0, num_segments)``;
+    item ``i``'s value is ``values[order[i]]`` (``order`` int64 ``[n]``:
+    the indices of a stable sort of the unsorted ids that gave ``keys``).
+    ``values`` float32 or float64, 1-D.  On the card the sum has the same
+    bits on every run (no atomics); the plain version
+    (:func:`segment_sum_sorted_ref`) is ``index_add_``, which on the CPU
+    adds in item order.
+    """
+    device = keys.device
+    n = int(keys.shape[0])
+    _check(keys, "keys", torch.int32, device)
+    if values.dtype not in _SUM_DTYPE_CODE:
+        raise TypeError(f"values must be float32 or float64, got "
+                        f"{values.dtype}")
+    _check(values, "values", values.dtype, device)
+    _check(order, "order", torch.int64, device, n)
+    if num_segments < 0:
+        raise ValueError(f"num_segments={num_segments} is negative")
+    _int32(num_segments + n, "num_segments + n")
+    if not _on_card(device):
+        return segment_sum_sorted_ref(values, keys, num_segments, order)
+    out = torch.empty(num_segments, dtype=values.dtype, device=device)
+    if num_segments == 0:
+        return out
+    grid = -(-(num_segments + n) // segment_sum_tile())
+    carry_row = torch.empty(grid, dtype=torch.int32, device=device)
+    carry_val = torch.empty(grid, dtype=values.dtype, device=device)
+    _launch("segsum", "segment_sum_sorted", keys.data_ptr(), order.data_ptr(),
+            values.data_ptr(), _SUM_DTYPE_CODE[values.dtype], n,
+            num_segments, carry_row.data_ptr(), carry_val.data_ptr(),
+            out.data_ptr())
+    LAUNCHES["segment_sum_sorted"] += 1
+    return out
+
+
+def segment_sum_sorted_ref(values: torch.Tensor, keys: torch.Tensor,
+                           num_segments: int,
+                           order: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`segment_sum_sorted`."""
+    out = torch.zeros(num_segments, dtype=values.dtype, device=values.device)
+    return out.index_add_(0, keys.long(), values[order])

@@ -8,16 +8,20 @@ tests/test_torch_cuda.py`` (``--noconftest``: the shared conftest clears
 JAX's caches).
 
 Integer-valued sums and min/max are compared bitwise; real-valued sums to
-a relative 1e-5 (the plain versions add in atomic order on the card, the
-kernels in a fixed order); the merge-path SpMV (K1) likewise, and the
-compacted gather (K4) bitwise, being a copy.  The segmented-matmul kernels (K5/K6) are held
-to their plain versions bitwise on integer-valued operands and to rtol
-1e-4 on real ones (5e-2 for bfloat16), and to each other bitwise.  The
-banded sliding-window attention kernel (K7) is held to its plain version
-at atol/rtol 2e-5 in float32, and for bfloat16 inputs to the float32 plain
-version on the same bf16-rounded inputs at rtol 1e-2, atol 1e-4: the only
-true error there is the bf16 rounding of the output (at most 2^-9
-relative).
+a relative 1e-5 (the kernels and the plain versions add in different fixed
+orders); the merge-path SpMV (K1) likewise, and the compacted gather (K4)
+bitwise, being a copy.  The ordered segment sum (``segment_sum_sorted``,
+which every float segment sum on the card goes through) is held to a
+float64 sum within 1e-5 of each segment's absolute sum, bitwise on
+integer-valued data, and bitwise across runs.  The segmented-matmul
+kernels (K5/K6) are held to their plain versions bitwise on integer-valued
+operands and to rtol 1e-4 on real ones (5e-2 for bfloat16), and to each
+other bitwise.  The banded sliding-window attention kernels (K7) are held
+to their plain version at atol/rtol 2e-5 in float32, and for bfloat16
+inputs to the float32 plain version on the same bf16-rounded inputs at
+rtol 1e-2, atol 1e-4: the error there is the bf16 rounding of the output
+(at most 2^-9 relative) and, on the tensor-core kernel, the rounding of
+the probabilities split into two bf16 halves (about 2^-17 relative).
 """
 import numpy as np
 import pytest
@@ -120,15 +124,111 @@ def test_chunk_walk_partials_match_plain(card, combiner):
         assert_bitwise(got, TK.chunk_walk_reduce_ref(*args, **kw), emit)
 
 
-def test_sum_kernel_is_deterministic(card):
-    spec = _spec(SIZES["giant_tile"], card)
-    part = T.make_partition(spec, "merge_path", 3)
+@pytest.mark.parametrize("path", ["native", "pure"])
+@pytest.mark.parametrize("blocks", [3, 264])
+@pytest.mark.parametrize("name", ["giant_tile", "powerlaw", "empty_runs"])
+def test_sum_kernel_is_deterministic(card, name, blocks, path):
+    """Real-valued sums: bitwise across runs, up to 264 partials of one
+    tile in the fixup."""
+    spec = _spec(SIZES[name], card)
+    part = T.make_partition(spec, "merge_path", blocks)
     gen = torch.Generator().manual_seed(0)
     vals = torch.randn(spec.num_atoms, generator=gen).to(card)
     runs = [T.execute_tile_reduce(spec, part, lambda a: vals[a],
-                                  path="native") for _ in range(3)]
+                                  path=path) for _ in range(3)]
     for r in runs[1:]:
         assert_bitwise(r, runs[0])
+
+
+# ---------------------------------------------------------------------------
+# The ordered segment sum (segment_sum_sorted).
+# ---------------------------------------------------------------------------
+
+def _segment_ids(name, rng):
+    """(unsorted int32 ids, num_segments) of the ordered-sum cases."""
+    if name == "giant":            # one 20,000-item segment among 5,000
+        ids = np.concatenate([np.full(20_000, 3), rng.integers(0, 900, 5000)])
+        return rng.permutation(ids), 900
+    if name == "partials":         # 500 partials of each of 40 tiles, as
+        starts = np.arange(500) * 37            # fixup_partials lays out
+        ids = (starts[:, None] + np.arange(40)[None, :]).reshape(-1)
+        return ids, int(ids.max()) + 1
+    if name == "hub_partials":     # one 20,000-atom segment spread over 500
+        rows = np.concatenate([np.full((500, 40), 7),   # partial rows
+                               rng.integers(0, 60, (500, 10))], axis=1)
+        return rng.permuted(rows, axis=1).reshape(-1), 60
+    if name == "empty":            # most segments empty, long gaps
+        ids = rng.choice([0, 7, 40_000, 40_001, 99_999], 3000)
+        return ids, 100_000
+    if name == "no_items":
+        return np.zeros(0, np.int64), 5000
+    return rng.integers(0, 3000, 50_000), 3000  # "unsorted"
+
+
+SEGMENT_CASES = ["giant", "partials", "hub_partials", "empty", "no_items",
+                 "unsorted"]
+
+
+def _same_bits(got, want, msg=""):
+    """Equal bits in the tensors' own type (float64 included)."""
+    as_int = {torch.float32: torch.int32, torch.float64: torch.int64}
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape, msg
+    assert torch.equal(got.view(as_int[got.dtype]),
+                       want.view(as_int[want.dtype])), msg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", SEGMENT_CASES)
+def test_segment_sum_sorted(card, name, dtype):
+    rng = np.random.default_rng(11)
+    ids, num = _segment_ids(name, rng)
+    n = ids.shape[0]
+    tids = torch.from_numpy(ids.astype(np.int32)).to(card)
+    keys, order = torch.sort(tids, stable=True)
+    # integer-valued: exact in any order, so bitwise against index_add_
+    ints = torch.from_numpy(rng.integers(-8, 9, n)).to(dtype).to(card)
+    before = TK.LAUNCHES["segment_sum_sorted"]
+    got = TK.segment_sum_sorted(ints, keys, num, order=order)
+    assert TK.LAUNCHES["segment_sum_sorted"] == before + 1
+    want = torch.zeros(num, dtype=dtype, device=card).index_add_(
+        0, tids.long(), ints)
+    _same_bits(got, want, name)
+    # real-valued: within 1e-5 of each segment's absolute sum of the
+    # float64 sum, and the same bits on every run
+    reals = rng.standard_normal(n)
+    vals = torch.from_numpy(reals).to(dtype).to(card)
+    runs = [TK.segment_sum_sorted(vals, keys, num, order=order)
+            for _ in range(3)]
+    for r in runs[1:]:
+        _same_bits(r, runs[0], name)
+    exact, scale = np.zeros(num), np.zeros(num)
+    terms = vals.double().cpu().numpy()
+    np.add.at(exact, ids, terms)
+    np.add.at(scale, ids, np.abs(terms))
+    err = np.abs(runs[0].double().cpu().numpy() - exact)
+    assert (err <= 1e-5 * scale).all(), float(err.max())
+
+
+def test_segment_reduce_sums_through_the_ordered_kernel(card):
+    rng = np.random.default_rng(12)
+    ids = torch.from_numpy(rng.integers(0, 50, 4000)).to(card)
+    vals = torch.from_numpy(rng.standard_normal(4000).astype(np.float32)
+                            ).to(card)
+    before = TK.LAUNCHES["segment_sum_sorted"]
+    runs = [T.segops.segment_reduce("sum", vals, ids, 50) for _ in range(3)]
+    assert TK.LAUNCHES["segment_sum_sorted"] == before + 3
+    for r in runs[1:]:
+        assert_bitwise(r, runs[0])
+    torch.testing.assert_close(runs[0].cpu(), T.segops.segment_reduce(
+        "sum", vals.cpu(), ids.cpu(), 50), rtol=1e-5, atol=1e-5)
+    half = T.segops.segment_reduce("sum", vals.bfloat16(), ids, 50)
+    assert half.dtype == torch.bfloat16
+    assert TK.LAUNCHES["segment_sum_sorted"] == before + 4
+    # integer sums stay on index_add_ (exact in any order)
+    counts = T.segops.segment_reduce("sum", torch.ones_like(ids), ids, 50)
+    assert TK.LAUNCHES["segment_sum_sorted"] == before + 4
+    assert int(counts.sum()) == 4000
 
 
 @pytest.mark.parametrize("capacity", [None, 5, 100_000])
@@ -239,8 +339,8 @@ def test_merge_path_hub_row_over_64_tiles(card, spans):
     """Rows longer than 64 tiles; past 256 tiles a row's carries cross the
     carry kernel's CTAs.  Integer-valued: bitwise.  Real-valued rows of
     ~10**6 terms cancel to ~10**-3 of their absolute sum, and the plain
-    version adds in atomic order on the card, so there the kernel is held
-    to the exact (float64) sum, within 1e-5 of each row's absolute sum."""
+    version adds in another order, so there the kernel is held to the exact
+    (float64) sum, within 1e-5 of each row's absolute sum."""
     tile = TK.merge_path_tile()
     sizes = [3] * 10
     for span in spans:
@@ -356,6 +456,27 @@ def test_graph_drivers_match_cpu(card):
                 assert_bitwise(got.float(), want.float())
         torch.testing.assert_close(pagerank(gg, **kw).cpu(),
                                    pagerank(gc, **kw), rtol=1e-5, atol=1e-7)
+
+
+def test_pagerank_and_chunked_spmv_are_deterministic(card):
+    """Real-valued sums with many addends per output: bitwise across
+    runs (the hub rows span many chunks)."""
+    A = random_csr(20_000, 20_000, 400_000, skew=1.3, empty_frac=0.3,
+                   seed=7, device=card)
+    g = Graph(A)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(20_000)
+                         .astype(np.float32)).to(card)
+    for schedule in ("chunked_lpt", "merge_path"):
+        kw = dict(schedule=schedule, path="native", num_blocks=264)
+        before = TK.LAUNCHES["segment_sum_sorted"]
+        runs = [pagerank(g, **kw) for _ in range(2)]
+        assert TK.LAUNCHES["segment_sum_sorted"] > before
+        assert_bitwise(runs[1], runs[0], f"pagerank {schedule}")
+    ys = [TO.spmv_merge_path(A, x, schedule="chunked_lpt", num_blocks=264)
+          for _ in range(2)]
+    assert_bitwise(ys[1], ys[0], "spmv_merge_path chunked_lpt")
+    torch.testing.assert_close(ys[0], spmv_reference(A, x), rtol=1e-5,
+                               atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -689,15 +810,48 @@ def test_flash_swa_matches_plain(card, shape, dtype):
     gen = torch.Generator().manual_seed(S + H + hd)
     q, k, v = (torch.randn(2, S, heads, hd, generator=gen).to(dtype).to(card)
                for heads in (H, Hkv, Hkv))
-    before = FK.LAUNCHES["flash_swa"]
+    before = dict(FK.LAUNCHES)
     got = FK.flash_swa(q, k, v, window=window, qc=qc)
     torch.cuda.synchronize()
-    assert FK.LAUNCHES["flash_swa"] == before + 1
+    assert FK.LAUNCHES["flash_swa"] == before["flash_swa"] + 1
+    # bf16 heads up to 128 wide take the tensor-core kernel, the rest not
+    mma = dtype == torch.bfloat16 and hd <= 128
+    assert FK.LAUNCHES["flash_swa_mma"] == before["flash_swa_mma"] + mma
     assert got.dtype == dtype and got.shape == q.shape
     want = FK.flash_swa_plain(q.float(), k.float(), v.float(),
                               window=window, qc=qc)
     rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 1e-4)
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+#: The tensor-core kernel's own edges (S, H, Hkv, hd, window, qc): a head
+#: not a multiple of 8 (element loads) on a ragged S, each padded width
+#: (24 -> 32, 96, 128), window 1, and rows that start off 16 bytes.
+MMA_SHAPES = [(160, 4, 2, 100, 64, 32), (128, 2, 1, 24, 32, 32),
+              (256, 4, 4, 96, 128, 64), (192, 4, 2, 128, 64, 64),
+              (128, 2, 1, 64, 1, 1)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", MMA_SHAPES, ids=str)
+def test_flash_swa_mma_edges(card, shape, offset):
+    S, H, Hkv, hd, window, qc = shape
+    gen = torch.Generator().manual_seed(S + hd + offset)
+
+    def draw(heads):
+        # offset 1: a contiguous view one element into its storage
+        n = 2 * S * heads * hd
+        t = torch.randn(n + offset, generator=gen).to(torch.bfloat16)
+        return t.to(card)[offset:].view(2, S, heads, hd)
+
+    q, k, v = draw(H), draw(Hkv), draw(Hkv)
+    before = FK.LAUNCHES["flash_swa_mma"]
+    got = FK.flash_swa(q, k, v, window=window, qc=qc)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_swa_mma"] == before + 1
+    want = FK.flash_swa_plain(q.float(), k.float(), v.float(),
+                              window=window, qc=qc)
+    torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-4)
 
 
 def test_banded_attention_launches_k7_once(card):

@@ -169,3 +169,80 @@ def test_operand_checks():
     with pytest.raises(ValueError, match="KV heads"):
         TO.flash_swa(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous(),
                      window=8, qc=8)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core K7's rounding (csrc/flash_swa_mma.cu), modelled on the CPU.
+# ---------------------------------------------------------------------------
+
+#: (S, H, Hkv, hd, window): the check's shapes at S 2,048 — Danube's heads
+#: of 120 with GQA 4:1 under a 1,024 window, the same under a 32 window, and
+#: heads of 64.
+MMA_CASES = [(2048, 8, 2, 120, 1024), (2048, 8, 2, 120, 32),
+             (2048, 8, 2, 64, 1024)]
+
+
+def _tensor_core_model(q, k, v, window, *, split):
+    """The tensor-core kernel's arithmetic on bf16-valued float32 inputs:
+    128-row query tiles walk the 64-row KV tiles of their band with an
+    online base-2 softmax in float32 (the reference's -1e30 fill); ``P``
+    goes to ``P V`` as ``bf16(P) + bf16(P - bf16(P))`` (``split``) or as
+    ``bf16(P)`` alone, with float32 accumulation; the output is rounded to
+    bf16 once."""
+    B, S, H, hd = q.shape
+    groups = H // k.shape[2]
+    kk, vv = (t.repeat_interleave(groups, dim=2) for t in (k, v))
+    scale = hd ** -0.5 * 1.4426950408889634
+    bf = lambda t: t.bfloat16().float()
+    out = torch.empty_like(q)
+    for q0 in range(0, S, 128):
+        rows = torch.arange(q0, min(q0 + 128, S))
+        qb = q[:, q0:q0 + 128]
+        m = torch.full((B, H, len(rows)), -1e30)
+        l = torch.zeros((B, H, len(rows)))
+        acc = torch.zeros((B, H, len(rows), hd))
+        for kt in range(max(0, q0 - window + 1) // 64 * 64, int(rows[-1]) + 1,
+                        64):
+            cols = torch.arange(kt, min(kt + 64, S))
+            s = torch.einsum("bqhd,bkhd->bhqk", qb, kk[:, kt:kt + 64]) * scale
+            valid = ((cols[None, :] <= rows[:, None])
+                     & (cols[None, :] > rows[:, None] - window))
+            s = torch.where(valid, s, torch.tensor(-1e30))
+            mx = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2(m - mx)
+            p = torch.exp2(s - mx[..., None])
+            l = l * corr + p.sum(-1)
+            vb = vv[:, kt:kt + 64]
+            hi = bf(p)
+            pv = torch.einsum("bhqk,bkhd->bhqd", hi, vb)
+            if split:
+                pv = pv + torch.einsum("bhqk,bkhd->bhqd", bf(p - hi), vb)
+            acc = acc * corr[..., None] + pv
+            m = mx
+        res = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, q0:q0 + 128] = bf(res.permute(0, 2, 1, 3))
+    return out
+
+
+def _mma_model_error(case, split):
+    """Elements outside |got - want| <= 1e-4 + 1e-2 |want| (the card
+    check, tests/test_torch_cuda.py), with want the float32 plain version
+    on the same bf16-rounded inputs."""
+    S, H, Hkv, hd, window = case
+    q, k, v = (torch.from_numpy(a).bfloat16().float()
+               for a in _qkv(S, H, Hkv, hd, seed=S + hd + window, batch=1))
+    got = _tensor_core_model(q, k, v, window, split=split)
+    want = TK.flash_swa_plain(q, k, v, window=window, qc=32)
+    return int(((got - want).abs() > 1e-4 + 1e-2 * want.abs()).sum())
+
+
+@pytest.mark.parametrize("case", MMA_CASES, ids=str)
+def test_tensor_core_rounding_meets_the_bf16_check(case):
+    assert _mma_model_error(case, split=True) == 0
+
+
+@pytest.mark.parametrize("case", MMA_CASES, ids=str)
+def test_bf16_probabilities_alone_miss_the_bf16_check(case):
+    """Why the kernel splits P: rounding it to bf16 alone leaves elements
+    outside the check's limits."""
+    assert _mma_model_error(case, split=False) > 0
