@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero:
    CSR with its own values;
 4. parity  — each slice-1 kernel (K1-K4) at the main path's shapes against
    its plain PyTorch version: bitwise for min/max and integer-valued sums,
-   rtol 1e-4 for real-valued sums; K1 (the merge-path SpMV over the CSR)
+   rtol 1e-4 for real-valued sums; K2's min/max also with NaN in some
+   bins (NaN where the plain version has it, bitwise elsewhere); K1 (the
+   merge-path SpMV over the CSR)
    against the reference's blocked formulation, timed for the whole ``y``
    beside ``torch``'s sparse CSR ``A @ x``;
 5. main    — the launch counters are zeroed, then the graph entry points
@@ -49,8 +51,16 @@ Phases, in order; any failure exits non-zero:
 10. wavefront — counters zeroed; ``treelstm_forest`` with a clip activation
    on ``chunked_lpt`` and ``merge_path`` (native), and
    ``build_wavefront(path="pure")`` + ``treelstm_embed``: bitwise equal to
-   each other and to a sequential per-node NumPy oracle on 256 trees; then
-   one ``tanh`` run;
+   each other and to a sequential per-node NumPy oracle on 256 trees, each
+   native call making two ``chunk_walk_tiles`` launches a level (the
+   combine over all 128 columns, the in-degree update); then one ``tanh``
+   run; then K2 at the forest's shapes against its plain version and
+   timed: the one-column launch of the in-degree update and the 128-column
+   launch of a level's combine (bitwise equal, column by column, to 128
+   one-column launches on integer-valued data), each beside its bound
+   (values counted for unmasked atoms only) and ``index_add_``; and the
+   combine's ordered fixup (``segment_sum_sorted`` on ``[C * L, 128]``
+   partials) against its plain version, beside its bound;
 11. times  — each kernel (CUDA events) beside its bound, its plain version
    and a PyTorch library call where one computes the same thing (K5/K6 at
    both segmm shapes, with their TFLOP/s, share of the f32 peak, ratio to
@@ -185,6 +195,28 @@ def cuda_ms(fn, *, warmup: int = 2, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, *, iters: int = 20) -> float:
+    """Mean device time of ``fn()`` in ms, replayed from a captured CUDA
+    graph: launches too short to hide the host's cost of issuing them
+    (the wrappers' checks and allocation) are timed without the gaps it
+    leaves between them."""
+    import torch
+    fn()                                  # load the library, warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
 def wall_s(fn):
     """(result, seconds) of ``fn()`` ending in a device synchronize."""
     import torch
@@ -241,6 +273,27 @@ def compare(name: str, got, want, *, exact: bool) -> float:
     log(f"parity {name}: max abs err {err!r} (scale {scale!r}, "
         f"rtol {REAL_RTOL})")
     return err
+
+
+def compare_nan(name: str, got, want) -> float:
+    """Min/max with NaN inputs: NaN exactly where the plain version has
+    it, bitwise elsewhere; returns 0."""
+    import torch
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} vs "
+          f"{tuple(want.shape)}")
+    nan = torch.isnan(want)
+    check(bool(nan.any()), f"{name}: the plain version has no NaN bin, so "
+          f"the case tests nothing")
+    check(bool(torch.equal(torch.isnan(got), nan)),
+          f"{name}: NaN where the plain version has none, or none where "
+          f"it has one")
+    check(bool(torch.equal(got[~nan].view(torch.int32),
+                           want[~nan].view(torch.int32))),
+          f"{name}: not bitwise equal to its plain version off the NaNs")
+    log(f"parity {name}: {int(nan.sum())} NaN bins where the plain version "
+        f"has them, bitwise equal elsewhere")
+    return 0.0
 
 
 def unit_values(values):
@@ -399,9 +452,17 @@ def phase_parity_and_times(A, x, g, plans, num_blocks: int, seed: int):
         mask = frontier[plan.src]
         dist = torch.rand(g.num_vertices, generator=gen, device="cuda")
         cand = dist[plan.src] + plan.weight
+        # NaN in one atom of a few thousand bins (min/max must keep it);
+        # its own generator leaves the later phases' draws as they were
+        nan_gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+        nan_cand = cand.clone()
+        nan_cand[torch.randint(0, spec.num_atoms, (4096,), generator=nan_gen,
+                               device="cuda")] = float("nan")
         cases = [("sum", plan.weight, None, False),
                  ("sum", unit_values(plan.weight - 0.5), None, True),
-                 ("min", cand, mask, True), ("max", cand, mask, True)]
+                 ("min", cand, mask, True), ("max", cand, mask, True),
+                 ("min", nan_cand, mask, "nan"), ("max", nan_cand, mask,
+                                                  "nan")]
         for combiner, values, m, exact in cases:
             args, kw = E.chunk_walk_operands(spec, part, values,
                                              combiner=combiner, atom_mask=m)
@@ -410,9 +471,13 @@ def phase_parity_and_times(A, x, g, plans, num_blocks: int, seed: int):
             tag = f"chunk_walk_tiles {schedule}/{combiner}"
             tag += "/masked" if m is not None else ""
             tag += "/integer-valued" if exact and combiner == "sum" else ""
-            err = compare(tag, got, want, exact=exact)
+            if exact == "nan":
+                err = compare_nan(tag + "/NaN", got, want)
+            else:
+                err = compare(tag, got, want, exact=exact)
             errs2.append(err)
             del got, want
+        del nan_cand
         if schedule == "chunked_lpt":
             args, kw = E.chunk_walk_operands(spec, part, plan.weight)
             tids = spec.atom_tile_ids()
@@ -975,6 +1040,7 @@ def phase_wavefront(forest, seed: int, e2e):
     ops = torch.from_numpy(forest["ops"]).cuda()
     reset_all_counts()
     roots = {}
+    tiles_launches = {}
     for schedule in ("chunked_lpt", "merge_path"):
         before = all_counts()
         (r, packed), secs = wall_s(lambda: treelstm_forest(
@@ -984,10 +1050,18 @@ def phase_wavefront(forest, seed: int, e2e):
         e2e[f"treelstm_forest[{schedule}]"] = secs
         after = all_counts()
         rose = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        tiles_launches[schedule] = rose.get("chunk_walk_tiles", 0)
         log(f"wavefront treelstm_forest[{schedule}]: {secs:.3f} s, "
             f"launches {json.dumps(rose)}")
     wplan, build_s = wall_s(lambda: build_wavefront(
         packed.dag, schedule="chunked_lpt", path="pure"))
+    for schedule, n in tiles_launches.items():
+        check(n == 2 * wplan.num_levels,
+              f"wavefront: treelstm_forest[{schedule}] made {n} "
+              f"chunk_walk_tiles launches, not 2 x {wplan.num_levels} "
+              f"levels")
+    log(f"wavefront: {2 * wplan.num_levels} chunk_walk_tiles launches a "
+        f"forest call (2 x {wplan.num_levels} levels)")
     h, eval_s = wall_s(lambda: treelstm_embed(params, wplan, x, ops,
                                               activation=clip16))
     e2e["build_wavefront[chunked_lpt@pure]"] = build_s
@@ -1025,7 +1099,134 @@ def phase_wavefront(forest, seed: int, e2e):
                  "chunk_walk_tiles"):
         check(counts[name] > 0,
               f"{name} was never launched by the wavefront path")
-    return counts
+    return counts, packed.dag
+
+
+def forest_k2_operands(forest, dag, seed: int):
+    """K2's inputs at the forest's shapes, as one level of
+    ``wavefront_eval`` builds them on ``chunked_lpt``: the in-degree update
+    (unit values, masked to the level's ready nodes) and the combine (the
+    resolved predecessors' integer-valued states ``h[src]``, 128 columns).
+    Returns ``(plan, update_mask, combine_values, combine_mask)``."""
+    import torch
+    from repro_torch.sparse.wavefront import build_wavefront
+
+    wplan = build_wavefront(dag, schedule="chunked_lpt", path="native")
+    plan = wplan.plan
+    level = torch.from_numpy(wplan.level_of).cuda()
+    mid = wplan.num_levels // 2
+    ready, resolved = level == mid, level < mid
+    src = plan.src.long()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    h = torch.randint(-4, 5, (wplan.num_nodes, FOREST_WIDTH), generator=gen,
+                      device="cuda").float()
+    return plan, ready[src], h[src], resolved[src]
+
+
+def phase_k2_forest(forest, dag, seed: int, *, per_column: bool = False):
+    """K2 at the forest's shapes (one level of ``chunked_lpt``): the
+    one-column launch of the in-degree update and the 128-column launch of
+    the combine, each against its plain version and timed beside its byte
+    bound and ``index_add_``; then the combine's ordered fixup
+    (``segment_sum_sorted`` over its ``[C * L, 128]`` partials) against
+    its plain version, timed beside its byte bound.  With ``per_column``
+    (for a port whose K2 takes one column) the combine is timed as 128
+    one-column launches instead, and the fixup is left out.  Returns
+    ``{name: row}``."""
+    import torch
+    from repro_torch.core import execute as E
+    from repro_torch.kernels.spmv_merge import kernel as K
+
+    plan, ready, values, mask = forest_k2_operands(forest, dag, seed)
+    spec, part = plan.spec, plan.part
+    ones = torch.ones(spec.num_atoms, device="cuda")
+    args1, kw1 = E.chunk_walk_operands(spec, part, ones, atom_mask=ready)
+    A, C, L = spec.num_atoms, part.num_blocks, kw1["local_tiles"]
+    compare("chunk_walk_tiles forest/sum/masked (one column)",
+            K.chunk_walk_reduce(*args1, **kw1),
+            K.chunk_walk_reduce_ref(*args1, **kw1), exact=True)
+    log(f"K2 forest shapes: {A} atoms, {C} chunks on "
+        f"{part.num_physical_blocks} blocks, window {kw1['window']}, local "
+        f"tiles {L}")
+    tids = spec.atom_tile_ids()
+    rows = {}
+
+    def row(name, atom_mask, masked, kernel, plain, launches=1):
+        # the unmasked atoms' values, every atom's tile id and mask read
+        # once; C * L * width partials written.  ms: device time (graph
+        # replay); host_ms: back-to-back calls issued from Python; library:
+        # index_add_ per tile of the values with the mask applied before
+        width = masked.shape[1] if masked.dim() == 2 else 1
+        active = int(atom_mask.sum())
+        nbytes = 4 * active * width + 8 * A + 4 * C * L * width
+        bins = torch.zeros((spec.num_tiles,) + tuple(masked.shape[1:]),
+                           device="cuda")
+        r = dict(ms=graph_ms(kernel), host_ms=cuda_ms(kernel),
+                 plain_ms=cuda_ms(plain, iters=3),
+                 library_ms=cuda_ms(lambda: bins.index_add_(0, tids,
+                                                            masked)),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+        rows[name] = r
+        log(f"time chunk_walk_tiles [forest, {name}]: {r['ms']:.4f} ms "
+            f"on the device ({r['host_ms']:.4f} ms a call issued from "
+            f"Python) (bound {r['bound_ms']:.4f} ms by bytes, {nbytes} B, "
+            f"{active} of {A} atoms unmasked; {launches} launches; plain "
+            f"{r['plain_ms']:.3f} ms; library {r['library_ms']:.4f} ms)")
+
+    row("one column", ready, ready.float(),
+        lambda: K.chunk_walk_reduce(*args1, **kw1),
+        lambda: K.chunk_walk_reduce_ref(*args1, **kw1))
+    masked = values * mask[:, None]
+    if per_column:
+        columns = [E.chunk_walk_operands(spec, part,
+                                         values[:, j].contiguous(),
+                                         atom_mask=mask)
+                   for j in range(FOREST_WIDTH)]
+        row("128 one-column launches", mask, masked,
+            lambda: [K.chunk_walk_reduce(*a, **k) for a, k in columns],
+            lambda: [K.chunk_walk_reduce_ref(*a, **k) for a, k in columns],
+            launches=FOREST_WIDTH)
+        return rows
+    args, kw = E.chunk_walk_operands(spec, part, values, atom_mask=mask)
+    partials = K.chunk_walk_reduce(*args, **kw)
+    compare("chunk_walk_tiles forest/sum/masked (128 columns)", partials,
+            K.chunk_walk_reduce_ref(*args, **kw), exact=True)
+    stacked = []
+    for j in range(FOREST_WIDTH):
+        a, k = E.chunk_walk_operands(spec, part, values[:, j].contiguous(),
+                                     atom_mask=mask)
+        stacked.append(K.chunk_walk_reduce(*a, **k))
+    compare("chunk_walk_tiles forest: 128 columns vs 128 one-column "
+            "launches", partials, torch.stack(stacked, dim=2), exact=True)
+    del stacked
+    row("128 columns", mask, masked,
+        lambda: K.chunk_walk_reduce(*args, **kw),
+        lambda: K.chunk_walk_reduce_ref(*args, **kw))
+
+    # the combine's fixup, as fixup_partials runs it: one stable sort of
+    # the bins' tile ids, then the ordered sum of all 128 columns
+    gtid = part.tile_starts[:-1, None].long() + torch.arange(
+        L, device="cuda")[None, :]
+    gtid = torch.where(gtid < spec.num_tiles, gtid, spec.num_tiles)
+    keys, order = torch.sort(gtid.reshape(-1).to(torch.int32), stable=True)
+    flat = partials.reshape(C * L, FOREST_WIDTH)
+    num = spec.num_tiles + 1
+    compare("segment_sum_sorted forest fixup [C * L, 128] (integer-valued)",
+            K.segment_sum_sorted(flat, keys, num, order=order),
+            K.segment_sum_sorted_ref(flat, keys, num, order), exact=True)
+    n = C * L
+    nbytes = 12 * n + 4 * n * FOREST_WIDTH + 4 * num * FOREST_WIDTH
+    r = dict(ms=cuda_ms(lambda: K.segment_sum_sorted(flat, keys, num,
+                                                     order=order)),
+             plain_ms=cuda_ms(lambda: K.segment_sum_sorted_ref(
+                 flat, keys, num, order), iters=3),
+             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+    rows["segment_sum_sorted [forest fixup]"] = r
+    log(f"time segment_sum_sorted [forest fixup, {n} x {FOREST_WIDTH} "
+        f"partials into {num} segments]: {r['ms']:.4f} ms (bound "
+        f"{r['bound_ms']:.4f} ms by bytes, {nbytes} B: keys, order, values, "
+        f"output; plain {r['plain_ms']:.3f} ms)")
+    return rows
 
 
 def phase_segmm_times(cases, prepared):
@@ -1527,7 +1728,9 @@ def main(argv=None) -> int:
     err, prepared = phase_segmm_parity(cases)
     e2e2 = {}
     moe_counts = phase_moe(moe, e2e2)
-    wave_counts = phase_wavefront(forest, args.seed, e2e2)
+    wave_counts, forest_dag = phase_wavefront(forest, args.seed, e2e2)
+    phase_k2_forest(forest, forest_dag, args.seed)
+    del forest_dag
     seg_rows = phase_segmm_times(cases, prepared)
     for name, row in seg_rows.items():
         row["err"] = err

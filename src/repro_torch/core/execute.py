@@ -2,15 +2,20 @@
 
 The user supplies an *atom transform* (atom ids -> values, e.g.
 ``lambda nz: vals[nz] * x[col[nz]]`` for SpMV) and a combiner; the
-executors consume a :class:`Partition`:
+executors consume a :class:`Partition`.  The tile-reduce executors also
+take an atom transform that gives ``[atoms, B]`` values (B columns per
+atom: the reference's ``vmap`` over columns, written out as a batch
+dimension) and return ``[num_tiles, B]``, column ``j`` equal to the call
+on column ``j`` alone (bitwise on the CPU, and on the card wherever the
+combine is exact); the scatter executors take ``[atoms]`` values only.
 
 * :func:`tile_reduce` — the oracle: one segmented reduce over all atoms.
 * :func:`blocked_tile_reduce` — the *pure* path: every block reduces
   exactly its partition slice into local tile bins, and the shared fixup
   combines tiles cut by block boundaries.
 * :func:`native_chunk_tile_reduce` — the *native* path: the chunk-walk
-  CUDA kernel (``repro_torch.kernels.spmv_merge.kernel``), one CTA per
-  physical block draining its chunk queue.
+  CUDA kernel (``repro_torch.kernels.spmv_merge.kernel``) over the chunks
+  the physical blocks' queues pop.
 
 :func:`execute_tile_reduce` routes a Partition to one of the two by
 :class:`ExecutionPath`; :func:`execute_scatter_reduce` is the push
@@ -92,11 +97,26 @@ def choose_execution_path(part: Partition,
         request, native_supported=supports_native_execution(part))
 
 
-def _atom_values(spec: WorkSpec, atom_fn: AtomFn,
-                 dtype: torch.dtype) -> torch.Tensor:
+def _atom_values(spec: WorkSpec, atom_fn: AtomFn, dtype: torch.dtype, *,
+                 batched: bool = False) -> torch.Tensor:
+    """``atom_fn`` over every atom: ``[num_atoms]``, or with ``batched``
+    also ``[num_atoms, B]``."""
     atoms = torch.arange(spec.num_atoms, dtype=torch.int32,
                          device=spec.device)
-    return atom_fn(atoms).to(dtype)
+    values = atom_fn(atoms).to(dtype)
+    if values.dim() != 1 and not (batched and values.dim() == 2):
+        shape = "[atoms] or [atoms, B]" if batched else "[atoms]"
+        raise ValueError(f"the atom transform must give {shape} values, "
+                         f"got shape {tuple(values.shape)}")
+    return values
+
+
+def _identity_tiles(spec: WorkSpec, values: torch.Tensor,
+                    identity: float) -> torch.Tensor:
+    """The result of a reduce that no atom reaches: ``[num_tiles]`` (or
+    ``[num_tiles, B]``) of the identity."""
+    return torch.full((spec.num_tiles,) + tuple(values.shape[1:]), identity,
+                      dtype=values.dtype, device=spec.device)
 
 
 def tile_reduce(spec: WorkSpec, atom_fn: AtomFn,
@@ -109,8 +129,10 @@ def tile_reduce(spec: WorkSpec, atom_fn: AtomFn,
     the identity); tiles with no unmasked atom hold the identity.
     """
     identity = _check_combiner(combiner, dtype)
-    values = _atom_values(spec, atom_fn, dtype)
+    values = _atom_values(spec, atom_fn, dtype, batched=True)
     if atom_mask is not None:
+        if values.dim() == 2:
+            atom_mask = atom_mask[:, None]
         values = torch.where(atom_mask, values,
                              torch.tensor(identity, dtype=dtype,
                                           device=values.device))
@@ -136,13 +158,15 @@ def _window_sizes(spec: WorkSpec, part: Partition) -> Tuple[int, int]:
 
 def fixup_partials(spec: WorkSpec, part: Partition, partials: torch.Tensor,
                    local_tiles: int, combiner: str = "sum") -> torch.Tensor:
-    """Combine per-chunk partials at their global tile offsets (Merrill &
-    Garland's segmented fixup); shared by both paths.  Untouched bins hold
-    the identity and drop out."""
+    """Combine per-chunk partials (``[C, L]``, or ``[C, L, B]`` for B
+    columns) at their global tile offsets (Merrill & Garland's segmented
+    fixup); shared by both paths, all columns in one segmented reduce.
+    Untouched bins hold the identity and drop out."""
     gtid = part.tile_starts[:-1, None].long() + torch.arange(
         local_tiles, device=partials.device)[None, :]
     gtid = torch.where(gtid < spec.num_tiles, gtid, spec.num_tiles)
-    return segment_reduce(combiner, partials.reshape(-1), gtid.reshape(-1),
+    flat = partials.reshape(gtid.numel(), *partials.shape[2:])
+    return segment_reduce(combiner, flat, gtid.reshape(-1),
                           spec.num_tiles + 1)[:-1]
 
 
@@ -159,11 +183,10 @@ def blocked_tile_reduce(spec: WorkSpec, part: Partition, atom_fn: AtomFn,
     are combined by :func:`fixup_partials`.  Masked atoms drop out.
     """
     identity = _check_combiner(combiner, dtype)
+    values = _atom_values(spec, atom_fn, dtype, batched=True)
     if spec.num_atoms == 0:
-        return torch.full((spec.num_tiles,), identity, dtype=dtype,
-                          device=spec.device)
+        return _identity_tiles(spec, values, identity)
     window, L = _window_sizes(spec, part)
-    values = _atom_values(spec, atom_fn, dtype)
     block, _, ok = window_slots(part.atom_starts, spec.num_atoms, window)
     local = spec.atom_tile_ids().long() - part.tile_starts.long()[block]
     ok &= (local >= 0) & (local < L)
@@ -172,8 +195,9 @@ def blocked_tile_reduce(spec: WorkSpec, part: Partition, atom_fn: AtomFn,
     bins = torch.where(ok, block * L + local, part.num_blocks * L)
     partials = segment_reduce(combiner, values, bins,
                               part.num_blocks * L + 1)[:-1]
-    return fixup_partials(spec, part, partials.view(part.num_blocks, L), L,
-                          combiner)
+    return fixup_partials(spec, part,
+                          partials.view(part.num_blocks, L,
+                                        *values.shape[1:]), L, combiner)
 
 
 def _chunk_queue_view(part: Partition
@@ -201,7 +225,9 @@ def _queue_operands(part: Partition):
 
 
 def _padded(x: torch.Tensor, window: int, fill) -> torch.Tensor:
-    return torch.cat([x, x.new_full((window,), fill)])
+    """``x`` (``[n]`` or ``[n, B]``) followed by ``window`` rows of
+    ``fill``."""
+    return torch.cat([x, x.new_full((window,) + tuple(x.shape[1:]), fill)])
 
 
 def _check_native(part: Partition, dtype: torch.dtype) -> None:
@@ -218,8 +244,9 @@ def chunk_walk_operands(spec: WorkSpec, part: Partition,
                         atom_mask: torch.Tensor | None = None,
                         idx: torch.Tensor | None = None):
     """``(args, kwargs)`` of the chunk-walk kernel launch the native
-    executors make for the atom values ``values`` (f32 ``[num_atoms]``):
-    ``chunk_walk_reduce(*args, **kwargs)``.
+    executors make for the atom values ``values`` (f32 ``[num_atoms]``, or
+    ``[num_atoms, B]`` in tiles mode): ``chunk_walk_reduce(*args,
+    **kwargs)``.
 
     Values, tile ids and the mask are padded by one window (padding is
     never inside a chunk).  ``emit="compact"`` takes the compacted index
@@ -262,20 +289,20 @@ def native_chunk_tile_reduce(spec: WorkSpec, part: Partition, atom_fn: AtomFn,
     """Device-side execution: the chunk-walk kernel in ``tiles`` mode.
 
     Materializes the atom transform and the atom -> tile map once
-    (:func:`chunk_walk_operands`), launches one CTA per physical block, and
-    resolves cross-chunk tiles with the shared fixup.  ``atom_mask`` rides
-    into the kernel as an int32 operand.
+    (:func:`chunk_walk_operands`), launches the kernel once (all B columns
+    of ``[atoms, B]`` values in the same launch), and resolves cross-chunk
+    tiles with the shared fixup.  ``atom_mask`` rides into the kernel as an
+    int32 operand.
     """
     identity = _check_combiner(combiner, dtype)
     _check_native(part, dtype)
+    values = _atom_values(spec, atom_fn, dtype, batched=True)
     if spec.num_atoms == 0:
-        return torch.full((spec.num_tiles,), identity, dtype=dtype,
-                          device=spec.device)
+        return _identity_tiles(spec, values, identity)
     from repro_torch.kernels.spmv_merge.kernel import chunk_walk_reduce
 
-    args, kw = chunk_walk_operands(spec, part,
-                                   _atom_values(spec, atom_fn, dtype),
-                                   combiner=combiner, atom_mask=atom_mask)
+    args, kw = chunk_walk_operands(spec, part, values, combiner=combiner,
+                                   atom_mask=atom_mask)
     return fixup_partials(spec, part, chunk_walk_reduce(*args, **kw),
                           kw["local_tiles"], combiner)
 
@@ -488,6 +515,8 @@ def execute_tile_reduce(spec: WorkSpec, part: Partition, atom_fn: AtomFn,
     ``path="auto"`` takes the native kernel when the partition supports it
     and ``dtype`` is float32 (the kernel's accumulator), the pure executor
     otherwise; ``combiner``/``atom_mask`` apply identically on either path.
+    An ``atom_fn`` that gives ``[atoms, B]`` values gives ``[num_tiles, B]``
+    (one kernel launch and one fixup for all columns).
     """
     native_ok = supports_native_execution(part) and dtype == torch.float32
     resolved = resolve_execution_path(path, native_supported=native_ok)

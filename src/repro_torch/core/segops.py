@@ -19,7 +19,10 @@ def segment_reduce(combiner: str, values: torch.Tensor,
                    num_segments: int) -> torch.Tensor:
     """Segmented ``sum``/``min``/``max``; empty segments hold the identity.
 
-    Ids outside ``[0, num_segments)`` are not allowed (route dropped
+    ``values`` is ``[n]`` or ``[n, B]`` (``B`` columns, each reduced by the
+    same ids: column ``j`` of the result has the bits of the call on column
+    ``j`` alone); the result is ``[num_segments]`` or ``[num_segments,
+    B]``.  Ids outside ``[0, num_segments)`` are not allowed (route dropped
     values to an extra overflow segment and slice it off).  Every result
     has the same bits on every run: ``min``/``max`` and integer sums are
     exact in any order (``scatter_reduce_``/``index_add_``); a float
@@ -31,28 +34,31 @@ def segment_reduce(combiner: str, values: torch.Tensor,
             and values.device.type == "cuda"):
         return ordered_sum(values, segment_ids, num_segments)
     ids = segment_ids.to(torch.int64)
+    shape = (num_segments,) + tuple(values.shape[1:])
     if combiner == "sum":
-        out = torch.zeros(num_segments, dtype=values.dtype,
-                          device=values.device)
+        out = torch.zeros(shape, dtype=values.dtype, device=values.device)
         return out.index_add_(0, ids, values)
-    out = torch.full((num_segments,), IDENTITY[combiner], dtype=values.dtype,
+    out = torch.full(shape, IDENTITY[combiner], dtype=values.dtype,
                      device=values.device)
+    if values.dim() == 2:
+        ids = ids[:, None].expand(-1, values.shape[1])
     return out.scatter_reduce_(0, ids, values, _SCATTER_REDUCE[combiner],
                                include_self=True)
 
 
 def ordered_sum(values: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """Float segment sum of 1-D ``values`` in a fixed order: the items
-    sorted by id with a stable sort (unique, so the same on every run),
-    then summed run by run by the ``segment_sum_sorted`` kernel (on CPU
-    tensors its plain version).  float16/bfloat16 values are summed in
-    float32 and rounded once."""
+    """Float segment sum of ``[n]`` or ``[n, B]`` ``values`` in a fixed
+    order: the items sorted by id with a stable sort (unique, so the same
+    on every run, and done once for all ``B`` columns), then summed run by
+    run by the ``segment_sum_sorted`` kernel (on CPU tensors its plain
+    version).  float16/bfloat16 values are summed in float32 and rounded
+    once."""
     # imported here: the kernels' module imports this one
     from repro_torch.kernels.spmv_merge.kernel import segment_sum_sorted
-    if values.dim() != 1:
-        raise ValueError(f"the ordered sum takes 1-D values, got shape "
-                         f"{tuple(values.shape)}")
+    if values.dim() not in (1, 2):
+        raise ValueError(f"the ordered sum takes [n] or [n, B] values, got "
+                         f"shape {tuple(values.shape)}")
     keys, order = torch.sort(segment_ids.to(torch.int32), stable=True)
     wide = (values if values.dtype in (torch.float32, torch.float64)
             else values.float())

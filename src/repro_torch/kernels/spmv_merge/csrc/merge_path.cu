@@ -200,6 +200,6 @@ extern "C" int spmv_merge_csr(const int* row_offsets, const int* cols,
   if (err != cudaSuccess) return static_cast<int>(err);
   segreduce::add_carries_kernel<float>
       <<<(grid + kCarryThreads - 1) / kCarryThreads, kCarryThreads, 0,
-         stream>>>(carry_row, carry_val, grid, num_rows, y);
+         stream>>>(carry_row, carry_val, grid, num_rows, 1, y);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,12 @@
 // Computes: keys int32 [n] non-decreasing in [0, num_segments); item i has
 // the value vals[perm[i]].  Every sum starts from +0.0, so an empty
 // segment, or one whose only value is -0.0, holds +0.0, as index_add_ into
-// zeros gives.
+// zeros gives.  With cols > 1, vals is [*, cols] and out [num_segments,
+// cols] row-major: the sort is shared, and each column is summed by its own
+// CTAs (blockIdx.x = tile * cols + column, the columns of a tile side by
+// side so they share its keys and value rows in L2) with the tile cuts and
+// additions of the one-column sum, so column j has the bits of the call on
+// column j alone.
 //
 // Bound on the H100: bytes.  It reads keys, perm and the values once and
 // writes each segment once; one add per item.
@@ -44,7 +49,7 @@ __global__ void __launch_bounds__(kThreads)
 segment_sum_sorted_kernel(const int* __restrict__ keys,
                           const long long* __restrict__ perm,
                           const T* __restrict__ vals, int n,
-                          int num_segments, T* __restrict__ out,
+                          int num_segments, int cols, T* __restrict__ out,
                           int* __restrict__ carry_row,
                           T* __restrict__ carry_val) {
   __shared__ int s_key[kTile + 1];
@@ -56,7 +61,9 @@ segment_sum_sorted_kernel(const int* __restrict__ keys,
 
   const int tid = static_cast<int>(threadIdx.x);
   const int total = num_segments + n;
-  const int d0 = static_cast<int>(blockIdx.x) * kTile;
+  const int tile = static_cast<int>(blockIdx.x / cols);
+  const int col = static_cast<int>(blockIdx.x % cols);
+  const int d0 = tile * kTile;
   const int d1 = total - d0 > kTile ? d0 + kTile : total;
   const int warp = tid >> 5;
   if (warp < 2) {
@@ -70,14 +77,21 @@ segment_sum_sorted_kernel(const int* __restrict__ keys,
   const int tile_items = j1 - j0;
 
   // the tile's keys (a sentinel past the last: every later path item there
-  // is a segment end) and values, in sorted order
+  // is a segment end) and values, in sorted order; keys and perm are read
+  // once with one column (evict first) and by every column's CTA otherwise
   for (int i = tid; i <= tile_items; i += kThreads) {
-    s_key[i] = i < tile_items ? __ldcs(keys + j0 + i) : INT_MAX;
+    s_key[i] = i == tile_items ? INT_MAX
+               : cols == 1     ? __ldcs(keys + j0 + i)
+                               : __ldg(keys + j0 + i);
   }
 #pragma unroll
   for (int s = 0; s < kItems; ++s) {
     const int i = tid + s * kThreads;
-    if (i < tile_items) s_val[i] = vals[__ldcs(perm + j0 + i)];
+    if (i < tile_items) {
+      const long long src = cols == 1 ? __ldcs(perm + j0 + i)
+                                      : __ldg(perm + j0 + i);
+      s_val[i] = vals[src * cols + col];
+    }
   }
   __syncthreads();
 
@@ -109,7 +123,7 @@ segment_sum_sorted_kernel(const int* __restrict__ keys,
         ++q;
       } else {
         if (ended) {
-          out[seg] = T(0) + acc;
+          out[static_cast<long long>(seg) * cols + col] = T(0) + acc;
         } else {
           head = acc;
           ended = true;
@@ -127,28 +141,33 @@ segment_sum_sorted_kernel(const int* __restrict__ keys,
   __syncthreads();
   if (ended) {
     const T carry_in = tid > 0 ? s_scan[tid - 1] : T(0);
-    out[first_seg] = T(0) + (carry_in + head);
+    out[static_cast<long long>(first_seg) * cols + col] =
+        T(0) + (carry_in + head);
   }
   if (tid == kThreads - 1) {
-    carry_row[blockIdx.x] = seg;
-    carry_val[blockIdx.x] = incl;
+    if (col == 0) carry_row[tile] = seg;
+    carry_val[static_cast<long long>(tile) * cols + col] = incl;
   }
 }
 
 template <typename T>
 int launch(const int* keys, const long long* perm, const void* vals, int n,
-           int num_segments, int* carry_row, void* carry_val, void* out,
-           cudaStream_t stream) {
+           int num_segments, int cols, int* carry_row, void* carry_val,
+           void* out, cudaStream_t stream) {
   const int grid = (num_segments + n + kTile - 1) / kTile;
-  segment_sum_sorted_kernel<T><<<grid, kThreads, 0, stream>>>(
-      keys, perm, static_cast<const T*>(vals), n, num_segments,
+  const int carry_grid = (grid + kCarryThreads - 1) / kCarryThreads;
+  if (static_cast<long long>(grid) * cols >= INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  segment_sum_sorted_kernel<T><<<grid * cols, kThreads, 0, stream>>>(
+      keys, perm, static_cast<const T*>(vals), n, num_segments, cols,
       static_cast<T*>(out), carry_row, static_cast<T*>(carry_val));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   segreduce::add_carries_kernel<T>
-      <<<(grid + kCarryThreads - 1) / kCarryThreads, kCarryThreads, 0,
-         stream>>>(carry_row, static_cast<const T*>(carry_val), grid,
-                   num_segments, static_cast<T*>(out));
+      <<<carry_grid * cols, kCarryThreads, 0, stream>>>(
+          carry_row, static_cast<const T*>(carry_val), grid, num_segments,
+          cols, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -156,26 +175,26 @@ int launch(const int* keys, const long long* perm, const void* vals, int n,
 
 extern "C" int segment_sum_sorted_tile() { return kTile; }
 
-// dtype codes: 0 = float32, 1 = float64.  perm: int64 [n].
-// carry_row / carry_val: int32 / dtype scratch of ceil((num_segments + n) /
-// kTile) entries.  out: [num_segments], written in full.  Returns a
-// cudaError_t code.
+// dtype codes: 0 = float32, 1 = float64.  perm: int64 [n].  vals: [*,
+// cols].  carry_row: int32 scratch of G = ceil((num_segments + n) / kTile)
+// entries; carry_val: dtype scratch of G * cols.  out: [num_segments,
+// cols], written in full.  Returns a cudaError_t code.
 extern "C" int segment_sum_sorted(const int* keys, const long long* perm,
                                   const void* vals, int dtype, int n,
-                                  int num_segments, int* carry_row,
+                                  int num_segments, int cols, int* carry_row,
                                   void* carry_val, void* out,
                                   cudaStream_t stream) {
   const long long total = static_cast<long long>(num_segments) + n;
-  if (n < 0 || num_segments <= 0 || total >= INT_MAX) {
+  if (n < 0 || num_segments <= 0 || cols <= 0 || total >= INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 0) {
-    return launch<float>(keys, perm, vals, n, num_segments, carry_row,
+    return launch<float>(keys, perm, vals, n, num_segments, cols, carry_row,
                          carry_val, out, stream);
   }
   if (dtype == 1) {
-    return launch<double>(keys, perm, vals, n, num_segments, carry_row,
-                          carry_val, out, stream);
+    return launch<double>(keys, perm, vals, n, num_segments, cols,
+                          carry_row, carry_val, out, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

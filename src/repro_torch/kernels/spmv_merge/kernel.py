@@ -56,10 +56,10 @@ _SIGNATURES = {
     "spmv_merge_csr": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "spmv_merge_csr_tile": [],
     "chunk_walk_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _P, _P],
+                         _I, _I, _P, _P],
     "chunk_walk_atoms": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "chunk_walk_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "segment_sum_sorted": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "segment_sum_sorted": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "segment_sum_sorted_tile": [],
 }
 
@@ -104,15 +104,19 @@ def _int32(x: int, what: str) -> int:
 
 
 def _check(t, name: str, dtype: torch.dtype, device: torch.device,
-           length: int | None = None) -> None:
+           length: int | None = None, *, batched: bool = False) -> None:
+    """Type, device, length and contiguity; ``batched`` also takes a 2-D
+    ``[length, B]`` tensor (B columns per entry)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous 1-D tensor")
+    dims = (1, 2) if batched else (1,)
+    if t.dim() not in dims or not t.is_contiguous():
+        shape = "1-D or 2-D" if batched else "1-D"
+        raise ValueError(f"{name} must be a contiguous {shape} tensor")
     if length is not None and t.shape[0] != length:
         raise ValueError(f"{name} has {t.shape[0]} entries, expected "
                          f"{length}")
@@ -259,7 +263,12 @@ def chunk_walk_reduce(vals_padded: torch.Tensor,
     windows (``"atoms"``/``"compact"``, ``[C, window]``) by walking each
     physical block's chunk queue.
 
-    ``vals_padded`` f32 ``[A + window]`` (identity-padded), ``tids_padded``
+    ``vals_padded`` f32 ``[A + window]`` (identity-padded); in tiles mode
+    also ``[A + window, B]``, B columns per atom (the reference's ``vmap``
+    over columns as a batch dimension), giving ``[C, local_tiles, B]``
+    partials whose column ``j`` equals the 1-D call on column ``j`` (on
+    the card bitwise where the combine is exact: min/max, integer-valued
+    sums; real sums are added in another fixed order).  ``tids_padded``
     int32 ``[A + window]`` (tiles mode only), ``atom_starts``/
     ``tile_starts`` int32 ``[C + 1]``, ``block_chunks_flat`` int32
     ``[P * max_chunks]`` (row ``p`` is block ``p``'s queue),
@@ -286,7 +295,8 @@ def chunk_walk_reduce(vals_padded: torch.Tensor,
     num_chunks = int(atom_starts.shape[0]) - 1
     num_physical = int(chunk_counts.shape[0])
     a_pad = int(vals_padded.shape[0])
-    _check(vals_padded, "vals_padded", torch.float32, device)
+    _check(vals_padded, "vals_padded", torch.float32, device,
+           batched=emit == "tiles")
     _check(atom_starts, "atom_starts", torch.int32, device)
     _check(tile_starts, "tile_starts", torch.int32, device, num_chunks + 1)
     _check(block_chunks_flat, "block_chunks_flat", torch.int32, device,
@@ -304,9 +314,11 @@ def chunk_walk_reduce(vals_padded: torch.Tensor,
               combiner=combiner, emit=emit)
     if not _on_card(device):
         return chunk_walk_reduce_ref(*args, **kw)
-    cols = local_tiles if emit == "tiles" else window
-    out = torch.empty((num_chunks, cols), dtype=torch.float32, device=device)
-    if num_physical == 0 or num_chunks == 0:
+    batch = tuple(vals_padded.shape[1:])
+    shape = ((num_chunks, local_tiles) + batch if emit == "tiles"
+             else (num_chunks, window))
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    if num_physical == 0 or num_chunks == 0 or out.numel() == 0:
         return out
     code = _COMBINER_CODE[combiner]
     queue = (_int32(num_physical, "num_physical"),
@@ -316,8 +328,9 @@ def chunk_walk_reduce(vals_padded: torch.Tensor,
                 tids_padded.data_ptr(), _ptr(mask_padded),
                 atom_starts.data_ptr(), tile_starts.data_ptr(),
                 block_chunks_flat.data_ptr(), chunk_counts.data_ptr(),
-                *queue, _int32(local_tiles, "local_tiles"), code,
-                out.data_ptr())
+                *queue, _int32(local_tiles, "local_tiles"),
+                _int32(batch[0] if batch else 1, "columns"),
+                _int32(a_pad, "padded atoms"), code, out.data_ptr())
     elif emit == "atoms":
         _launch("chunk_walk", "chunk_walk_atoms", vals_padded.data_ptr(),
                 _ptr(mask_padded), atom_starts.data_ptr(),
@@ -380,7 +393,8 @@ def chunk_walk_reduce_ref(vals_padded, tids_padded, atom_starts, tile_starts,
         inside &= (local >= 0) & (local < L)
         bins = torch.where(inside, chunk * L + local, num_chunks * L)
         return segment_reduce(combiner, values, bins,
-                              num_chunks * L + 1)[:-1].view(num_chunks, L)
+                              num_chunks * L + 1)[:-1].view(
+                                  num_chunks, L, *values.shape[1:])
     out = torch.full((num_chunks, window), identity, dtype=torch.float32,
                      device=vals_padded.device)
     flat = (chunk * window + offset)[inside]
@@ -402,15 +416,18 @@ def segment_sum_sorted(values: torch.Tensor, keys: torch.Tensor,
                        num_segments: int,
                        order: torch.Tensor) -> torch.Tensor:
     """``out[s]`` = the sum of the items whose key is ``s``, added in item
-    order; 0 for an empty segment.  ``[num_segments]`` in ``values.dtype``.
+    order; 0 for an empty segment.  ``[num_segments]`` (or ``[num_segments,
+    B]``) in ``values.dtype``.
 
     ``keys`` int32 ``[n]``, non-decreasing, in ``[0, num_segments)``;
     item ``i``'s value is ``values[order[i]]`` (``order`` int64 ``[n]``:
     the indices of a stable sort of the unsorted ids that gave ``keys``).
-    ``values`` float32 or float64, 1-D.  On the card the sum has the same
-    bits on every run (no atomics); the plain version
-    (:func:`segment_sum_sorted_ref`) is ``index_add_``, which on the CPU
-    adds in item order.
+    ``values`` float32 or float64, ``[n]`` or ``[n, B]``: each of the B
+    columns is summed with the tile cuts and order of the 1-D call, so
+    column ``j`` has the bits of the call on column ``j`` alone.  On the
+    card the sum has the same bits on every run (no atomics); the plain
+    version (:func:`segment_sum_sorted_ref`) is ``index_add_``, which on
+    the CPU adds in item order.
     """
     device = keys.device
     n = int(keys.shape[0])
@@ -418,22 +435,26 @@ def segment_sum_sorted(values: torch.Tensor, keys: torch.Tensor,
     if values.dtype not in _SUM_DTYPE_CODE:
         raise TypeError(f"values must be float32 or float64, got "
                         f"{values.dtype}")
-    _check(values, "values", values.dtype, device)
+    _check(values, "values", values.dtype, device, batched=True)
     _check(order, "order", torch.int64, device, n)
     if num_segments < 0:
         raise ValueError(f"num_segments={num_segments} is negative")
     _int32(num_segments + n, "num_segments + n")
     if not _on_card(device):
         return segment_sum_sorted_ref(values, keys, num_segments, order)
-    out = torch.empty(num_segments, dtype=values.dtype, device=device)
-    if num_segments == 0:
+    batch = tuple(values.shape[1:])
+    out = torch.empty((num_segments,) + batch, dtype=values.dtype,
+                      device=device)
+    if out.numel() == 0:
         return out
+    cols = batch[0] if batch else 1
     grid = -(-(num_segments + n) // segment_sum_tile())
+    _int32(grid * cols, "tiles x columns")
     carry_row = torch.empty(grid, dtype=torch.int32, device=device)
-    carry_val = torch.empty(grid, dtype=values.dtype, device=device)
+    carry_val = torch.empty(grid * cols, dtype=values.dtype, device=device)
     _launch("segsum", "segment_sum_sorted", keys.data_ptr(), order.data_ptr(),
             values.data_ptr(), _SUM_DTYPE_CODE[values.dtype], n,
-            num_segments, carry_row.data_ptr(), carry_val.data_ptr(),
+            num_segments, cols, carry_row.data_ptr(), carry_val.data_ptr(),
             out.data_ptr())
     LAUNCHES["segment_sum_sorted"] += 1
     return out
@@ -443,5 +464,6 @@ def segment_sum_sorted_ref(values: torch.Tensor, keys: torch.Tensor,
                            num_segments: int,
                            order: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`segment_sum_sorted`."""
-    out = torch.zeros(num_segments, dtype=values.dtype, device=values.device)
+    out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
+                      dtype=values.dtype, device=values.device)
     return out.index_add_(0, keys.long(), values[order])

@@ -290,7 +290,11 @@ def advance(plan: AdvancePlan, frontier: Optional[torch.Tensor],
     """The pull advance: per-destination ``combiner``-reduce over in-edge
     atoms whose *source* is in ``frontier`` (bool ``[V]``; ``None`` = all)
     and in ``edge_mask`` (pull edge order).  Returns ``[V]`` f32; untouched
-    destinations hold the identity."""
+    destinations hold the identity.  An ``atom_fn`` that gives ``[E, B]``
+    values advances B columns at once (one kernel launch; the reference's
+    ``vmap``) and returns ``[V, B]``, column ``j`` equal to the advance of
+    column ``j`` alone (bitwise wherever the combine is exact).  The push
+    advance takes one column."""
     atom_mask = _combined_mask(frontier, plan.src, edge_mask)
     return execute_tile_reduce(plan.spec, plan.part, atom_fn, torch.float32,
                                path=plan.path, combiner=combiner,

@@ -54,25 +54,22 @@ def spmv(A: CSR, x: torch.Tensor, *,
 def spmm(A: CSR, B: torch.Tensor, *,
          schedule: Optional[Schedule | str] = None,
          num_blocks: int = DEFAULT_BLOCKS) -> torch.Tensor:
-    """SpMM ``C = A @ B`` — the paper's Listing 4: one extra loop over the
-    columns of B around the unchanged SpMV computation, with the partition
-    built once per call and shared by every column.  Each column runs on
-    the default execution path (the chunk-walk kernel where the partition
-    supports it)."""
+    """SpMM ``C = A @ B`` — the paper's Listing 4: the unchanged SpMV
+    computation over all columns of B at once, with the partition built
+    once per call.  The atom transform gives ``[nnz, B.shape[1]]`` values
+    (the reference's ``vmap`` over B's columns as a batch dimension), so
+    the default execution path makes one chunk-walk launch and one fixup
+    for every column; column ``j`` is the SpMV of ``B[:, j]``."""
     if schedule is None:
         schedule = choose_schedule(A.shape[0], A.nnz)
     spec = A.workspec()
     part = make_partition(spec, schedule, num_blocks)   # once per spmm call
-    vals, cols = A.values, A.col_indices
-    columns = []
-    for j in range(B.shape[1]):
-        b = B[:, j]   # atom_fn runs inside the call, so the loop cell is safe
-        columns.append(execute_tile_reduce(
-            spec, part, lambda nz: vals[nz] * b[cols[nz]]))
-    if not columns:
+    if B.shape[1] == 0:
         return torch.zeros((A.shape[0], 0), dtype=torch.float32,
                            device=A.device)
-    return torch.stack(columns, dim=1)
+    vals, cols = A.values, A.col_indices
+    return execute_tile_reduce(
+        spec, part, lambda nz: vals[nz][:, None] * B[cols[nz].long()])
 
 
 def spvv(x_sparse_vals: torch.Tensor, x_sparse_idx: torch.Tensor,

@@ -13,9 +13,10 @@ an ordinary ``advance`` over the dependency edges resolved each level —
 reaches zero.  Per level of the host loop in :func:`wavefront_eval`:
 
 1. ``ready = (indeg == 0) & ~resolved`` — the current wavefront level;
-2. the **dependency combine**: a pull advance (frontier = the resolved set)
-   sums each node's already-evaluated predecessor states, one advance per
-   feature column (the reference's ``vmap`` over columns, as a loop);
+2. the **dependency combine**: one pull advance (frontier = the resolved
+   set) over all feature columns sums each node's already-evaluated
+   predecessor states (the reference's ``vmap`` over columns, as the
+   advance's column batch);
 3. the **level GEMM**: every node's combined state hits its operator's
    weight matrix in ONE segmented matmul grouped by operator, committed
    under the ready mask;
@@ -236,11 +237,8 @@ def wavefront_eval(wplan: WavefrontPlan, x, op_of_node, weights, *,
     node_bias = None if bias is None else bias[op_of_node.long()]
 
     def combine(h, resolved):
-        # one balanced advance per feature column (the reference's vmap)
-        cols = h.t().contiguous()
-        return torch.stack(
-            [advance(plan, resolved, lambda e, col=col: col[src[e]],
-                     combiner="sum") for col in cols], dim=1)
+        # one balanced advance over all feature columns: [E, K] values
+        return advance(plan, resolved, lambda e: h[src[e]], combiner="sum")
 
     indeg = wplan.in_degrees()
     resolved = torch.zeros(V, dtype=torch.bool, device=device)

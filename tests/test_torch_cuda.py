@@ -7,9 +7,11 @@ import no JAX, so they run where only the port is installed (README,
 tests/test_torch_cuda.py`` (``--noconftest``: the shared conftest clears
 JAX's caches).
 
-Integer-valued sums and min/max are compared bitwise; real-valued sums to
-a relative 1e-5 (the kernels and the plain versions add in different fixed
-orders); the merge-path SpMV (K1) likewise, and the compacted gather (K4)
+Integer-valued sums and min/max are compared bitwise (NaN bins by
+position, then the other bits); real-valued sums to a relative 1e-5 (the
+kernels and the plain versions add in different fixed orders), K2 on its
+own operands to 1e-4 of the largest entry; the merge-path SpMV (K1)
+likewise, and the compacted gather (K4)
 bitwise, being a copy.  The ordered segment sum (``segment_sum_sorted``,
 which every float segment sum on the card goes through) is held to a
 float64 sum within 1e-5 of each segment's absolute sum, bitwise on
@@ -140,6 +142,117 @@ def test_sum_kernel_is_deterministic(card, name, blocks, path):
         assert_bitwise(r, runs[0])
 
 
+#: K2 cases (tile sizes, blocks, schedule): chunk bases off a multiple of
+#: 4; a hub tile across many chunks; chunks wider than a CTA's slice of
+#: one column (16,384 atoms), so teams of CTAs skip the runs at their
+#: slices' starts and read past their ends, a hub tile among them; chunks
+#: with no atoms; a long run of empty tiles inside a chunk.
+TILES_CASES = {
+    "off4": ([3, 5, 2, 7, 1] * 900, 37, "chunked"),
+    "hub": ([5, 60_000, 0, 3] + [2] * 500, 29, "chunked"),
+    "hub_merge_path": ([5, 60_000, 0, 3] + [2] * 500, 29, "merge_path"),
+    "hub_teams": ([5, 60_000, 0, 3] + [2] * 500, 2, "merge_path"),
+    "wide_teams": ([3, 5, 2, 7, 1, 0, 40] * 8000, 5, "merge_path"),
+    "empty_chunks": ([0] * 2000 + [3, 0, 1], 64, "merge_path"),
+    "gaps": ([4] + [0] * 3000 + [6] + [0] * 40 + [9] * 300, 5, "chunked"),
+}
+
+
+def _tiles_operands(card, case, width, combiner, integer, seed=0):
+    sizes, blocks, schedule = TILES_CASES[case]
+    spec = _spec(sizes, card)
+    part = T.make_partition(spec, schedule, blocks)
+    rng = np.random.default_rng(seed + width)
+    n = spec.num_atoms
+    shape = (n,) if width == 1 else (n, width)
+    vals = (rng.integers(-8, 9, shape) if integer
+            else rng.standard_normal(shape)).astype(np.float32)
+    if combiner != "sum":
+        flat = vals.reshape(-1)
+        flat[rng.integers(0, flat.size, 40)] = np.nan
+    mask = torch.from_numpy(rng.random(n) < 0.8).to(card)
+    return T.execute.chunk_walk_operands(
+        spec, part, torch.from_numpy(vals).to(card), combiner=combiner,
+        atom_mask=mask)
+
+
+def _same_or_both_nan(got, want, msg=""):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape, msg
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), msg
+    assert_bitwise(got[~nan], want[~nan], msg)
+
+
+@pytest.mark.parametrize("combiner,integer", [("sum", True),
+                                              ("sum", False),
+                                              ("min", True), ("max", True)])
+@pytest.mark.parametrize("width", [1, 3, 4, 128])
+@pytest.mark.parametrize("case", sorted(TILES_CASES))
+def test_tiles_kernel_columns_match_plain(card, case, width, combiner,
+                                         integer):
+    """K2 on [A + window] and [A + window, B] values against its plain
+    version: bitwise for min/max (NaN where a bin holds one) and
+    integer-valued sums, rtol 1e-4 of the largest entry for real sums; the
+    same bits on a second run."""
+    args, kw = _tiles_operands(card, case, width, combiner, integer)
+    before = TK.LAUNCHES["chunk_walk_tiles"]
+    got = TK.chunk_walk_reduce(*args, **kw)
+    again = TK.chunk_walk_reduce(*args, **kw)
+    assert TK.LAUNCHES["chunk_walk_tiles"] == before + 2
+    want = TK.chunk_walk_reduce_ref(*args, **kw)
+    tag = f"{case}/{width}/{combiner}"
+    assert_bitwise(again, got, tag)
+    if combiner != "sum":
+        assert bool(torch.isnan(want).any()), f"{tag}: no NaN bin to hold"
+    if integer or combiner != "sum":
+        _same_or_both_nan(got, want, tag)
+    else:
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale, tag
+
+
+def test_tiles_kernel_unaligned_operands(card):
+    """Operands that start 4 bytes into an allocation take the scalar
+    loads (one column) and stores (B columns)."""
+    for width in (1, 4):
+        args, kw = _tiles_operands(card, "off4", width, "sum", True)
+        shifted = []
+        for a in args:
+            if a is None or a.dim() == 0:
+                shifted.append(a)
+                continue
+            buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=card)
+            view = buf[1:].view(a.shape)
+            view.copy_(a)
+            shifted.append(view)
+        got = TK.chunk_walk_reduce(*shifted, **kw)
+        assert_bitwise(got, TK.chunk_walk_reduce_ref(*args, **kw),
+                       str(width))
+
+
+@pytest.mark.parametrize("path", ["native", "pure"])
+@pytest.mark.parametrize("combiner", ["sum", "min", "max"])
+def test_batched_tile_reduce_matches_cpu(card, combiner, path):
+    """[atoms, B] values through the executor: one kernel launch and one
+    fixup, equal to the CPU plain version (integer-valued, so bitwise)."""
+    spec_c = _spec(SIZES["powerlaw"], card)
+    spec_h = _spec(SIZES["powerlaw"], "cpu")
+    rng = np.random.default_rng(8)
+    vals = torch.from_numpy(rng.integers(-8, 9, (spec_c.num_atoms, 128))
+                            .astype(np.float32))
+    mask = torch.from_numpy(rng.random(spec_c.num_atoms) < 0.6)
+    want = T.tile_reduce(spec_h, lambda a: vals[a], combiner=combiner,
+                         atom_mask=mask)
+    vc, mc = vals.to(card), mask.to(card)
+    part = T.make_partition(spec_c, "chunked", 264)
+    before = TK.LAUNCHES["chunk_walk_tiles"]
+    got = T.execute_tile_reduce(spec_c, part, lambda a: vc[a], path=path,
+                                combiner=combiner, atom_mask=mc)
+    assert TK.LAUNCHES["chunk_walk_tiles"] == before + (path == "native")
+    assert_bitwise(got, want)
+
+
 # ---------------------------------------------------------------------------
 # The ordered segment sum (segment_sum_sorted).
 # ---------------------------------------------------------------------------
@@ -208,6 +321,26 @@ def test_segment_sum_sorted(card, name, dtype):
     np.add.at(scale, ids, np.abs(terms))
     err = np.abs(runs[0].double().cpu().numpy() - exact)
     assert (err <= 1e-5 * scale).all(), float(err.max())
+
+
+@pytest.mark.parametrize("width", [3, 128])
+@pytest.mark.parametrize("name", SEGMENT_CASES)
+def test_segment_sum_sorted_columns(card, name, width):
+    """[n, B] values: column j has the bits of the one-column call."""
+    rng = np.random.default_rng(13)
+    ids, num = _segment_ids(name, rng)
+    n = ids.shape[0]
+    keys, order = torch.sort(torch.from_numpy(ids.astype(np.int32))
+                             .to(card), stable=True)
+    vals = torch.from_numpy(rng.standard_normal((n, width))
+                            .astype(np.float32)).to(card)
+    before = TK.LAUNCHES["segment_sum_sorted"]
+    got = TK.segment_sum_sorted(vals, keys, num, order=order)
+    assert TK.LAUNCHES["segment_sum_sorted"] == before + 1
+    assert got.shape == (num, width)
+    for j in range(width):
+        _same_bits(got[:, j].contiguous(), TK.segment_sum_sorted(
+            vals[:, j].contiguous(), keys, num, order=order), f"{name}/{j}")
 
 
 def test_segment_reduce_sums_through_the_ordered_kernel(card):
@@ -425,6 +558,36 @@ def test_chunk_walk_compact_matches_plain(card, case, combiner):
     assert_bitwise(got, TK.chunk_walk_reduce_ref(*args, **kw))
 
 
+#: K3 windows: a multiple of 4, not one, and one under a thread's 4 slots.
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("window_pad", [0, 1, 2, 3])
+@pytest.mark.parametrize("sizes", [[3, 5, 2, 7, 1] * 900, [4097, 1, 6],
+                                   [1, 2]], ids=["short", "wide", "tiny"])
+def test_chunk_walk_atoms_matches_plain(card, sizes, window_pad, masked):
+    """K3 with chunk bases off a multiple of 4 and windows that are not
+    multiples of 4 (scalar stores), bitwise: a copy."""
+    spec = _spec(sizes, card)
+    part = T.make_partition(spec, "chunked", 13)
+    rng = np.random.default_rng(len(sizes) + window_pad)
+    vals = torch.from_numpy(rng.standard_normal(spec.num_atoms)
+                            .astype(np.float32)).to(card)
+    mask = (torch.from_numpy(rng.random(spec.num_atoms) < 0.5).to(card)
+            if masked else None)
+    args, kw = T.execute.chunk_walk_operands(spec, part, vals,
+                                             combiner="min", emit="atoms",
+                                             atom_mask=mask)
+    kw["window"] += window_pad
+    args = (T.execute._padded(vals, kw["window"], float("inf")),) + args[1:]
+    if mask is not None:
+        args = args[:6] + (T.execute._padded(mask.to(torch.int32),
+                                             kw["window"], 0),) + args[7:]
+    before = TK.LAUNCHES["chunk_walk_atoms"]
+    got = TK.chunk_walk_reduce(*args, **kw)
+    assert TK.LAUNCHES["chunk_walk_atoms"] == before + 1
+    torch.cuda.synchronize()
+    assert_bitwise(got, TK.chunk_walk_reduce_ref(*args, **kw))
+
+
 def test_spmm_runs_the_tiles_kernel(card):
     make = lambda device: random_csr(2000, 1500, 30_000, skew=1.3,
                                      empty_frac=0.3, seed=6, device=device)
@@ -433,7 +596,7 @@ def test_spmm_runs_the_tiles_kernel(card):
     want = spmm(make("cpu"), B)
     before = TK.LAUNCHES["chunk_walk_tiles"]
     got = spmm(make(card), B.to(card))
-    assert TK.LAUNCHES["chunk_walk_tiles"] == before + 3
+    assert TK.LAUNCHES["chunk_walk_tiles"] == before + 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
 
 
@@ -789,6 +952,26 @@ def test_wavefront_on_the_card_matches_cpu(card):
     first = outs["cpu", "chunked_lpt", "native"]
     for key, out in outs.items():
         assert_bitwise(out, first, str(key))
+
+
+def test_wavefront_makes_two_tiles_launches_per_level(card):
+    """One batched combine and one in-degree update a level."""
+    from repro_torch.sparse import wavefront as W
+    trees = []
+    for n in (3, 9, 17):
+        w = np.zeros((2 * n - 1, 2 * n - 1), np.float32)
+        for child in range(1, 2 * n - 1):
+            w[child, (child - 1) // 2] = 1.0
+        trees.append(Graph.from_dense(w, device=card))
+    wp = W.build_wavefront(W.pack_forest(trees).dag, schedule="chunked_lpt",
+                           path="native")
+    rng = np.random.default_rng(1)
+    V = wp.num_nodes
+    before = TK.LAUNCHES["chunk_walk_tiles"]
+    W.wavefront_eval(wp, rng.integers(-2, 3, (V, 128)).astype(np.float32),
+                     rng.integers(0, 2, V).astype(np.int32),
+                     rng.integers(-1, 2, (2, 128, 128)).astype(np.float32))
+    assert TK.LAUNCHES["chunk_walk_tiles"] == before + 2 * wp.num_levels
 
 
 # ---------------------------------------------------------------------------

@@ -140,5 +140,5 @@ def test_segment_sum_sorted_checks_its_operands():
     with pytest.raises(ValueError, match="device"):
         TK.segment_sum_sorted(torch.ones(4, device="meta"),
                               keys.to("meta"), 3, order.to("meta"))
-    with pytest.raises(ValueError, match="1-D"):
-        T.segops.ordered_sum(torch.ones(4, 2), keys, 3)
+    with pytest.raises(ValueError, match=r"\[n\] or \[n, B\]"):
+        T.segops.ordered_sum(torch.ones(4, 2, 2), keys, 3)
