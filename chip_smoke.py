@@ -33,22 +33,43 @@ Phases, in order; any failure exits non-zero:
    ``segment_sum_sorted`` at PageRank's fixup shape against its plain
    version (bitwise on integer-valued data, rtol 1e-4 on real data),
    timed with and without its sort, beside ``index_add_``;
-7. moe/forest data — one MoE layer at OLMoE-1B-7B width (d_model 2048,
+7. serving — counters zeroed; ``GraphServer`` (8 lanes, pull, the
+   ``chunked_lpt`` plan) serves ``run_graph_serving``'s stream of 32
+   queries (Poisson, 2 a tick; kinds uniform over BFS/SSSP/PageRank,
+   sources from ``--seed``): one build of step and admit, at most 2
+   ``chunk_walk_tiles`` launches a step, every answer bitwise equal to its
+   single-query driver on the same plan; queries/s, p50/p99 latency,
+   steps, peak transient memory; then K2 at the step's shape (8 lanes):
+   the lanes laid end to end through the one-column kernel (the step's
+   launch) against the B-column launch (min partials bitwise equal to
+   the B-column ones, sum partials to each lane's one-column launch),
+   timed;
+8. bfs_multi — counters zeroed; 8 medium-degree sources, one
+   ``chunk_walk_tiles`` launch a level, rows bitwise equal to 8
+   ``bfs(direction="pull")`` calls;
+9. measured autotune — with ``REPRO_AUTOTUNE_MEASURE=1`` (the cache is a
+   temporary file of the run, as for every "auto" of the run)
+   ``spmv_merge_path(schedule="auto")`` and ``build_advance(schedule=
+   "auto")`` time their top-3 candidates: modeled cost and measured time
+   of each, the model-only and measured picks; a reload of the cache
+   selects the same plans with no new measurement; the report of
+   ``fit_coefficients`` (the coefficients stay the reference's);
+10. moe/forest data — one MoE layer at OLMoE-1B-7B width (d_model 2048,
    64 experts of d_ff 1024, top-8; f32 weights from ``--seed``) on one
    4,096-token sequence, routed plainly (skew 0) and with the router's
    columns biased by ``-0.5 * arange(64)`` (skew 0.5); and a forest of
    11,855 random binary trees (SST's sentence count, 1-56 leaves) at
    feature width 128, integer-valued inputs and weights;
-8. segmm parity — K5 and K6 at the MoE's ``w1`` shapes (``bm=128``) and at
+11. segmm parity — K5 and K6 at the MoE's ``w1`` shapes (``bm=128``) and at
    the forest's level-GEMM shapes (``bm=8``, ``K=N=128``) against their
    plain versions: bitwise on integer-valued operands, rtol 1e-4 on real
    ones, and K6 bitwise equal to K5 on real ones;
-9. moe     — counters zeroed; ``MoELayer`` (``moe_sorted``) at both
+12. moe     — counters zeroed; ``MoELayer`` (``moe_sorted``) at both
    skews on ``group_mapped``, ``chunked_rr`` and ``chunked_lpt`` x
    native/pure, plus ``"auto"``: outputs bitwise equal, equal to ``moe_capacity`` with a
    capacity that drops nothing (rtol/atol 2e-3), ``aux`` equal, three
    segmm launches per call;
-10. wavefront — counters zeroed; ``treelstm_forest`` with a clip activation
+13. wavefront — counters zeroed; ``treelstm_forest`` with a clip activation
    on ``chunked_lpt`` and ``merge_path`` (native), and
    ``build_wavefront(path="pure")`` + ``treelstm_embed``: bitwise equal to
    each other and to a sequential per-node NumPy oracle on 256 trees, each
@@ -61,39 +82,39 @@ Phases, in order; any failure exits non-zero:
    (values counted for unmasked atoms only) and ``index_add_``; and the
    combine's ordered fixup (``segment_sum_sorted`` on ``[C * L, 128]``
    partials) against its plain version, beside its bound;
-11. times  — each kernel (CUDA events) beside its bound, its plain version
+14. times  — each kernel (CUDA events) beside its bound, its plain version
    and a PyTorch library call where one computes the same thing (K5/K6 at
    both segmm shapes, with their TFLOP/s, share of the f32 peak, ratio to
    ``torch.bmm`` and K6's team and CTA count); end-to-end times of the
    entry points;
-12. flash parity — K7 (``flash_swa``) against its plain version at
+15. flash parity — K7 (``flash_swa``) against its plain version at
    H2O-Danube3-4B's attention shapes (B 1, S 8192, 32/8 heads of 120,
    window 4096) in float32 (atol/rtol 2e-5) and bfloat16 (rtol 1e-2, atol
    1e-4 against the float32 plain version on the same bf16-rounded
    inputs), at the edges ``window == S``, ``S == window == qc`` and
    ``Hkv == H``, and against the port's own ``_attend`` over the
    whole 8,192-token sequence (8 GiB of float32 scores, freed after);
-13. lm data — H2O-Danube3-4B at full width and depth (24 layers, d_model
+16. lm data — H2O-Danube3-4B at full width and depth (24 layers, d_model
    3840, 3,961,839,360 parameters), weights drawn from ``--seed`` on the
    card and cast once to bfloat16;
-14. serve — counters zeroed; ``DecoderLM.prefill`` of one 32,768-token
+17. serve — counters zeroed; ``DecoderLM.prefill`` of one 32,768-token
    prompt (the ``prefill_32k`` shape, batch cut from 32 to 1) in bfloat16
    with a 4,096-slot ring cache, then 32 greedy ``decode_step`` +
    ``sample_logits`` steps: K7 launched once per layer in the prefill and
    never in decode, all 24 on the tensor-core kernel (``flash_swa_mma``),
    every id in the vocabulary, every logit finite;
-15. consistency — the reference's prefill/decode check
+18. consistency — the reference's prefill/decode check
    (``tests/test_models.py``) at full width, depth cut to 2, float32: a
    6,144-token prefill (banded) and 1,024 teacher-forced decode steps
    against ``forward`` on all 7,168 tokens, at position 6,143 and every
    128th after it, rtol/atol 2e-3;
-16. swa times — K7 at the prefill's launch shape (S 32,768, bfloat16: the
+19. swa times — K7 at the prefill's launch shape (S 32,768, bfloat16: the
    tensor-core kernel) beside its bound, the flop it executes, its plain
    version and cuDNN's ``scaled_dot_product_attention`` with the band
    mask; K7's output there held to the float32 plain version (bfloat16
    limits above) and to SDPA (3e-2); then the float32 K7 (the CUDA-core
    kernel) at the same shape;
-17. the ``kernels:`` summary, the JSON kernels line, and the final
+20. the ``kernels:`` summary, the JSON kernels line, and the final
    ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -102,9 +123,11 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -133,6 +156,12 @@ REAL_RTOL = 1e-4   # real-valued f32 sums in another order
 VERTICES = 2 ** 22
 EDGES = 2 ** 26
 BLOCKS_PER_SM = 2  # physical blocks (CTAs) per SM: num_blocks of every plan
+# graph serving: run_graph_serving's stream (launch/serve.py --graph) on the
+# smoke graph
+SERVE_LANES = 8
+SERVE_QUERIES = 32
+SERVE_RATE = 2.0           # mean Poisson arrivals per serving tick
+MULTI_SOURCES = 8          # bfs_multi's batch
 # Path A: one MoE layer at OLMoE-1B-7B width on one train_4k sequence
 MOE_ARCH = "olmoe_1b_7b"
 MOE_TOKENS = 4096
@@ -362,20 +391,28 @@ def phase_data(seed: int, num_blocks: int):
         f"CSR {tensor_bytes(A) / 2**20:.1f} MiB + graph weights "
         f"{g.csr.values.numel() * 4 / 2**20:.1f} MiB on the device")
     log(f"num_blocks={num_blocks} (a multiple of the SM count)")
-    # A medium-degree source with a well-connected (but not saturating)
-    # out-neighbour: most rows are empty, so a random source often dies
-    # out, and a hub source saturates in one step and hides the direction
-    # switch.
+    ok, best = medium_sources(g)
+    check(bool(ok.any()), "no medium-degree source found")
+    source = int(torch.nonzero(ok)[0])
+    deg = g.out_degrees()
+    log(f"source vertex {source} (out-degree {int(deg[source])}, largest "
+        f"out-neighbour degree {int(best[source])})")
+    return A, g, x, source
+
+
+def medium_sources(g):
+    """``(ok, best)``: vertices of medium out-degree with a well-connected
+    (but not saturating) out-neighbour, and each vertex's largest
+    out-neighbour degree.  Most rows are empty, so a random source often
+    dies out, and a hub source saturates in one step and hides the
+    direction switch."""
+    import torch
     deg = g.out_degrees()
     best = torch.zeros(g.num_vertices, dtype=deg.dtype, device=deg.device)
     best.scatter_reduce_(0, g.edge_sources().long(),
                          deg[g.csr.col_indices.long()], "amax")
     ok = (deg >= 8) & (deg <= 64) & (best >= 1000) & (best <= 100_000)
-    check(bool(ok.any()), "no medium-degree source found")
-    source = int(torch.nonzero(ok)[0])
-    log(f"source vertex {source} (out-degree {int(deg[source])}, largest "
-        f"out-neighbour degree {int(best[source])})")
-    return A, g, x, source
+    return ok, best
 
 
 def build_plans(g, num_blocks: int):
@@ -737,6 +774,283 @@ def phase_auto(g, num_blocks: int, source: int):
         g, source, plan=plan, return_direction_counts=True))
     log(f"auto bfs: {secs:.3f} s, reached {int((depth >= 0).sum())}, "
         f"directions {counts.tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# slice 8: graph serving, bfs_multi, measured autotuning (on the graph cell)
+# ---------------------------------------------------------------------------
+
+def serve_stream(g, plan, seed: int, on_tick=None):
+    """``run_graph_serving``'s stream through a new ``GraphServer`` on
+    ``plan``: Poisson arrivals, kinds uniform over BFS/SSSP/PageRank,
+    sources uniform, from ``seed``.  ``on_tick(k2)`` gets each tick's
+    ``chunk_walk_tiles`` launches.  Returns ``(server, results, {qid:
+    (kind, source)}, seconds)``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.spmv_merge import kernel as K
+    from repro_torch.serve.graph import GraphServer
+
+    srv = GraphServer(g, lanes=SERVE_LANES, direction="pull", plan=plan)
+    rng = np.random.default_rng(seed)
+    kinds = ["bfs", "sssp", "pagerank"]
+    queries, results = {}, []
+    submitted = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while submitted < SERVE_QUERIES or srv.queued or srv.in_flight:
+        if submitted < SERVE_QUERIES:
+            for _ in range(min(int(rng.poisson(SERVE_RATE)),
+                               SERVE_QUERIES - submitted)):
+                kind = kinds[int(rng.integers(len(kinds)))]
+                source = int(rng.integers(g.num_vertices))
+                queries[srv.submit(kind, source=source)] = (kind, source)
+                submitted += 1
+        before = K.LAUNCHES["chunk_walk_tiles"]
+        results.extend(srv.tick())
+        if on_tick is not None:
+            on_tick(K.LAUNCHES["chunk_walk_tiles"] - before)
+    torch.cuda.synchronize()
+    return srv, results, queries, time.perf_counter() - t0
+
+
+def phase_graph_serving(g, plan, seed: int):
+    """The served stream, counted; every answer against its single-query
+    driver on the same plan, bitwise.  Returns (launches, e2e seconds)."""
+    import numpy as np
+    import torch
+    from repro_torch.sparse import bfs, pagerank, sssp
+
+    reset_all_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    per_tick = []
+    srv, results, queries, secs = serve_stream(g, plan, seed,
+                                               per_tick.append)
+    transient = torch.cuda.max_memory_allocated() - held
+    counts = all_counts()
+    check(len(results) == SERVE_QUERIES,
+          f"serving: {len(results)} of {SERVE_QUERIES} queries retired")
+    check(srv.step_traces == 1 and srv.admit_traces == 1,
+          f"serving: step built {srv.step_traces}x, admit "
+          f"{srv.admit_traces}x")
+    check(max(per_tick) <= 2, f"serving: {max(per_tick)} chunk_walk_tiles "
+          f"launches in one step")
+    for name in ("chunk_walk_tiles", "segment_sum_sorted"):
+        check(counts[name] > 0, f"serving: {name} was never launched")
+    lat = sorted(r.latency * 1e3 for r in results)
+    p50 = lat[len(lat) // 2]
+    p99 = lat[min(len(lat) - 1, int(np.ceil(0.99 * len(lat))) - 1)]
+    by_kind = {k: sum(r.kind == k for r in results)
+               for k in ("bfs", "sssp", "pagerank")}
+    log(f"serving: {len(results)} queries ({by_kind}) through "
+        f"{SERVE_LANES} lanes in {secs:.3f} s ({len(results) / secs:.2f} "
+        f"q/s); latency p50 {p50:.1f} ms, p99 {p99:.1f} ms; {srv.steps} "
+        f"steps, step_traces={srv.step_traces} "
+        f"admit_traces={srv.admit_traces}; peak transient device memory "
+        f"{transient / 2**20:.1f} MiB")
+    log(f"serving: chunk_walk_tiles launches {counts['chunk_walk_tiles']} "
+        f"({max(per_tick)} at most a step, "
+        f"{sum(k == 2 for k in per_tick)} steps with 2); launches "
+        + json.dumps({k: v for k, v in counts.items() if v}))
+    t0 = time.perf_counter()
+    for r in results:
+        kind, source = queries[r.qid]
+        if kind == "bfs":
+            want = bfs(g, source, plan=plan, direction="pull")
+        elif kind == "sssp":
+            want = sssp(g, source, plan=plan, direction="pull")
+        else:
+            want = pagerank(g, plan=plan)
+        got = torch.from_numpy(r.value).to(want.device)
+        check(got.dtype == want.dtype and same_bits(got, want),
+              f"serving: qid {r.qid} ({kind} from {source}) differs from "
+              f"the driver")
+    log(f"serving: all {len(results)} answers bitwise equal to the "
+        f"single-query drivers on the same plan (checked in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    e2e = {f"graph serving [{SERVE_QUERIES} queries, {SERVE_LANES} lanes]":
+           secs}
+    lane_layout_times(plan, seed)
+    return counts, e2e
+
+
+def lane_layout_times(plan, seed: int) -> None:
+    """K2 at the serving step's shape (8 lanes of the pull view, real
+    values): 8 lanes laid end to end through the one-column kernel (the
+    serving step's and ``bfs_multi``'s launch) against the B-column
+    launch.  The lanes' min partials equal the B-column ones and their sum
+    partials each lane's one-column launch, bitwise."""
+    import torch
+    from repro_torch.core import execute as E
+    from repro_torch.kernels.spmv_merge import kernel as K
+
+    spec, part = plan.spec, plan.part
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    lanes = torch.rand(SERVE_LANES, spec.num_atoms, generator=gen,
+                       device="cuda")
+    num_chunks = int(part.atom_starts.shape[0]) - 1
+    cols, ckw = E.chunk_walk_operands(spec, part, lanes.t().contiguous(),
+                                      combiner="min")
+    layout = E.LaneLayout(spec, part, SERVE_LANES, path="native")
+    fill = lambda out: out.copy_(lanes)
+    rows, rkw = layout.operands(SERVE_LANES, fill, combiner="min")
+    L = ckw["local_tiles"]
+    got = K.chunk_walk_reduce(*rows, **rkw).view(SERVE_LANES, num_chunks + 1,
+                                                 L)[:, :num_chunks]
+    want = K.chunk_walk_reduce(*cols, **ckw).permute(2, 0, 1)
+    check(same_bits(got.contiguous(), want.contiguous()),
+          "lane layout: min partials differ from the B-column launch")
+    srows, skw = layout.operands(SERVE_LANES, fill, combiner="sum")
+    sums = K.chunk_walk_reduce(*srows, **skw).view(SERVE_LANES,
+                                                   num_chunks + 1, L)
+    for j in (0, SERVE_LANES - 1):
+        one, okw = E.chunk_walk_operands(spec, part, lanes[j].contiguous())
+        check(same_bits(sums[j, :num_chunks].contiguous(),
+                        K.chunk_walk_reduce(*one, **okw)),
+              f"lane layout: lane {j}'s sums differ from its one-column "
+              f"launch")
+    batched = cuda_ms(lambda: K.chunk_walk_reduce(*cols, **ckw))
+    laid = cuda_ms(lambda: K.chunk_walk_reduce(*rows, **rkw))
+    one, okw = E.chunk_walk_operands(spec, part, lanes[0].contiguous(),
+                                     combiner="min")
+    single = cuda_ms(lambda: K.chunk_walk_reduce(*one, **okw))
+    plain = cuda_ms(lambda: K.chunk_walk_reduce_ref(*cols, **ckw), iters=3)
+    # library: scatter_reduce_'s amin per tile of the same 8 columns
+    values = lanes.t().contiguous()
+    tids = spec.atom_tile_ids().long()[:, None].expand(-1, SERVE_LANES)
+    out = torch.empty((spec.num_tiles, SERVE_LANES), device=values.device)
+    library = cuda_ms(lambda: out.fill_(float("inf")).scatter_reduce_(
+        0, tids, values, "amin"))
+    nbytes = SERVE_LANES * 4 * spec.num_atoms + 4 * spec.num_atoms \
+        + SERVE_LANES * 4 * num_chunks * L
+    log(f"time chunk_walk_tiles at the serving step's shape "
+        f"[{spec.num_atoms} atoms, {SERVE_LANES} lanes, min]: B-column "
+        f"launch {batched:.4f} ms; lanes end to end (one-column kernel) "
+        f"{laid:.4f} ms; one lane alone {single:.4f} ms; bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B by bytes: "
+        f"values, tile ids once, partials); plain {plain:.3f} ms; library "
+        f"{library:.4f} ms (scatter_reduce_ amin per tile); lane partials "
+        f"bitwise equal (min: to the B-column launch; sum: to each lane's "
+        f"one-column launch)")
+
+
+def phase_bfs_multi(g, plan, seed: int, source: int):
+    """``bfs_multi`` over 8 sources: one ``chunk_walk_tiles`` launch a
+    level, rows bitwise equal to 8 ``bfs`` calls.  Returns (launches, e2e
+    seconds, sources)."""
+    import numpy as np
+    import torch
+    from repro_torch.sparse import bfs, bfs_multi
+
+    # sources that traverse the graph (medium_sources), not ones that die
+    # out after a level or two
+    ok = np.nonzero(medium_sources(g)[0].cpu().numpy())[0]
+    rng = np.random.default_rng(seed + 20)
+    others = rng.choice(ok[ok != source], MULTI_SOURCES - 1, replace=False)
+    sources = [source] + sorted(int(v) for v in others)
+    reset_all_counts()
+    depth, secs = wall_s(lambda: bfs_multi(g, sources, plan=plan))
+    counts = all_counts()
+    levels = int(depth.max()) + 1
+    check(counts["chunk_walk_tiles"] == levels,
+          f"bfs_multi: {counts['chunk_walk_tiles']} chunk_walk_tiles "
+          f"launches for {levels} levels")
+    single = 0.0
+    for s, src in enumerate(sources):
+        want, t = wall_s(lambda: bfs(g, src, plan=plan, direction="pull"))
+        single += t
+        check(bool(torch.equal(depth[s], want)),
+              f"bfs_multi: row {s} (source {src}) differs from bfs")
+    reached = (depth >= 0).sum(1).tolist()
+    log(f"bfs_multi: {MULTI_SOURCES} sources {sources}, {levels} levels, "
+        f"{counts['chunk_walk_tiles']} chunk_walk_tiles launches (one a "
+        f"level); {secs * 1e3:.1f} ms against {single * 1e3:.1f} ms for "
+        f"{MULTI_SOURCES} bfs(direction='pull') calls; rows bitwise equal; "
+        f"reached {reached}")
+    return counts, {f"bfs_multi[{MULTI_SOURCES} sources]": secs,
+                    f"{MULTI_SOURCES} x bfs[pull]": single}, sources
+
+
+def phase_measured_autotune(A, x, g, num_blocks: int):
+    """``REPRO_AUTOTUNE_MEASURE=1``: ``spmv_merge_path(schedule="auto")``
+    and ``build_advance(schedule="auto")`` time their top model-ranked
+    candidates; each candidate's modeled cost and measured time, both
+    picks; a reload that measures nothing; the coefficient fit (report
+    only).  The cache is the run's temporary file."""
+    from repro_torch.core import (AutotuneCache, collect_fit_samples,
+                                  fit_coefficients, measurement_count,
+                                  score_plans, select_plan)
+    from repro_torch.core.autotune import shape_key
+    from repro_torch.kernels.spmv_merge import ops as O
+    from repro_torch.sparse import build_advance, spmv_reference
+
+    os.environ["REPRO_AUTOTUNE_MEASURE"] = "1"
+    try:
+        before = measurement_count()
+        y, spmv_s = wall_s(lambda: O.spmv_merge_path(
+            A, x, schedule="auto", num_blocks=num_blocks))
+        plan, adv_s = wall_s(lambda: build_advance(
+            g, schedule="auto", num_blocks=num_blocks))
+        taken = measurement_count() - before
+    finally:
+        del os.environ["REPRO_AUTOTUNE_MEASURE"]
+    want = spmv_reference(A, x)
+    err = max_abs_err(y, want)
+    scale = float(want.abs().max())
+    check(err <= REAL_RTOL * scale, f"measured spmv_merge_path: err {err}")
+    log(f"measured autotune: spmv_merge_path(schedule='auto') "
+        f"{spmv_s:.2f} s, build_advance(schedule='auto') {adv_s:.2f} s, "
+        f"{taken} candidates timed; max abs err vs spmv_reference {err!r}")
+    check(taken == 9, f"measured autotune: {taken} measurements, not 3 + "
+          f"3 + 3")
+    path = AutotuneCache().path
+    cases = (("spmv_merge_path", A.workspec(), "reduce"),
+             ("build_advance pull", plan.spec, "advance"),
+             ("build_advance push", plan.push_spec, "advance_push"))
+    disk = AutotuneCache(path)          # a new process's view of the file
+    picks = {}
+    for name, spec, workload in cases:
+        key = shape_key(spec, num_blocks) + "|plan"
+        key += "" if workload == "reduce" else f".{workload}"
+        record = disk.get_record(key)
+        check(record is not None and len(record.measured_us) == 3,
+              f"measured autotune: no measured record for {name}")
+        model = select_plan(spec, num_blocks, cache=None, workload=workload)
+        scores = score_plans(spec, num_blocks, workload=workload)
+        for plan_, cost in sorted(scores.items(), key=lambda kv: kv[1]):
+            us = record.measured_us.get(plan_.encode())
+            log(f"  {name}: {plan_.encode():22s} modeled {cost:12.1f} "
+                f"steps, measured "
+                + (f"{us:12.1f} us" if us else "not timed"))
+        fastest = min(record.measured_us, key=record.measured_us.get)
+        log(f"measured autotune {name}: model-only pick "
+            f"{model.encode()}, measured pick {record.plan.encode()} "
+            f"(fastest timed: {fastest})")
+        picks[name] = (spec, workload, record.plan)
+
+    def remeasured(plan_):
+        fail(f"measured autotune: {plan_.encode()} timed again after a "
+             f"reload")
+
+    os.environ["REPRO_AUTOTUNE_MEASURE"] = "1"
+    try:
+        before = measurement_count()
+        for name, (spec, workload, pick) in picks.items():
+            again = select_plan(spec, num_blocks, workload=workload,
+                                cache=AutotuneCache(path),
+                                measure=remeasured)
+            check(again == pick, f"measured autotune: {name} picks "
+                  f"{again.encode()} after a reload, not {pick.encode()}")
+        check(measurement_count() == before,
+              "measured autotune: the reload measured again")
+    finally:
+        del os.environ["REPRO_AUTOTUNE_MEASURE"]
+    log("measured autotune: reloaded cache re-selected the same plans with "
+        "0 new measurements")
+    fit = fit_coefficients(collect_fit_samples(AutotuneCache(path)))
+    for line in fit.report().splitlines():
+        log(f"  fit: {line}")
 
 
 # ---------------------------------------------------------------------------
@@ -1678,9 +1992,9 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by operation for one "
-                             "bfs, pagerank, MoE layer, TreeLSTM "
-                             "evaluation, Danube prefill and Danube "
-                             "decode")
+                             "bfs, pagerank, served query stream, "
+                             "bfs_multi, MoE layer, TreeLSTM evaluation, "
+                             "Danube prefill and Danube decode")
     args = parser.parse_args(argv)
 
     import torch
@@ -1693,6 +2007,19 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
+    # every "auto" selection of this run reads and writes a fresh cache
+    cache_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(
+        pathlib.Path(cache_dir.name) / "autotune.json")
+    os.environ.pop("REPRO_AUTOTUNE_MEASURE", None)
+    try:
+        return run(args, t_start)
+    finally:
+        cache_dir.cleanup()
+
+
+def run(args, t_start: float) -> int:
+    import torch
 
     card_line, sms = phase_card()
     phase_build()
@@ -1703,19 +2030,37 @@ def main(argv=None) -> int:
     launches, e2e = phase_main(A, x, g, plans, num_blocks, source)
     phase_auto(g, num_blocks, source)
     e2e.update(phase_determinism(A, x, g, plans, num_blocks, args.seed))
+    # slice 8: the served stream and bfs_multi on the chunked_lpt plan,
+    # then measured autotuning
+    plan = plans["chunked_lpt"][0]
+    serve_counts, serve_e2e = phase_graph_serving(g, plan, args.seed)
+    multi_counts, multi_e2e, sources = phase_bfs_multi(g, plan, args.seed,
+                                                       source)
+    e2e.update(serve_e2e)
+    e2e.update(multi_e2e)
+    log(f"main-path launches chunk_walk_tiles: {launches['chunk_walk_tiles']}"
+        f" (graph drivers) + {serve_counts['chunk_walk_tiles']} (serving) + "
+        f"{multi_counts['chunk_walk_tiles']} (bfs_multi)")
+    launches["chunk_walk_tiles"] += (serve_counts["chunk_walk_tiles"]
+                                     + multi_counts["chunk_walk_tiles"])
+    phase_measured_autotune(A, x, g, num_blocks)
     if args.profile:
-        from repro_torch.sparse import bfs, pagerank
-        plan = plans["chunked_lpt"][0]
+        from repro_torch.sparse import bfs, bfs_multi, pagerank
         phase_profile([("bfs[chunked_lpt]",
                         lambda: bfs(g, source, plan=plan)),
                        ("pagerank[chunked_lpt]",
-                        lambda: pagerank(g, plan=plan))])
+                        lambda: pagerank(g, plan=plan)),
+                       (f"graph serving [{SERVE_QUERIES} queries, "
+                        f"{SERVE_LANES} lanes]",
+                        lambda: serve_stream(g, plan, args.seed)),
+                       (f"bfs_multi[{MULTI_SOURCES} sources]",
+                        lambda: bfs_multi(g, sources, plan=plan))])
     for name, secs in e2e.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
     for name, row in rows.items():
         row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
         row["bound_by"] = "bytes"
-    del A, g, x, plans
+    del A, g, x, plans, plan
     torch.cuda.empty_cache()
 
     # slice 2: the segmented-GEMM kernels under the MoE layer and the

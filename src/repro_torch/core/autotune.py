@@ -1,26 +1,50 @@
-"""Cost-model schedule autotuner (model-only).
+"""Cost-model schedule autotuner, with a persistent cache and measured mode.
 
 Selection is the argmin of the registered plans' modeled costs
-(:mod:`repro_torch.core.balance`).  Choices are memoised in memory under
-the reference's quantised shape fingerprint (log2 size buckets + rounded
-skew statistics + ``num_blocks``), so a recurring workload shape is scored
-once per process.  With the reference's coefficients this picks the same
-:class:`Plan` as the reference for the same WorkSpec.  The reference's
-persistent cache and measured mode are not ported yet (ROADMAP).
+(:mod:`repro_torch.core.balance`).  Choices are cached under the
+reference's quantised shape fingerprint (log2 size buckets + rounded skew
+statistics + ``num_blocks``) at two levels: an in-process dict and a JSON
+file (``REPRO_TORCH_AUTOTUNE_CACHE``, default
+``~/.cache/repro_torch/autotune.json``; never the reference's file).  The
+file format is the reference's, so each package reads the other's:
+
+* **v1** — a bare ``"schedule@path"`` string (model-only choices);
+* **v2** — ``{"v": 2, "plan": "schedule@path", "measured_us": {"schedule@
+  path": us, ...}, "features": {"schedule@path": [base, {coef: count}],
+  ...}}``.  Corrupt sub-fields are dropped, never raised.
+
+With the reference's coefficients the model-only pick is the reference's
+plan for the same WorkSpec.
+
+**Measured mode:** with ``REPRO_AUTOTUNE_MEASURE=1`` and a ``measure=``
+callable from the call site, :func:`select_plan` times the top-k
+(``REPRO_AUTOTUNE_TOPK``, default 3) model-ranked candidates once,
+persists their medians, and ranks by measurement as posterior over the
+model as prior (:func:`blend_scores`).  A reloaded cache re-ranks without
+measuring again (:func:`repro_torch.core.measure.measurement_count`).  The
+measured records feed :func:`repro_torch.core.balance.fit_coefficients`
+through :func:`collect_fit_samples`.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import Dict, Optional, Sequence
+import os
+import pathlib
+import tempfile
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.balance import (ADVANCE_ATOM_WORK,
                                       ADVANCE_DELTA_ATOM_WORK,
                                       ADVANCE_DELTA_PUSH_ATOM_WORK,
                                       ADVANCE_PUSH_ATOM_WORK, ImbalanceStats,
                                       WAVEFRONT_ATOM_WORK,
-                                      WAVEFRONT_PUSH_ATOM_WORK, modeled_cost)
+                                      WAVEFRONT_PUSH_ATOM_WORK,
+                                      cost_features, modeled_cost)
 from repro_torch.core.execute import ExecutionPath
+from repro_torch.core.measure import geomean
 from repro_torch.core.schedules import Schedule
 from repro_torch.core.work import WorkSpec
 
@@ -59,13 +83,55 @@ REGISTERED_PLANS: Sequence[Plan] = tuple(
     + [Plan(Schedule.CHUNKED, ExecutionPath.NATIVE),
        Plan(Schedule.CHUNKED, ExecutionPath.PURE)])
 
-#: Per-atom work weight of each workload family the planner scores.
+#: Per-atom work weight of each workload family the planner scores.  The
+#: serving families (:mod:`repro_torch.serve.graph`) charge the plain
+#: advance's atoms and keep their own cache namespace, as the reference's
+#: do; their default timing closure is the single-query relax, the same
+#: one the ``"advance"`` family times.
 WORKLOAD_ATOM_WORK = {"reduce": 1, "advance": ADVANCE_ATOM_WORK,
                       "advance_push": ADVANCE_PUSH_ATOM_WORK,
                       "advance_delta": ADVANCE_DELTA_ATOM_WORK,
                       "advance_delta_push": ADVANCE_DELTA_PUSH_ATOM_WORK,
+                      "advance_serve": ADVANCE_ATOM_WORK,
+                      "advance_serve_push": ADVANCE_PUSH_ATOM_WORK,
                       "wavefront": WAVEFRONT_ATOM_WORK,
                       "wavefront_push": WAVEFRONT_PUSH_ATOM_WORK}
+
+_ENV_CACHE_PATH = "REPRO_TORCH_AUTOTUNE_CACHE"
+_ENV_MEASURE = "REPRO_AUTOTUNE_MEASURE"
+_ENV_MEASURE_TOPK = "REPRO_AUTOTUNE_TOPK"
+
+#: How many model-ranked candidates measured mode times (per call:
+#: ``select_plan(measure_k=)``; per process: ``REPRO_AUTOTUNE_TOPK``).
+DEFAULT_MEASURE_TOPK = 3
+
+
+def measurement_enabled() -> bool:
+    """True when ``REPRO_AUTOTUNE_MEASURE`` opts this process into timing
+    candidates (the call sites consult it before building their closures).
+    """
+    return os.environ.get(_ENV_MEASURE, "").strip().lower() in (
+        "1", "true", "on", "yes")
+
+
+def _measure_topk(override: Optional[int]) -> int:
+    if override is not None:
+        return max(int(override), 1)
+    env = os.environ.get(_ENV_MEASURE_TOPK, "").strip()
+    if env:
+        try:
+            return max(int(env), 1)
+        except ValueError:
+            pass
+    return DEFAULT_MEASURE_TOPK
+
+
+def _default_cache_path() -> pathlib.Path:
+    env = os.environ.get(_ENV_CACHE_PATH)
+    if env:
+        return pathlib.Path(env)
+    return (pathlib.Path(os.path.expanduser("~")) / ".cache" / "repro_torch"
+            / "autotune.json")
 
 
 def shape_key(spec: WorkSpec, num_blocks: int,
@@ -80,8 +146,188 @@ def shape_key(spec: WorkSpec, num_blocks: int,
             f"|e{stats.empty_tile_fraction:.1f}")
 
 
-#: The process's choice table: ``{namespaced shape key: Plan or Schedule}``.
-_DEFAULT_MEMO: Dict[str, object] = {}
+@dataclasses.dataclass(frozen=True)
+class CacheRecord:
+    """One decoded cache entry: the chosen plan plus any measurements.
+
+    ``measured_us`` maps encoded plans to measured medians (us);
+    ``features`` maps encoded plans to their ``(base, {coef: count})``
+    decomposition at measure time (:func:`~repro_torch.core.balance.
+    cost_features`).  A v1 string decodes to a record with no measurements.
+    """
+
+    plan: Optional[Plan] = None
+    measured_us: Dict[str, float] = dataclasses.field(default_factory=dict)
+    features: Dict[str, Tuple[float, Dict[str, float]]] = \
+        dataclasses.field(default_factory=dict)
+
+    @property
+    def is_measured(self) -> bool:
+        return bool(self.measured_us)
+
+    def encode(self):
+        """JSON value: bare v1 string when unmeasured, v2 dict otherwise."""
+        plan = self.plan.encode() if self.plan else None
+        if not self.measured_us and not self.features:
+            return plan
+        out = {"v": 2, "plan": plan,
+               "measured_us": {k: round(float(v), 3)
+                               for k, v in self.measured_us.items()}}
+        if self.features:
+            out["features"] = {k: [float(b), {n: float(c)
+                                              for n, c in f.items()}]
+                               for k, (b, f) in self.features.items()}
+        return out
+
+    @classmethod
+    def decode(cls, value) -> "CacheRecord":
+        """Best-effort decode of a v1 string or v2 dict: a torn sub-field
+        is dropped (the entry degrades to model-only), an unparseable plan
+        leaves ``plan=None`` so the caller selects again."""
+        if isinstance(value, str):
+            try:
+                return cls(plan=Plan.decode(value))
+            except ValueError:            # stale schedule name
+                return cls()
+        if not isinstance(value, dict):
+            return cls()
+        plan = None
+        raw_plan = value.get("plan")
+        if isinstance(raw_plan, str):
+            try:
+                plan = Plan.decode(raw_plan)
+            except ValueError:
+                plan = None
+        measured: Dict[str, float] = {}
+        raw_m = value.get("measured_us")
+        if isinstance(raw_m, dict):
+            for k, v in raw_m.items():
+                try:
+                    Plan.decode(str(k))
+                    us = float(v)
+                except (ValueError, TypeError):
+                    continue              # torn entry: skip, keep the rest
+                if math.isfinite(us) and us > 0:
+                    measured[str(k)] = us
+        feats: Dict[str, Tuple[float, Dict[str, float]]] = {}
+        raw_f = value.get("features")
+        if isinstance(raw_f, dict):
+            for k, v in raw_f.items():
+                try:
+                    base = float(v[0])
+                    fd = {str(n): float(c) for n, c in v[1].items()}
+                except (ValueError, TypeError, IndexError, KeyError,
+                        AttributeError):
+                    continue
+                feats[str(k)] = (base, fd)
+        return cls(plan=plan, measured_us=measured, features=feats)
+
+
+class AutotuneCache:
+    """Two-level (memory + JSON file) plan cache.
+
+    The file path is resolved at each use, so ``REPRO_TORCH_AUTOTUNE_CACHE``
+    set after import is honoured.  Writes re-read the file, merge, and
+    replace it atomically (tempfile + ``os.replace``), so concurrent
+    writers never corrupt it; a corrupt or missing file reads as empty, and
+    a read-only one leaves the cache memory-only.
+    """
+
+    def __init__(self, path: Optional[pathlib.Path] = None):
+        self._explicit_path = pathlib.Path(path) if path else None
+        # raw JSON values: v1 "schedule@path" strings or v2 record dicts
+        self._mem: Dict[str, object] = {}
+        self._loaded = False
+        self._lock = threading.Lock()
+
+    @property
+    def path(self) -> pathlib.Path:
+        return self._explicit_path or _default_cache_path()
+
+    def _read_disk(self) -> Dict[str, object]:
+        """Best-effort parse of the on-disk table; corrupt/missing -> {}."""
+        try:
+            on_disk = json.loads(self.path.read_text())
+        except (OSError, ValueError):
+            return {}
+        if not isinstance(on_disk, dict):
+            return {}
+        return {str(k): v for k, v in on_disk.items()
+                if isinstance(v, (str, dict))}
+
+    def _load(self) -> None:
+        if self._loaded:
+            return
+        self._loaded = True
+        # memory wins on conflict (fresher within this process)
+        self._mem = {**self._read_disk(), **self._mem}
+
+    def get(self, key: str) -> Optional[Schedule]:
+        plan = self.get_plan(key)
+        return plan.schedule if plan else None
+
+    def get_plan(self, key: str) -> Optional[Plan]:
+        record = self.get_record(key)
+        return record.plan if record else None
+
+    def get_record(self, key: str) -> Optional[CacheRecord]:
+        """Decoded record (v1 or v2) for ``key``; ``None`` when absent."""
+        with self._lock:
+            self._load()
+            value = self._mem.get(key)
+        return CacheRecord.decode(value) if value is not None else None
+
+    def records(self) -> Dict[str, CacheRecord]:
+        """Every decoded entry (memory + disk): the fit's view."""
+        with self._lock:
+            self._load()
+            snapshot = dict(self._mem)
+        return {k: CacheRecord.decode(v) for k, v in snapshot.items()}
+
+    def put(self, key: str, schedule: Schedule) -> None:
+        self.put_plan(key, Plan(schedule))
+
+    def put_plan(self, key: str, plan: Plan) -> None:
+        self.put_record(key, CacheRecord(plan=plan))
+
+    def put_record(self, key: str, record: CacheRecord) -> None:
+        """Store a record, merged with the key's prior one: measurements
+        already held survive a write that carries fewer (a model-only
+        selection never erases them); on a per-plan conflict the incoming
+        measurement wins."""
+        with self._lock:
+            self._load()
+            prior = CacheRecord.decode(self._mem.get(key)) \
+                if key in self._mem else None
+            if prior is not None and (prior.is_measured or prior.features):
+                record = CacheRecord(
+                    plan=record.plan or prior.plan,
+                    measured_us={**prior.measured_us, **record.measured_us},
+                    features={**prior.features, **record.features})
+            self._mem[key] = record.encode()
+            snapshot = dict(self._mem)
+        try:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            # merge with the current file so a concurrent writer's keys
+            # survive this replace
+            merged = {**self._read_disk(), **snapshot}
+            fd, tmp = tempfile.mkstemp(dir=str(self.path.parent),
+                                       suffix=".tmp")
+            try:
+                with os.fdopen(fd, "w") as f:
+                    json.dump(merged, f, indent=0, sort_keys=True)
+                os.replace(tmp, self.path)
+            except BaseException:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+                raise
+        except OSError:
+            pass                    # read-only file system: memory only
+
+
+_DEFAULT_CACHE = AutotuneCache()
 
 
 def score_schedules(spec: WorkSpec, num_blocks: int,
@@ -108,42 +354,133 @@ def score_plans(spec: WorkSpec, num_blocks: int,
             for p in plans}
 
 
+def blend_scores(scores: Dict[Plan, float],
+                 measured: Dict[Plan, float]) -> Dict[Plan, float]:
+    """Measurement as posterior over the model as prior, in wall-clock
+    units: a measured plan scores its median; an unmeasured one its modeled
+    cost times the geometric-mean measured/modeled ratio of the measured
+    set.  With no measurements this is the identity."""
+    if not measured:
+        return dict(scores)
+    alpha = geomean([us / max(scores[p], 1e-9)
+                     for p, us in measured.items() if p in scores])
+    return {p: measured[p] if p in measured else alpha * c
+            for p, c in scores.items()}
+
+
+def _plan_features(spec: WorkSpec, num_blocks: int, plan: Plan,
+                   workload: str):
+    try:
+        return cost_features(spec, plan.schedule, num_blocks,
+                             path=str(plan.path), workload=workload)
+    except ValueError:               # family without a feature story
+        return None
+
+
 def select_plan(spec: WorkSpec, num_blocks: int, *,
-                cache: Optional[dict] = _DEFAULT_MEMO,
+                cache: Optional[AutotuneCache] = _DEFAULT_CACHE,
                 plans: Sequence[Plan] = REGISTERED_PLANS,
-                workload: str = "reduce") -> Plan:
+                workload: str = "reduce",
+                measure: Optional[Callable[[Plan], float]] = None,
+                measure_k: Optional[int] = None) -> Plan:
     """The cheapest (schedule, execution path) plan; earlier plans win
-    ties.  ``cache=None`` scores every call."""
+    ties.  Cached under ``<shape_key>|plan`` (plus ``.<workload>`` for the
+    non-reduce families); ``cache=None`` selects every call.
+
+    **Measured mode:** when ``measure`` (``Plan -> median us`` on the
+    caller's own workload, built with
+    :func:`repro_torch.core.measure.time_fn`) is given *and*
+    ``REPRO_AUTOTUNE_MEASURE`` is on, the ``measure_k`` model-ranked
+    cheapest candidates not yet measured are timed once, persisted with
+    their cost features, and the pick is the argmin of
+    :func:`blend_scores`.  A record that already holds the needed
+    measurements is reused without timing anything.
+    """
     _check_workload(workload)
+    measuring = measure is not None and measurement_enabled()
     key = None
+    record = None
     if cache is not None:
         key = shape_key(spec, num_blocks) + "|plan"
         if workload != "reduce":
             key += f".{workload}"
-        hit = cache.get(key)
-        if isinstance(hit, Plan) and hit in plans:
-            return hit
+        record = cache.get_record(key)
+    measured: Dict[Plan, float] = {}
+    if record is not None:
+        for enc, us in record.measured_us.items():
+            try:
+                p = Plan.decode(enc)
+            except ValueError:
+                continue
+            if p in plans:
+                measured[p] = us
+    if record is not None and record.plan is not None \
+            and record.plan in plans and not measuring:
+        # model-only fast path (a measured record's plan is the blended
+        # decision)
+        return record.plan
     scores = score_plans(spec, num_blocks, plans, workload)
-    best = min(plans, key=lambda p: (scores[p], list(plans).index(p)))
+    new_measurements: Dict[Plan, float] = {}
+    if measuring:
+        k = min(_measure_topk(measure_k), len(plans))
+        # stable model ranking: plan order breaks ties, like the argmin
+        ranked = sorted(plans, key=lambda p: (scores[p],
+                                              list(plans).index(p)))
+        for p in ranked[:k]:
+            if p not in measured:
+                us = float(measure(p))
+                if math.isfinite(us) and us > 0:
+                    measured[p] = us
+                    new_measurements[p] = us
+        if record is not None and record.plan is not None \
+                and record.plan in plans and not new_measurements:
+            # every needed candidate was measured already: reuse
+            return record.plan
+    blended = blend_scores(scores, measured)
+    best = min(plans, key=lambda p: (blended[p], list(plans).index(p)))
     if cache is not None:
-        cache[key] = best
+        feats = {}
+        for p in new_measurements:
+            f = _plan_features(spec, num_blocks, p, workload)
+            if f is not None:
+                feats[p.encode()] = f
+        cache.put_record(key, CacheRecord(
+            plan=best,
+            measured_us={p.encode(): us
+                         for p, us in new_measurements.items()},
+            features=feats))
     return best
 
 
+def collect_fit_samples(cache: AutotuneCache,
+                        ) -> List[Tuple[float, Dict[str, float], float]]:
+    """``(base, feats, measured_us)`` samples from a cache: one per plan of
+    every record that has both a measured median and a feature
+    decomposition (what :func:`~repro_torch.core.balance.fit_coefficients`
+    consumes)."""
+    samples: List[Tuple[float, Dict[str, float], float]] = []
+    for record in cache.records().values():
+        for enc, us in record.measured_us.items():
+            if enc in record.features:
+                base, feats = record.features[enc]
+                samples.append((base, dict(feats), float(us)))
+    return samples
+
+
 def select_schedule(spec: WorkSpec, num_blocks: int, *,
-                    cache: Optional[dict] = _DEFAULT_MEMO,
+                    cache: Optional[AutotuneCache] = _DEFAULT_CACHE,
                     schedules: Sequence[Schedule] = REGISTERED_SCHEDULES
                     ) -> Schedule:
-    """The cheapest schedule by modeled cost (memoised per shape)."""
+    """The cheapest schedule by modeled cost (cached per shape)."""
     key = None
     if cache is not None:
         key = shape_key(spec, num_blocks)
         hit = cache.get(key)
-        if isinstance(hit, Schedule) and hit in schedules:
+        if hit is not None and hit in schedules:
             return hit
     scores = score_schedules(spec, num_blocks, schedules)
     best = min(schedules, key=lambda s: (scores[s],
                                          list(schedules).index(s)))
     if cache is not None:
-        cache[key] = best
+        cache.put(key, best)
     return best

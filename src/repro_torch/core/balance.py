@@ -10,7 +10,7 @@ ROADMAP work.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -224,6 +224,164 @@ def estimate_compact_capacity(num_edges: int, direction_threshold: float, *,
     frac = min(max(float(direction_threshold), 0.0), 1.0)
     want = int(np.ceil(frac * max(num_edges, 0) * max(slack, 1.0)))
     return int(min(max(want, floor), max(num_edges, 1)))
+
+
+#: The tunable coefficients the measured-cost loop can re-fit
+#: (:func:`fit_coefficients`), with their current values.  The other
+#: constants (LANES, the search/prefix/chunk/inspect/fixup overheads) are
+#: treated as known and folded into each sample's base term.
+def _fit_targets() -> Dict[str, float]:
+    return {
+        "ADVANCE_ATOM_WORK": float(ADVANCE_ATOM_WORK),
+        "ADVANCE_PUSH_ATOM_WORK": float(ADVANCE_PUSH_ATOM_WORK),
+        "ADVANCE_DELTA_ATOM_WORK": float(ADVANCE_DELTA_ATOM_WORK),
+        "ADVANCE_DELTA_PUSH_ATOM_WORK": float(ADVANCE_DELTA_PUSH_ATOM_WORK),
+        "WAVEFRONT_ATOM_WORK": float(WAVEFRONT_ATOM_WORK),
+        "WAVEFRONT_PUSH_ATOM_WORK": float(WAVEFRONT_PUSH_ATOM_WORK),
+        "NATIVE_CHUNK_OVERHEAD": float(NATIVE_CHUNK_OVERHEAD),
+        "COMPACT_GATHER_WORK": float(COMPACT_GATHER_WORK),
+        "COMPACT_BUILD_OVERHEAD": float(COMPACT_BUILD_OVERHEAD),
+    }
+
+
+#: Workload family -> the fit-target coefficient its atom term carries
+#: (``None``: the plain tile-reduce, whose atom weight is the fixed 1).
+WORKLOAD_ATOM_COEF = {"reduce": None,
+                      "advance": "ADVANCE_ATOM_WORK",
+                      "advance_push": "ADVANCE_PUSH_ATOM_WORK",
+                      "advance_delta": "ADVANCE_DELTA_ATOM_WORK",
+                      "advance_delta_push": "ADVANCE_DELTA_PUSH_ATOM_WORK",
+                      "advance_serve": "ADVANCE_ATOM_WORK",
+                      "advance_serve_push": "ADVANCE_PUSH_ATOM_WORK",
+                      "wavefront": "WAVEFRONT_ATOM_WORK",
+                      "wavefront_push": "WAVEFRONT_PUSH_ATOM_WORK"}
+
+
+def cost_features(spec: WorkSpec, schedule: Schedule | str, num_blocks: int,
+                  *, path: str = "pure", workload: str = "reduce",
+                  window_mode: str = "masked",
+                  part=None) -> Tuple[float, Dict[str, float]]:
+    """Decompose one plan's modeled cost over the tunable coefficients.
+
+    Returns ``(base, feats)`` with ``modeled cost == base + sum(feats[n] *
+    coefficient[n])`` at the bottleneck block under the current values
+    (the max over blocks is linearised there).  ``base`` holds every
+    non-tunable term.  ``window_mode="compact"`` (push families) decomposes
+    the gather-compacted window model, which has no per-schedule max.
+    """
+    if workload not in WORKLOAD_ATOM_COEF:
+        raise ValueError(f"unknown workload family: {workload!r} "
+                         f"(expected one of {sorted(WORKLOAD_ATOM_COEF)})")
+    targets = _fit_targets()
+    atom_coef = WORKLOAD_ATOM_COEF[workload]
+    if window_mode == "compact":
+        if atom_coef not in ("ADVANCE_PUSH_ATOM_WORK",
+                             "ADVANCE_DELTA_PUSH_ATOM_WORK"):
+            raise ValueError("compact window features are a push-family "
+                             "mode (window_mode='masked' for pull/reduce)")
+        per_block = -(-max(spec.num_atoms, 0) // max(num_blocks, 1))
+        units = float(-(-per_block // LANES))
+        return 0.0, {atom_coef: units, "COMPACT_GATHER_WORK": units,
+                     "COMPACT_BUILD_OVERHEAD": 1.0}
+    schedule = Schedule(schedule)
+    atom_units, overhead = block_cost_terms(spec, schedule, num_blocks,
+                                            path=path, part=part)
+    atom_units = atom_units.cpu().numpy()
+    overhead = overhead.cpu().numpy()
+    atom_work = 1.0 if atom_coef is None else targets[atom_coef]
+    costs = atom_units * atom_work + overhead
+    if costs.size == 0:
+        return 0.0, {}
+    b = int(np.argmax(costs))
+    units = float(atom_units[b])
+    over = float(overhead[b])
+    feats: Dict[str, float] = {}
+    base = 0.0
+    if atom_coef is None:
+        base += units
+    else:
+        feats[atom_coef] = units
+    if schedule == Schedule.CHUNKED and path == "native":
+        # the native pop charge is a fit target: overhead = pop * chunks
+        feats["NATIVE_CHUNK_OVERHEAD"] = over / max(
+            float(NATIVE_CHUNK_OVERHEAD), 1e-12)
+    else:
+        base += over
+    return base, feats
+
+
+@dataclasses.dataclass(frozen=True)
+class FitResult:
+    """Report of a measured-cost least-squares re-fit (report-only)."""
+
+    coefficients: Dict[str, float]    # fitted values, current ones if unseen
+    current: Dict[str, float]         # the values being judged
+    scale_us_per_step: float          # wall-us per modeled lockstep step
+    residual_rel: float               # ||r|| / ||t|| of the LS solve
+    num_samples: int
+    constrained: Tuple[str, ...]      # coefficients the samples actually hit
+
+    def report(self) -> str:
+        lines = [f"fit over {self.num_samples} measured samples: "
+                 f"scale {self.scale_us_per_step:.3g} us/step, "
+                 f"relative residual {self.residual_rel:.3f}",
+                 f"{'coefficient':32s} {'current':>10s} {'fitted':>10s}"]
+        for name, cur in sorted(self.current.items()):
+            fit = self.coefficients[name]
+            mark = "" if name in self.constrained else "  (unconstrained)"
+            lines.append(f"{name:32s} {cur:10.3g} {fit:10.3g}{mark}")
+        return "\n".join(lines)
+
+
+def fit_coefficients(samples: Sequence[Tuple[float, Dict[str, float], float]],
+                     *, min_scale: float = 1e-9) -> FitResult:
+    """Least-squares re-fit of the tunable coefficients from measurements.
+
+    ``samples`` are ``(base, feats, measured_us)`` triples
+    (:func:`cost_features` plus a wall-clock median of the same plan; the
+    autotuner's measured cache records carry them, see
+    :func:`repro_torch.core.autotune.collect_fit_samples`).  The model
+    ``measured_us ~= s * (base + sum_j feats[j] * c_j)`` is linear in ``s``
+    and ``w_j = s * c_j``: solve by ordinary least squares, then ``c_j =
+    w_j / s``.  Coefficients no sample exercises keep their current value;
+    fitted values are floored at 1e-3.  Report-only: no constant changes.
+    """
+    samples = list(samples)
+    current = _fit_targets()
+    if not samples:
+        raise ValueError("fit_coefficients needs at least one measured "
+                         "sample (run the autotuner with "
+                         "REPRO_AUTOTUNE_MEASURE=1 first)")
+    names = sorted({n for _, feats, _ in samples for n in feats
+                    if n in current})
+    A = np.zeros((len(samples), 1 + len(names)))
+    t = np.zeros(len(samples))
+    for i, (base, feats, us) in enumerate(samples):
+        A[i, 0] = float(base)
+        for j, n in enumerate(names):
+            A[i, 1 + j] = float(feats.get(n, 0.0))
+        t[i] = float(us)
+    sol, *_ = np.linalg.lstsq(A, t, rcond=None)
+    s = float(sol[0])
+    if not s > min_scale:
+        # no sample carried base weight (or the solve degenerated): anchor
+        # the scale on the median measured-us per modeled step instead
+        steps = A[:, 0] + A[:, 1:] @ np.asarray(
+            [current[n] for n in names]) if names else A[:, 0]
+        steps = np.where(steps > 0, steps, 1.0)
+        s = float(np.median(t / steps))
+        s = max(s, min_scale)
+    fitted = dict(current)
+    for j, n in enumerate(names):
+        fitted[n] = max(float(sol[1 + j]) / s, 1e-3)
+    resid = A @ sol - t
+    denom = float(np.linalg.norm(t))
+    return FitResult(coefficients=fitted, current=current,
+                     scale_us_per_step=s,
+                     residual_rel=float(np.linalg.norm(resid)) /
+                     max(denom, 1e-12),
+                     num_samples=len(samples),
+                     constrained=tuple(names))
 
 
 def choose_schedule(num_tiles: int, num_atoms: int, *, alpha: int = 500,

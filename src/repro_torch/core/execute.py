@@ -307,6 +307,108 @@ def native_chunk_tile_reduce(spec: WorkSpec, part: Partition, atom_fn: AtomFn,
                           kw["local_tiles"], combiner)
 
 
+class LaneLayout:
+    """Up to ``lanes`` tile reduces in one launch, lane ``j`` with the bits
+    of the one-column call on its atom values whatever the combine.
+
+    The native path lays the lanes end to end through the one-column
+    chunk walk: lane ``j``'s atoms start at ``j * stride`` (``stride`` =
+    the atom count rounded up to 4, so the kernel's 4-atom groups keep
+    their alignment), its tile ids and tile starts are shifted by ``j *
+    (num_tiles + 1)``, and its chunks are numbered ``j * (C + 1) + c``:
+    each lane is a copy of the partition, whose ``C + 1``-th chunk covers
+    the gap before the next lane and is in no queue (its row is left
+    unwritten).  Every chunk of lane ``j`` is walked as the one-lane launch
+    walks it, so its partials have the same bits (the B-column kernel adds
+    real values in an order that depends on B).  The tile ids, starts and
+    queues depend only on the partition and are built here once, for
+    ``lanes`` lanes; ``B <= lanes`` lanes use their prefix.  The pure path
+    is the blocked executor over ``[atoms, B]`` values (column ``j``
+    bitwise the one-column call).
+    """
+
+    def __init__(self, spec: WorkSpec, part: Partition, lanes: int, *,
+                 path: ExecutionPath | str = ExecutionPath.AUTO):
+        self.spec, self.part, self.lanes = spec, part, int(lanes)
+        self.path = resolve_execution_path(
+            path, native_supported=supports_native_execution(part))
+        A = spec.num_atoms
+        self.native = self.path == ExecutionPath.NATIVE and A > 0
+        self.stride = -(-A // 4) * 4 if self.native else A
+        if not self.native:
+            return
+        self.window, self.local_tiles = _window_sizes(spec, part)
+        B, stride, tiles = self.lanes, self.stride, spec.num_tiles + 1
+        device = spec.device
+        lane = torch.arange(B, dtype=torch.int32, device=device)[:, None]
+        self._tids = torch.full((B * stride + self.window,), B * tiles,
+                                dtype=torch.int32, device=device)
+        lane_tids = self._tids[:B * stride].view(B, stride)
+        lane_tids[:] = lane * tiles + spec.num_tiles
+        lane_tids[:, :A] = spec.atom_tile_ids()[None, :] + lane * tiles
+        self.num_chunks = int(part.atom_starts.shape[0]) - 1
+        # lane j's C + 1 starts end where lane j + 1's begin, so B lanes'
+        # starts are the first B * (C + 1) + 1 entries
+        last = torch.tensor([B * stride], dtype=torch.int32, device=device)
+        self._atom_starts = torch.cat([(part.atom_starts.to(
+            torch.int32)[None, :] + lane * stride).reshape(-1), last])
+        last = torch.tensor([B * tiles], dtype=torch.int32, device=device)
+        self._tile_starts = torch.cat([(part.tile_starts.to(
+            torch.int32)[None, :] + lane * tiles).reshape(-1), last])
+        chunks, counts, self.max_chunks = _queue_operands(part)
+        self._chunks = (chunks[None, :]
+                        + lane * (self.num_chunks + 1)).reshape(B, -1)
+        self._counts = counts.repeat(B).view(B, -1)
+
+    def operands(self, B: int, fill: Callable[[torch.Tensor], None], *,
+                 combiner: str = "sum"):
+        """``(args, kwargs)`` of the launch over ``B <= lanes`` lanes:
+        ``chunk_walk_reduce(*args, **kwargs)`` gives partials ``[B * (C +
+        1), L]``.  ``fill(out)`` writes lane ``j``'s f32 atom values into
+        ``out[j]`` (``[B, num_atoms]``, each row contiguous: a view of the
+        launch's value buffer, so the values are written once)."""
+        if not 0 < B <= self.lanes:
+            raise ValueError(f"{B} lanes on a layout of {self.lanes}")
+        A, stride, window = self.spec.num_atoms, self.stride, self.window
+        identity = COMBINER_IDENTITY[combiner]
+        vals = torch.empty(B * stride + window, dtype=torch.float32,
+                           device=self.spec.device)
+        rows = vals[:B * stride].view(B, stride)
+        rows[:, A:] = identity
+        vals[B * stride:] = identity
+        fill(rows[:, :A])
+        n = B * (self.num_chunks + 1) + 1
+        args = (vals, self._tids[:B * stride + window],
+                self._atom_starts[:n], self._tile_starts[:n],
+                self._chunks[:B].reshape(-1), self._counts[:B].reshape(-1),
+                None)
+        return args, dict(window=window, local_tiles=self.local_tiles,
+                          max_chunks=self.max_chunks, combiner=combiner,
+                          emit="tiles")
+
+    def reduce(self, B: int, fill: Callable[[torch.Tensor], None], *,
+               combiner: str = "sum") -> torch.Tensor:
+        """The B lanes' tile reduces, ``[num_tiles, B]``: one chunk-walk
+        launch and one fixup on the native path (``fill`` as in
+        :meth:`operands`)."""
+        _check_combiner(combiner, torch.float32)
+        spec, part = self.spec, self.part
+        if not self.native or B == 0:
+            values = torch.empty((B, spec.num_atoms), dtype=torch.float32,
+                                 device=spec.device)
+            fill(values)
+            return execute_tile_reduce(spec, part, lambda e: values.t(),
+                                       torch.float32, path=self.path,
+                                       combiner=combiner)
+        from repro_torch.kernels.spmv_merge.kernel import chunk_walk_reduce
+
+        args, kw = self.operands(B, fill, combiner=combiner)
+        L, C = self.local_tiles, self.num_chunks
+        partials = chunk_walk_reduce(*args, **kw).view(B, C + 1, L)
+        partials = partials[:, :C].permute(1, 2, 0).contiguous()
+        return fixup_partials(spec, part, partials, L, combiner)
+
+
 # ---------------------------------------------------------------------------
 # Scatter-reduce: balanced value windows combined by arbitrary per-atom
 # output ids (the push-direction graph advance).

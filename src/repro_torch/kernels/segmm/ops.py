@@ -19,8 +19,9 @@ Execution paths: ``"native"`` (and ``"auto"``) walk the chunked policies'
 queues inside the chunk-walking kernel (K6) with no permutation; ``"pure"``
 realises the queue as a block permutation of the operand feeding the
 one-block-per-CTA kernel (K5), as the reference's fallback does.
-``group_mapped`` always runs K5.  The reference's measured autotuning
-(``measure=``) is not ported: ``"auto"`` is model-only.
+``group_mapped`` always runs K5.  ``"auto"`` asks the autotuner, which
+times candidates on the call's own GEMM under ``REPRO_AUTOTUNE_MEASURE=1``
+(``measure=``).
 """
 from __future__ import annotations
 
@@ -43,17 +44,26 @@ def _round_up(x: int, m: int) -> int:
 
 
 def resolve_schedule(expert_of_token: torch.Tensor, num_experts: int,
-                     num_blocks: int = 64) -> str:
-    """Map the autotuner's model-only choice onto a segmm block-order
-    policy (inspects the concrete routing: one host read)."""
-    from repro_torch.core.autotune import select_schedule
+                     num_blocks: int = 64, *, measure=None) -> str:
+    """Map the autotuner's choice onto a segmm block-order policy
+    (inspects the concrete routing: one host read).
+
+    ``measure`` (``(plan) -> median_us`` on the caller's own GEMM) ranks
+    the candidates by measurement when ``REPRO_AUTOTUNE_MEASURE`` is on;
+    ``None`` or ``False`` keeps the model-only schedule-level selection.
+    """
+    from repro_torch.core.autotune import (measurement_enabled, select_plan,
+                                           select_schedule)
     from repro_torch.core.schedules import Schedule
     from repro_torch.core.work import WorkSpec
 
     counts = torch.bincount(expert_of_token.long(),
                             minlength=num_experts)[:num_experts]
     spec = WorkSpec.from_segment_sizes(counts, num_atoms=int(counts.sum()))
-    chosen = select_schedule(spec, num_blocks)
+    if callable(measure) and measurement_enabled():
+        chosen = select_plan(spec, num_blocks, measure=measure).schedule
+    else:
+        chosen = select_schedule(spec, num_blocks)
     return "chunked_lpt" if chosen == Schedule.CHUNKED else "group_mapped"
 
 
@@ -208,18 +218,35 @@ def grouped_matmul(tokens: torch.Tensor, expert_of_token: torch.Tensor,
                    rhs: torch.Tensor, *, num_experts: int, bm: int = 128,
                    bn: int = 128, bk: int = 512,
                    schedule: str = "group_mapped",
-                   execution_path: ExecutionPath | str = ExecutionPath.AUTO
-                   ) -> torch.Tensor:
+                   execution_path: ExecutionPath | str = ExecutionPath.AUTO,
+                   measure=None) -> torch.Tensor:
     """``out[t] = tokens[t] @ rhs[expert_of_token[t]]`` for ragged groups.
 
     ``tokens``: ``[T, K]`` f32/bf16; ``expert_of_token``: int ``[T]`` in
     ``[0, num_experts)``; ``rhs``: ``[num_experts, K, N]``.  Returns f32
     ``[T, N]``.  ``schedule``: one of :data:`SCHEDULE_POLICIES` or
-    ``"auto"`` (model-only); ``execution_path``: native chunk-walking
-    kernel vs permuted-block fallback for the chunked policies.
+    ``"auto"``; ``execution_path``: native chunk-walking kernel vs
+    permuted-block fallback for the chunked policies.  ``measure`` is the
+    measured-cost knob of ``"auto"``: ``None`` times the candidates on this
+    very GEMM when ``REPRO_AUTOTUNE_MEASURE=1``, ``False`` stays
+    model-only, a callable ``(plan) -> median_us`` is used as given.
     """
     if schedule == "auto":
-        schedule = resolve_schedule(expert_of_token, num_experts)
+        m = measure
+        if m is None:
+            from repro_torch.core.autotune import measurement_enabled
+            if measurement_enabled():
+                from repro_torch.core.measure import time_fn
+
+                def m(plan):
+                    policy, p = plan_policy(plan)
+                    f = lambda *a: _grouped_matmul(
+                        *a, num_experts=num_experts, bm=bm, bn=bn, bk=bk,
+                        schedule=policy, path=p)
+                    return time_fn(f, tokens, expert_of_token, rhs,
+                                   warmup=1, iters=3)
+        schedule = resolve_schedule(expert_of_token, num_experts,
+                                    measure=None if m is False else m)
     path = resolve_execution_path(execution_path, native_supported=True)
     return _grouped_matmul(tokens, expert_of_token, rhs,
                            num_experts=num_experts, bm=bm, bn=bn, bk=bk,

@@ -26,11 +26,26 @@ def merge_block_items(A, num_blocks: int) -> int:
     return max(_round_up(-(-(A.shape[0] + A.nnz) // num_blocks), 128), 128)
 
 
+def _spmv_measure(A, x: torch.Tensor, nb: int):
+    """Measured-mode timing closure: one candidate plan on this very
+    SpMV."""
+    from repro_torch.core.measure import time_fn
+    spec = A.workspec()
+    vals, cols = A.values, A.col_indices
+
+    def run(plan) -> float:
+        part = make_partition(spec, plan.schedule, nb)
+        f = lambda xv: execute_tile_reduce(
+            spec, part, lambda nz: vals[nz] * xv[cols[nz]], path=plan.path)
+        return time_fn(f, x, warmup=1, iters=3)
+    return run
+
+
 def spmv_merge_path(A, x: torch.Tensor, *, num_blocks: int | None = None,
                     block_items: int = 512,
                     schedule: Schedule | str | None = None,
-                    execution_path: ExecutionPath | str = ExecutionPath.AUTO
-                    ) -> torch.Tensor:
+                    execution_path: ExecutionPath | str = ExecutionPath.AUTO,
+                    measure=None) -> torch.Tensor:
     """Merge-path SpMV ``y = A @ x`` for a :class:`repro_torch.sparse.CSR`.
 
     ``schedule=None`` runs the merge-path kernel over the CSR.
@@ -46,14 +61,26 @@ def spmv_merge_path(A, x: torch.Tensor, *, num_blocks: int | None = None,
     ``"native"`` they run on the chunk-walk kernel; ``"pure"`` keeps the
     reference's fallback, the merge-path SpMV on the chunk-level grid.
     Other explicit schedules set that grid to ``num_blocks``.
+
+    ``measure`` is the measured-cost knob of ``schedule="auto"``: ``None``
+    times the top model-ranked candidates on this matrix and vector when
+    ``REPRO_AUTOTUNE_MEASURE=1``, ``False`` stays model-only, a callable
+    ``(plan) -> median_us`` is used as given.
     """
     if schedule is not None:
         policy = _CHUNK_POLICIES.get(str(schedule))
         sched = Schedule.CHUNKED if policy else Schedule(schedule)
         nb = num_blocks or DEFAULT_NUM_BLOCKS
         if sched == Schedule.AUTO:
-            from repro_torch.core.autotune import select_plan
-            plan = select_plan(A.workspec(), nb)
+            from repro_torch.core.autotune import (measurement_enabled,
+                                                   select_plan)
+            if callable(measure):
+                m = measure
+            elif measure is not False and measurement_enabled():
+                m = _spmv_measure(A, x, nb)
+            else:
+                m = None
+            plan = select_plan(A.workspec(), nb, measure=m)
             sched = plan.schedule
             policy = "lpt" if sched == Schedule.CHUNKED else None
             if ExecutionPath(execution_path) == ExecutionPath.AUTO:

@@ -17,8 +17,8 @@ plus :func:`moe_capacity_einsum`, the dense one-hot specification.
 Every per-token combine sums a token's ``k`` atoms in atom order (each
 token has exactly ``k``), never with float atomics, so the bits do not
 change from run to run.  Aux loss: load-balancing (mean gate fraction x
-mean route fraction) + router z-loss.  The reference's ``ep_pins`` and
-measured ``"auto"`` are not ported (one device, model-only autotune).
+mean route fraction) + router z-loss.  The reference's ``ep_pins`` waits
+for sharding (one device).
 """
 from __future__ import annotations
 
@@ -194,8 +194,10 @@ def moe_sorted(params: Params, x: torch.Tensor, *, num_experts: int,
     Drop-free.
 
     ``schedule``: segmm block-order policy (``"group_mapped"``,
-    ``"chunked_rr"``, ``"chunked_lpt"``) or ``"auto"`` (the model-only
-    autotuner inspects the routing once for all three GEMMs).
+    ``"chunked_rr"``, ``"chunked_lpt"``) or ``"auto"`` (the autotuner
+    inspects the routing once for all three GEMMs; with
+    ``REPRO_AUTOTUNE_MEASURE=1`` it times the candidate policies on the
+    first GEMM's operands, which share the others' routing).
     ``execution_path``: ``"native"``/``"auto"`` walk the chunked policies'
     queues inside the chunk-walking kernel, ``"pure"`` permutes blocks.
     """
@@ -212,7 +214,20 @@ def moe_sorted(params: Params, x: torch.Tensor, *, num_experts: int,
     atoms_in = x2d[atom_token]                              # [T*k, D]
 
     if schedule == "auto":
-        schedule = segmm_ops.resolve_schedule(atom_expert, num_experts)
+        measure = None
+        from repro_torch.core.autotune import measurement_enabled
+        if measurement_enabled():
+            from repro_torch.core.measure import time_fn
+
+            def measure(plan):
+                policy, p = segmm_ops.plan_policy(plan)
+                f = lambda *a: segmm_ops.grouped_matmul(
+                    *a, num_experts=num_experts, bm=bm, schedule=policy,
+                    execution_path=p)
+                return time_fn(f, atoms_in, atom_expert, params["w1"],
+                               warmup=1, iters=3)
+        schedule = segmm_ops.resolve_schedule(atom_expert, num_experts,
+                                              measure=measure)
     gmm = lambda lhs, w: segmm_ops.grouped_matmul(
         lhs, atom_expert, w, num_experts=num_experts, bm=bm,
         schedule=schedule, execution_path=execution_path)

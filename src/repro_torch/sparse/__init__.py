@@ -8,8 +8,8 @@ from repro_torch.sparse.advance import (AdvancePlan, advance,
                                         advance_src_argmin, build_advance,
                                         build_advance_views, estimate_delta,
                                         frontier_filter)
-from repro_torch.sparse.graph import (Graph, bfs, delta_stepping, pagerank,
-                                      sssp)
+from repro_torch.sparse.graph import (Graph, bfs, bfs_multi,
+                                      delta_stepping, pagerank, sssp)
 from repro_torch.sparse.wavefront import (PackedForest, WavefrontPlan,
                                           build_wavefront, pack_forest,
                                           topological_levels, wavefront_eval)
@@ -19,6 +19,7 @@ __all__ = ["COO", "CSC", "CSR", "random_csr", "suite_like_corpus",
            "AdvancePlan", "advance", "advance_frontier", "advance_push",
            "advance_relax_min", "advance_src_argmin", "build_advance",
            "build_advance_views", "estimate_delta", "frontier_filter",
-           "Graph", "bfs", "delta_stepping", "pagerank", "sssp",
+           "Graph", "bfs", "bfs_multi", "delta_stepping", "pagerank",
+           "sssp",
            "PackedForest", "WavefrontPlan", "build_wavefront",
            "pack_forest", "topological_levels", "wavefront_eval"]

@@ -158,14 +158,15 @@ class AdvancePlan:
 
 
 def _resolve_direction_plan(spec: WorkSpec, schedule, path, num_blocks: int,
-                            workload: str):
+                            workload: str, measure=None):
     """(schedule, path, Partition) for one direction's work view."""
     policy = _CHUNK_POLICIES.get(str(schedule))
     sched = Schedule.CHUNKED if policy else Schedule(schedule)
     req_path = ExecutionPath(path)
     if sched == Schedule.AUTO:
         from repro_torch.core.autotune import select_plan
-        plan = select_plan(spec, num_blocks, workload=workload)
+        plan = select_plan(spec, num_blocks, workload=workload,
+                           measure=measure)
         sched = plan.schedule
         policy = "lpt" if sched == Schedule.CHUNKED else None
         if req_path == ExecutionPath.AUTO:
@@ -175,9 +176,42 @@ def _resolve_direction_plan(spec: WorkSpec, schedule, path, num_blocks: int,
     return sched, choose_execution_path(part, req_path), part
 
 
+def _direction_measure(spec: WorkSpec, gather: torch.Tensor,
+                       num_blocks: int, direction: str,
+                       weight: torch.Tensor, num_vertices: int,
+                       dst: Optional[torch.Tensor]):
+    """Measured-mode timing closure for one direction's candidates: the
+    min-relax of ``potentials[src] + w`` under a fixed ~30% frontier (drawn
+    from seed 0, as the reference draws it), on this graph."""
+    from repro_torch.core.measure import time_fn
+    rng = np.random.default_rng(0)
+    frontier = torch.from_numpy(
+        rng.random(max(num_vertices, 1)) < 0.3).to(spec.device)
+    potentials = torch.zeros(max(num_vertices, 1), dtype=torch.float32,
+                             device=spec.device)
+    w = weight.to(torch.float32)
+
+    def run(plan) -> float:
+        part = make_partition(spec, plan.schedule, num_blocks,
+                              chunk_policy="lpt")
+        mask = frontier[gather]
+        if direction == "push":
+            f = lambda p: execute_scatter_reduce(
+                spec, part, lambda e: p[gather[e]] + w[e], dst,
+                num_vertices, torch.float32, path=plan.path,
+                combiner="min", atom_mask=mask)
+        else:
+            f = lambda p: execute_tile_reduce(
+                spec, part, lambda e: p[gather[e]] + w[e], torch.float32,
+                path=plan.path, combiner="min", atom_mask=mask)
+        return time_fn(f, potentials, warmup=1, iters=3)
+    return run
+
+
 #: Push-direction sibling of each frontier-masked workload family.
 _PUSH_WORKLOADS = {"advance": "advance_push",
                    "advance_delta": "advance_delta_push",
+                   "advance_serve": "advance_serve_push",
                    "wavefront": "wavefront_push"}
 
 
@@ -187,8 +221,8 @@ def build_advance(graph, *, schedule: Schedule | str = "auto",
                   workload: str = "advance",
                   direction_threshold: Optional[float] = None,
                   delta: Optional[float | str] = None,
-                  compact: Optional[bool | int | float] = None
-                  ) -> AdvancePlan:
+                  compact: Optional[bool | int | float] = None,
+                  measure=None) -> AdvancePlan:
     """Inspect a :class:`~repro_torch.sparse.graph.Graph` into a plan pair.
 
     ``schedule`` is any registered schedule, a dynamic queue spelling, or
@@ -199,17 +233,41 @@ def build_advance(graph, *, schedule: Schedule | str = "auto",
     split (``"auto"`` estimates it); ``compact`` enables gather-compacted
     push windows (``True``: capacity from the threshold; a float in (0, 1]:
     that fraction of the edges; an int: that many slots).
+
+    ``measure`` is the measured-cost knob of ``schedule="auto"``: ``None``
+    times each direction's top candidates on this graph's own relax
+    (:func:`_direction_measure`) when ``REPRO_AUTOTUNE_MEASURE=1``,
+    ``False`` stays model-only, a callable ``(direction, plan) ->
+    median_us`` is used as given.
     """
+    num_blocks = DEFAULT_NUM_BLOCKS if num_blocks is None else num_blocks
     pull = graph.csr.transpose()          # CSR of A^T: rows = destinations
+    pull_spec = pull.workspec()
     push_spec = graph.csr.workspec()      # forward CSR: rows = sources
+    pull_measure = push_measure = None
+    if measure is not False and str(schedule) not in _CHUNK_POLICIES \
+            and Schedule(schedule) == Schedule.AUTO:
+        from repro_torch.core.autotune import measurement_enabled
+        if callable(measure):
+            pull_measure = lambda p: measure("pull", p)
+            push_measure = lambda p: measure("push", p)
+        elif measurement_enabled():
+            V = graph.num_vertices
+            pull_measure = _direction_measure(
+                pull_spec, pull.col_indices, num_blocks, "pull",
+                pull.values, V, None)
+            push_measure = _direction_measure(
+                push_spec, push_spec.atom_tile_ids(), num_blocks, "push",
+                graph.csr.values, V, graph.csr.col_indices)
     return build_advance_views(
-        pull_spec=pull.workspec(), pull_src=pull.col_indices,
+        pull_spec=pull_spec, pull_src=pull.col_indices,
         pull_weight=pull.values, push_spec=push_spec,
         push_dst=graph.csr.col_indices, push_weight=graph.csr.values,
         num_vertices=graph.num_vertices, schedule=schedule,
         num_blocks=num_blocks, path=path, workload=workload,
         direction_threshold=direction_threshold, delta=delta,
-        compact=compact)
+        compact=compact, pull_measure=pull_measure,
+        push_measure=push_measure)
 
 
 def _compact_capacity(compact, num_edges: int,
@@ -239,16 +297,20 @@ def build_advance_views(*, pull_spec: WorkSpec, pull_src: torch.Tensor,
                         workload: str = "advance",
                         direction_threshold: Optional[float] = None,
                         delta: Optional[float | str] = None,
-                        compact: Optional[bool | int | float] = None
+                        compact: Optional[bool | int | float] = None,
+                        pull_measure=None, push_measure=None
                         ) -> AdvancePlan:
     """The view-level inspector behind :func:`build_advance`: partitions
-    both views, models the switch density, sizes compaction."""
+    both views, models the switch density, sizes compaction.
+    ``pull_measure``/``push_measure`` are per-direction timing closures
+    (``plan -> median_us``) for measured ``"auto"``, or ``None``."""
     num_blocks = DEFAULT_NUM_BLOCKS if num_blocks is None else num_blocks
     sched, resolved, part = _resolve_direction_plan(
-        pull_spec, schedule, path, num_blocks, workload)
+        pull_spec, schedule, path, num_blocks, workload,
+        measure=pull_measure)
     push_sched, push_resolved, push_part = _resolve_direction_plan(
         push_spec, schedule, path, num_blocks,
-        _PUSH_WORKLOADS.get(workload, workload))
+        _PUSH_WORKLOADS.get(workload, workload), measure=push_measure)
     if direction_threshold is None:
         direction_threshold = estimate_direction_threshold(
             pull_spec, push_spec, num_blocks,

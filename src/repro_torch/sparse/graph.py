@@ -16,6 +16,14 @@ pull above.  min/max are exact, so the direction never changes a bit.
 **Delta-stepping** (:func:`delta_stepping`, ``sssp(algorithm="delta")``)
 runs light/heavy-restricted advances over the same plan pair to the same
 f32 fixed point as Bellman-Ford: the distances are bit-identical.
+
+**Many traversals at once** (:func:`bfs_multi`, and the lanes of
+:class:`repro_torch.serve.graph.GraphServer`): the pull advances of all
+lanes run as one kernel launch (the reference's ``vmap``), the lanes laid
+end to end through the one-column chunk walk
+(:class:`~repro_torch.core.execute.LaneLayout`, built once a call or
+server), each lane's frontier folded into its atom values as the
+combiner's identity.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ExecutionPath, Schedule
+from repro_torch.core.execute import LaneLayout
 from repro_torch.sparse.advance import (AdvancePlan, advance,
                                         advance_frontier, advance_push,
                                         advance_relax_min,
@@ -150,6 +159,26 @@ def _relax(plan: AdvancePlan, push: bool, dist: torch.Tensor,
                              direction="push" if push else "pull",
                              edges=edges)
     return torch.minimum(dist, cand)
+
+
+def _gather_rows(out: torch.Tensor, tables: torch.Tensor,
+                 index: torch.Tensor) -> None:
+    """``out[j] = tables[j][index]`` for each lane ``j``, written in place:
+    one gather a lane, each from one ``[V]`` row."""
+    for row, table in zip(out, tables):
+        torch.index_select(table, 0, index, out=row)
+
+
+def _reach_lanes(plan: AdvancePlan, layout: LaneLayout,
+                 frontier: torch.Tensor) -> torch.Tensor:
+    """B pull scatter-ors in one launch: row ``j`` of the ``[B, V]``
+    result is ``advance_frontier(plan, frontier[j])`` (masked atoms hold
+    the max identity ``-inf``)."""
+    tables = torch.where(frontier, 1.0, float("-inf"))
+    reached = layout.reduce(
+        int(frontier.shape[0]),
+        lambda out: _gather_rows(out, tables, plan.src), combiner="max")
+    return reached.t() > 0.0
 
 
 def _source_state(V: int, source: int, device):
@@ -382,6 +411,71 @@ def bfs(graph: Graph, source: int, *, max_iters: Optional[int] = None,
     return out[0] if len(out) == 1 else out
 
 
+def bfs_multi(graph: Graph, sources, *, max_iters: Optional[int] = None,
+              schedule: Schedule | str = "auto",
+              num_blocks: Optional[int] = None,
+              path: ExecutionPath | str = ExecutionPath.AUTO,
+              plan: Optional[AdvancePlan] = None,
+              mesh=None, shard_schedule: Optional[str] = None,
+              direction: str = "pull") -> torch.Tensor:
+    """Multi-source BFS: int32 depth labels ``[S, V]``, row ``s`` equal to
+    ``bfs(graph, sources[s], direction=direction)`` bitwise.
+
+    One plan serves the batch.  Each level advances the sources whose
+    frontier is not empty: the pull ones in one kernel launch, laid end to
+    end (:class:`~repro_torch.core.execute.LaneLayout`), each push one on
+    its own (the push advance takes one column).  ``direction="auto"`` decides per source on its measured
+    density, as :func:`bfs` does; one host read a level.  ``mesh`` and
+    ``shard_schedule`` wait for the sharded traversal (ROADMAP queue 1
+    item 3).
+    """
+    _check_driver_direction(direction)
+    if mesh is not None or shard_schedule is not None:
+        raise NotImplementedError(
+            "bfs_multi(mesh=, shard_schedule=): the sharded traversal is "
+            "not ported yet (ROADMAP.md, queue 1, item 3)")
+    V = graph.num_vertices
+    _validate_sources(sources, V, what="bfs_multi sources")
+    max_iters = V if max_iters is None else max_iters
+    aplan = _resolve_plan(graph, plan, schedule, num_blocks, path)
+    device = graph.device
+    if isinstance(sources, torch.Tensor):
+        sources = sources.cpu().numpy()
+    src = torch.from_numpy(np.asarray(sources, np.int64).reshape(-1))
+    S = int(src.shape[0])
+    depth = torch.full((S, V), -1, dtype=torch.int32, device=device)
+    frontier = torch.zeros((S, V), dtype=torch.bool, device=device)
+    start = (torch.arange(S, device=device), src.to(device))
+    depth[start] = 0
+    frontier[start] = True
+    layout = LaneLayout(aplan.spec, aplan.part, max(S, 1), path=aplan.path)
+    iters = 0
+    while iters < max_iters and S:
+        if direction == "auto":
+            active = torch.where(frontier, aplan.out_degrees, 0).sum(1)
+            live = _read(*frontier.any(1), *active)
+        else:
+            live = _read(*frontier.any(1)) + [0] * S
+        lanes = [j for j in range(S) if live[j]]
+        if not lanes:
+            break
+        push = [j for j in lanes
+                if _use_push(aplan, direction, live[S + j])]
+        pull = [j for j in lanes if j not in push]
+        reached = torch.zeros_like(frontier)
+        if pull:
+            idx = torch.tensor(pull, device=device)
+            reached[idx] = _reach_lanes(aplan, layout, frontier[idx])
+        for j in push:
+            reached[j] = advance_frontier(aplan, frontier[j],
+                                          direction="push")
+        newly = reached & (depth < 0)
+        depth = torch.where(newly, iters + 1, depth)
+        frontier = newly
+        iters += 1
+    return depth
+
+
 def _pagerank_share(pr: torch.Tensor, outdeg: torch.Tensor) -> torch.Tensor:
     """Degree-normalized contribution vector (dangling rows emit zero)."""
     return torch.where(outdeg > 0, pr / torch.clamp(outdeg, min=1.0), 0.0)
@@ -395,6 +489,19 @@ def _pagerank_update(contrib: torch.Tensor, dangling: torch.Tensor,
     total = contrib + dangling / V
     scaled = damping * total
     return (1.0 - damping) / V + scaled
+
+
+def _pagerank_dangling(pr: torch.Tensor, outdeg: torch.Tensor
+                       ) -> torch.Tensor:
+    """Rank mass on dangling vertices: a sum over one contiguous ``[V]``
+    row (the driver and every serving lane add in this one order)."""
+    return torch.where(outdeg > 0, 0.0, pr).sum()
+
+
+def _pagerank_change(new_pr: torch.Tensor, pr: torch.Tensor
+                     ) -> torch.Tensor:
+    """L1 step change over one ``[V]`` row (a device scalar)."""
+    return (new_pr - pr).abs().sum()
 
 
 def pagerank(graph: Graph, *, damping: float = 0.85, num_iters: int = 50,
@@ -429,9 +536,9 @@ def pagerank(graph: Graph, *, damping: float = 0.85, num_iters: int = 50,
             contrib = advance_push(aplan, None, atom_fn, combiner="sum")
         else:
             contrib = advance(aplan, None, atom_fn, combiner="sum")
-        dangling = torch.where(outdeg > 0, 0.0, pr).sum()
+        dangling = _pagerank_dangling(pr, outdeg)
         new_pr = _pagerank_update(contrib, dangling, damping, V)
-        step = float((new_pr - pr).abs().sum())
+        step = float(_pagerank_change(new_pr, pr))
         pr = new_pr
         if not step > tol:
             break

@@ -139,16 +139,18 @@ class WavefrontPlan:
 def build_wavefront(dag: Graph, *, schedule: Schedule | str = "auto",
                     num_blocks: Optional[int] = None,
                     path: ExecutionPath | str = ExecutionPath.AUTO,
-                    workload: str = "wavefront") -> WavefrontPlan:
+                    workload: str = "wavefront",
+                    measure=None) -> WavefrontPlan:
     """Inspect a dependency DAG into a :class:`WavefrontPlan`: host-side
     Kahn leveling (a cycle raises here) and the dependency CSR's plan
-    pair through :func:`~repro_torch.sparse.advance.build_advance`."""
+    pair through :func:`~repro_torch.sparse.advance.build_advance`
+    (``measure`` as there)."""
     level_of = topological_levels(dag.csr.row_offsets.cpu().numpy(),
                                   dag.csr.col_indices.cpu().numpy(),
                                   dag.num_vertices)
     num_levels = int(level_of.max()) + 1 if level_of.size else 0
     plan = build_advance(dag, schedule=schedule, num_blocks=num_blocks,
-                         path=path, workload=workload)
+                         path=path, workload=workload, measure=measure)
     counts = (np.bincount(level_of, minlength=max(num_levels, 1))
               if level_of.size else np.zeros(0, np.int64))
     return WavefrontPlan(plan=plan, num_levels=num_levels,

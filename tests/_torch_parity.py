@@ -23,9 +23,27 @@ import importlib
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True)
+def isolated_autotune_cache(tmp_path, monkeypatch):
+    """Each test's autotune caches under its ``tmp_path``: the port's
+    default cache starts empty and writes its own file there, the
+    reference's writes its file there, and measured mode is off unless the
+    test turns it on.  Autouse in every test module that imports it."""
+    from repro_torch.core import autotune
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "port_autotune.json"))
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE",
+                       str(tmp_path / "ref_autotune.json"))
+    monkeypatch.delenv("REPRO_AUTOTUNE_MEASURE", raising=False)
+    monkeypatch.delenv("REPRO_AUTOTUNE_TOPK", raising=False)
+    monkeypatch.setattr(autotune._DEFAULT_CACHE, "_mem", {})
+    monkeypatch.setattr(autotune._DEFAULT_CACHE, "_loaded", False)
 
 
 @functools.cache

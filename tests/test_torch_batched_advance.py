@@ -23,6 +23,7 @@ from repro_torch.sparse import Graph, advance, build_advance, random_csr
 from repro_torch.sparse import wavefront as TW
 
 from _torch_parity import assert_bitwise, np_of, reference_sparse, t32
+from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 #: (schedule name of build_advance, make_partition schedule, chunk policy)
@@ -110,6 +111,69 @@ class TestExecutorBatch:
         with pytest.raises(ValueError, match=r"\[atoms\] or \[atoms, B\]"):
             T.execute_tile_reduce(spec, part,
                                   lambda a: torch.ones((a.shape[0], 2, 2)))
+
+
+class TestLaneTileReduce:
+    """B lanes laid end to end through the one-column chunk walk: each
+    lane's chunks are copies of the partition's, so each lane's partials
+    and result have the one-lane call's bits (on the card the B-column
+    kernel adds real values in an order that depends on B).  The layout is
+    built for 8 lanes and fewer use its prefix."""
+
+    @pytest.mark.parametrize("path", PATHS)
+    @pytest.mark.parametrize("combiner", COMBINERS)
+    @pytest.mark.parametrize("lanes", (1, 2, 5, 8))
+    @pytest.mark.parametrize("name,schedule,policy", SCHEDULES)
+    def test_lanes_equal_one_lane_calls(self, name, schedule, policy, lanes,
+                                        combiner, path):
+        spec = _spec(3, tiles=401)
+        part = T.make_partition(spec, schedule, 9, chunk_policy=policy)
+        vals = _columns(np.random.default_rng(lanes), spec.num_atoms, lanes)
+        layout = E.LaneLayout(spec, part, 8, path=path)
+        got = layout.reduce(lanes, lambda out: out.copy_(vals.t()),
+                            combiner=combiner)
+        assert got.shape == (spec.num_tiles, lanes)
+        want = _per_column(lambda fn: T.execute_tile_reduce(
+            spec, part, fn, path=path, combiner=combiner), vals)
+        assert_bitwise(got, want, name)
+
+    @pytest.mark.parametrize("num_atoms_mod_4", [0, 1, 3])
+    def test_lane_operands_copy_the_partition(self, num_atoms_mod_4):
+        sizes = np.random.default_rng(4).integers(0, 30, 90)
+        sizes[0] += (num_atoms_mod_4 - int(sizes.sum())) % 4
+        offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+        spec = T.WorkSpec.from_segment_offsets(
+            offsets, num_atoms=int(offsets[-1]), device=CPU)
+        part = T.make_partition(spec, "chunked", 4)
+        B, A = 3, spec.num_atoms
+        lanes = _columns(np.random.default_rng(5), A, B).t().contiguous()
+        layout = E.LaneLayout(spec, part, B + 2, path="native")
+        args, kw = layout.operands(B, lambda out: out.copy_(lanes))
+        vals, tids, atom_starts, tile_starts, chunks, counts, mask = args
+        stride = -(-A // 4) * 4
+        C = int(part.atom_starts.shape[0]) - 1
+        assert mask is None and vals.shape == tids.shape
+        assert vals.shape[0] == B * stride + kw["window"]
+        assert atom_starts.shape == (B * (C + 1) + 1,)
+        assert int(atom_starts[-1]) == B * stride
+        queues = counts.view(B, -1)
+        assert bool((queues == queues[0]).all())
+        # no queue pops a lane's gap chunk
+        popped = set(chunks.view(counts.shape[0], -1)[
+            torch.arange(kw["max_chunks"])[None, :]
+            < counts[:, None].long()].tolist())
+        assert popped == {j * (C + 1) + c for j in range(B)
+                          for c in range(C)}
+        one, kw1 = E.chunk_walk_operands(spec, part, lanes[0])
+        want = TK.chunk_walk_reduce(*one, **kw1)
+        got = TK.chunk_walk_reduce(*args, **kw).view(B, C + 1, -1)
+        for j in range(B):
+            assert int(atom_starts[j * (C + 1)]) == j * stride
+            assert_bitwise(got[j, :C], TK.chunk_walk_reduce(
+                *E.chunk_walk_operands(spec, part, lanes[j])[0], **kw1))
+        assert_bitwise(got[0, :C], want)
+        with pytest.raises(ValueError, match="lanes on a layout"):
+            layout.operands(B + 3, lambda out: None)
 
 
 class TestAdvanceBatch:

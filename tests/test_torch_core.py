@@ -13,6 +13,7 @@ import repro_torch.core as T
 
 from _torch_parity import (CPU, assert_same_partition, np_of, spec_pair,
                            t32, zoo)
+from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
 
 class TestWorkSpec:
@@ -117,7 +118,7 @@ class TestAutotune:
         monkeypatch.setenv("REPRO_AUTOTUNE_CACHE",
                            str(tmp_path / "autotune.json"))
         monkeypatch.delenv("REPRO_AUTOTUNE_MEASURE", raising=False)
-        memo = {}
+        memo = T.AutotuneCache(tmp_path / "port_autotune.json")
         for name in ("uniform", "one_heavy", "powerlaw", "empty_runs",
                      "powerlaw_big", "empty"):
             jspec, tspec = spec_pair(zoo()[name])

@@ -35,10 +35,12 @@ from repro_torch.kernels.segmm import kernel as SK
 from repro_torch.kernels.segmm import ops as SO
 from repro_torch.kernels.spmv_merge import kernel as TK
 from repro_torch.kernels.spmv_merge import ops as TO
-from repro_torch.sparse import (Graph, bfs, delta_stepping, pagerank,
-                                random_csr, spmm, spmv_reference, sssp)
+from repro_torch.sparse import (CSR, Graph, bfs, bfs_multi, build_advance,
+                                delta_stepping, pagerank, random_csr, spmm,
+                                spmv_reference, sssp)
 
 from _torch_parity import assert_bitwise
+from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.cuda
 
@@ -640,6 +642,97 @@ def test_pagerank_and_chunked_spmv_are_deterministic(card):
     assert_bitwise(ys[1], ys[0], "spmv_merge_path chunked_lpt")
     torch.testing.assert_close(ys[0], spmv_reference(A, x), rtol=1e-5,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Graph serving and bfs_multi through K2's column batch; measured timing.
+# ---------------------------------------------------------------------------
+
+def _serving_graph(card, V=3000):
+    A = random_csr(V, V, 10 * V, skew=1.3, empty_frac=0.3, seed=11,
+                   device=card)
+    return Graph(CSR(A.row_offsets, A.col_indices, A.values.abs() + 0.05,
+                     A.shape, A.nnz))
+
+
+def test_graph_server_matches_drivers_two_launches_a_step(card):
+    from repro_torch.serve.graph import GraphServer
+    g = _serving_graph(card)
+    srv = GraphServer(g, lanes=4, schedule="chunked_lpt", path="native",
+                      num_blocks=264)
+    rng = np.random.default_rng(12)
+    queries = [(("bfs", "sssp", "pagerank")[i % 3],
+                int(rng.integers(g.num_vertices))) for i in range(10)]
+    for q in queries:
+        srv.submit(*q)
+    results, per_step = {}, []
+    while srv.queued or srv.in_flight:
+        before = TK.LAUNCHES["chunk_walk_tiles"]
+        for r in srv.tick():
+            results[r.qid] = r
+        per_step.append(TK.LAUNCHES["chunk_walk_tiles"] - before)
+    assert max(per_step) == 2, per_step
+    assert srv.step_traces == 1 and srv.admit_traces == 1
+    for qid, (kind, source) in enumerate(queries):
+        if kind == "bfs":
+            want = bfs(g, source, plan=srv.plan, direction="pull")
+        elif kind == "sssp":
+            want = sssp(g, source, plan=srv.plan, direction="pull")
+        else:
+            want = pagerank(g, plan=srv.plan)
+        got = torch.from_numpy(results[qid].value)
+        assert got.dtype == want.dtype
+        assert_bitwise(got.float(), want.cpu().float(), f"{kind} {source}")
+
+
+def test_bfs_multi_one_launch_a_level(card):
+    g = _serving_graph(card)
+    plan = build_advance(g, schedule="chunked_lpt", path="native",
+                         num_blocks=264)
+    deg = g.out_degrees().cpu().numpy()
+    sources = [int(v) for v in np.nonzero(deg)[0][:: 97][:8]]
+    before = TK.LAUNCHES["chunk_walk_tiles"]
+    depth = bfs_multi(g, sources, plan=plan)
+    assert TK.LAUNCHES["chunk_walk_tiles"] - before == int(depth.max()) + 1
+    for s, source in enumerate(sources):
+        assert torch.equal(depth[s],
+                           bfs(g, source, plan=plan, direction="pull"))
+
+
+@pytest.mark.parametrize("schedule", ["chunked_lpt", "merge_path"])
+def test_lane_tile_reduce_keeps_each_lanes_bits(card, schedule):
+    """Real-valued sums: lane j of one end-to-end launch has the bits of
+    the one-column call (hub rows span many chunks and CTA teams; the atom
+    count is not a multiple of 4)."""
+    A = random_csr(20_000, 20_000, 400_001, skew=1.3, empty_frac=0.3,
+                   seed=9, device=card)
+    g = Graph(A)
+    plan = build_advance(g, schedule=schedule, path="native",
+                         num_blocks=264)
+    gen = torch.Generator(device=card).manual_seed(10)
+    layout = T.execute.LaneLayout(plan.spec, plan.part, 8, path="native")
+    for lanes in (1, 2, 5, 8):
+        vals = torch.randn(lanes, plan.spec.num_atoms, generator=gen,
+                           device=card)
+        before = TK.LAUNCHES["chunk_walk_tiles"]
+        got = layout.reduce(lanes, lambda out: out.copy_(vals))
+        assert TK.LAUNCHES["chunk_walk_tiles"] == before + 1
+        for j in range(lanes):
+            want = T.execute_tile_reduce(plan.spec, plan.part,
+                                         lambda e: vals[j][e],
+                                         path="native")
+            assert_bitwise(got[:, j], want, f"{schedule} lane {j}/{lanes}")
+
+
+def test_time_fn_synchronizes_on_card_results(card, monkeypatch):
+    calls = []
+    sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: calls.append(1) or sync(*a))
+    x = torch.ones(1 << 20, device=card)
+    before = T.measurement_count()
+    assert T.time_fn(lambda v: v * 2, x, warmup=1, iters=4) > 0
+    assert len(calls) == 8 and T.measurement_count() == before + 1
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ from repro_torch.kernels.spmv_merge import ref as TR
 
 from _conformance import int_valued_atom_values
 from _torch_parity import assert_bitwise, np_of, spec_pair, t32, zoo
+from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
 SIX = ("thread_mapped", "group_mapped", "nonzero_split", "merge_path",
        "chunked", "adaptive")

@@ -1,9 +1,9 @@
 """Port parity: the packages' exports, and the segment primitives' call
 signatures and CPU results, against the live JAX reference.
 
-``repro.models`` and ``repro.sparse`` import ``repro.compat``, so they are
-imported through ``_torch_parity.reference_modules`` in a module-scoped
-fixture.  Every name of a reference ``__all__`` is either exported by the
+``repro.models``, ``repro.sparse`` and ``repro.serve.graph`` import
+``repro.compat``, so they are imported through
+``_torch_parity.reference_modules`` in a module-scoped fixture.  Every name of a reference ``__all__`` is either exported by the
 port or listed below as not ported yet; a name listed there must be absent
 from the port, so the lists shrink as the port grows.
 """
@@ -15,32 +15,44 @@ import torch
 import repro.core as J
 import repro_torch.core as T
 import repro_torch.models as TM
+import repro_torch.serve.graph as TSG
 import repro_torch.sparse as TS
 from repro_torch.kernels.spmv_merge import kernel as TK
 
 from _torch_parity import assert_bitwise, np_of, reference_modules
+from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
 #: Reference exports the port does not have yet: training's loss (ROADMAP
 #: queue 1) and the frontend's jax.ShapeDtypeStruct helper.
 MODELS_NOT_PORTED = {"lm_loss", "frontend_embed_shape"}
 
-#: Multi-source BFS and the sharded (multi-device) traversals.
-SPARSE_NOT_PORTED = {"bfs_multi", "SHARD_SCHEDULES", "ShardedAdvancePlan",
+#: The sharded (multi-device) traversals (ROADMAP queue 1 item 3).
+SPARSE_NOT_PORTED = {"SHARD_SCHEDULES", "ShardedAdvancePlan",
                      "build_sharded_advance", "shard_boundaries",
                      "sharded_bfs", "sharded_bfs_multi",
                      "sharded_delta_stepping", "sharded_pagerank",
                      "sharded_sssp"}
 
+#: The sharded executors, cost terms and plans (ROADMAP queue 1 item 3).
+CORE_NOT_PORTED = {"COMBINER_COLLECTIVE", "execute_sharded_tile_reduce",
+                   "execute_sharded_scatter_reduce", "HALO_BYTE_COST",
+                   "SHARD_SYNC_OVERHEAD", "modeled_sharded_cost",
+                   "ShardedCacheRecord", "ShardedPlan",
+                   "select_sharded_plan"}
+
+PACKAGES = ("models", "sparse", "core", "serve.graph")
+
 
 @pytest.fixture(scope="module")
 def ref():
-    with reference_modules("repro.models", "repro.sparse") as modules:
-        yield dict(zip(("models", "sparse"), modules))
+    with reference_modules(*(f"repro.{p}" for p in PACKAGES)) as modules:
+        yield dict(zip(PACKAGES, modules))
 
 
 @pytest.mark.parametrize("package,port,not_ported", [
-    ("models", TM, MODELS_NOT_PORTED), ("sparse", TS, SPARSE_NOT_PORTED)],
-    ids=["models", "sparse"])
+    ("models", TM, MODELS_NOT_PORTED), ("sparse", TS, SPARSE_NOT_PORTED),
+    ("core", T, CORE_NOT_PORTED), ("serve.graph", TSG, set())],
+    ids=PACKAGES)
 def test_all_holds_every_ported_name(ref, package, port, not_ported):
     want = set(ref[package].__all__)
     assert not_ported <= want, sorted(not_ported - want)

@@ -24,6 +24,7 @@ from _conformance import (adversarial_graphs, np_advance, np_advance_push,
 from _torch_parity import (assert_bitwise, assert_same_partition,
                            graph_of, medium_source, np_of,
                            reference_sparse)
+from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
 SCHEDULES = ("thread_mapped", "group_mapped", "nonzero_split", "merge_path",
              "chunked_lpt", "chunked_rr", "adaptive")

@@ -12,6 +12,7 @@ import repro_torch.sparse as TS
 from _conformance import adversarial_graphs, powerlaw_graph_dense
 from _torch_parity import (assert_bitwise, graph_of, medium_source, np_of,
                            reference_sparse)
+from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
 PATHS = ("pure", "native")
 GRAPHS = {**adversarial_graphs(), "powerlaw": powerlaw_graph_dense(48)}

@@ -18,6 +18,7 @@ from repro_torch.interop import moe_params_from_arrays
 from repro_torch.models import moe as TM
 
 from _torch_parity import assert_bitwise, np_of, reference_modules
+from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
 ARCHS = ["olmoe_1b_7b", "deepseek_moe_16b"]
 POLICY_PATHS = [(s, p) for s in ("group_mapped", "chunked_rr",

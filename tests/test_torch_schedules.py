@@ -15,6 +15,7 @@ from repro_torch.interop import (partition_from_arrays, partition_to_arrays,
 
 from _torch_parity import (SCHEDULES, assert_same_partition, np_of,
                            spec_pair, t32, zoo)
+from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
 
 class TestPartitions:

@@ -17,6 +17,7 @@ from repro_torch.kernels.segmm import ops as TO
 from repro_torch.kernels.segmm import ref as TR
 
 from _torch_parity import assert_bitwise, np_of, reference_modules
+from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
 #: The reference's shape cases (T, K, N, E, bm, bn, bk), plus bm = 8 (the
 #: wavefront level GEMM's default).

@@ -148,9 +148,15 @@ class TestLauncher:
         assert len(sample) == 5 and all(0 <= int(t) < 256 for t in sample)
 
     def test_graph_and_meshes_raise(self):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            launch_serve.main(["--graph"])
+        # --graph serves (tests/test_torch_serve_graph.py runs it on the
+        # CPU); its default device is the card, as the LM path's is
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                launch_serve.main(["--graph"])
         with pytest.raises(SystemExit):        # only the host mesh parses
+            launch_serve.main(["--graph", "--mesh", "single", "--device",
+                               "cpu"])
+        with pytest.raises(SystemExit):
             launch_serve.main(["--arch", "qwen15_05b", "--reduced",
                                "--mesh", "single", "--device", "cpu"])
 

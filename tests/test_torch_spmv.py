@@ -15,6 +15,7 @@ from repro_torch.interop import csr_from_arrays
 from repro_torch.kernels.spmv_merge import ops as TO
 
 from _torch_parity import np_of, reference_sparse, t32
+from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-5, 1e-5
 

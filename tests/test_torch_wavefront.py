@@ -21,6 +21,7 @@ from repro_torch.sparse import wavefront as TW
 
 from _conformance import np_topo_levels, np_wavefront, wavefront_dags
 from _torch_parity import SCHEDULES, assert_bitwise, np_of, reference_modules
+from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
 DAGS = wavefront_dags(seed=0)
 PATHS = ("pure", "native")
