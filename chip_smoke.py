@@ -47,29 +47,49 @@ Phases, in order; any failure exits non-zero:
 8. bfs_multi — counters zeroed; 8 medium-degree sources, one
    ``chunk_walk_tiles`` launch a level, rows bitwise equal to 8
    ``bfs(direction="pull")`` calls;
-9. measured autotune — with ``REPRO_AUTOTUNE_MEASURE=1`` (the cache is a
+9. sharded — the sharded traversal (``mesh=``): counters zeroed, then at
+   S = 1 in this process (a local mesh) ``sharded_bfs`` with parents,
+   ``sharded_sssp``, ``sharded_delta_stepping`` (compacted windows, so K4
+   runs), ``sharded_pagerank`` and ``sharded_bfs_multi`` over the 8
+   sources on ``chunked_lpt@native``; then each boundary schedule's
+   max/mean shard edges at S = 4; then four spawned processes, one rank
+   a shard, in a ``gloo`` group (120 s timeout) on CUDA tensors of this
+   one card (NCCL takes one rank a card), each memory-mapping the CSR the
+   run wrote once: ``equal_width`` runs BFS, SSSP, delta-stepping and
+   PageRank, ``edge_balanced`` and ``lpt_contiguous`` BFS and SSSP, and
+   every rank builds ``mesh="auto"``'s plan (the pick is printed).  Every
+   answer, on every rank, bitwise equal to the unsharded drivers' (PageRank
+   at rtol 1e-6, atol 1e-7); K2, K3, K4 and ``segment_sum_sorted`` launched
+   at S = 1 and on every rank; wall ms, iterations, ms and bytes in
+   collectives, plan build s, plan bytes and peak memory a rank printed.
+   Four ranks share one card, so S = 4 measures the sharded path's
+   overhead, not its scaling.  The phase also runs on the CPU at a small
+   size: import this module, set ``DEVICE = "cpu"``, stub ``torch.cuda``'s
+   synchronize and memory counters, and call ``phase_sharded`` on a small
+   CPU graph; its ranks then join a gloo group on CPU tensors;
+10. measured autotune — with ``REPRO_AUTOTUNE_MEASURE=1`` (the cache is a
    temporary file of the run, as for every "auto" of the run)
    ``spmv_merge_path(schedule="auto")`` and ``build_advance(schedule=
    "auto")`` time their top-3 candidates: modeled cost and measured time
    of each, the model-only and measured picks; a reload of the cache
    selects the same plans with no new measurement; the report of
    ``fit_coefficients`` (the coefficients stay the reference's);
-10. moe/forest data — one MoE layer at OLMoE-1B-7B width (d_model 2048,
+11. moe/forest data — one MoE layer at OLMoE-1B-7B width (d_model 2048,
    64 experts of d_ff 1024, top-8; f32 weights from ``--seed``) on one
    4,096-token sequence, routed plainly (skew 0) and with the router's
    columns biased by ``-0.5 * arange(64)`` (skew 0.5); and a forest of
    11,855 random binary trees (SST's sentence count, 1-56 leaves) at
    feature width 128, integer-valued inputs and weights;
-11. segmm parity — K5 and K6 at the MoE's ``w1`` shapes (``bm=128``) and at
+12. segmm parity — K5 and K6 at the MoE's ``w1`` shapes (``bm=128``) and at
    the forest's level-GEMM shapes (``bm=8``, ``K=N=128``) against their
    plain versions: bitwise on integer-valued operands, rtol 1e-4 on real
    ones, and K6 bitwise equal to K5 on real ones;
-12. moe     — counters zeroed; ``MoELayer`` (``moe_sorted``) at both
+13. moe     — counters zeroed; ``MoELayer`` (``moe_sorted``) at both
    skews on ``group_mapped``, ``chunked_rr`` and ``chunked_lpt`` x
    native/pure, plus ``"auto"``: outputs bitwise equal, equal to ``moe_capacity`` with a
    capacity that drops nothing (rtol/atol 2e-3), ``aux`` equal, three
    segmm launches per call;
-13. wavefront — counters zeroed; ``treelstm_forest`` with a clip activation
+14. wavefront — counters zeroed; ``treelstm_forest`` with a clip activation
    on ``chunked_lpt`` and ``merge_path`` (native), and
    ``build_wavefront(path="pure")`` + ``treelstm_embed``: bitwise equal to
    each other and to a sequential per-node NumPy oracle on 256 trees, each
@@ -82,39 +102,39 @@ Phases, in order; any failure exits non-zero:
    (values counted for unmasked atoms only) and ``index_add_``; and the
    combine's ordered fixup (``segment_sum_sorted`` on ``[C * L, 128]``
    partials) against its plain version, beside its bound;
-14. times  — each kernel (CUDA events) beside its bound, its plain version
+15. times  — each kernel (CUDA events) beside its bound, its plain version
    and a PyTorch library call where one computes the same thing (K5/K6 at
    both segmm shapes, with their TFLOP/s, share of the f32 peak, ratio to
    ``torch.bmm`` and K6's team and CTA count); end-to-end times of the
    entry points;
-15. flash parity — K7 (``flash_swa``) against its plain version at
+16. flash parity — K7 (``flash_swa``) against its plain version at
    H2O-Danube3-4B's attention shapes (B 1, S 8192, 32/8 heads of 120,
    window 4096) in float32 (atol/rtol 2e-5) and bfloat16 (rtol 1e-2, atol
    1e-4 against the float32 plain version on the same bf16-rounded
    inputs), at the edges ``window == S``, ``S == window == qc`` and
    ``Hkv == H``, and against the port's own ``_attend`` over the
    whole 8,192-token sequence (8 GiB of float32 scores, freed after);
-16. lm data — H2O-Danube3-4B at full width and depth (24 layers, d_model
+17. lm data — H2O-Danube3-4B at full width and depth (24 layers, d_model
    3840, 3,961,839,360 parameters), weights drawn from ``--seed`` on the
    card and cast once to bfloat16;
-17. serve — counters zeroed; ``DecoderLM.prefill`` of one 32,768-token
+18. serve — counters zeroed; ``DecoderLM.prefill`` of one 32,768-token
    prompt (the ``prefill_32k`` shape, batch cut from 32 to 1) in bfloat16
    with a 4,096-slot ring cache, then 32 greedy ``decode_step`` +
    ``sample_logits`` steps: K7 launched once per layer in the prefill and
    never in decode, all 24 on the tensor-core kernel (``flash_swa_mma``),
    every id in the vocabulary, every logit finite;
-18. consistency — the reference's prefill/decode check
+19. consistency — the reference's prefill/decode check
    (``tests/test_models.py``) at full width, depth cut to 2, float32: a
    6,144-token prefill (banded) and 1,024 teacher-forced decode steps
    against ``forward`` on all 7,168 tokens, at position 6,143 and every
    128th after it, rtol/atol 2e-3;
-19. swa times — K7 at the prefill's launch shape (S 32,768, bfloat16: the
+20. swa times — K7 at the prefill's launch shape (S 32,768, bfloat16: the
    tensor-core kernel) beside its bound, the flop it executes, its plain
    version and cuDNN's ``scaled_dot_product_attention`` with the band
    mask; K7's output there held to the float32 plain version (bfloat16
    limits above) and to SDPA (3e-2); then the float32 K7 (the CUDA-core
    kernel) at the same shape;
-20. the ``kernels:`` summary, the JSON kernels line, and the final
+21. the ``kernels:`` summary, the JSON kernels line, and the final
    ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -162,6 +182,13 @@ SERVE_LANES = 8
 SERVE_QUERIES = 32
 SERVE_RATE = 2.0           # mean Poisson arrivals per serving tick
 MULTI_SOURCES = 8          # bfs_multi's batch
+# the sharded traversal: four gloo ranks sharing the card
+SHARD_RANKS = 4
+SHARD_BOUNDARIES = ("equal_width", "edge_balanced", "lpt_contiguous")
+SHARD_TIMEOUT_S = 120      # each group's collective timeout
+SHARD_DEADLINE_S = 600     # the parent joins its ranks by then
+SHARD_PR_RTOL = 1e-6       # tests/test_shard_advance.py,
+SHARD_PR_ATOL = 1e-7       # test_pagerank_close_general_graph
 # Path A: one MoE layer at OLMoE-1B-7B width on one train_4k sequence
 MOE_ARCH = "olmoe_1b_7b"
 MOE_TOKENS = 4096
@@ -591,14 +618,15 @@ def phase_parity_and_times(A, x, g, plans, num_blocks: int, seed: int):
 
 
 def phase_main(A, x, g, plans, num_blocks: int, source: int):
-    """The entry points, counted; returns end-to-end seconds per call."""
+    """The entry points, counted; returns the launches, end-to-end seconds
+    per call, and the graph drivers' answers on each plan."""
     import torch
     from repro_torch.kernels.spmv_merge import kernel as K
     from repro_torch.kernels.spmv_merge import ops as O
     from repro_torch.sparse import (bfs, delta_stepping, pagerank,
                                     spmv_reference, sssp)
 
-    e2e = {}
+    e2e, answers = {}, {}
     want = spmv_reference(A, x)
     K.reset_launch_counts()
     for schedule in (None, "chunked_lpt"):
@@ -655,11 +683,13 @@ def phase_main(A, x, g, plans, num_blocks: int, source: int):
         check(bool(torch.isfinite(pr).all()) and abs(mass - 1.0) < 1e-3,
               f"pagerank mass {mass}")
         log(f"main pagerank[{schedule}]: {secs:.3f} s, mass {mass!r}")
+        answers[schedule] = dict(depth=depth, parent=parent, dist=dist,
+                                 delta=ddist, pagerank=pr)
     launches = dict(K.LAUNCHES)
     log("main-path launches: " + json.dumps(launches))
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was never launched on the main path")
-    return launches, e2e
+    return launches, e2e, answers
 
 
 @contextlib.contextmanager
@@ -938,7 +968,7 @@ def lane_layout_times(plan, seed: int) -> None:
 def phase_bfs_multi(g, plan, seed: int, source: int):
     """``bfs_multi`` over 8 sources: one ``chunk_walk_tiles`` launch a
     level, rows bitwise equal to 8 ``bfs`` calls.  Returns (launches, e2e
-    seconds, sources)."""
+    seconds, sources, depths)."""
     import numpy as np
     import torch
     from repro_torch.sparse import bfs, bfs_multi
@@ -969,7 +999,7 @@ def phase_bfs_multi(g, plan, seed: int, source: int):
         f"{MULTI_SOURCES} bfs(direction='pull') calls; rows bitwise equal; "
         f"reached {reached}")
     return counts, {f"bfs_multi[{MULTI_SOURCES} sources]": secs,
-                    f"{MULTI_SOURCES} x bfs[pull]": single}, sources
+                    f"{MULTI_SOURCES} x bfs[pull]": single}, sources, depth
 
 
 def phase_measured_autotune(A, x, g, num_blocks: int):
@@ -1051,6 +1081,292 @@ def phase_measured_autotune(A, x, g, num_blocks: int):
     fit = fit_coefficients(collect_fit_samples(AutotuneCache(path)))
     for line in fit.report().splitlines():
         log(f"  fit: {line}")
+
+
+# ---------------------------------------------------------------------------
+# slice 9: the sharded traversal (one rank a shard, torch.distributed)
+# ---------------------------------------------------------------------------
+
+def shard_plan_kw(num_blocks: int) -> dict:
+    return dict(schedule="chunked_lpt", path="native", num_blocks=num_blocks)
+
+
+def pagerank_close(got, want) -> bool:
+    """The reference's ``test_pagerank_close_general_graph`` tolerance."""
+    import torch
+    return bool(torch.allclose(got, want, rtol=SHARD_PR_RTOL,
+                               atol=SHARD_PR_ATOL))
+
+
+def sharded_drivers(splan, dplan, source: int, want: dict, sources=None,
+                    want_multi=None) -> list:
+    """Every sharded driver this mesh runs, each timed (host clock ending
+    in a synchronize) and held to the unsharded answer in ``want``:
+    ``[(name, ms, iterations, collective ms, collective calls, bytes
+    gathered, ok), ...]``.  ``dplan`` (or ``None``) adds delta-stepping
+    and PageRank; ``sources`` adds ``bfs_multi``."""
+    from repro_torch.kernels.spmv_merge import kernel as K
+    from repro_torch.sparse import (sharded_bfs, sharded_bfs_multi,
+                                    sharded_delta_stepping,
+                                    sharded_pagerank, sharded_sssp)
+    stats = splan.mesh.stats
+    runs = [("bfs", lambda: sharded_bfs(splan, source, return_parents=True,
+                                        return_direction_counts=True)),
+            ("sssp", lambda: sharded_sssp(splan, source,
+                                          return_direction_counts=True))]
+    if dplan is not None:
+        runs += [("delta_stepping", lambda: sharded_delta_stepping(
+            dplan, source, return_direction_counts=True)),
+                 ("pagerank", lambda: sharded_pagerank(splan))]
+    if sources is not None:
+        runs.append(("bfs_multi", lambda: sharded_bfs_multi(splan,
+                                                            sources)))
+    rows = []
+    for name, fn in runs:
+        stats.reset()
+        k2 = K.LAUNCHES["chunk_walk_tiles"]
+        out, secs = wall_s(fn)
+        if name == "bfs":
+            depth, parent, counts = out
+            ok = same_bits(depth, want["depth"]) and same_bits(
+                parent, want["parent"])
+            iters = sum(counts.tolist())
+        elif name in ("sssp", "delta_stepping"):
+            dist, counts = out
+            ok = same_bits(dist, want["dist"]) and same_bits(
+                dist, want["delta"])
+            iters = sum(counts.tolist())
+        elif name == "pagerank":
+            ok = pagerank_close(out, want["pagerank"])
+            iters = K.LAUNCHES["chunk_walk_tiles"] - k2
+        else:
+            ok = same_bits(out, want_multi)
+            iters = int(out.max()) + 1
+        rows.append((name, secs * 1e3, iters, stats.seconds * 1e3,
+                     stats.calls, stats.bytes, ok))
+    return rows
+
+
+def shard_rank(rank: int, world: int, port: int, job: dict, out_q) -> None:
+    """One rank of the four-rank phase (a spawned process): joins the gloo
+    group, runs :func:`shard_rank_job`, and reports to the parent."""
+    import datetime
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        out_q.put((rank, "ok", shard_rank_job(world, job)))
+    except BaseException:                      # reported to the parent
+        out_q.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def shard_rank_job(world: int, job: dict) -> dict:
+    """The sharded drivers on this rank's shard of the memory-mapped
+    graph, for every boundary schedule, each answer held on this rank to
+    the unsharded one; then the ``"auto"`` pick at this world size."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.kernels.spmv_merge import kernel as K
+    from repro_torch.launch.mesh import make_graph_mesh
+    from repro_torch.sparse import CSR, Graph, build_sharded_advance
+
+    mesh = make_graph_mesh(world, device=DEVICE)   # card rank % count
+    dev = mesh.device
+    with warnings.catch_warnings():       # read-only memory maps
+        warnings.simplefilter("ignore", UserWarning)
+        loaded = {name: torch.from_numpy(np.load(path, mmap_mode="r"))
+                  for name, path in job["arrays"].items()}
+    csr = CSR(loaded["row_offsets"].to(dev), loaded["col_indices"].to(dev),
+              loaded["values"].to(dev), job["shape"], job["nnz"])
+    g = Graph(csr)
+    want = {k: loaded[k].to(dev) for k in ("depth", "parent", "dist",
+                                             "delta", "pagerank")}
+    kw = shard_plan_kw(job["num_blocks"])
+    out = {"mesh": str(mesh), "runs": []}
+    K.reset_launch_counts()
+    for boundary in SHARD_BOUNDARIES:
+        torch.cuda.reset_peak_memory_stats(dev)
+        splan, build_s = wall_s(lambda: build_sharded_advance(
+            g, mesh, shard_schedule=boundary, **kw))
+        dplan, dbuild_s = None, 0.0
+        if boundary == "equal_width":
+            dplan, dbuild_s = wall_s(lambda: build_sharded_advance(
+                g, mesh, shard_schedule=boundary, workload="advance_delta",
+                delta="auto", compact=True, **kw))
+        rows = sharded_drivers(splan, dplan, job["source"], want)
+        out["runs"].append(dict(
+            boundary=boundary, build_s=build_s, dbuild_s=dbuild_s,
+            plan_bytes=tensor_bytes(splan),
+            width=splan.width, shard_size=splan.shard_size,
+            e_pull=splan.plan.spec.num_atoms,
+            e_push=splan.plan.push_spec.num_atoms,
+            peak=torch.cuda.max_memory_allocated(dev), rows=rows))
+        del splan, dplan
+    auto, auto_s = wall_s(lambda: build_sharded_advance(
+        g, "auto", num_blocks=job["num_blocks"]))
+    b = auto.boundaries
+    owners = sum(1 for lo, hi in zip(b[:-1], b[1:]) if hi > lo)
+    out["auto"] = (f"{auto.schedule.value}@{auto.path.value}@s{owners}"
+                   f"@b{auto.shard_schedule}", auto_s)
+    out["launches"] = dict(K.LAUNCHES)
+    return out
+
+
+def run_shard_ranks(world: int, job: dict) -> list:
+    """The four ranks, spawned; every rank's result in rank order.  Each
+    group has its own collective timeout, and the parent joins the ranks
+    by a deadline, kills what is left and fails."""
+    import multiprocessing as mp
+    import queue
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=shard_rank, args=(r, world, port, job, out_q),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_DEADLINE_S
+    results = {}
+    try:
+        while len(results) < world and time.monotonic() < deadline:
+            try:
+                rank, status, res = out_q.get(timeout=5)
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+                continue
+            results[rank] = (status, res)
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    for r in range(world):
+        check(r in results, f"sharded: rank {r} reported nothing within "
+              f"{SHARD_DEADLINE_S} s")
+        check(results[r][0] == "ok", f"sharded: rank {r} failed:\n"
+              f"{results[r][1]}")
+    return [results[r][1] for r in range(world)]
+
+
+def log_shard_rows(tag: str, rows, iters_name="iterations") -> None:
+    for name, ms, iters, coll_ms, calls, gathered, ok in rows:
+        check(ok, f"sharded {tag} {name}: not equal to the unsharded "
+              f"driver's answer")
+        log(f"sharded {tag} {name}: {ms:.1f} ms, {iters} {iters_name}, "
+            f"collectives {coll_ms:.1f} ms in {calls} calls, "
+            f"{gathered / max(iters, 1) / 2**20:.2f} MiB gathered an "
+            f"iteration; equal to the unsharded driver")
+
+
+def phase_sharded(g, plans, num_blocks: int, source: int, sources,
+                  want: dict, want_multi) -> dict:
+    """The sharded drivers at S = 1 in this process and at S = 4 on four
+    spawned gloo ranks sharing this card; answers against the unsharded
+    drivers' (bitwise; PageRank at rtol 1e-6, atol 1e-7).  Returns the
+    launches of K2-K4 (S = 1 plus every rank)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.spmv_merge import kernel as K
+    from repro_torch.sparse import build_sharded_advance, shard_boundaries
+
+    kw = shard_plan_kw(num_blocks)
+    reset_all_counts()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    splan, build_s = wall_s(lambda: build_sharded_advance(g, 1, **kw))
+    dplan, dbuild_s = wall_s(lambda: build_sharded_advance(
+        g, 1, workload="advance_delta", delta="auto", compact=True, **kw))
+    log(f"sharded S=1 ({splan.mesh}): plans built in {build_s:.2f} s "
+        f"(+{dbuild_s:.2f} s with the delta split), "
+        f"{tensor_bytes(splan) / 2**20:.1f} MiB")
+    rows = sharded_drivers(splan, dplan, source, want, sources, want_multi)
+    log_shard_rows("S=1", rows)
+    counts = dict(K.LAUNCHES)
+    log(f"sharded S=1 launches {json.dumps(counts)}; peak transient "
+        f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB")
+    for name in ("chunk_walk_tiles", "chunk_walk_atoms",
+                 "chunk_walk_compact", "segment_sum_sorted"):
+        check(counts[name] > 0, f"sharded S=1: {name} never launched")
+    del splan, dplan
+
+    # the shard-level balance of each boundary schedule at S = 4
+    out_deg = np.diff(g.csr.row_offsets.cpu().numpy().astype(np.int64))
+    in_deg = np.bincount(g.csr.col_indices.cpu().numpy(),
+                         minlength=g.num_vertices)
+    for boundary in SHARD_BOUNDARIES:
+        b = shard_boundaries(g, SHARD_RANKS, boundary)
+        pull = [int(in_deg[lo:hi].sum()) for lo, hi in zip(b[:-1], b[1:])]
+        push = [int(out_deg[lo:hi].sum()) for lo, hi in zip(b[:-1], b[1:])]
+        log(f"sharded balance {boundary} S={SHARD_RANKS}: boundaries "
+            f"{b.tolist()}; pull edges max/mean "
+            f"{max(pull) / np.mean(pull):.4f} ({pull}), push edges "
+            f"max/mean {max(push) / np.mean(push):.4f} ({push})")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as tmp:
+        arrays = {"row_offsets": g.csr.row_offsets,
+                  "col_indices": g.csr.col_indices, "values": g.csr.values,
+                  **{k: want[k] for k in ("depth", "parent", "dist",
+                                          "delta", "pagerank")}}
+        paths = {}
+        for name, t in arrays.items():
+            paths[name] = os.path.join(tmp, f"{name}.npy")
+            np.save(paths[name], t.cpu().numpy())
+        job = dict(arrays=paths, shape=g.csr.shape, nnz=g.csr.nnz,
+                   num_blocks=num_blocks, source=source)
+        ranks, secs = wall_s(lambda: run_shard_ranks(SHARD_RANKS, job))
+    log(f"sharded S={SHARD_RANKS}: {ranks[0]['mesh']} x {SHARD_RANKS} "
+        f"processes on this card, {secs:.1f} s in all (spawn, load, build, "
+        f"drive); four ranks share one card, so these times are the "
+        f"sharded path's overhead, not scaling")
+    totals = {"chunk_walk_tiles": counts["chunk_walk_tiles"],
+              "chunk_walk_atoms": counts["chunk_walk_atoms"],
+              "chunk_walk_compact": counts["chunk_walk_compact"]}
+    for r, res in enumerate(ranks):
+        for run in res["runs"]:
+            tag = f"S={SHARD_RANKS} {run['boundary']} rank {r}"
+            if r == 0:
+                log_shard_rows(tag, run["rows"])
+            else:
+                for row in run["rows"]:
+                    check(row[-1], f"sharded {tag} {row[0]}: not equal to "
+                          f"the unsharded driver's answer")
+            log(f"sharded {tag}: plan built in {run['build_s']:.2f} s "
+                f"(+{run['dbuild_s']:.2f} s delta plan), "
+                f"{run['plan_bytes'] / 2**20:.1f} MiB, {run['width']} of "
+                f"{run['shard_size']} slots real, E_max pull "
+                f"{run['e_pull']} push {run['e_push']}, peak device memory "
+                f"{run['peak'] / 2**20:.1f} MiB")
+        launched = res["launches"]
+        log(f"sharded S={SHARD_RANKS} rank {r} launches "
+            f"{json.dumps(launched)}")
+        for name in ("chunk_walk_tiles", "chunk_walk_atoms",
+                     "chunk_walk_compact", "segment_sum_sorted"):
+            check(launched[name] > 0, f"sharded rank {r}: {name} never "
+                  f"launched")
+        for name in totals:
+            totals[name] += launched[name]
+        check(res["auto"][0] == ranks[0]["auto"][0],
+              f"sharded: rank {r} picked {res['auto'][0]} under 'auto'")
+    log(f"sharded select_sharded_plan pick with mesh='auto' at world size "
+        f"{SHARD_RANKS}: {ranks[0]['auto'][0]} (selected and built in "
+        f"{ranks[0]['auto'][1]:.2f} s)")
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -2027,15 +2343,15 @@ def run(args, t_start: float) -> int:
     A, g, x, source = phase_data(args.seed, num_blocks)
     plans = build_plans(g, num_blocks)
     rows = phase_parity_and_times(A, x, g, plans, num_blocks, args.seed)
-    launches, e2e = phase_main(A, x, g, plans, num_blocks, source)
+    launches, e2e, answers = phase_main(A, x, g, plans, num_blocks, source)
     phase_auto(g, num_blocks, source)
     e2e.update(phase_determinism(A, x, g, plans, num_blocks, args.seed))
     # slice 8: the served stream and bfs_multi on the chunked_lpt plan,
     # then measured autotuning
     plan = plans["chunked_lpt"][0]
     serve_counts, serve_e2e = phase_graph_serving(g, plan, args.seed)
-    multi_counts, multi_e2e, sources = phase_bfs_multi(g, plan, args.seed,
-                                                       source)
+    multi_counts, multi_e2e, sources, multi_want = phase_bfs_multi(
+        g, plan, args.seed, source)
     e2e.update(serve_e2e)
     e2e.update(multi_e2e)
     log(f"main-path launches chunk_walk_tiles: {launches['chunk_walk_tiles']}"
@@ -2043,6 +2359,14 @@ def run(args, t_start: float) -> int:
         f"{multi_counts['chunk_walk_tiles']} (bfs_multi)")
     launches["chunk_walk_tiles"] += (serve_counts["chunk_walk_tiles"]
                                      + multi_counts["chunk_walk_tiles"])
+    # slice 9: the sharded traversal at S = 1 and on four ranks
+    shard_counts = phase_sharded(g, plans["chunked_lpt"], num_blocks, source,
+                                 sources, answers["chunked_lpt"], multi_want)
+    for name in ("chunk_walk_tiles", "chunk_walk_atoms",
+                 "chunk_walk_compact"):
+        log(f"main-path launches {name}: + {shard_counts[name]} (sharded "
+            f"phase, every rank)")
+        launches[name] += shard_counts[name]
     phase_measured_autotune(A, x, g, num_blocks)
     if args.profile:
         from repro_torch.sparse import bfs, bfs_multi, pagerank

@@ -34,7 +34,7 @@ import os
 import pathlib
 import tempfile
 import threading
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, ClassVar, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.balance import (ADVANCE_ATOM_WORK,
                                       ADVANCE_DELTA_ATOM_WORK,
@@ -42,7 +42,8 @@ from repro_torch.core.balance import (ADVANCE_ATOM_WORK,
                                       ADVANCE_PUSH_ATOM_WORK, ImbalanceStats,
                                       WAVEFRONT_ATOM_WORK,
                                       WAVEFRONT_PUSH_ATOM_WORK,
-                                      cost_features, modeled_cost)
+                                      cost_features, modeled_cost,
+                                      modeled_sharded_cost)
 from repro_torch.core.execute import ExecutionPath
 from repro_torch.core.measure import geomean
 from repro_torch.core.schedules import Schedule
@@ -76,6 +77,39 @@ class Plan:
                    ExecutionPath(path) if path else ExecutionPath.PURE)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedPlan:
+    """An autotuner decision one level up: schedule, path, shard count and
+    the shard boundary schedule (``repro_torch.sparse.shard.
+    SHARD_SCHEDULES``).  Every shard runs the same (schedule, path).
+    Encoded ``"schedule@path@sN@bNAME"``; the reference's legacy
+    ``"schedule@path@sN"`` decodes with boundary ``equal_width``.  The
+    trailing fields keep :class:`Plan` and :class:`ShardedPlan` encodings
+    from being read as one another."""
+
+    schedule: Schedule
+    path: ExecutionPath = ExecutionPath.PURE
+    num_shards: int = 1
+    boundary: str = "equal_width"
+
+    def encode(self) -> str:
+        return (f"{self.schedule}@{self.path}@s{self.num_shards}"
+                f"@b{self.boundary}")
+
+    @classmethod
+    def decode(cls, value: str) -> "ShardedPlan":
+        fields = value.split("@")
+        if len(fields) not in (3, 4) or not fields[2].startswith("s"):
+            raise ValueError(f"not a sharded plan encoding: {value!r}")
+        boundary = "equal_width"
+        if len(fields) == 4:
+            if not fields[3].startswith("b"):
+                raise ValueError(f"not a sharded plan encoding: {value!r}")
+            boundary = fields[3][1:]
+        return cls(Schedule(fields[0]), ExecutionPath(fields[1]),
+                   int(fields[2][1:]), boundary)
+
+
 #: Candidate (schedule, path) plans in tie-break order.  Only the chunked
 #: queue's model tells the paths apart, so it alone is listed twice.
 REGISTERED_PLANS: Sequence[Plan] = tuple(
@@ -92,6 +126,12 @@ WORKLOAD_ATOM_WORK = {"reduce": 1, "advance": ADVANCE_ATOM_WORK,
                       "advance_push": ADVANCE_PUSH_ATOM_WORK,
                       "advance_delta": ADVANCE_DELTA_ATOM_WORK,
                       "advance_delta_push": ADVANCE_DELTA_PUSH_ATOM_WORK,
+                      # the sharded family: each shard's pull view at the
+                      # advance charge, its push view at the push charge;
+                      # the shard axis is priced by the comm term of
+                      # modeled_sharded_cost
+                      "advance_sharded": ADVANCE_ATOM_WORK,
+                      "advance_sharded_push": ADVANCE_PUSH_ATOM_WORK,
                       "advance_serve": ADVANCE_ATOM_WORK,
                       "advance_serve_push": ADVANCE_PUSH_ATOM_WORK,
                       "wavefront": WAVEFRONT_ATOM_WORK,
@@ -161,6 +201,8 @@ class CacheRecord:
     features: Dict[str, Tuple[float, Dict[str, float]]] = \
         dataclasses.field(default_factory=dict)
 
+    _PLAN_CODEC: ClassVar[type] = Plan
+
     @property
     def is_measured(self) -> bool:
         return bool(self.measured_us)
@@ -186,7 +228,7 @@ class CacheRecord:
         leaves ``plan=None`` so the caller selects again."""
         if isinstance(value, str):
             try:
-                return cls(plan=Plan.decode(value))
+                return cls(plan=cls._PLAN_CODEC.decode(value))
             except ValueError:            # stale schedule name
                 return cls()
         if not isinstance(value, dict):
@@ -195,7 +237,7 @@ class CacheRecord:
         raw_plan = value.get("plan")
         if isinstance(raw_plan, str):
             try:
-                plan = Plan.decode(raw_plan)
+                plan = cls._PLAN_CODEC.decode(raw_plan)
             except ValueError:
                 plan = None
         measured: Dict[str, float] = {}
@@ -203,7 +245,7 @@ class CacheRecord:
         if isinstance(raw_m, dict):
             for k, v in raw_m.items():
                 try:
-                    Plan.decode(str(k))
+                    cls._PLAN_CODEC.decode(str(k))
                     us = float(v)
                 except (ValueError, TypeError):
                     continue              # torn entry: skip, keep the rest
@@ -221,6 +263,17 @@ class CacheRecord:
                     continue
                 feats[str(k)] = (base, fd)
         return cls(plan=plan, measured_us=measured, features=feats)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedCacheRecord(CacheRecord):
+    """Cache entry of the ``advance_sharded`` family: the storage format
+    and merge rule of :class:`CacheRecord`, with the :class:`ShardedPlan`
+    codec, so neither family's entries read as the other's."""
+
+    plan: Optional[ShardedPlan] = None
+
+    _PLAN_CODEC: ClassVar[type] = ShardedPlan
 
 
 class AutotuneCache:
@@ -277,6 +330,14 @@ class AutotuneCache:
             value = self._mem.get(key)
         return CacheRecord.decode(value) if value is not None else None
 
+    def get_sharded_record(self, key: str) -> Optional[ShardedCacheRecord]:
+        """Like :meth:`get_record`, decoded with the sharded plan codec."""
+        with self._lock:
+            self._load()
+            value = self._mem.get(key)
+        return (ShardedCacheRecord.decode(value) if value is not None
+                else None)
+
     def records(self) -> Dict[str, CacheRecord]:
         """Every decoded entry (memory + disk): the fit's view."""
         with self._lock:
@@ -294,13 +355,16 @@ class AutotuneCache:
         """Store a record, merged with the key's prior one: measurements
         already held survive a write that carries fewer (a model-only
         selection never erases them); on a per-plan conflict the incoming
-        measurement wins."""
+        measurement wins.  The record's own class (plain or
+        :class:`ShardedCacheRecord`) decodes the prior, so each family
+        merges against itself."""
+        record_cls = type(record)
         with self._lock:
             self._load()
-            prior = CacheRecord.decode(self._mem.get(key)) \
+            prior = record_cls.decode(self._mem.get(key)) \
                 if key in self._mem else None
             if prior is not None and (prior.is_measured or prior.features):
-                record = CacheRecord(
+                record = record_cls(
                     plan=record.plan or prior.plan,
                     measured_us={**prior.measured_us, **record.measured_us},
                     features={**prior.features, **record.features})
@@ -449,6 +513,112 @@ def select_plan(spec: WorkSpec, num_blocks: int, *,
             measured_us={p.encode(): us
                          for p, us in new_measurements.items()},
             features=feats))
+    return best
+
+
+def select_sharded_plan(global_spec: WorkSpec, shard_specs_by_count,
+                        num_blocks: int, *,
+                        push_spec: Optional[WorkSpec] = None,
+                        cache: Optional[AutotuneCache] = _DEFAULT_CACHE,
+                        plans: Sequence[Plan] = REGISTERED_PLANS,
+                        halo_elems: Optional[int] = None,
+                        elem_bytes: int = 4,
+                        measure: Optional[Callable[[ShardedPlan],
+                                                   float]] = None,
+                        measure_k: Optional[int] = None) -> ShardedPlan:
+    """The cheapest (shard count, boundary, schedule, path) tuple.
+
+    ``shard_specs_by_count`` maps each candidate shard count to either
+    ``{boundary_name: [S+1] boundaries}`` (scored by slicing the global
+    views, :func:`~repro_torch.core.balance.shard_specs_from_boundaries`)
+    or a sequence of per-shard pull WorkSpecs (one ``equal_width``
+    candidate scored on them).  Candidates are that cross ``plans``;
+    scoring is :func:`~repro_torch.core.balance.modeled_sharded_cost`
+    with ``halo_elems`` (default one element a global tile), plus the push
+    view's at the push charge when ``push_spec`` is given.  Cached under
+    ``<shape_key>|plan.advance_sharded.b`` as a
+    :class:`ShardedCacheRecord`; measured mode is :func:`select_plan`'s.
+    """
+    counts = sorted(int(s) for s in shard_specs_by_count)
+    if not counts:
+        raise ValueError("shard_specs_by_count must name at least one "
+                         "candidate shard count")
+    bounds_by_cand: Dict[Tuple[int, str], object] = {}
+    for c in counts:
+        entry = shard_specs_by_count[c]
+        if isinstance(entry, dict):
+            if not entry:
+                raise ValueError(f"count {c}: no boundary candidates")
+            for bname, bounds in entry.items():
+                bounds_by_cand[(c, str(bname))] = bounds
+        else:
+            bounds_by_cand[(c, "equal_width")] = None
+    candidates: Tuple[ShardedPlan, ...] = tuple(
+        ShardedPlan(p.schedule, p.path, c, bname)
+        for (c, bname) in bounds_by_cand for p in plans)
+    if halo_elems is None:
+        halo_elems = global_spec.num_tiles
+    atom_work = WORKLOAD_ATOM_WORK["advance_sharded"]
+    push_atom_work = WORKLOAD_ATOM_WORK["advance_sharded_push"]
+    measuring = measure is not None and measurement_enabled()
+    key = None
+    record = None
+    if cache is not None:
+        key = shape_key(global_spec, num_blocks) + "|plan.advance_sharded.b"
+        record = cache.get_sharded_record(key)
+    measured: Dict[ShardedPlan, float] = {}
+    if record is not None:
+        for enc, us in record.measured_us.items():
+            try:
+                sp = ShardedPlan.decode(enc)
+            except ValueError:
+                continue
+            if sp in candidates:
+                measured[sp] = us
+    if record is not None and record.plan is not None \
+            and record.plan in candidates and not measuring:
+        return record.plan
+
+    def _score(sp: ShardedPlan) -> float:
+        bounds = bounds_by_cand[(sp.num_shards, sp.boundary)]
+        if bounds is None:
+            return modeled_sharded_cost(
+                shard_specs_by_count[sp.num_shards], sp.schedule,
+                num_blocks, path=str(sp.path), atom_work=atom_work,
+                halo_elems=halo_elems, elem_bytes=elem_bytes)
+        cost = modeled_sharded_cost(
+            global_spec, sp.schedule, num_blocks, path=str(sp.path),
+            atom_work=atom_work, halo_elems=halo_elems,
+            elem_bytes=elem_bytes, boundaries=bounds)
+        if push_spec is not None:
+            cost += modeled_sharded_cost(
+                push_spec, sp.schedule, num_blocks, path=str(sp.path),
+                atom_work=push_atom_work, halo_elems=halo_elems,
+                elem_bytes=elem_bytes, boundaries=bounds)
+        return cost
+
+    scores = {sp: _score(sp) for sp in candidates}
+    new_measurements: Dict[ShardedPlan, float] = {}
+    if measuring:
+        k = min(_measure_topk(measure_k), len(candidates))
+        ranked = sorted(candidates,
+                        key=lambda p: (scores[p], candidates.index(p)))
+        for p in ranked[:k]:
+            if p not in measured:
+                us = float(measure(p))
+                if math.isfinite(us) and us > 0:
+                    measured[p] = us
+                    new_measurements[p] = us
+        if record is not None and record.plan is not None \
+                and record.plan in candidates and not new_measurements:
+            return record.plan
+    blended = blend_scores(scores, measured)
+    best = min(candidates, key=lambda p: (blended[p], candidates.index(p)))
+    if cache is not None:
+        cache.put_record(key, ShardedCacheRecord(
+            plan=best,
+            measured_us={p.encode(): us
+                         for p, us in new_measurements.items()}))
     return best
 
 

@@ -35,6 +35,12 @@ WAVEFRONT_ATOM_WORK = 3  # wavefront dependency combine: resolved-mask load
 WAVEFRONT_PUSH_ATOM_WORK = ADVANCE_PUSH_ATOM_WORK + 1  # wavefront push
 COMPACT_GATHER_WORK = 1  # compacted push windows: one extra indirection
 COMPACT_BUILD_OVERHEAD = 8  # per-block share of building the compact index
+HALO_BYTE_COST = 1 / 512  # work units per byte a sharded iteration moves
+                         # (the frontier/state all_gather, the push
+                         # partials' combine): small graphs collapse to 1
+                         # shard
+SHARD_SYNC_OVERHEAD = 48  # per-iteration collective latency charge, paid
+                         # once a mesh axis is involved
 
 
 def _ceil_lanes(x: torch.Tensor) -> torch.Tensor:
@@ -150,6 +156,55 @@ def modeled_cost(spec: WorkSpec, schedule: Schedule | str,
     return float(costs.max())
 
 
+def shard_specs_from_boundaries(spec: WorkSpec, boundaries):
+    """Per-shard real (unpadded) sub-views of a *global* work view: rows
+    ``[b[s], b[s+1])`` of its offsets, rebased to atom 0, for a ``[S+1]``
+    non-decreasing split ``boundaries`` of ``[0, num_tiles]``.  A boundary
+    schedule is scored on these, its real max-over-shards work."""
+    off = spec.tile_offsets.cpu().numpy()
+    bounds = [int(b) for b in boundaries]
+    if not bounds or bounds[0] != 0 or bounds[-1] != spec.num_tiles \
+            or any(b > a for b, a in zip(bounds, bounds[1:])):
+        raise ValueError(
+            f"boundaries must be a non-decreasing [S+1] split of "
+            f"[0, {spec.num_tiles}], got {bounds}")
+    out = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        sub = (off[lo:hi + 1] - off[lo]).astype(np.int32)
+        out.append(WorkSpec.from_segment_offsets(
+            torch.from_numpy(sub).to(spec.device), num_atoms=int(sub[-1]),
+            num_tiles=hi - lo))
+    return out
+
+
+def modeled_sharded_cost(shard_specs, schedule: Schedule | str,
+                         num_blocks: int, *, path: str = "pure",
+                         atom_work: float = 1, halo_elems: int = 0,
+                         elem_bytes: int = 4, boundaries=None) -> float:
+    """Modeled per-iteration cost of an advance sharded over a mesh: the
+    max over the shards' own :func:`modeled_cost` (shards run concurrently
+    like blocks do), plus, above one shard, ``SHARD_SYNC_OVERHEAD`` and
+    ``HALO_BYTE_COST`` per byte of the ``halo_elems``-element halo.
+
+    With ``boundaries=`` the first argument is one global
+    :class:`~repro_torch.core.work.WorkSpec`, sliced by
+    :func:`shard_specs_from_boundaries`.  Empty shards cost nothing.
+    """
+    if boundaries is not None:
+        shard_specs = shard_specs_from_boundaries(shard_specs, boundaries)
+    shard_specs = list(shard_specs)
+    if not shard_specs:
+        return 0.0
+    compute = max((modeled_cost(s, schedule, num_blocks, path=path,
+                                atom_work=atom_work)
+                   for s in shard_specs if s.num_tiles > 0), default=0.0)
+    if len(shard_specs) <= 1:
+        return float(compute)
+    comm = SHARD_SYNC_OVERHEAD + HALO_BYTE_COST * float(
+        max(halo_elems, 0) * elem_bytes)
+    return float(compute + comm)
+
+
 def modeled_advance_cost(spec: WorkSpec, schedule: Schedule | str,
                          num_blocks: int, *, path: str = "pure",
                          direction: str = "pull",
@@ -251,6 +306,8 @@ WORKLOAD_ATOM_COEF = {"reduce": None,
                       "advance_push": "ADVANCE_PUSH_ATOM_WORK",
                       "advance_delta": "ADVANCE_DELTA_ATOM_WORK",
                       "advance_delta_push": "ADVANCE_DELTA_PUSH_ATOM_WORK",
+                      "advance_sharded": "ADVANCE_ATOM_WORK",
+                      "advance_sharded_push": "ADVANCE_PUSH_ATOM_WORK",
                       "advance_serve": "ADVANCE_ATOM_WORK",
                       "advance_serve_push": "ADVANCE_PUSH_ATOM_WORK",
                       "wavefront": "WAVEFRONT_ATOM_WORK",

@@ -22,6 +22,9 @@ combine is exact); the scatter executors take ``[atoms]`` values only.
 advance's counterpart (value windows combined by per-atom output ids, with
 an optional gather-compacted window mode).  Both paths share the fixup and
 the scatter, so they agree bitwise wherever the combine is exact.
+:func:`execute_sharded_tile_reduce` and :func:`execute_sharded_scatter_reduce`
+are the two directions on one rank of a sharded advance
+(:mod:`repro_torch.sparse.shard`).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import enum
 from typing import Callable, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.schedules import Partition, invert_block_map
 from repro_torch.core.segops import IDENTITY, segment_reduce, window_slots
@@ -626,3 +630,76 @@ def execute_tile_reduce(spec: WorkSpec, part: Partition, atom_fn: AtomFn,
            else blocked_tile_reduce)
     return run(spec, part, atom_fn, dtype, combiner=combiner,
                atom_mask=atom_mask)
+
+
+# ---------------------------------------------------------------------------
+# Shard-local dispatch (the same executors one level up, one rank a shard)
+# ---------------------------------------------------------------------------
+
+#: The collective matching each combiner: the shard-level continuation of a
+#: scatter reduce (the reference's ``psum`` / ``pmin`` / ``pmax``).
+COMBINER_COLLECTIVE = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+                       "max": dist.ReduceOp.MAX}
+
+#: The element-wise combine of gathered partials (``[S, n]`` -> ``[n]``)
+#: the min/max collectives are carried out with: gloo's MIN/MAX (and
+#: NCCL's) drop a NaN that is not on the first rank, where the reference's
+#: ``pmin``/``pmax`` and ``torch.amin``/``amax`` keep it.
+_GATHERED_COMBINE = {"min": torch.amin, "max": torch.amax}
+
+
+def execute_sharded_tile_reduce(spec: WorkSpec, part: Partition,
+                                atom_fn: AtomFn,
+                                dtype: torch.dtype = torch.float32, *,
+                                mesh=None,
+                                path: ExecutionPath | str = ExecutionPath.AUTO,
+                                combiner: str = "sum",
+                                atom_mask: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """:func:`execute_tile_reduce` on one rank of a sharded advance.
+
+    The pull direction's shard contract: each shard's local spec owns all
+    atoms (in-edges) of its own tiles (destinations), so the local reduce
+    is already the final per-tile answer: no collective, and the bits come
+    from the same executor call one device makes.  ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.GraphMesh`) is accepted so both
+    directions share a call shape, and unused.
+    """
+    del mesh
+    return execute_tile_reduce(spec, part, atom_fn, dtype, path=path,
+                               combiner=combiner, atom_mask=atom_mask)
+
+
+def execute_sharded_scatter_reduce(spec: WorkSpec, part: Partition,
+                                   atom_fn: AtomFn, out_ids: torch.Tensor,
+                                   num_out: int,
+                                   dtype: torch.dtype = torch.float32, *,
+                                   mesh,
+                                   path: ExecutionPath | str =
+                                   ExecutionPath.AUTO,
+                                   combiner: str = "sum",
+                                   atom_mask: torch.Tensor | None = None,
+                                   compact_capacity: int | None = None
+                                   ) -> torch.Tensor:
+    """:func:`execute_scatter_reduce` on one rank of a sharded advance.
+
+    The push direction's shard contract: each shard streams only its own
+    out-edges, whose destinations land anywhere, so every rank makes a
+    full ``[num_out]`` partial (the identity where it touches nothing) and
+    the partials are combined over ``mesh``: ``sum`` with
+    ``all_reduce(SUM)`` (:data:`COMBINER_COLLECTIVE`); ``min``/``max`` by
+    gathering the ``[S, num_out]`` partials and reducing them on each rank
+    with ``torch.amin``/``amax``, exact and NaN-keeping like the
+    reference's ``pmin``/``pmax``.  Every rank returns the combined
+    ``[num_out]``.
+    """
+    partial = execute_scatter_reduce(spec, part, atom_fn, out_ids, num_out,
+                                     dtype, path=path, combiner=combiner,
+                                     atom_mask=atom_mask,
+                                     compact_capacity=compact_capacity)
+    if mesh.num_shards == 1:
+        return partial
+    if combiner == "sum":
+        return mesh.all_reduce(partial, COMBINER_COLLECTIVE["sum"])
+    gathered = mesh.all_gather(partial[None])
+    return _GATHERED_COMBINE[combiner](gathered, dim=0)

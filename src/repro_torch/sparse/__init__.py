@@ -10,6 +10,12 @@ from repro_torch.sparse.advance import (AdvancePlan, advance,
                                         frontier_filter)
 from repro_torch.sparse.graph import (Graph, bfs, bfs_multi,
                                       delta_stepping, pagerank, sssp)
+from repro_torch.sparse.shard import (SHARD_SCHEDULES, ShardedAdvancePlan,
+                                      build_sharded_advance,
+                                      shard_boundaries, sharded_bfs,
+                                      sharded_bfs_multi,
+                                      sharded_delta_stepping,
+                                      sharded_pagerank, sharded_sssp)
 from repro_torch.sparse.wavefront import (PackedForest, WavefrontPlan,
                                           build_wavefront, pack_forest,
                                           topological_levels, wavefront_eval)
@@ -21,5 +27,8 @@ __all__ = ["COO", "CSC", "CSR", "random_csr", "suite_like_corpus",
            "build_advance_views", "estimate_delta", "frontier_filter",
            "Graph", "bfs", "bfs_multi", "delta_stepping", "pagerank",
            "sssp",
+           "SHARD_SCHEDULES", "ShardedAdvancePlan", "build_sharded_advance",
+           "shard_boundaries", "sharded_bfs", "sharded_bfs_multi",
+           "sharded_delta_stepping", "sharded_pagerank", "sharded_sssp",
            "PackedForest", "WavefrontPlan", "build_wavefront",
            "pack_forest", "topological_levels", "wavefront_eval"]

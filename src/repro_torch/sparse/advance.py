@@ -290,6 +290,7 @@ def _compact_capacity(compact, num_edges: int,
 def build_advance_views(*, pull_spec: WorkSpec, pull_src: torch.Tensor,
                         pull_weight: torch.Tensor, push_spec: WorkSpec,
                         push_dst: torch.Tensor, push_weight: torch.Tensor,
+                        push_src: Optional[torch.Tensor] = None,
                         num_vertices: int,
                         schedule: Schedule | str = "auto",
                         num_blocks: Optional[int] = None,
@@ -298,12 +299,19 @@ def build_advance_views(*, pull_spec: WorkSpec, pull_src: torch.Tensor,
                         direction_threshold: Optional[float] = None,
                         delta: Optional[float | str] = None,
                         compact: Optional[bool | int | float] = None,
-                        pull_measure=None, push_measure=None
+                        pull_measure=None, push_measure=None,
+                        out_degrees: Optional[torch.Tensor] = None
                         ) -> AdvancePlan:
     """The view-level inspector behind :func:`build_advance`: partitions
     both views, models the switch density, sizes compaction.
     ``pull_measure``/``push_measure`` are per-direction timing closures
-    (``plan -> median_us``) for measured ``"auto"``, or ``None``."""
+    (``plan -> median_us``) for measured ``"auto"``, or ``None``.
+
+    The sharded inspector (:func:`repro_torch.sparse.shard.
+    build_sharded_advance`) passes each shard's views, slices of the
+    global CSRs rebased to its vertex range, with ``push_src`` (padded
+    global source ids, not local tile ids) and ``out_degrees`` (owned
+    vertices only) of its own."""
     num_blocks = DEFAULT_NUM_BLOCKS if num_blocks is None else num_blocks
     sched, resolved, part = _resolve_direction_plan(
         pull_spec, schedule, path, num_blocks, workload,
@@ -323,10 +331,13 @@ def build_advance_views(*, pull_spec: WorkSpec, pull_src: torch.Tensor,
         schedule=sched, path=resolved,
         push_spec=push_spec, dst=push_dst,
         push_weight=push_weight.to(torch.float32),
-        push_src=push_spec.atom_tile_ids(), push_part=push_part,
+        push_src=(push_spec.atom_tile_ids() if push_src is None
+                  else push_src),
+        push_part=push_part,
         push_schedule=push_sched, push_path=push_resolved,
         num_vertices=num_vertices,
-        out_degrees=push_spec.atoms_per_tile().to(torch.int32),
+        out_degrees=(push_spec.atoms_per_tile() if out_degrees is None
+                     else out_degrees).to(torch.int32),
         direction_threshold=float(direction_threshold),
         compact_capacity=_compact_capacity(compact, push_spec.num_atoms,
                                            float(direction_threshold)))

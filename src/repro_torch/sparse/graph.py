@@ -17,6 +17,10 @@ pull above.  min/max are exact, so the direction never changes a bit.
 runs light/heavy-restricted advances over the same plan pair to the same
 f32 fixed point as Bellman-Ford: the distances are bit-identical.
 
+**Sharded traversal** (``mesh=`` on every driver): the vertex set split
+over the ranks of a ``torch.distributed`` group, one rank a shard
+(:mod:`repro_torch.sparse.shard`), with the same answers.
+
 **Many traversals at once** (:func:`bfs_multi`, and the lanes of
 :class:`repro_torch.serve.graph.GraphServer`): the pull advances of all
 lanes run as one kernel launch (the reference's ``vmap``), the lanes laid
@@ -102,6 +106,32 @@ def _resolve_plan(graph: Graph, plan: Optional[AdvancePlan], schedule,
     return build_advance(graph, schedule=schedule, num_blocks=num_blocks,
                          path=path, workload=workload, delta=delta,
                          compact=compact)
+
+
+def _wants_sharded(plan, mesh) -> bool:
+    """Route to the sharded drivers?  An explicit ``mesh=``, or a prebuilt
+    :class:`~repro_torch.sparse.shard.ShardedAdvancePlan` (the one plan
+    type that is not an :class:`AdvancePlan`)."""
+    return mesh is not None or (plan is not None
+                                and not isinstance(plan, AdvancePlan))
+
+
+def _resolve_sharded_plan(graph: Graph, plan, mesh, schedule, num_blocks,
+                          path, workload: str = "advance", delta=None,
+                          compact=None, shard_schedule=None):
+    """The sharded sibling of :func:`_resolve_plan` (imported lazily: the
+    shard module brings in the process-group machinery)."""
+    from repro_torch.sparse import shard as _shard
+    if plan is not None:
+        if not isinstance(plan, _shard.ShardedAdvancePlan):
+            raise TypeError(
+                f"mesh= traversal needs a ShardedAdvancePlan (from "
+                f"build_sharded_advance), got {type(plan).__name__}")
+        return _shard, plan
+    return _shard, _shard.build_sharded_advance(
+        graph, mesh, schedule=schedule, num_blocks=num_blocks, path=path,
+        workload=workload, shard_schedule=shard_schedule, delta=delta,
+        compact=compact)
 
 
 def _check_driver_direction(direction: str) -> str:
@@ -194,6 +224,8 @@ def sssp(graph: Graph, source: int, *, max_iters: Optional[int] = None,
          num_blocks: Optional[int] = None,
          path: ExecutionPath | str = ExecutionPath.AUTO,
          plan: Optional[AdvancePlan] = None,
+         mesh=None,
+         shard_schedule: Optional[str] = None,
          direction: str = "auto",
          algorithm: str = "bellman_ford",
          delta: Optional[float] = None,
@@ -205,6 +237,13 @@ def sssp(graph: Graph, source: int, *, max_iters: Optional[int] = None,
     :func:`delta_stepping`.  Both reach the same f32 fixed point, bit for
     bit.  ``return_direction_counts=True`` also returns int32 ``[2]``
     ``(push_iterations, pull_iterations)``.
+
+    ``mesh`` (a shard count, a :class:`~repro_torch.launch.mesh.GraphMesh`,
+    or ``"auto"``) runs the traversal sharded, every rank of the mesh
+    making the same call (:mod:`repro_torch.sparse.shard`);
+    ``shard_schedule`` names the boundary schedule
+    (:data:`~repro_torch.sparse.shard.SHARD_SCHEDULES`).  Distances stay
+    bitwise the same.
     """
     _check_driver_direction(direction)
     if algorithm not in _SSSP_ALGORITHMS:
@@ -214,8 +253,16 @@ def sssp(graph: Graph, source: int, *, max_iters: Optional[int] = None,
         return delta_stepping(graph, source, delta=delta,
                               max_iters=max_iters, schedule=schedule,
                               num_blocks=num_blocks, path=path, plan=plan,
+                              mesh=mesh, shard_schedule=shard_schedule,
                               direction=direction,
                               return_direction_counts=return_direction_counts)
+    if _wants_sharded(plan, mesh):
+        _shard, splan = _resolve_sharded_plan(
+            graph, plan, mesh, schedule, num_blocks, path,
+            shard_schedule=shard_schedule)
+        return _shard.sharded_sssp(
+            splan, source, max_iters=max_iters, direction=direction,
+            return_direction_counts=return_direction_counts)
     V = graph.num_vertices
     _validate_sources(source, V)
     max_iters = V if max_iters is None else max_iters
@@ -256,6 +303,8 @@ def delta_stepping(graph: Graph, source: int, *,
                    num_blocks: Optional[int] = None,
                    path: ExecutionPath | str = ExecutionPath.AUTO,
                    plan: Optional[AdvancePlan] = None,
+                   mesh=None,
+                   shard_schedule: Optional[str] = None,
                    direction: str = "auto",
                    compact: Optional[bool | int | float] = True,
                    return_direction_counts: bool = False):
@@ -275,8 +324,25 @@ def delta_stepping(graph: Graph, source: int, *,
     (the sparse bucket frontiers are their regime); with a prebuilt
     ``plan`` its own capacity governs.  ``return_direction_counts=True``
     also returns ``(push, pull)`` advance counts over all phases.
+
+    ``mesh`` (a shard count, a :class:`~repro_torch.launch.mesh.GraphMesh`,
+    or ``"auto"``) runs the traversal sharded, every rank of the mesh
+    making the same call (:mod:`repro_torch.sparse.shard`);
+    ``shard_schedule`` names the boundary schedule
+    (:data:`~repro_torch.sparse.shard.SHARD_SCHEDULES`).  Distances stay
+    bitwise the same.
     """
     _check_driver_direction(direction)
+    if _wants_sharded(plan, mesh):
+        _shard, splan = _resolve_sharded_plan(
+            graph, plan, mesh, schedule, num_blocks, path,
+            workload="advance_delta",
+            delta=delta if delta is not None else "auto", compact=compact,
+            shard_schedule=shard_schedule)
+        return _shard.sharded_delta_stepping(
+            splan, source, delta=delta, max_iters=max_iters,
+            direction=direction,
+            return_direction_counts=return_direction_counts)
     V = graph.num_vertices
     _validate_sources(source, V)
     aplan = _resolve_plan(graph, plan, schedule, num_blocks, path,
@@ -358,6 +424,8 @@ def bfs(graph: Graph, source: int, *, max_iters: Optional[int] = None,
         num_blocks: Optional[int] = None,
         path: ExecutionPath | str = ExecutionPath.AUTO,
         plan: Optional[AdvancePlan] = None,
+        mesh=None,
+        shard_schedule: Optional[str] = None,
         return_parents: bool = False,
         direction: str = "auto",
         return_direction_counts: bool = False):
@@ -369,8 +437,23 @@ def bfs(graph: Graph, source: int, *, max_iters: Optional[int] = None,
     ``direction="auto"`` is direction-optimizing;
     ``return_direction_counts=True`` appends int32 ``[2]``
     ``(push_iterations, pull_iterations)``.
+
+    ``mesh`` (a shard count, a :class:`~repro_torch.launch.mesh.GraphMesh`,
+    or ``"auto"``) runs the traversal sharded, every rank of the mesh
+    making the same call (:mod:`repro_torch.sparse.shard`);
+    ``shard_schedule`` names the boundary schedule
+    (:data:`~repro_torch.sparse.shard.SHARD_SCHEDULES`).  Depths and
+    parents stay bitwise the same.
     """
     _check_driver_direction(direction)
+    if _wants_sharded(plan, mesh):
+        _shard, splan = _resolve_sharded_plan(
+            graph, plan, mesh, schedule, num_blocks, path,
+            shard_schedule=shard_schedule)
+        return _shard.sharded_bfs(
+            splan, source, max_iters=max_iters,
+            return_parents=return_parents, direction=direction,
+            return_direction_counts=return_direction_counts)
     V = graph.num_vertices
     _validate_sources(source, V)
     max_iters = V if max_iters is None else max_iters
@@ -424,16 +507,24 @@ def bfs_multi(graph: Graph, sources, *, max_iters: Optional[int] = None,
     One plan serves the batch.  Each level advances the sources whose
     frontier is not empty: the pull ones in one kernel launch, laid end to
     end (:class:`~repro_torch.core.execute.LaneLayout`), each push one on
-    its own (the push advance takes one column).  ``direction="auto"`` decides per source on its measured
-    density, as :func:`bfs` does; one host read a level.  ``mesh`` and
-    ``shard_schedule`` wait for the sharded traversal (ROADMAP queue 1
-    item 3).
+    its own (the push advance takes one column).  ``direction="auto"``
+    decides per source on its measured density, as :func:`bfs` does; one
+    host read a level.
+
+    ``mesh`` (a shard count, a :class:`~repro_torch.launch.mesh.GraphMesh`,
+    or ``"auto"``) runs the traversal sharded, every rank of the mesh
+    making the same call (:mod:`repro_torch.sparse.shard`);
+    ``shard_schedule`` names the boundary schedule
+    (:data:`~repro_torch.sparse.shard.SHARD_SCHEDULES`).  Rows stay bitwise
+    the same.
     """
     _check_driver_direction(direction)
-    if mesh is not None or shard_schedule is not None:
-        raise NotImplementedError(
-            "bfs_multi(mesh=, shard_schedule=): the sharded traversal is "
-            "not ported yet (ROADMAP.md, queue 1, item 3)")
+    if _wants_sharded(plan, mesh):
+        _shard, splan = _resolve_sharded_plan(
+            graph, plan, mesh, schedule, num_blocks, path,
+            shard_schedule=shard_schedule)
+        return _shard.sharded_bfs_multi(splan, sources, max_iters=max_iters,
+                                        direction=direction)
     V = graph.num_vertices
     _validate_sources(sources, V, what="bfs_multi sources")
     max_iters = V if max_iters is None else max_iters
@@ -510,6 +601,8 @@ def pagerank(graph: Graph, *, damping: float = 0.85, num_iters: int = 50,
              num_blocks: Optional[int] = None,
              path: ExecutionPath | str = ExecutionPath.AUTO,
              plan: Optional[AdvancePlan] = None,
+             mesh=None,
+             shard_schedule: Optional[str] = None,
              direction: str = "auto") -> torch.Tensor:
     """Power-iteration PageRank ``[V]`` through the balanced advance.
 
@@ -517,9 +610,24 @@ def pagerank(graph: Graph, *, damping: float = 0.85, num_iters: int = 50,
     degree-normalized adjacency.  Dangling mass is spread uniformly; stops
     early once the L1 step change is at most ``tol``.  ``"auto"`` is pull
     (the frontier is always full); ``"push"`` sums in another order.
+
+    ``mesh`` (a shard count, a :class:`~repro_torch.launch.mesh.GraphMesh`,
+    or ``"auto"``) runs the traversal sharded, every rank of the mesh
+    making the same call (:mod:`repro_torch.sparse.shard`);
+    ``shard_schedule`` names the boundary schedule
+    (:data:`~repro_torch.sparse.shard.SHARD_SCHEDULES`).  The dangling mass
+    becomes a sum of per-shard sums, so the ranks agree with one device to
+    a tolerance (bitwise on dyadic graphs).
     """
     _check_driver_direction(direction)
     direction = "pull" if direction == "auto" else direction
+    if _wants_sharded(plan, mesh):
+        _shard, splan = _resolve_sharded_plan(
+            graph, plan, mesh, schedule, num_blocks, path,
+            workload="reduce", shard_schedule=shard_schedule)
+        return _shard.sharded_pagerank(splan, damping=damping,
+                                       num_iters=num_iters, tol=tol,
+                                       direction=direction)
     V = graph.num_vertices
     if V == 0:
         return torch.zeros(0, dtype=torch.float32, device=graph.device)

@@ -1,0 +1,309 @@
+"""Spawned ``torch.distributed`` groups for the sharded traversal's tests.
+
+:func:`run_group` starts ``world`` processes (the ``spawn`` start method),
+joins them into a ``gloo`` group on the CPU with a timeout of its own, runs
+one job of :data:`JOBS` on every rank and returns every rank's result.  The
+ranks import only torch and the port; the test hands them their inputs as
+numpy arrays.  A rank that raises, or a group that outlives its deadline,
+fails the call, and no rank is left running.
+
+The jobs run SPMD, as a user of the sharded drivers would: every rank
+makes the same calls and returns the global answers (numpy), plus its own
+shard's plan arrays where a job asks for them.
+"""
+from __future__ import annotations
+
+import datetime
+import multiprocessing as mp
+import os
+import queue as queue_mod
+import socket
+import time
+import traceback
+
+import numpy as np
+
+#: A group's own collective timeout (``init_process_group(timeout=)``).
+GROUP_TIMEOUT_S = 60
+
+#: Schedule x path cases of the reference's acceptance matrix
+#: (``_conformance.SCHEDULE_PATH_CASES``, repeated here: the ranks do not
+#: import JAX).
+SCHEDULE_PATH_CASES = tuple(
+    (s, p) for s in ("thread_mapped", "group_mapped", "nonzero_split",
+                     "merge_path", "chunked", "adaptive")
+    for p in ("pure", "native"))
+
+BOUNDARIES = ("edge_balanced", "equal_width", "lpt_contiguous")
+MB = dict(schedule="merge_path", path="pure", num_blocks=4)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, world, port, job, payload, timeout_s, out_q):
+    os.environ["OMP_NUM_THREADS"] = "1"
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        out_q.put((rank, "ok", JOBS[job](world, payload)))
+    except BaseException:                    # reported to the parent
+        out_q.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_group(world: int, job: str, payload=None, *,
+              timeout_s: float = GROUP_TIMEOUT_S,
+              deadline_s: float | None = None) -> list:
+    """Every rank's result of ``JOBS[job](world, payload)``, in rank order.
+    Raises ``RuntimeError`` with the failing ranks' tracebacks, or
+    ``TimeoutError`` past ``deadline_s`` (default: the group timeout plus
+    a minute); either way every rank has ended when it returns."""
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, port, job, payload, timeout_s,
+                               out_q), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + (deadline_s or timeout_s + 60)
+    results = {}
+    try:
+        while len(results) < world:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise TimeoutError(f"{job}: {world - len(results)} of "
+                                   f"{world} ranks still running")
+            try:
+                rank, status, out = out_q.get(timeout=min(remaining, 1.0))
+            except queue_mod.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs) and \
+                        not any(p.is_alive() for p in procs):
+                    break
+                continue
+            results[rank] = (status, out)
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    errors = {r: out for r, (status, out) in results.items()
+              if status != "ok"}
+    missing = sorted(set(range(world)) - set(results))
+    if errors or missing:
+        raise RuntimeError(f"{job} on {world} ranks: missing ranks "
+                           f"{missing}; " + "\n".join(
+                               f"rank {r}:\n{tb}" for r, tb in
+                               sorted(errors.items())))
+    return [results[r][1] for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# jobs (run on every rank)
+# ---------------------------------------------------------------------------
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+def _graph(w):
+    from repro_torch.sparse import Graph
+    return Graph.from_dense(np.asarray(w, np.float32), device="cpu")
+
+
+def _plan_arrays(splan) -> dict:
+    """This rank's shard of the plan, as the reference stacks it."""
+    lp = splan.plan
+    out = {"pull_offsets": _np(lp.spec.tile_offsets),
+           "push_offsets": _np(lp.push_spec.tile_offsets),
+           "src": _np(lp.src), "weight": _np(lp.weight), "dst": _np(lp.dst),
+           "push_weight": _np(lp.push_weight), "push_src": _np(lp.push_src),
+           "out_degrees": _np(lp.out_degrees),
+           "pull_valid": _np(splan.pull_valid),
+           "push_valid": _np(splan.push_valid),
+           "glob2pad": _np(splan.glob2pad), "pad2glob": _np(splan.pad2glob),
+           "boundaries": np.asarray(splan.boundaries),
+           "shard_size": splan.shard_size,
+           "e_pull": lp.spec.num_atoms, "e_push": lp.push_spec.num_atoms,
+           "threshold": splan.direction_threshold,
+           "compact_capacity": lp.compact_capacity,
+           "pull_spans": (lp.part.atom_span, lp.part.tile_span),
+           "push_spans": (lp.push_part.atom_span, lp.push_part.tile_span)}
+    if lp.delta is not None:
+        out.update(delta=lp.delta, light_mask=_np(lp.light_mask),
+                   push_light_mask=_np(lp.push_light_mask),
+                   light_out_degrees=_np(lp.light_out_degrees))
+    return out
+
+
+def matrix_job(S: int, data: dict) -> dict:
+    """Every case of ``tests/test_torch_shard.py`` that needs ``S`` ranks:
+    ``{case: result}``."""
+    # the "auto" case writes the port's autotune cache: the test's file
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = data["autotune_cache"]
+    import repro_torch.sparse as TS
+    from repro_torch.launch.mesh import make_graph_mesh
+
+    mesh = make_graph_mesh(S, device="cpu")
+    g, gd = _graph(data["graph"]), _graph(data["dyadic"])
+    out = {"mesh": str(mesh)}
+
+    def build(graph, **kw):
+        kw.setdefault("shard_schedule", "equal_width")
+        return TS.build_sharded_advance(graph, mesh, **kw)
+
+    def bfs_pair(splan, **kw):
+        d, p = TS.sharded_bfs(splan, 0, return_parents=True, **kw)
+        return _np(d), _np(p)
+
+    for sched, path in SCHEDULE_PATH_CASES:
+        kw = dict(schedule=sched, path=path, num_blocks=4)
+        sp = build(g, **kw)
+        out[f"bfs/{sched}/{path}"] = bfs_pair(sp)
+        out[f"sssp/{sched}/{path}"] = _np(TS.sharded_sssp(sp, 0))
+        out[f"pr_dyadic/{sched}/{path}"] = _np(TS.sharded_pagerank(
+            build(gd, **kw), damping=0.5, num_iters=3, tol=0.0))
+    sp = build(g, **MB)
+    out["plan/equal_width"] = _plan_arrays(sp)
+    for d in ("auto", "pull", "push"):
+        out[f"dir_bfs/{d}"] = _np(TS.sharded_bfs(sp, 0, direction=d))
+        out[f"dir_sssp/{d}"] = _np(TS.sharded_sssp(sp, 0, direction=d))
+    out["bfs_plain"] = _np(TS.sharded_bfs(sp, 0))
+    out["pr12"] = _np(TS.sharded_pagerank(sp, num_iters=12))
+    out["pr20"] = _np(TS.sharded_pagerank(sp, num_iters=20))
+    out["pr_push"] = _np(TS.sharded_pagerank(sp, num_iters=12,
+                                             direction="push"))
+    out["multi"] = _np(TS.sharded_bfs_multi(sp, [0, 5, 11]))
+    out["multi_auto"] = _np(TS.sharded_bfs_multi(sp, [0, 5, 11],
+                                                 direction="auto"))
+    out["with_delta"] = (sp.delta, _np(TS.sharded_delta_stepping(
+        sp.with_delta(None), 0)))
+    for sched, path in (("merge_path", "pure"), ("chunked", "native"),
+                        ("group_mapped", "pure")):
+        spd = build(g, schedule=sched, path=path, num_blocks=4,
+                    delta="auto")
+        out[f"delta/{sched}/{path}"] = _np(TS.sharded_delta_stepping(spd, 0))
+    sp3 = build(g, delta=3.0, **MB)
+    out["delta3"] = _np(TS.sharded_delta_stepping(sp3, 0, delta=3.0))
+    for name, compact in (("auto", True), ("fraction", 0.25),
+                          ("explicit", 17)):
+        out[f"capacity/{name}"] = build(
+            g, compact=compact, **MB).template.compact_capacity
+    spc = build(g, delta="auto", compact=True, **MB)
+    out["plan/compact_delta"] = _plan_arrays(spc)
+    d, c = TS.sharded_delta_stepping(spc, 0, return_direction_counts=True)
+    out["delta_compact"] = (_np(d), _np(c))
+    for b in BOUNDARIES:
+        spb = TS.build_sharded_advance(g, mesh, shard_schedule=b,
+                                       delta="auto", **MB)
+        out[f"plan/{b}"] = _plan_arrays(spb)
+        out[f"boundary/{b}"] = (spb.shard_schedule, bfs_pair(spb),
+                                _np(TS.sharded_sssp(spb, 0)),
+                                _np(TS.sharded_delta_stepping(spb, 0)))
+    spe = TS.build_sharded_advance(g, mesh, shard_schedule="edge_balanced",
+                                   **MB)
+    out["uneven"] = (_np(TS.sharded_bfs_multi(spe, [0, 5, 11])),
+                     _np(TS.sharded_pagerank(spe, num_iters=8)))
+    auto = TS.build_sharded_advance(g, None, schedule="auto")
+    out["auto"] = (auto.num_shards, str(auto.schedule.value),
+                   str(auto.path.value), auto.boundaries,
+                   _np(TS.sharded_bfs(auto, 0)))
+    if S == 2:
+        out["driver"] = {
+            "bfs": _np(TS.bfs(g, 0, mesh=mesh, **MB)),
+            "bfs_int": _np(TS.bfs(g, 0, mesh=2, **MB)),
+            "sssp_plan": _np(TS.sssp(g, 0, plan=build(g, **MB))),
+            "pagerank": _np(TS.pagerank(g, num_iters=8, mesh=mesh, **MB)),
+            "delta": _np(TS.delta_stepping(g, 0, mesh=mesh, compact=None,
+                                           **MB)),
+            "bfs_multi": _np(TS.bfs_multi(g, [0, 5, 11], mesh=mesh, **MB))}
+        for b in ("edge_balanced", "lpt_contiguous"):
+            out["driver"][f"bfs/{b}"] = _np(TS.bfs(g, 0, mesh=mesh,
+                                                   shard_schedule=b, **MB))
+            out["driver"][f"sssp/{b}"] = _np(TS.sssp(g, 0, mesh=mesh,
+                                                     shard_schedule=b, **MB))
+        single = _graph(np.zeros((1, 1), np.float32))
+        out["single_vertex"] = _np(TS.sharded_bfs(
+            TS.build_sharded_advance(single, mesh, **MB), 0))
+    if S == 4:
+        for name, w in data["adversarial"].items():
+            ga = _graph(w)
+            spa = TS.build_sharded_advance(ga, mesh, schedule="group_mapped",
+                                           path="pure", num_blocks=4)
+            out[f"adversarial/{name}"] = (_np(TS.sharded_bfs(spa, 0)),
+                                          _np(TS.sharded_sssp(spa, 0)))
+    if S == 8:
+        tiny = _graph(data["tiny"])
+        spt = TS.build_sharded_advance(tiny, mesh, schedule="merge_path",
+                                       path="pure")
+        out["tiny"] = (spt.num_shards, _np(TS.sharded_bfs(spt, 0)),
+                       _np(TS.sharded_sssp(spt, 0)))
+        errors = []
+        for b in ("edge_balanced", "lpt_contiguous"):
+            try:
+                TS.build_sharded_advance(tiny, mesh, schedule="merge_path",
+                                         path="pure", shard_schedule=b)
+            except ValueError as e:
+                errors.append(str(e))
+        out["tiny_rejects"] = errors
+    return out
+
+
+def nan_job(S: int, data: dict) -> dict:
+    """The push ``min`` combine with NaN in one rank's partial, beside the
+    collective ``all_reduce(MIN)`` on the same partials; and sharded push
+    SSSP over a graph with a NaN weight."""
+    import torch
+    import torch.distributed as dist
+    import repro_torch.sparse as TS
+    from repro_torch.core import (WorkSpec, execute_sharded_scatter_reduce,
+                                  make_partition)
+    from repro_torch.core.execute import COMBINER_COLLECTIVE
+    from repro_torch.launch.mesh import make_graph_mesh
+
+    mesh = make_graph_mesh(S, device="cpu")
+    # one atom a tile, scattered to its own output; rank r's value at
+    # output r is NaN, every other value finite
+    n_out = 2 * S
+    spec = WorkSpec.from_segment_offsets(
+        torch.arange(n_out + 1, dtype=torch.int32), num_atoms=n_out)
+    part = make_partition(spec, "merge_path", 2)
+    vals = torch.full((n_out,), 10.0 + mesh.rank)
+    vals[mesh.rank] = float("nan")
+    combined = execute_sharded_scatter_reduce(
+        spec, part, lambda e: vals[e], torch.arange(n_out), n_out,
+        mesh=mesh, path="pure", combiner="min")
+    partial = vals.clone()
+    dist.all_reduce(partial, op=COMBINER_COLLECTIVE["min"])
+    gw = _graph(data["nan_graph"])
+    sp = TS.build_sharded_advance(gw, mesh, **MB)
+    return {"combined": _np(combined), "collective_min": _np(partial),
+            "sssp_push": _np(TS.sharded_sssp(sp, 0, direction="push")),
+            "sssp_pull": _np(TS.sharded_sssp(sp, 0, direction="pull"))}
+
+
+def failing_job(S: int, data: dict) -> dict:
+    """Rank 1 raises before the first collective; the others wait in it."""
+    import torch
+    from repro_torch.launch.mesh import make_graph_mesh
+
+    mesh = make_graph_mesh(S, device="cpu")
+    if mesh.rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    return {"gathered": _np(mesh.all_gather(torch.ones(3)))}
+
+
+JOBS = {"matrix": matrix_job, "nan": nan_job, "failing": failing_job}

@@ -36,8 +36,9 @@ from repro_torch.kernels.segmm import ops as SO
 from repro_torch.kernels.spmv_merge import kernel as TK
 from repro_torch.kernels.spmv_merge import ops as TO
 from repro_torch.sparse import (CSR, Graph, bfs, bfs_multi, build_advance,
-                                delta_stepping, pagerank, random_csr, spmm,
-                                spmv_reference, sssp)
+                                build_sharded_advance, delta_stepping,
+                                pagerank, random_csr, sharded_delta_stepping,
+                                sharded_sssp, spmm, spmv_reference, sssp)
 
 from _torch_parity import assert_bitwise
 from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
@@ -697,6 +698,26 @@ def test_bfs_multi_one_launch_a_level(card):
     for s, source in enumerate(sources):
         assert torch.equal(depth[s],
                            bfs(g, source, plan=plan, direction="pull"))
+
+
+def test_sharded_sssp_one_shard_on_the_card(card):
+    """The sharded drivers at S = 1 on the card: the plan on the card,
+    SSSP in every direction and compacted delta-stepping bitwise equal to
+    the unsharded drivers, through K2, K3 and K4."""
+    g = _serving_graph(card)
+    kw = dict(schedule="chunked_lpt", path="native", num_blocks=264)
+    splan = build_sharded_advance(g, 1, delta="auto", compact=True, **kw)
+    assert splan.mesh.device.type == "cuda" and splan.plan.src.is_cuda
+    source = int(np.nonzero(g.out_degrees().cpu().numpy())[0][3])
+    before = dict(TK.LAUNCHES)
+    for direction in ("auto", "push", "pull"):
+        assert_bitwise(sharded_sssp(splan, source, direction=direction),
+                       sssp(g, source, direction=direction, **kw), direction)
+    assert_bitwise(sharded_delta_stepping(splan, source),
+                   delta_stepping(g, source, **kw), "delta_stepping")
+    for name in ("chunk_walk_tiles", "chunk_walk_atoms",
+                 "chunk_walk_compact"):
+        assert TK.LAUNCHES[name] > before[name], name
 
 
 @pytest.mark.parametrize("schedule", ["chunked_lpt", "merge_path"])

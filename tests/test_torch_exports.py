@@ -26,19 +26,10 @@ from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 #: queue 1) and the frontend's jax.ShapeDtypeStruct helper.
 MODELS_NOT_PORTED = {"lm_loss", "frontend_embed_shape"}
 
-#: The sharded (multi-device) traversals (ROADMAP queue 1 item 3).
-SPARSE_NOT_PORTED = {"SHARD_SCHEDULES", "ShardedAdvancePlan",
-                     "build_sharded_advance", "shard_boundaries",
-                     "sharded_bfs", "sharded_bfs_multi",
-                     "sharded_delta_stepping", "sharded_pagerank",
-                     "sharded_sssp"}
-
-#: The sharded executors, cost terms and plans (ROADMAP queue 1 item 3).
-CORE_NOT_PORTED = {"COMBINER_COLLECTIVE", "execute_sharded_tile_reduce",
-                   "execute_sharded_scatter_reduce", "HALO_BYTE_COST",
-                   "SHARD_SYNC_OVERHEAD", "modeled_sharded_cost",
-                   "ShardedCacheRecord", "ShardedPlan",
-                   "select_sharded_plan"}
+#: Every sparse and core name is ported (the sharded traversal, its
+#: executors, cost terms and plans since the sharding slice).
+SPARSE_NOT_PORTED = set()
+CORE_NOT_PORTED = set()
 
 PACKAGES = ("models", "sparse", "core", "serve.graph")
 

@@ -234,13 +234,8 @@ class TestCostModelParity:
 
     def test_workload_tables(self):
         assert set(T.WORKLOAD_ATOM_COEF) == set(T.WORKLOAD_ATOM_WORK)
-        sharded = {"advance_sharded", "advance_sharded_push"}
-        assert T.WORKLOAD_ATOM_WORK == {
-            k: v for k, v in JA.WORKLOAD_ATOM_WORK.items()
-            if k not in sharded}
-        assert T.WORKLOAD_ATOM_COEF == {
-            k: v for k, v in J.WORKLOAD_ATOM_COEF.items()
-            if k not in sharded}
+        assert T.WORKLOAD_ATOM_WORK == dict(JA.WORKLOAD_ATOM_WORK)
+        assert T.WORKLOAD_ATOM_COEF == dict(J.WORKLOAD_ATOM_COEF)
 
     @pytest.mark.parametrize("case", ["no_measurements", "one", "inverted",
                                       "all"])
