@@ -134,7 +134,33 @@ Phases, in order; any failure exits non-zero:
    mask; K7's output there held to the float32 plain version (bfloat16
    limits above) and to SDPA (3e-2); then the float32 K7 (the CUDA-core
    kernel) at the same shape;
-21. the ``kernels:`` summary, the JSON kernels line, and the final
+21. swa backward — K7's backward kernel (``flash_swa_bwd``) against its
+   plain version on the same inputs, forward output and log-sum-exp (the
+   forward's lse held to the plain forward's at 1e-4): at the training
+   shape (S 8,192, 32/8 heads of 120, window 4,096, bfloat16: rtol 1e-2,
+   atol 1e-3 of max(1, max|want|)), in float32 at S 2,048 (window 1,024;
+   2e-5), and at S = qc + window + qc with heads of 64 and 128 (bf16) and
+   256 (f32); every case run twice for the same bits; timed beside its
+   bound, its plain version, K7's forward with lse and SDPA's backward
+   with the band mask;
+22. train consistency — ``loss_and_grads`` of Danube at full width, depth
+   cut to 2, float32, one 8,192-token sequence from
+   ``synthetic.batch_at``: K7 and its backward launched twice a layer and
+   once a layer (forward + remat recompute, backward), two runs bitwise
+   equal, and the loss (1e-5) and every gradient leaf (1e-4 of its
+   largest entry) equal to the same call with the plain version under
+   autograd;
+23. checkpoint — one train step of that model, then ``checkpoint.save``
+   and ``restore_latest`` through a temporary directory, bitwise;
+24. train — counters zeroed before each step; ``launch.train``'s loop
+   (``make_train_step`` + ``synthetic.batch_at``) for H2O-Danube3-4B at
+   full width and depth: float32 master weights and AdamW state, bf16
+   compute, remat, S 8,192, global batch 2 in 2 microbatches, 3 steps;
+   per step 96 K7 launches (all tensor-core) and 48 backward launches;
+   finite losses, norms and parameters, every leaf changed, the
+   optimizer's step 3; ms a step, tokens/s, peak memory and the model
+   flop share of the bf16 peak (``--profile``: one more step profiled);
+25. the ``kernels:`` summary, the JSON kernels line, and the final
    ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -143,8 +169,10 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import pathlib
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -170,6 +198,9 @@ KERNELS = {   # counter name -> (CUDA source, the Pallas kernel it replaces)
                                  f"{SEGMM_REF}:128"),
     "flash_swa": ("src/repro_torch/kernels/flash_swa/csrc/flash_swa_mma.cu",
                   "src/repro/kernels/flash_swa/kernel.py:79"),
+    # the reference differentiates its jnp band (K7 has no backward)
+    "flash_swa_bwd": ("src/repro_torch/kernels/flash_swa/csrc/"
+                      "flash_swa_bwd.cu", "src/repro/models/layers.py:213"),
 }
 REAL_RTOL = 1e-4   # real-valued f32 sums in another order
 # soc-LiveJournal1 scale (SNAP: 4.8M vertices, 69M edges)
@@ -217,6 +248,25 @@ CONSIST_PROMPT = 6144      # banded: > attn_query_chunk + sliding_window
 CONSIST_DECODE = 1024
 CONSIST_EVERY = 128
 LM_TOL = 2e-3              # tests/test_models.py prefill/decode parity
+# Path D: H2O-Danube3-4B training at S 8,192 (> qc + window: K7's band)
+TRAIN_SEQ = 8192
+TRAIN_BATCH = 2
+TRAIN_MICRO = 2
+TRAIN_STEPS = 3
+BWD_F32_S = 2048
+BWD_F32_WINDOW = 1024
+# K7's backward against its plain version in float32 on the same inputs,
+# output and lse: ``rtol * |want| + atol * max(1, max|want|)``.  float32:
+# sums in another order, K7's 2e-5; bfloat16: the outputs' bf16 rounding
+# (2^-9 relative)
+BWD_TOL_F32 = (2e-5, 2e-5)
+BWD_TOL_BF16 = (1e-2, 1e-3)
+LSE_TOL = 1e-4             # the forward's row log-sum-exp (natural log)
+# depth-2 loss_and_grads, K7 against the plain version under autograd,
+# float32: the loss, and each gradient leaf to 1e-4 of its largest entry
+# (sums in another order through two layers and 8,192 tokens)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
 
 
 def log(*parts) -> None:
@@ -2274,6 +2324,346 @@ def run_slice3(seed: int, profile: bool) -> tuple:
     return row, serve["launches"], e2e
 
 
+# ---------------------------------------------------------------------------
+# slice 10: H2O-Danube3-4B training through K7 and its backward (path D)
+# ---------------------------------------------------------------------------
+
+def bwd_case(tag: str, s: int, heads: int, kv_heads: int, hd: int,
+             window: int, qc: int, dtype, tol: tuple, gen):
+    """K7's backward on one draw against its plain version in float32 on
+    the same inputs, output and log-sum-exp (and the forward's lse against
+    the plain forward's), then once more for the same bits; returns
+    ``(max abs err, (q, k, v, out, lse, dout))``."""
+    import torch
+    from repro_torch.kernels.flash_swa import kernel as FK
+    q, k, v, dout = (torch.randn((1, s, n, hd), generator=gen,
+                                 device=DEVICE).to(dtype)
+                     for n in (heads, kv_heads, kv_heads, heads))
+    out, lse = FK.flash_swa(q, k, v, window=window, qc=qc, return_lse=True)
+    f32 = [t.float() for t in (q, k, v, out)]
+    _, want_lse = FK.flash_swa_plain(*f32[:3], window=window, qc=qc,
+                                     return_lse=True)
+    name = (f"flash_swa_bwd [{tag}: S {s}, {heads}/{kv_heads} heads of {hd}"
+            f", window {window}, {str(dtype).split('.')[-1]}]")
+    errs = [check_close(f"{name} lse", lse, want_lse, LSE_TOL)]
+    got = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
+    want = FK.flash_swa_bwd_plain(*f32, lse, dout.float(), window=window,
+                                  qc=qc)
+    rtol, atol = tol
+    for label, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs.append(check_close(f"{name} {label}", g, w, rtol,
+                                atol * max(1.0, float(w.abs().max()))))
+    again = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: two runs differ")
+    log(f"determinism {name}: two runs bitwise equal")
+    return max(errs), (q, k, v, out, lse, dout)
+
+
+def phase_swa_bwd(cfg, seed: int) -> dict:
+    """K7's backward at the training shape (bf16) and the edges against
+    its plain version, rerun for the same bits; timed beside its bound,
+    its plain version, K7's forward with lse and SDPA's backward."""
+    import torch
+    from repro_torch.kernels.flash_swa import kernel as FK
+
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    window, qc = cfg.sliding_window, cfg.attn_query_chunk
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 10)
+    bf16, f32 = torch.bfloat16, torch.float32
+    edge_s = qc + window + qc
+    errs = []
+    for args in [("f32", BWD_F32_S, h, hkv, hd, BWD_F32_WINDOW,
+                  BWD_F32_WINDOW // 2, f32, BWD_TOL_F32),
+                 ("edge", edge_s, 8, 2, 64, window, qc, bf16, BWD_TOL_BF16),
+                 ("edge", edge_s, 8, 2, 128, window, qc, bf16,
+                  BWD_TOL_BF16),
+                 ("edge", edge_s, 8, 2, 256, window, qc, f32, BWD_TOL_F32)]:
+        err, tensors = bwd_case(*args, gen)
+        errs.append(err)
+        del tensors
+    err, (q, k, v, out, lse, dout) = bwd_case(
+        "training", TRAIN_SEQ, h, hkv, hd, window, qc, bf16, BWD_TOL_BF16,
+        gen)
+    errs.append(err)
+
+    fwd_ms = cuda_ms(lambda: FK.flash_swa(q, k, v, window=window, qc=qc,
+                                          return_lse=True), warmup=1,
+                     iters=5)
+    kernel_ms = cuda_ms(lambda: FK.flash_swa_bwd(
+        q, k, v, out, lse, dout, window=window, qc=qc), warmup=1, iters=5)
+    plain_ms = cuda_ms(lambda: FK.flash_swa_bwd_plain(
+        q, k, v, out, lse, dout, window=window, qc=qc), warmup=1, iters=2)
+    pairs = band_pairs(TRAIN_SEQ, window)
+    flops = 10 * hd * h * pairs
+    nbytes = (2 * TRAIN_SEQ * hd * (3 * h + 2 * hkv)     # q, out, dout, k, v
+              + 4 * h * TRAIN_SEQ                        # lse
+              + 2 * TRAIN_SEQ * hd * (h + 2 * hkv))      # dq, dk, dv
+    bound_ops = flops / BF16_FLOP_PER_S * 1e3
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(bound_ops, bound_bytes)
+    bound_by = "operations" if bound_ops >= bound_bytes else "bytes"
+
+    # the library call: SDPA with the band mask, its backward alone (the
+    # forward's graph kept) and forward plus backward
+    i = torch.arange(TRAIN_SEQ, device=DEVICE)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    call, backend = sdpa_call(*leaves, band)
+    library_ms = fwd_bwd_ms = None
+    try:
+        lib_out = call()
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dout, retain_graph=True), warmup=1, iters=3)
+        fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            call(), leaves, dout), warmup=1, iters=3)
+        lib_grads = torch.autograd.grad(lib_out, leaves, dout)
+        got = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window,
+                               qc=qc)
+        diffs = [float((a.float() - b.float()).abs().max())
+                 for a, b in zip(lib_grads, got)]
+        log(f"sdpa ({backend}) backward vs flash_swa_bwd [S {TRAIN_SEQ}] "
+            f"bf16: max abs diff dq/dk/dv {diffs} (not a check: both "
+            f"round to bf16)")
+        del lib_out, lib_grads, got
+    except RuntimeError as exc:      # a backend that refuses the mask
+        log(f"sdpa ({backend}) backward with the band mask refused: "
+            f"{str(exc).splitlines()[0][:200]}")
+    del band, leaves
+    log(f"time flash_swa_bwd [S {TRAIN_SEQ}, {h}/{hkv} heads of {hd}, "
+        f"window {window}, bf16, CUDA cores]: {kernel_ms:.4f} ms "
+        f"({flops / kernel_ms / 1e9:.1f} TFLOP/s useful, executes 1.4x); "
+        f"bound {bound:.4f} ms by {bound_by} ({pairs} band pairs per head, "
+        f"10 hd H pairs = {flops} flop at 989 TFLOP/s bf16 = "
+        f"{bound_ops:.4f} ms, at 67 TFLOP/s f32 = "
+        f"{flops / F32_FLOP_PER_S * 1e3:.4f} ms; {nbytes} bytes at 3.35 "
+        f"TB/s = {bound_bytes:.4f} ms); plain {plain_ms:.3f} ms; library "
+        f"{library_ms} ms (scaled_dot_product_attention's backward, "
+        f"{backend}, band mask, enable_gqa; forward + backward "
+        f"{fwd_bwd_ms} ms); K7 forward with lse {fwd_ms:.4f} ms")
+    del q, k, v, out, lse, dout
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound, bound_by=bound_by, err=max(errs))
+
+
+def leaf_close(name: str, got, want, tol: float) -> float:
+    """``|got - want| <= tol * max|want|`` everywhere; the max error
+    relative to the leaf's largest entry."""
+    import torch
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(err <= tol * max(scale, 1e-30),
+          f"{name}: max abs err {err} above {tol} x {scale}")
+    return err / max(scale, 1e-30)
+
+
+def phase_train_consistency(cfg, seed: int):
+    """``loss_and_grads`` at full width, depth cut to ``CONSIST_LAYERS``,
+    float32, one ``TRAIN_SEQ``-token sequence: through K7 and its backward
+    (twice, for the same bits) and through the plain version under
+    autograd; returns the depth-cut config, its parameters and the
+    batch."""
+    import torch
+    from repro_torch.data.synthetic import batch_at, for_model
+    from repro_torch.kernels.flash_swa import kernel as FK
+    from repro_torch.models import layers as LYR
+    from repro_torch.models.lm import init_params, tree_leaves
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = dataclasses.replace(cfg, num_layers=CONSIST_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    params, _ = init_params(cfg, gen, device=DEVICE)
+    batch = batch_at(for_model(cfg, seq_len=TRAIN_SEQ, global_batch=1,
+                               seed=seed), 0, cfg, device=DEVICE)
+    f32 = torch.float32
+    reset_all_counts()
+    (loss, _, grads), secs = wall_s(lambda: loss_and_grads(
+        params, cfg, batch, 1, f32))
+    want_counts = dict(flash_swa=2 * cfg.num_layers,
+                       flash_swa_bwd=cfg.num_layers)
+    counts = {k: all_counts()[k] for k in want_counts}
+    check(counts == want_counts,
+          f"train consistency: launches {counts}, expected {want_counts} "
+          f"(forward + remat recompute, backward, a layer)")
+    loss2, _, grads2 = loss_and_grads(params, cfg, batch, 1, f32)
+    same = torch.equal(loss, loss2) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(grads),
+                                                    tree_leaves(grads2)))
+    check(same, "train consistency: two backwards differ")
+    log("determinism loss_and_grads [Danube x 2 layers, f32]: two runs "
+        "bitwise equal (loss and every gradient leaf)")
+    del grads2
+    original = LYR.flash_swa_gqa
+
+    def plain_attention(q, k, v, *, window, qc):
+        return FK.flash_swa_plain(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), window=window, qc=qc)
+
+    LYR.flash_swa_gqa = plain_attention
+    try:
+        reset_all_counts()
+        want_loss, _, want = loss_and_grads(params, cfg, batch, 1, f32)
+        check(all_counts()["flash_swa"] == 0,
+              "train consistency: the plain run launched K7")
+    finally:
+        LYR.flash_swa_gqa = original
+    check(abs(float(loss) - float(want_loss))
+          <= TRAIN_LOSS_RTOL * abs(float(want_loss)),
+          f"train consistency: loss {float(loss)!r} vs plain "
+          f"{float(want_loss)!r}")
+    worst = max(leaf_close(f"train consistency grad {path}", g,
+                           dict(tree_leaves(want))[path], TRAIN_GRAD_TOL)
+                for path, g in tree_leaves(grads))
+    log(f"consistency train {cfg.name} x {cfg.num_layers} layers (f32, S "
+        f"{TRAIN_SEQ}): loss {float(loss)!r} vs plain {float(want_loss)!r};"
+        f" every gradient leaf within {worst:.3e} of its largest entry "
+        f"(limit {TRAIN_GRAD_TOL}); launches {counts}; {secs:.2f} s")
+    del grads, want
+    return cfg, params, batch
+
+
+def phase_checkpoint(cfg, params, batch) -> None:
+    """One train step of the depth-cut model, then ``checkpoint.save``
+    and ``restore_latest`` through a temporary directory: bitwise."""
+    import torch
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, OptConfig(warmup_steps=1),
+                           dtype=torch.float32)
+    params, opt, _ = step(params, opt, batch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        _, save_s = wall_s(lambda: ckpt.save(d, 1, params, opt,
+                                             extra={"arch": cfg.name}))
+        (got_p, got_o, meta), load_s = wall_s(
+            lambda: ckpt.restore_latest(d, params, opt))
+        nbytes = os.path.getsize(os.path.join(d, "step_1", "arrays.npz"))
+    check(meta["step"] == 1 and meta["arch"] == cfg.name,
+          f"checkpoint: meta {meta}")
+    for want, got in ((params, got_p), (opt, got_o)):
+        got = dict(tree_leaves(got))
+        for path, leaf in tree_leaves(want):
+            check(got[path].device == leaf.device
+                  and torch.equal(got[path], leaf),
+                  f"checkpoint: {path} differs after the round trip")
+    log(f"checkpoint {cfg.name} x {cfg.num_layers} layers: params and "
+        f"AdamW state ({nbytes / 2**30:.2f} GiB) saved in {save_s:.1f} s, "
+        f"restored in {load_s:.1f} s, bitwise equal")
+
+
+def phase_train(cfg, seed: int, profile: bool) -> tuple:
+    """Path D: ``launch.train``'s loop (``make_train_step`` +
+    ``synthetic.batch_at``) at full width and depth; returns the K7
+    launches of the steps and their e2e seconds."""
+    import torch
+    from repro_torch.data.synthetic import batch_at, for_model
+    from repro_torch.models.lm import init_params, param_count, tree_leaves
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 12)
+    (params, _), init_s = wall_s(lambda: init_params(cfg, gen,
+                                                     device=DEVICE))
+    opt = init_opt_state(params)
+    # a strided sample of every leaf, to show that each one moved
+    samples = {path: leaf.reshape(-1)[::max(1, leaf.numel() // 4096)]
+               .clone() for path, leaf in tree_leaves(params)}
+    step = make_train_step(cfg, OptConfig(warmup_steps=1),
+                           num_microbatches=TRAIN_MICRO,
+                           dtype=torch.bfloat16)
+    dcfg = for_model(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                     seed=seed)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    # a layer a microbatch: the forward and its remat recompute, then the
+    # backward
+    per_step = dict(flash_swa=2 * cfg.num_layers * TRAIN_MICRO,
+                    flash_swa_mma=2 * cfg.num_layers * TRAIN_MICRO,
+                    flash_swa_bwd=cfg.num_layers * TRAIN_MICRO)
+    totals = {name: 0 for name in per_step}
+    times, losses = [], []
+    for i in range(TRAIN_STEPS):
+        batch = batch_at(dcfg, i, cfg, device=DEVICE)
+        reset_all_counts()
+        (params, opt, m), secs = wall_s(lambda: step(params, opt, batch))
+        counts = {k: all_counts()[k] for k in per_step}
+        check(counts == per_step,
+              f"train step {i + 1}: launches {counts}, expected {per_step}")
+        for name in totals:
+            totals[name] += counts[name]
+        metrics = {k: float(v) for k, v in m.items()}
+        check(all(math.isfinite(v) for v in metrics.values()),
+              f"train step {i + 1}: non-finite metrics {metrics}")
+        times.append(secs)
+        losses.append(metrics["loss"])
+        log(f"train step {i + 1}: loss {metrics['loss']!r}, grad_norm "
+            f"{metrics['grad_norm']!r}, lr {metrics['lr']!r}, "
+            f"{secs * 1e3:.1f} ms, launches {counts}")
+    peak = (torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0)
+    check(int(opt["step"]) == TRAIN_STEPS,
+          f"train: optimizer step {int(opt['step'])}")
+    for path, leaf in tree_leaves(params):
+        check(bool(torch.isfinite(leaf).all()), f"train: {path} not finite")
+        now = leaf.reshape(-1)[::max(1, leaf.numel() // 4096)]
+        check(not torch.equal(now, samples[path]),
+              f"train: {path} did not change")
+    step_s = statistics.median(times[1:] or times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = param_count(cfg)
+    n_matmul = n_params - cfg.padded_vocab * cfg.d_model   # no embed table
+    attn = (12 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim
+            * band_pairs(TRAIN_SEQ, cfg.sliding_window) * TRAIN_BATCH)
+    model_flop = 6 * n_matmul * tokens + attn
+    share = model_flop / step_s / BF16_FLOP_PER_S
+    log(f"train {cfg.name}: {cfg.num_layers} layers at full width "
+        f"({n_params} parameters, float32 master weights and AdamW state), "
+        f"S {TRAIN_SEQ}, global batch {TRAIN_BATCH} in {TRAIN_MICRO} "
+        f"microbatches, bf16 compute, remat; {TRAIN_STEPS} steps, losses "
+        f"{losses}; {step_s * 1e3:.1f} ms a step (median of steps 2-"
+        f"{TRAIN_STEPS}; step 1 {times[0] * 1e3:.1f} ms), "
+        f"{tokens / step_s:.0f} tokens/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; model flop {model_flop} a step = 6 x "
+        f"{n_matmul} (parameters less the embedding table) x {tokens} "
+        f"tokens + 12 L H hd pairs B = {attn} (attention's band, forward "
+        f"and backward), {model_flop / step_s / 1e12:.1f} TFLOP/s = "
+        f"{share:.3f} of the 989 TFLOP/s bf16 peak; init {init_s:.1f} s")
+    log("train launches: " + json.dumps(totals))
+    e2e = {f"train step[{cfg.name}, S {TRAIN_SEQ}, batch {TRAIN_BATCH}]":
+           step_s}
+    if profile:
+        batch = batch_at(dcfg, TRAIN_STEPS, cfg, device=DEVICE)
+        phase_profile([(f"train step[{cfg.name}, S {TRAIN_SEQ}, batch "
+                        f"{TRAIN_BATCH}]", lambda: step(params, opt,
+                                                        batch))])
+    del params, opt, samples
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return totals, e2e
+
+
+def run_slice10(seed: int, profile: bool) -> tuple:
+    """Path D end to end: ``(K7 backward row, main-path launches, e2e
+    seconds)``."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LM_ARCH)
+    row = phase_swa_bwd(cfg, seed)
+    cut, params, batch = phase_train_consistency(cfg, seed)
+    phase_checkpoint(cut, params, batch)
+    del params, batch
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    launches, e2e = phase_train(cfg, seed, profile)
+    return row, launches, e2e
+
+
 def phase_profile(calls) -> None:
     """Device time by operation for each ``(name, call)`` (``--profile``):
     how much of each call the kernels are."""
@@ -2310,7 +2700,8 @@ def main(argv=None) -> int:
                         help="also print device time by operation for one "
                              "bfs, pagerank, served query stream, "
                              "bfs_multi, MoE layer, TreeLSTM evaluation, "
-                             "Danube prefill and Danube decode")
+                             "Danube prefill, Danube decode and Danube "
+                             "train step")
     args = parser.parse_args(argv)
 
     import torch
@@ -2431,6 +2822,16 @@ def run(args, t_start: float) -> int:
         args.seed, args.profile)
     log(f"main-path launches flash_swa: {launches['flash_swa']} (prefill)")
     for name, secs in e2e3.items():
+        log(f"e2e {name}: {secs * 1e3:.1f} ms")
+
+    # slice 10: Danube training steps through K7 and its backward
+    rows["flash_swa_bwd"], train, e2e4 = run_slice10(args.seed,
+                                                     args.profile)
+    log(f"main-path launches flash_swa: {launches['flash_swa']} (prefill) "
+        f"+ {train['flash_swa']} (training steps)")
+    launches["flash_swa"] += train["flash_swa"]
+    launches["flash_swa_bwd"] = train["flash_swa_bwd"]
+    for name, secs in e2e4.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
 
     kernels = []

@@ -126,3 +126,23 @@ def lm_params_from_arrays(params: Mapping[str, object], *,
         return torch.from_numpy(np.array(tree)).to(dev)
 
     return convert(params)
+
+
+def opt_state_from_arrays(opt_state: Mapping[str, object], *,
+                          device=None) -> Dict[str, object]:
+    """A reference ``init_opt_state``/``adamw_update`` state (``{"mu":
+    tree, "nu": tree, "step": scalar}``, arrays as numpy) -> the port's:
+    float32 ``mu``/``nu`` trees and an int32 0-d ``step`` on ``device``."""
+    missing = [n for n in ("mu", "nu", "step") if n not in opt_state]
+    if missing:
+        raise KeyError(f"optimizer state lacks {missing}")
+    dev = resolve_device(device)
+
+    def convert(tree):
+        if isinstance(tree, Mapping):
+            return {name: convert(value) for name, value in tree.items()}
+        return torch.from_numpy(np.array(tree, np.float32)).to(dev)
+
+    return {"mu": convert(opt_state["mu"]), "nu": convert(opt_state["nu"]),
+            "step": torch.from_numpy(np.array(opt_state["step"], np.int32)
+                                     ).to(dev)}

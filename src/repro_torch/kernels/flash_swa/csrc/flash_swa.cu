@@ -15,7 +15,9 @@
 // completely gets weight exp(0) there, which the next tile's correction
 // exp(-1e30 - m) cancels; every row sees itself, so every row has a later
 // valid score).  bfloat16 is converted to float32 on load; every product
-// and sum is float32 (expf, not __expf).
+// and sum is float32 (expf, not __expf).  When lse is not null, the row's
+// log-sum-exp m + log(max(l, 1e-30)) (natural log, float32, [B, H, S]) is
+// written beside the output, for the backward (flash_swa_bwd.cu).
 //
 // Design (a simple kernel, CUDA cores only): one CTA of 256 threads per
 // (64-row query tile, head, batch).  It walks only the 64-row KV tiles that
@@ -90,8 +92,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T, int NCOL>
 __global__ void __launch_bounds__(kThreads, NCOL <= 4 ? 2 : 1)
 flash_swa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int S, int H,
-                 int Hkv, int hd, int ld, int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int H, int Hkv, int hd,
+                 int ld, int window, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;               // [kBQ][ld]
   float* ks = qs + kBQ * ld;      // [kBK][ld]
@@ -207,6 +210,8 @@ flash_swa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + r0 + r;
     if (qpos >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<size_t>(b) * H + h) * S + qpos] = m[r] + logf(denom);
     T* row = out + q_off + static_cast<size_t>(qpos) * q_stride;
 #pragma unroll
     for (int j = 0; j < NCOL; ++j) {
@@ -225,9 +230,9 @@ int row_stride(int hd) {
 }
 
 template <typename T, int NCOL>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int Hkv, int hd, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int H, int Hkv, int hd, int window,
+           float scale, cudaStream_t stream) {
   const int ld = row_stride(hd);
   const size_t smem = static_cast<size_t>(3 * kBQ * ld + kBQ * kBK) *
                       sizeof(float);
@@ -243,41 +248,46 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, Hkv, hd, ld,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, Hkv, hd,
+      ld, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_width(const void* q, const void* k, const void* v, void* out,
-                 int B, int S, int H, int Hkv, int hd, int window,
-                 float scale, cudaStream_t stream) {
+                 float* lse, int B, int S, int H, int Hkv, int hd,
+                 int window, float scale, cudaStream_t stream) {
   if (hd <= 32)
-    return launch<T, 1>(q, k, v, out, B, S, H, Hkv, hd, window, scale, stream);
+    return launch<T, 1>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
+                        stream);
   if (hd <= 64)
-    return launch<T, 2>(q, k, v, out, B, S, H, Hkv, hd, window, scale, stream);
+    return launch<T, 2>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
+                        stream);
   if (hd <= 128)
-    return launch<T, 4>(q, k, v, out, B, S, H, Hkv, hd, window, scale, stream);
+    return launch<T, 4>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
+                        stream);
   if (hd <= 256)
-    return launch<T, 8>(q, k, v, out, B, S, H, Hkv, hd, window, scale, stream);
+    return launch<T, 8>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
+                        stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t code.
+// dtype codes: 0 = float32, 1 = bfloat16.  lse: float32 [B, H, S], or null
+// (serving writes none).  Returns a cudaError_t code.
 extern "C" int flash_swa_fwd(const void* q, const void* k, const void* v,
-                             void* out, int dtype, int B, int S, int H,
-                             int Hkv, int hd, int window, float scale,
+                             void* out, float* lse, int dtype, int B, int S,
+                             int H, int Hkv, int hd, int window, float scale,
                              cudaStream_t stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0 || hd <= 0 || window <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_width<float>(q, k, v, out, B, S, H, Hkv, hd, window, scale,
-                               stream);
+    return launch_width<float>(q, k, v, out, lse, B, S, H, Hkv, hd, window,
+                               scale, stream);
   if (dtype == 1)
-    return launch_width<__nv_bfloat16>(q, k, v, out, B, S, H, Hkv, hd,
+    return launch_width<__nv_bfloat16>(q, k, v, out, lse, B, S, H, Hkv, hd,
                                        window, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,7 +18,10 @@
 //   elements, so P is split into P_hi = bf16(P) and P_lo = bf16(P - P_hi)
 //   (the difference is exact in f32) and both go through the tensor cores
 //   into the same f32 accumulator;
-// * the output is rounded to bf16 once.
+// * the output is rounded to bf16 once;
+// * when lse is not null, each row's log-sum-exp (natural log, f32, [B, H,
+//   S]) is written too: (m + log2(l)) * ln 2 from the base-2 running max m
+//   and the row sum l, for the backward (flash_swa_bwd.cu).
 //
 // Bound on the H100: operations.  The band holds sum_i min(i + 1, window)
 // (query, key) pairs per head, 4 * hd flop each; at Danube's prefill (S
@@ -63,6 +66,7 @@ constexpr int kBK = 64;                // KV rows per tile
 constexpr int kMaxHeadDim = 128;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -176,8 +180,8 @@ template <int NO>
 __global__ void __launch_bounds__(kThreads, 8 / kWarps)
 flash_swa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                     int S, int H, int Hkv, int hd, int window,
-                     float scale_log2, int vec) {
+                     float* __restrict__ lse, int S, int H, int Hkv, int hd,
+                     int window, float scale_log2, int vec) {
   constexpr int KD = (NO + 1) / 2;     // k16 steps of Q K^T
   constexpr int DP = 16 * KD;
   constexpr int LD = DP + 8;           // row stride: 16 bytes of padding
@@ -346,6 +350,10 @@ flash_swa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int half = 0; half < 2; ++half) {
     const int row = ra + half * 8;
     if (row >= S) continue;
+    if (lse != nullptr && (lane & 3) == 0) {
+      lse[(static_cast<size_t>(b) * H + h) * S + row] =
+          (m[half] + log2f(denom[half])) * kLn2;
+    }
     bf16* dst = out + static_cast<size_t>(b) * S * q_stride +
                 static_cast<size_t>(row) * q_stride +
                 static_cast<size_t>(h) * hd;
@@ -366,9 +374,9 @@ flash_swa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int NO>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int Hkv, int hd, int window, float scale, int vec,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int H, int Hkv, int hd, int window,
+           float scale, int vec, cudaStream_t stream) {
   constexpr int LD = 16 * ((NO + 1) / 2) + 8;
   const size_t smem = static_cast<size_t>(kBQ + 4 * kBK) * LD *
                       sizeof(bf16);
@@ -380,19 +388,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(H, (S + kBQ - 1) / kBQ, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, H, Hkv, hd,
-      window, scale * kLog2e, vec);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, H, Hkv,
+      hd, window, scale * kLog2e, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bfloat16 q/k/v/out; vec = 1 when hd % 8 == 0 and every row starts on 16
-// bytes.  Returns a cudaError_t code.
+// bfloat16 q/k/v/out; lse float32 [B, H, S] or null (serving writes none);
+// vec = 1 when hd % 8 == 0 and every row starts on 16 bytes.  Returns a
+// cudaError_t code.
 extern "C" int flash_swa_mma_fwd(const void* q, const void* k, const void* v,
-                                 void* out, int B, int S, int H, int Hkv,
-                                 int hd, int window, float scale, int vec,
-                                 cudaStream_t stream) {
+                                 void* out, float* lse, int B, int S, int H,
+                                 int Hkv, int hd, int window, float scale,
+                                 int vec, cudaStream_t stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0 || hd <= 0 || hd > kMaxHeadDim ||
       window <= 0 || (S + kBQ - 1) / kBQ > 65535 || B > 65535) {
@@ -400,17 +409,17 @@ extern "C" int flash_swa_mma_fwd(const void* q, const void* k, const void* v,
   }
   const int tiles = (hd + 7) / 8;
   if (tiles <= 4)
-    return launch<4>(q, k, v, out, B, S, H, Hkv, hd, window, scale, vec,
-                     stream);
+    return launch<4>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
+                     vec, stream);
   if (tiles <= 8)
-    return launch<8>(q, k, v, out, B, S, H, Hkv, hd, window, scale, vec,
-                     stream);
+    return launch<8>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
+                     vec, stream);
   if (tiles <= 12)
-    return launch<12>(q, k, v, out, B, S, H, Hkv, hd, window, scale, vec,
-                      stream);
+    return launch<12>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
+                      vec, stream);
   if (tiles == 15)
-    return launch<15>(q, k, v, out, B, S, H, Hkv, hd, window, scale, vec,
-                      stream);
-  return launch<16>(q, k, v, out, B, S, H, Hkv, hd, window, scale, vec,
-                    stream);
+    return launch<15>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
+                      vec, stream);
+  return launch<16>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
+                    vec, stream);
 }

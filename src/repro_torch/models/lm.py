@@ -12,19 +12,28 @@ blocks -> final norm -> untied LM head.  Block internals by family:
 and prepended to the token embeddings.
 
 Layer parameters are stacked ``[L, ...]`` like the reference's, and the
-layers run in a Python loop over them (the reference's ``lax.scan`` and
-remat only matter to a compiler and to training).  On the sliding-window
-configs (H2O-Danube3-4B, Hymba-1.5B) a prompt longer than ``query_chunk +
-window`` takes the banded branch of :func:`layers.attention`: the K7
-kernel.  :func:`decode_step` updates the cache it is given in place and
-returns it.  ``lm_loss`` and the chunked cross-entropy come with training.
+layers run in a Python loop over them (the reference's ``lax.scan`` only
+matters to a compiler); with ``cfg.remat`` each layer of
+:func:`forward_hidden` runs under non-reentrant
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` with
+nothing saveable.  ``params["layers"]`` may also be a list of per-layer
+trees (the training step passes views of the stacks, each with its own
+gradient).  On the sliding-window configs (H2O-Danube3-4B, Hymba-1.5B) a
+prompt longer than ``query_chunk + window`` takes the banded branch of
+:func:`layers.attention`: the K7 kernel, with its backward kernel under
+autograd.  :func:`decode_step` updates the cache it is given in place and
+returns it.  :func:`lm_loss` is the next-token cross-entropy, chunked over
+the sequence under checkpoint when ``cfg.loss_seq_chunk`` divides it.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import layers as L
@@ -177,28 +186,38 @@ def _moe(cfg, params: Params, h: torch.Tensor):
                  capacity_factor=cfg.capacity_factor)
 
 
-def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor
+def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
+           with_state: bool = True
            ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder block over a whole sequence: ``(x, aux_loss, state)``,
     ``state`` holding the roped ``k``/``v`` and the SSM states that
-    :func:`prefill` turns into this layer's decode cache."""
+    :func:`prefill` turns into this layer's decode cache (empty without
+    ``with_state``, as the reference's ``_block_train``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     state: Dict[str, torch.Tensor] = {}
     h = L.rmsnorm(params["ln1"], x)
     if cfg.family in ATTENTION_FAMILIES:
-        attn_out, state["k"], state["v"] = L.attention(
+        attn = L.attention(
             params["attn"], h, positions, query_chunk=cfg.attn_query_chunk,
-            swa_banded=cfg.swa_banded, return_kv=True, **_attn_kwargs(cfg))
+            swa_banded=cfg.swa_banded, return_kv=with_state,
+            **_attn_kwargs(cfg))
+        if with_state:
+            attn_out, state["k"], state["v"] = attn
+        else:
+            attn_out = attn
     if cfg.family == "ssm":
-        tout, (state["xprev_t"], state["wkv"]) = S.rwkv6_block(
+        tout = S.rwkv6_block(
             params["tmix"], h, num_heads=cfg.rwkv_num_heads,
             head_dim=cfg.rwkv_head_dim, chunk=cfg.ssm_chunk,
-            return_state=True)
+            return_state=with_state)
+        if with_state:
+            tout, (state["xprev_t"], state["wkv"]) = tout
         x = x + tout
     elif cfg.family == "hybrid":
-        mout, state["h"] = S.mamba_block(params["mamba"], h,
-                                         chunk=cfg.ssm_chunk,
-                                         return_state=True)
+        mout = S.mamba_block(params["mamba"], h, chunk=cfg.ssm_chunk,
+                             return_state=with_state)
+        if with_state:
+            mout, state["h"] = mout
         x = x + 0.5 * (attn_out + mout)   # parallel heads, mean-fused
     elif cfg.family in ATTENTION_FAMILIES:
         x = x + attn_out
@@ -210,8 +229,9 @@ def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor
         out, aux = _moe(cfg, params["moe"], h2)
         x = x + out
     elif cfg.family == "ssm":
-        cout, state["xprev_c"] = S.rwkv_cmix(params["cmix"], h2,
-                                             return_state=True)
+        cout = S.rwkv_cmix(params["cmix"], h2, return_state=with_state)
+        if with_state:
+            cout, state["xprev_c"] = cout
         x = x + cout
     else:
         x = x + L.mlp(params["mlp"], h2, cfg.activation)
@@ -219,14 +239,21 @@ def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor
 
 
 def _layer(params: Params, i: int) -> Params:
-    return tree_map(lambda p: p[i], params["layers"])
+    """Layer ``i``'s tree: a slice of each stacked leaf, or entry ``i`` of
+    a list of per-layer trees."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
+    return tree_map(lambda p: p[i], layers)
 
 
 def _embed(params: Params, cfg, tokens: torch.Tensor,
            prefix_embeds: Optional[torch.Tensor],
            dtype: torch.dtype) -> torch.Tensor:
-    """Token embeddings, with the projected frontend prefix in front."""
-    x = params["embed"][tokens.long()].to(dtype)
+    """Token embeddings, with the projected frontend prefix in front.
+    ``F.embedding``: its backward sums each id's rows in a fixed order on
+    the card, where indexing's scatter-add would add in atomic order."""
+    x = F.embedding(tokens.long(), params["embed"]).to(dtype)
     if cfg.frontend is not None:
         assert prefix_embeds is not None, f"{cfg.name} needs frontend stub"
         pre = prefix_embeds.to(dtype) @ params["frontend_proj"].to(dtype)
@@ -239,17 +266,33 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
         b, s)
 
 
+def _block_train(cfg, params: Params, x: torch.Tensor,
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder block for :func:`forward_hidden`: ``(x, aux_loss)``."""
+    x, aux, _ = _block(cfg, params, x, positions, with_state=False)
+    return x, aux
+
+
 def forward_hidden(params: Params, cfg, tokens: torch.Tensor,
                    prefix_embeds: Optional[torch.Tensor] = None,
                    dtype: torch.dtype = torch.bfloat16
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backbone forward: ``(final-norm hidden [B,S,D], aux loss)``."""
+    """Backbone forward: ``(final-norm hidden [B,S,D], aux loss)``.  With
+    ``cfg.remat`` and autograd recording, each layer runs under
+    non-reentrant checkpoint: its activations are recomputed in the
+    backward (K7 launches twice a layer)."""
     x = _embed(params, cfg, tokens, prefix_embeds, dtype)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
-        x, a, _ = _block(cfg, _layer(params, i), x, positions)
+        body = functools.partial(_block_train, cfg, _layer(params, i))
+        if remat:
+            x, a = checkpoint(body, x, positions, use_reentrant=False)
+        else:
+            x, a = body(x, positions)
         aux = aux + a
     return L.rmsnorm(params["ln_f"], x), aux
 
@@ -262,6 +305,67 @@ def forward(params: Params, cfg, tokens: torch.Tensor,
     ``(logits [B, S, padded_vocab], aux)``."""
     x, aux = forward_hidden(params, cfg, tokens, prefix_embeds, dtype)
     return x @ params["lm_head"].to(dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# the loss
+# ---------------------------------------------------------------------------
+
+def _ce_terms(cfg, head: torch.Tensor, hidden: torch.Tensor,
+              labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sum NLL, token count)`` for one hidden chunk ``[B, s, D]``; the
+    vocabulary's padding columns are masked to -1e30, labels < 0 count
+    nothing."""
+    logits = (hidden @ head).float()
+    if cfg.padded_vocab != cfg.vocab_size:   # mask vocab padding columns
+        pad_mask = torch.arange(cfg.padded_vocab,
+                                device=logits.device) < cfg.vocab_size
+        logits = torch.where(pad_mask, logits, -1e30)
+    mask = (labels >= 0).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def lm_loss(params: Params, cfg, batch: Dict[str, torch.Tensor],
+            dtype: torch.dtype = torch.bfloat16
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE (+ 0.01 aux): ``(total, {"loss", "aux",
+    "ntokens"})``.  batch: ``tokens [B, S]``, ``labels [B, S]`` (-1 =
+    masked), optional ``prefix_embeds [B, Lf, D]``.
+
+    ``cfg.loss_seq_chunk``: when it divides S (and is smaller), the ``[B,
+    S, V]`` float32 logits are never materialized: the CE runs one
+    sequence chunk at a time under checkpoint, its logits recomputed in
+    the backward."""
+    hidden, aux = forward_hidden(params, cfg, batch["tokens"],
+                                 batch.get("prefix_embeds"), dtype=dtype)
+    if cfg.frontend is not None:   # prefix positions predict nothing
+        hidden = hidden[:, cfg.frontend_len:]
+    labels = batch["labels"]
+    head = params["lm_head"].to(dtype)
+
+    ck = cfg.loss_seq_chunk
+    s = hidden.shape[1]
+    if ck and s % ck == 0 and s > ck:
+        terms = functools.partial(_ce_terms, cfg)
+        nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(0, s, ck):
+            h, lab = hidden[:, i:i + ck], labels[:, i:i + ck]
+            if torch.is_grad_enabled():
+                nll, cnt = checkpoint(terms, head, h, lab,
+                                      use_reentrant=False)
+            else:
+                nll, cnt = terms(head, h, lab)
+            nll_sum, count = nll_sum + nll, count + cnt
+    else:
+        nll_sum, count = _ce_terms(cfg, head, hidden, labels)
+
+    loss = nll_sum / torch.clamp(count, min=1.0)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux": aux, "ntokens": count}
 
 
 # ---------------------------------------------------------------------------
@@ -401,8 +505,8 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, pos: int,
 # ---------------------------------------------------------------------------
 
 class _ParamTree(torch.nn.Module):
-    """A nested parameter dict as a module tree (``requires_grad=False``:
-    the K7 kernel has no backward)."""
+    """A nested parameter dict as a module tree; its parameters require
+    grad (the banded attention's K7 kernels have a backward)."""
 
     def __init__(self, tree: Params):
         super().__init__()
@@ -410,8 +514,7 @@ class _ParamTree(torch.nn.Module):
             if isinstance(value, dict):
                 self.add_module(name, _ParamTree(value))
             else:
-                self.register_parameter(
-                    name, torch.nn.Parameter(value, requires_grad=False))
+                self.register_parameter(name, torch.nn.Parameter(value))
 
     def tree(self) -> Params:
         out: Params = dict(self.named_parameters(recurse=False))
@@ -421,8 +524,9 @@ class _ParamTree(torch.nn.Module):
 
 
 class DecoderLM(torch.nn.Module):
-    """A decoder LM holding its weights; its methods call :func:`forward`,
-    :func:`prefill` and :func:`decode_step` on them.  Build with
+    """A decoder LM holding its weights; its methods call :func:`forward`
+    (differentiable in the weights), :func:`prefill` and
+    :func:`decode_step` (both under ``torch.no_grad``) on them.  Build with
     :meth:`from_config` (weights drawn from a generator) or from a
     parameter tree (e.g. ``interop.lm_params_from_arrays``)."""
 
@@ -449,6 +553,7 @@ class DecoderLM(torch.nn.Module):
                 dtype: torch.dtype = torch.bfloat16):
         return forward(self.params(), self.cfg, tokens, prefix_embeds, dtype)
 
+    @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None,
                 dtype: torch.dtype = torch.bfloat16,
@@ -456,6 +561,7 @@ class DecoderLM(torch.nn.Module):
         return prefill(self.params(), self.cfg, tokens, prefix_embeds, dtype,
                        cache_len)
 
+    @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, pos: int,
                     cache: Dict[str, torch.Tensor],
                     dtype: torch.dtype = torch.bfloat16):

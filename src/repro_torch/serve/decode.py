@@ -16,10 +16,12 @@ def make_serve_step(cfg, *, batch: int, seq_len: int,
                     dtype: torch.dtype = torch.bfloat16, device=None
                     ) -> Tuple[Callable, Dict[str, torch.Tensor]]:
     """``(step, cache)``: ``step(params, tokens [B,1], pos, cache) ->
-    (logits, cache)`` (the cache is updated in place) and a zeroed cache of
+    (logits, cache)`` (the cache is updated in place; no autograd graph is
+    recorded, even for weights that require grad) and a zeroed cache of
     ``seq_len`` positions on ``device`` (``None``: the card)."""
     cache = init_cache(cfg, batch, seq_len, dtype, device=device)
 
+    @torch.no_grad()
     def step(params, tokens, pos, cache):
         return decode_step(params, cfg, tokens, pos, cache, dtype=dtype)
 
@@ -48,12 +50,13 @@ def sample_logits(generator: Optional[torch.Generator], logits: torch.Tensor,
     return torch.multinomial(probs, 1, generator=generator).to(torch.int32)
 
 
+@torch.no_grad()
 def generate(params, cfg, prompt: torch.Tensor, *, steps: int, cache,
              generator: Optional[torch.Generator] = None,
              temperature: float = 0.0,
              dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, Any]:
     """Simple autoregressive loop (the prompt fed through repeated decode
-    steps) for tests and examples.  Returns ``(tokens [B, steps], cache)``;
+    steps, no autograd graph) for tests and examples.  Returns ``(tokens [B, steps], cache)``;
     ``steps=0`` gives ``[B, 0]``."""
     b, plen = prompt.shape
     out = []

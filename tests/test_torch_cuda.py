@@ -1165,3 +1165,135 @@ def test_banded_attention_launches_k7_once(card):
                       x.to(card), pos.to(card), **kw)
     assert FK.LAUNCHES["flash_swa"] == before + 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K7's backward (csrc/flash_swa_bwd.cu) and the autograd function.
+# ---------------------------------------------------------------------------
+
+#: (S, H, Hkv, hd, window, qc): the forward's shapes, plus the widest f32
+#: head (256: 32-row tiles), S = qc + window + qc, and window 1.
+SWA_BWD_SHAPES = SWA_SHAPES + [(256, 4, 2, 256, 128, 64),
+                               (320, 4, 1, 64, 192, 64),
+                               (128, 2, 1, 128, 1, 1)]
+#: dq/dk/dv against the plain backward on the same inputs, output and
+#: log-sum-exp, per element ``atol * max(1, max|want|) + rtol * |want|``
+#: (the inputs are unit normals, so 1 is the size of a term: at window 1
+#: dq is 0 up to the cancellation of dP - D): float32 sums in another
+#: order (1e-4); bfloat16 adds the rounding of the outputs to bf16 (2^-9
+#: relative: rtol 1e-2).
+SWA_BWD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-3)}
+#: The autograd function's gradients against autograd through the float32
+#: plain forward on the same (bf16-rounded) inputs: for bfloat16 the D pass
+#: reads the forward's bf16-rounded output (``tests/
+#: test_torch_flash_swa_grad.py`` states the same 1e-2 for the CPU).
+SWA_GRAD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
+
+
+def _swa_bwd_inputs(shape, dtype, card, seed):
+    S, H, Hkv, hd, window, qc = shape
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, dout = (torch.randn(2, S, heads, hd, generator=gen).to(dtype)
+                     .to(card) for heads in (H, Hkv, Hkv, H))
+    out, lse = FK.flash_swa(q, k, v, window=window, qc=qc, return_lse=True)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SWA_BWD_SHAPES, ids=str)
+def test_flash_swa_bwd_matches_plain(card, shape, dtype):
+    S, H, Hkv, hd, window, qc = shape
+    q, k, v, out, lse, dout = _swa_bwd_inputs(shape, dtype, card, S + hd)
+    # the forward's log-sum-exp against the plain version's
+    _, want_lse = FK.flash_swa_plain(q.float(), k.float(), v.float(),
+                                     window=window, qc=qc, return_lse=True)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    before = FK.LAUNCHES["flash_swa_bwd"]
+    got = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_swa_bwd"] == before + 1
+    want = FK.flash_swa_bwd_plain(*(t.float() for t in (q, k, v, out)), lse,
+                                  dout.float(), window=window, qc=qc)
+    rtol, atol = SWA_BWD_TOL[dtype]
+    for name, g, w, t in zip("qkv", got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape, name
+        torch.testing.assert_close(g.float(), w, rtol=rtol,
+                                   atol=atol * max(1.0, float(w.abs().max())),
+                                   msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_swa_bwd_is_deterministic(card, dtype):
+    shape = (1024, 8, 2, 120, 256, 128)
+    q, k, v, out, lse, dout = _swa_bwd_inputs(shape, dtype, card, 3)
+    first = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=256, qc=128)
+    second = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=256, qc=128)
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16) if dtype == torch.bfloat16
+                           else a.view(torch.int32),
+                           b.view(torch.int16) if dtype == torch.bfloat16
+                           else b.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banded_attention_function_matches_autograd_of_plain(card, dtype):
+    from repro_torch.kernels.flash_swa.ops import flash_swa_gqa
+    S, H, Hkv, hd, window, qc = 512, 8, 2, 120, 128, 64
+    gen = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1, S, heads, hd, generator=gen).to(dtype).to(card)
+               .requires_grad_() for heads in (H, Hkv, Hkv))
+    dout = torch.randn(1, S, H, hd, generator=gen).to(dtype).to(card)
+    before = dict(FK.LAUNCHES)
+    out = flash_swa_gqa(q, k, v, window=window, qc=qc)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert FK.LAUNCHES["flash_swa"] == before["flash_swa"] + 1
+    assert FK.LAUNCHES["flash_swa_bwd"] == before["flash_swa_bwd"] + 1
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        FK.flash_swa_plain(*leaves, window=window, qc=qc), leaves,
+        dout.float())
+    rtol, atol = SWA_GRAD_TOL[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w, rtol=rtol,
+                                   atol=atol * max(1.0, float(w.abs().max())))
+
+
+def test_kernel_refuses_inputs_that_need_a_gradient(card):
+    q = torch.randn(1, 128, 2, 64, device=card, requires_grad=True)
+    kv = torch.randn(1, 128, 1, 64, device=card)
+    with pytest.raises(RuntimeError, match="autograd"):
+        FK.flash_swa(q, kv, kv, window=64, qc=64)
+    with torch.no_grad():
+        assert FK.flash_swa(q, kv, kv, window=64, qc=64).grad_fn is None
+
+
+def test_banded_danube_layer_backward_reaches_every_leaf(card):
+    """A Danube-shaped banded block (full width, S 6,144 > qc + window) on
+    the card: after backward every leaf has a finite gradient, and the
+    attention projections a non-zero one (the K7 forward once had no
+    ``grad_fn``, which left wq/wk/wv without gradients)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm as LM
+    cfg = dataclasses.replace(get_config("h2o_danube3_4b"), num_layers=1)
+    gen = torch.Generator(device=card).manual_seed(0)
+    layer, _ = LM._layer_init(cfg, gen, card)
+    leaves = dict(LM.tree_leaves(layer))
+    for leaf in leaves.values():
+        leaf.requires_grad_()
+    S = cfg.attn_query_chunk + cfg.sliding_window + cfg.attn_query_chunk
+    x = torch.randn(1, S, cfg.d_model, generator=gen, device=card).to(
+        torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32, device=card)[None]
+    before = dict(FK.LAUNCHES)
+    y, _, _ = LM._block(cfg, layer, x, pos)
+    y.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert FK.LAUNCHES["flash_swa"] == before["flash_swa"] + 1
+    assert FK.LAUNCHES["flash_swa_bwd"] == before["flash_swa_bwd"] + 1
+    for path, leaf in leaves.items():
+        assert leaf.grad is not None, path
+        assert bool(torch.isfinite(leaf.grad).all()), path
+    for name in ("wq", "wk", "wv"):
+        assert float(leaves[f"/attn/{name}"].grad.abs().max()) > 0, name

@@ -22,9 +22,9 @@ from repro_torch.kernels.spmv_merge import kernel as TK
 from _torch_parity import assert_bitwise, np_of, reference_modules
 from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
-#: Reference exports the port does not have yet: training's loss (ROADMAP
-#: queue 1) and the frontend's jax.ShapeDtypeStruct helper.
-MODELS_NOT_PORTED = {"lm_loss", "frontend_embed_shape"}
+#: Reference exports the port does not have yet: the frontend's
+#: jax.ShapeDtypeStruct helper (ROADMAP queue 1 item 5).
+MODELS_NOT_PORTED = {"frontend_embed_shape"}
 
 #: Every sparse and core name is ported (the sharded traversal, its
 #: executors, cost terms and plans since the sharding slice).

@@ -396,7 +396,10 @@ def test_decoder_lm_module(ref):
     want, _ = ref[0].forward(jparams, jcfg, tokens, dtype=np.float32)
     got, _ = model(_t(tokens), dtype=torch.float32)
     _close(got, want, MODEL_TOL)
-    assert not any(p.requires_grad for p in model.parameters())
+    # trainable weights; serving's prefill and decode record no graph
+    assert all(p.requires_grad for p in model.parameters())
+    logits, _ = model.prefill(_t(tokens), dtype=torch.float32)
+    assert logits.grad_fn is None
     cache = model.init_cache(1, 8, dtype=torch.float32)
     assert cache["k"].shape == (cfg.num_layers, 1, 8, cfg.num_kv_heads,
                                 cfg.resolved_head_dim)

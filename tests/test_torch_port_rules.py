@@ -73,6 +73,10 @@ def test_port_imports_without_jax():
             "import repro_torch.models.lm, repro_torch.models.ssm\n"
             "import repro_torch.models.frontends\n"
             "import repro_torch.serve.decode, repro_torch.launch.serve\n"
+            "import repro_torch.train.step, repro_torch.train.checkpoint\n"
+            "import repro_torch.train.compress\n"
+            "import repro_torch.train.quantized_opt\n"
+            "import repro_torch.data.synthetic, repro_torch.launch.train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]\n"
             "assert not bad, bad\n")
