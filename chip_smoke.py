@@ -134,19 +134,23 @@ Phases, in order; any failure exits non-zero:
    mask; K7's output there held to the float32 plain version (bfloat16
    limits above) and to SDPA (3e-2); then the float32 K7 (the CUDA-core
    kernel) at the same shape;
-21. swa backward — K7's backward kernel (``flash_swa_bwd``) against its
-   plain version on the same inputs, forward output and log-sum-exp (the
+21. swa backward — K7's backward (``flash_swa_bwd``) against its plain
+   version on the same inputs, forward output and log-sum-exp (the
    forward's lse held to the plain forward's at 1e-4): at the training
    shape (S 8,192, 32/8 heads of 120, window 4,096, bfloat16: rtol 1e-2,
-   atol 1e-3 of max(1, max|want|)), in float32 at S 2,048 (window 1,024;
-   2e-5), and at S = qc + window + qc with heads of 64 and 128 (bf16) and
-   256 (f32); every case run twice for the same bits; timed beside its
-   bound, its plain version, K7's forward with lse and SDPA's backward
-   with the band mask;
+   atol 1e-3 of max(1, max|want|)) and at S = qc + window + qc with bf16
+   heads of 64, 120 (operands 2 bytes off 16-byte alignment: the element
+   loads) and 128, all on the tensor-core kernel (``flash_swa_bwd_mma``);
+   in float32 at S 2,048 (window 1,024; 2e-5) and at the edge with heads
+   of 256 (f32), both on the CUDA-core kernel; every case run twice for
+   the same bits, with the tensor-core counter checked; timed beside its
+   bound, the flop it executes, its plain version, K7's forward with lse
+   and SDPA's backward with the band mask;
 22. train consistency — ``loss_and_grads`` of Danube at full width, depth
    cut to 2, float32, one 8,192-token sequence from
    ``synthetic.batch_at``: K7 and its backward launched twice a layer and
-   once a layer (forward + remat recompute, backward), two runs bitwise
+   once a layer (forward + remat recompute, backward; the float32
+   backward on the CUDA-core kernel), two runs bitwise
    equal, and the loss (1e-5) and every gradient leaf (1e-4 of its
    largest entry) equal to the same call with the plain version under
    autograd;
@@ -156,7 +160,8 @@ Phases, in order; any failure exits non-zero:
    (``make_train_step`` + ``synthetic.batch_at``) for H2O-Danube3-4B at
    full width and depth: float32 master weights and AdamW state, bf16
    compute, remat, S 8,192, global batch 2 in 2 microbatches, 3 steps;
-   per step 96 K7 launches (all tensor-core) and 48 backward launches;
+   per step 96 K7 launches and 48 backward launches, all on the tensor
+   cores (``flash_swa_mma``, ``flash_swa_bwd_mma``), and each step's time;
    finite losses, norms and parameters, every leaf changed, the
    optimizer's step 3; ms a step, tokens/s, peak memory and the model
    flop share of the bf16 peak (``--profile``: one more step profiled);
@@ -200,7 +205,8 @@ KERNELS = {   # counter name -> (CUDA source, the Pallas kernel it replaces)
                   "src/repro/kernels/flash_swa/kernel.py:79"),
     # the reference differentiates its jnp band (K7 has no backward)
     "flash_swa_bwd": ("src/repro_torch/kernels/flash_swa/csrc/"
-                      "flash_swa_bwd.cu", "src/repro/models/layers.py:213"),
+                      "flash_swa_bwd_mma.cu",
+                      "src/repro/models/layers.py:213"),
 }
 REAL_RTOL = 1e-4   # real-valued f32 sums in another order
 # soc-LiveJournal1 scale (SNAP: 4.8M vertices, 69M edges)
@@ -2029,6 +2035,33 @@ def mma_executed_flop(s: int, window: int, heads: int, hd: int) -> int:
     return heads * tiles * per_tile
 
 
+def bwd_mma_executed_flop(s: int, window: int, heads: int, kv_heads: int,
+                          hd: int) -> int:
+    """Flop the tensor-core backward (``csrc/flash_swa_bwd_mma.cu``)
+    executes: the dq kernel's 128-row query tiles against every 64-row KV
+    tile of their band (``Q K^T`` and ``dO V^T`` over the head padded to a
+    multiple of 16, ``dS K`` twice: the split) and the dk/dv kernel's 64-row
+    KV tiles against every 32-row query tile of their band for each head
+    of the group (``K Q^T``, ``V dO^T``, ``P^T dO`` and ``dS^T Q``, the last
+    two twice), each tile whole; output widths rounded as the kernel's
+    are (4, 8, 12, 15 or 16 n8 tiles)."""
+    n8 = -(-hd // 8)
+    n8 = next(w for w in (4, 8, 12, 15, 16) if n8 <= w)
+    padded = 16 * -(-n8 // 2)
+    dq_tiles = 0
+    for q0 in range(0, s, 128):
+        q_last = min(q0 + 128, s) - 1
+        kt0 = max(0, q0 - window + 1) // 64 * 64
+        dq_tiles += (q_last - kt0) // 64 + 1
+    kv_tiles = 0
+    for kt in range(0, s, 64):
+        q_end = min(s - 1, kt + 64 - 1 + window - 1)
+        kv_tiles += (q_end - kt) // 32 + 1
+    per_dq = 2 * (2 * 128 * 64 * padded) + 2 * (2 * 128 * 64 * 8 * n8)
+    per_kv = 2 * (2 * 64 * 32 * padded) + 4 * (2 * 64 * 32 * 8 * n8)
+    return heads * dq_tiles * per_dq + heads * kv_tiles * per_kv
+
+
 def phase_swa_parity(cfg, seed: int) -> float:
     """K7 against its plain version at ``cfg``'s attention shapes, the
     edges, and the model's ``_attend`` core; returns the largest error."""
@@ -2329,23 +2362,33 @@ def run_slice3(seed: int, profile: bool) -> tuple:
 # ---------------------------------------------------------------------------
 
 def bwd_case(tag: str, s: int, heads: int, kv_heads: int, hd: int,
-             window: int, qc: int, dtype, tol: tuple, gen):
+             window: int, qc: int, dtype, tol: tuple, gen,
+             offset: int = 0):
     """K7's backward on one draw against its plain version in float32 on
     the same inputs, output and log-sum-exp (and the forward's lse against
-    the plain forward's), then once more for the same bits; returns
+    the plain forward's), then once more for the same bits, through the
+    kernel that ``bwd_kernel_for`` names (checked on the counter); with
+    ``offset`` 1 every input starts one element into its storage.  Returns
     ``(max abs err, (q, k, v, out, lse, dout))``."""
     import torch
     from repro_torch.kernels.flash_swa import kernel as FK
-    q, k, v, dout = (torch.randn((1, s, n, hd), generator=gen,
-                                 device=DEVICE).to(dtype)
-                     for n in (heads, kv_heads, kv_heads, heads))
+
+    def draw(n):
+        flat = torch.randn((s * n * hd + offset,), generator=gen,
+                           device=DEVICE).to(dtype)
+        return flat[offset:].view(1, s, n, hd)
+
+    q, k, v, dout = (draw(n) for n in (heads, kv_heads, kv_heads, heads))
     out, lse = FK.flash_swa(q, k, v, window=window, qc=qc, return_lse=True)
     f32 = [t.float() for t in (q, k, v, out)]
     _, want_lse = FK.flash_swa_plain(*f32[:3], window=window, qc=qc,
                                      return_lse=True)
-    name = (f"flash_swa_bwd [{tag}: S {s}, {heads}/{kv_heads} heads of {hd}"
-            f", window {window}, {str(dtype).split('.')[-1]}]")
+    route = FK.bwd_kernel_for(dtype, hd)
+    name = (f"{route} [{tag}: S {s}, {heads}/{kv_heads} heads of {hd}"
+            f", window {window}, {str(dtype).split('.')[-1]}"
+            f"{', 2 bytes off alignment' if offset else ''}]")
     errs = [check_close(f"{name} lse", lse, want_lse, LSE_TOL)]
+    before = FK.LAUNCHES["flash_swa_bwd_mma"]
     got = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
     want = FK.flash_swa_bwd_plain(*f32, lse, dout.float(), window=window,
                                   qc=qc)
@@ -2356,6 +2399,10 @@ def bwd_case(tag: str, s: int, heads: int, kv_heads: int, hd: int,
     again = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{name}: two runs differ")
+    mma = 2 * (route == "flash_swa_bwd_mma")
+    check(FK.LAUNCHES["flash_swa_bwd_mma"] == before + mma,
+          f"{name}: {FK.LAUNCHES['flash_swa_bwd_mma'] - before} tensor-core "
+          f"launches, expected {mma}")
     log(f"determinism {name}: two runs bitwise equal")
     return max(errs), (q, k, v, out, lse, dout)
 
@@ -2373,13 +2420,18 @@ def phase_swa_bwd(cfg, seed: int) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     edge_s = qc + window + qc
     errs = []
-    for args in [("f32", BWD_F32_S, h, hkv, hd, BWD_F32_WINDOW,
-                  BWD_F32_WINDOW // 2, f32, BWD_TOL_F32),
-                 ("edge", edge_s, 8, 2, 64, window, qc, bf16, BWD_TOL_BF16),
-                 ("edge", edge_s, 8, 2, 128, window, qc, bf16,
-                  BWD_TOL_BF16),
-                 ("edge", edge_s, 8, 2, 256, window, qc, f32, BWD_TOL_F32)]:
-        err, tensors = bwd_case(*args, gen)
+    # the last field: the inputs' offset into their storage (1: unaligned)
+    for *args, offset in [("f32", BWD_F32_S, h, hkv, hd, BWD_F32_WINDOW,
+                           BWD_F32_WINDOW // 2, f32, BWD_TOL_F32, 0),
+                          ("edge", edge_s, 8, 2, 64, window, qc, bf16,
+                           BWD_TOL_BF16, 0),
+                          ("edge", edge_s, 8, 2, hd, window, qc, bf16,
+                           BWD_TOL_BF16, 1),
+                          ("edge", edge_s, 8, 2, 128, window, qc, bf16,
+                           BWD_TOL_BF16, 0),
+                          ("edge", edge_s, 8, 2, 256, window, qc, f32,
+                           BWD_TOL_F32, 0)]:
+        err, tensors = bwd_case(*args, gen, offset)
         errs.append(err)
         del tensors
     err, (q, k, v, out, lse, dout) = bwd_case(
@@ -2396,6 +2448,7 @@ def phase_swa_bwd(cfg, seed: int) -> dict:
         q, k, v, out, lse, dout, window=window, qc=qc), warmup=1, iters=2)
     pairs = band_pairs(TRAIN_SEQ, window)
     flops = 10 * hd * h * pairs
+    executed = bwd_mma_executed_flop(TRAIN_SEQ, window, h, hkv, hd)
     nbytes = (2 * TRAIN_SEQ * hd * (3 * h + 2 * hkv)     # q, out, dout, k, v
               + 4 * h * TRAIN_SEQ                        # lse
               + 2 * TRAIN_SEQ * hd * (h + 2 * hkv))      # dq, dk, dv
@@ -2431,8 +2484,10 @@ def phase_swa_bwd(cfg, seed: int) -> dict:
             f"{str(exc).splitlines()[0][:200]}")
     del band, leaves
     log(f"time flash_swa_bwd [S {TRAIN_SEQ}, {h}/{hkv} heads of {hd}, "
-        f"window {window}, bf16, CUDA cores]: {kernel_ms:.4f} ms "
-        f"({flops / kernel_ms / 1e9:.1f} TFLOP/s useful, executes 1.4x); "
+        f"window {window}, bf16, tensor cores]: {kernel_ms:.4f} ms "
+        f"({flops / kernel_ms / 1e9:.1f} TFLOP/s useful; executes "
+        f"{executed} flop, {executed / flops:.3f}x, "
+        f"{executed / kernel_ms / 1e9:.1f} TFLOP/s executed); "
         f"bound {bound:.4f} ms by {bound_by} ({pairs} band pairs per head, "
         f"10 hd H pairs = {flops} flop at 989 TFLOP/s bf16 = "
         f"{bound_ops:.4f} ms, at 67 TFLOP/s f32 = "
@@ -2483,11 +2538,12 @@ def phase_train_consistency(cfg, seed: int):
     (loss, _, grads), secs = wall_s(lambda: loss_and_grads(
         params, cfg, batch, 1, f32))
     want_counts = dict(flash_swa=2 * cfg.num_layers,
-                       flash_swa_bwd=cfg.num_layers)
+                       flash_swa_bwd=cfg.num_layers, flash_swa_bwd_mma=0)
     counts = {k: all_counts()[k] for k in want_counts}
     check(counts == want_counts,
           f"train consistency: launches {counts}, expected {want_counts} "
-          f"(forward + remat recompute, backward, a layer)")
+          f"(forward + remat recompute, backward, a layer; float32 on the "
+          f"CUDA-core backward)")
     loss2, _, grads2 = loss_and_grads(params, cfg, batch, 1, f32)
     same = torch.equal(loss, loss2) and all(
         torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(grads),
@@ -2585,7 +2641,8 @@ def phase_train(cfg, seed: int, profile: bool) -> tuple:
     # backward
     per_step = dict(flash_swa=2 * cfg.num_layers * TRAIN_MICRO,
                     flash_swa_mma=2 * cfg.num_layers * TRAIN_MICRO,
-                    flash_swa_bwd=cfg.num_layers * TRAIN_MICRO)
+                    flash_swa_bwd=cfg.num_layers * TRAIN_MICRO,
+                    flash_swa_bwd_mma=cfg.num_layers * TRAIN_MICRO)
     totals = {name: 0 for name in per_step}
     times, losses = [], []
     for i in range(TRAIN_STEPS):
@@ -2812,6 +2869,9 @@ def run(args, t_start: float) -> int:
             ("treelstm_forest[chunked_lpt]", lambda: treelstm_forest(
                 wave_params, forest["trees"], wave_x, wave_ops,
                 schedule="chunked_lpt", activation=clip16))])
+        # the layer's 1.5 GiB of experts would stay on the card through
+        # the training phases
+        del layer, wave_x, wave_ops, wave_params
     for name, secs in e2e2.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
     del moe, forest, cases, prepared

@@ -1,9 +1,14 @@
-// The backward of banded causal sliding-window attention: K7's gradient.
+// The backward of banded causal sliding-window attention on the CUDA
+// cores: K7's gradient for float32 inputs (TF32 would round them) and for
+// bfloat16 heads of 129-256.  bfloat16 heads up to 128 take the
+// tensor-core backward, flash_swa_bwd_mma.cu; the wrapper
+// (kernel.py::flash_swa_bwd) routes between the two by dtype and head
+// width.
 //
 // Replaces: the gradient that JAX takes of the reference's banded attention
 // (src/repro/models/layers.py, attention(swa_banded=True)); the TPU kernel
 // src/repro/kernels/flash_swa/kernel.py::flash_swa has no backward, so the
-// port's forward kernels (flash_swa.cu, flash_swa_mma.cu) get this one.
+// port's forward kernels (flash_swa.cu, flash_swa_mma.cu) get these.
 //
 // q, dq [B, S, H, hd]; k, v, dk, dv [B, S, Hkv, hd] (H % Hkv == 0, query
 // head h reads KV head h / (H / Hkv), no repeated copy); out and dout [B,
@@ -20,7 +25,7 @@
 // bfloat16 is converted to float32 on load; every product and sum is
 // float32 (expf, fmaf); outputs are rounded to the input type once.
 //
-// Design (CUDA cores; tensor cores are later work), two kernels on the
+// Design (CUDA cores), two kernels on the
 // stream, both 256 threads, tiles of R = 64 rows (R = 32 for heads wider
 // than 128) held in shared memory as float32 rows of stride ld (hd rounded
 // up to 4, padded so that ld / 4 is odd: eight float4 rows of a quarter

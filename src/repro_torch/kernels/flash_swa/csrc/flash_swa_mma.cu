@@ -51,119 +51,18 @@
 //   diagonal tiles and the lower edge tile; a ragged tail past S lies on
 //   a diagonal tile); the others are read whole.
 // Later: wgmma, TMA, warp specialisation and a persistent grid.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_swa_mma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace swa_mma;
 
 constexpr int kWarps = 8;             // 4 timed slower on the H100
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBQ = 16 * kWarps;       // query rows per CTA: 128
 constexpr int kBK = 64;                // KV rows per tile
-constexpr int kMaxHeadDim = 128;
 constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zeros when !valid (nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
-
-// d += a b: a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi), packed (x0 in the low half)
-__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
-
-// rows [row0, row0 + ROWS) of a [S, row_stride] matrix, columns 0..hd-1
-// -> dst[ROWS][LD]; rows past S are zeros.  vec: 16-byte cp.async (hd % 8
-// == 0 and 16-byte aligned rows), else element by element.
-template <int ROWS, int LD>
-__device__ __forceinline__ void load_tile(bf16* __restrict__ dst,
-                                          const bf16* __restrict__ src,
-                                          size_t row_stride, int row0, int S,
-                                          int hd, bool vec) {
-  if (vec) {
-    const int chunks = hd / 8;
-    for (int c = threadIdx.x; c < ROWS * chunks; c += kThreads) {
-      const int r = c / chunks, ch = c - r * chunks;
-      const bool ok = row0 + r < S;
-      const bf16* g = ok ? src + static_cast<size_t>(row0 + r) * row_stride +
-                               ch * 8
-                         : src;
-      cp_async16(dst + r * LD + ch * 8, g, ok);
-    }
-  } else {
-    for (int c = threadIdx.x; c < ROWS * hd; c += kThreads) {
-      const int r = c / hd, d = c - r * hd;
-      dst[r * LD + d] =
-          row0 + r < S ? src[static_cast<size_t>(row0 + r) * row_stride + d]
-                       : __float2bfloat16(0.0f);
-    }
-  }
-}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
@@ -213,9 +112,9 @@ flash_swa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kt0 = max(0, q0 - window + 1) / kBK * kBK;
   const int ntiles = (q_last - kt0) / kBK + 1;
 
-  load_tile<kBQ, LD>(sq, qg, q_stride, q0, S, hd, vec);
-  load_tile<kBK, LD>(sk, kg, kv_stride, kt0, S, hd, vec);
-  load_tile<kBK, LD>(sv, vg, kv_stride, kt0, S, hd, vec);
+  load_tile<kBQ, LD, kThreads>(sq, qg, q_stride, q0, S, hd, vec);
+  load_tile<kBK, LD, kThreads>(sk, kg, kv_stride, kt0, S, hd, vec);
+  load_tile<kBK, LD, kThreads>(sv, vg, kv_stride, kt0, S, hd, vec);
   cp_async_commit();
 
   uint32_t qf[KD][4];
@@ -231,10 +130,10 @@ flash_swa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int kt = kt0 + it * kBK;
     const int buf = it & 1;
     if (it + 1 < ntiles) {
-      load_tile<kBK, LD>(sk + (buf ^ 1) * kBK * LD, kg, kv_stride, kt + kBK,
-                         S, hd, vec);
-      load_tile<kBK, LD>(sv + (buf ^ 1) * kBK * LD, vg, kv_stride, kt + kBK,
-                         S, hd, vec);
+      load_tile<kBK, LD, kThreads>(sk + (buf ^ 1) * kBK * LD, kg, kv_stride,
+                                   kt + kBK, S, hd, vec);
+      load_tile<kBK, LD, kThreads>(sv + (buf ^ 1) * kBK * LD, vg, kv_stride,
+                                   kt + kBK, S, hd, vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -318,27 +217,8 @@ flash_swa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       uint32_t ph[4], pl[4];
-      split(s[2 * j][0], s[2 * j][1], ph[0], pl[0]);
-      split(s[2 * j][2], s[2 * j][3], ph[1], pl[1]);
-      split(s[2 * j + 1][0], s[2 * j + 1][1], ph[2], pl[2]);
-      split(s[2 * j + 1][2], s[2 * j + 1][3], ph[3], pl[3]);
-      const bf16* vrow = vs + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  LD;
-#pragma unroll
-      for (int np = 0; np < NO / 2; ++np) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vrow + np * 16 + (lane >> 4) * 8);
-        mma(o[2 * np], ph, bv[0], bv[1]);
-        mma(o[2 * np], pl, bv[0], bv[1]);
-        mma(o[2 * np + 1], ph, bv[2], bv[3]);
-        mma(o[2 * np + 1], pl, bv[2], bv[3]);
-      }
-      if (NO % 2 == 1) {
-        uint32_t bv[2];
-        ldmatrix_x2_trans(bv, vrow + (NO - 1) * 8);
-        mma(o[NO - 1], ph, bv[0], bv[1]);
-        mma(o[NO - 1], pl, bv[0], bv[1]);
-      }
+      split_a(s[2 * j], s[2 * j + 1], ph, pl);
+      mma_rows_trans<NO, LD>(o, ph, pl, vs + j * 16 * LD);
     }
     __syncthreads();   // this buffer is loaded again two tiles on
   }

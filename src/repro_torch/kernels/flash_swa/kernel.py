@@ -1,19 +1,30 @@
 """Wrappers of the banded sliding-window attention CUDA kernels (K7) and
 of its backward, beside their plain versions.
 
-==================  ==========================  ==========================
-launch counter      CUDA source                 inputs
-==================  ==========================  ==========================
-``flash_swa_mma``   ``csrc/flash_swa_mma.cu``   bfloat16, ``hd <= 128``
-                                                (tensor cores)
-``flash_swa``       ``csrc/flash_swa.cu``       float32, or bfloat16 with
-                                                ``128 < hd <= 256`` (CUDA
-                                                cores); it also counts
-                                                every launch of the other
-``flash_swa_bwd``   ``csrc/flash_swa_bwd.cu``   the backward: float32 or
-                                                bfloat16, ``hd <= 256``
-                                                (CUDA cores)
-==================  ==========================  ==========================
+======================  ==============================  ===================
+launch counter          CUDA source                     inputs
+======================  ==============================  ===================
+``flash_swa_mma``       ``csrc/flash_swa_mma.cu``       bfloat16, ``hd <=
+                                                        128`` (tensor
+                                                        cores)
+``flash_swa``           ``csrc/flash_swa.cu``           float32, or
+                                                        bfloat16 with ``128
+                                                        < hd <= 256`` (CUDA
+                                                        cores); it also
+                                                        counts every launch
+                                                        of the other
+``flash_swa_bwd_mma``   ``csrc/flash_swa_bwd_mma.cu``   the backward:
+                                                        bfloat16, ``hd <=
+                                                        128`` (tensor
+                                                        cores)
+``flash_swa_bwd``       ``csrc/flash_swa_bwd.cu``       the backward:
+                                                        float32, or
+                                                        bfloat16 with ``128
+                                                        < hd <= 256`` (CUDA
+                                                        cores); it also
+                                                        counts every launch
+                                                        of the other
+======================  ==============================  ===================
 
 The forward kernels replace the reference's
 ``kernels/flash_swa/kernel.py::flash_swa``; the backward computes the
@@ -25,11 +36,12 @@ backward needs), and for CUDA tensors launches the kernel that
 :func:`kernel_for` names on the current stream and adds one to its
 counters in :data:`LAUNCHES`; for CPU tensors it runs
 :func:`flash_swa_plain`, which is also what the kernels are tested
-against.  :func:`flash_swa_bwd` does the same with
-:func:`flash_swa_bwd_plain`.  Other devices raise.  Unlike the reference
-kernel they take GQA operands directly (``k``/``v`` with ``Hkv`` heads,
-``H % Hkv == 0``).  float32 stays off the tensor cores: TF32 would round
-its inputs.  ``ops.py`` ties the two into an autograd function.
+against.  :func:`flash_swa_bwd` does the same with the kernel that
+:func:`bwd_kernel_for` names and with :func:`flash_swa_bwd_plain`.  Other
+devices raise.  Unlike the reference kernel they take GQA operands
+directly (``k``/``v`` with ``Hkv`` heads, ``H % Hkv == 0``).  float32
+stays off the tensor cores: TF32 would round its inputs.  ``ops.py`` ties
+the two into an autograd function.
 """
 from __future__ import annotations
 
@@ -44,19 +56,21 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 
 #: Every CUDA source of this package, built in parallel by :func:`build`.
 SOURCES = (CSRC / "flash_swa.cu", CSRC / "flash_swa_mma.cu",
-           CSRC / "flash_swa_bwd.cu")
+           CSRC / "flash_swa_bwd.cu", CSRC / "flash_swa_bwd_mma.cu")
 
 #: Kernel launches since the last :func:`reset_launch_counts`:
 #: ``flash_swa`` counts every K7 forward launch, ``flash_swa_mma`` those of
 #: the tensor-core kernel, ``flash_swa_bwd`` every backward launch (its two
-#: kernels, dq then dk/dv, count as one).
-LAUNCHES = {"flash_swa": 0, "flash_swa_mma": 0, "flash_swa_bwd": 0}
+#: kernels, dq then dk/dv, count as one) and ``flash_swa_bwd_mma`` those of
+#: the tensor-core backward.
+LAUNCHES = {"flash_swa": 0, "flash_swa_mma": 0, "flash_swa_bwd": 0,
+            "flash_swa_bwd_mma": 0}
 
 #: Widest head the CUDA-core kernel takes (its accumulators are 8 columns a
 #: lane).
 MAX_HEAD_DIM = 256
 
-#: Widest head the tensor-core kernel takes (its output tile lives in
+#: Widest head the tensor-core kernels take (their output tiles live in
 #: registers).
 MMA_MAX_HEAD_DIM = 128
 
@@ -72,6 +86,8 @@ _SIGNATURES = {
                           _I, _P],
     "flash_swa_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _I, _F, _P],
+    "flash_swa_bwd_mma": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, _F, _I, _P],
 }
 
 
@@ -119,6 +135,17 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim <= MMA_MAX_HEAD_DIM:
         return "flash_swa_mma"
     return "flash_swa"
+
+
+def bwd_kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The counter of the backward kernel that takes ``dtype`` inputs with
+    heads of ``head_dim``: ``"flash_swa_bwd_mma"`` (bfloat16 with
+    ``head_dim <= MMA_MAX_HEAD_DIM``: tensor cores) or ``"flash_swa_bwd"``
+    (float32, which TF32 would round, and wider bfloat16 heads: CUDA
+    cores).  The dtype and the head width alone decide."""
+    if dtype == torch.bfloat16 and head_dim <= MMA_MAX_HEAD_DIM:
+        return "flash_swa_bwd_mma"
+    return "flash_swa_bwd"
 
 
 def _function(source: pathlib.Path, name: str):
@@ -242,8 +269,10 @@ def flash_swa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of :func:`flash_swa`: ``(dq, dk, dv)`` in the inputs'
     type, from the forward's inputs, its output, its row log-sum-exp
     (``return_lse``) and the output's gradient ``dout``.  dk/dv sum the
-    query heads of each KV head.  CUDA tensors launch
-    ``csrc/flash_swa_bwd.cu`` (counter ``flash_swa_bwd``); CPU tensors run
+    query heads of each KV head.  CUDA tensors launch the kernel that
+    :func:`bwd_kernel_for` names (``csrc/flash_swa_bwd_mma.cu`` or
+    ``csrc/flash_swa_bwd.cu``; counter ``flash_swa_bwd``, and
+    ``flash_swa_bwd_mma`` for the first); CPU tensors run
     :func:`flash_swa_bwd_plain`."""
     b, s, h, hkv, hd = _check_bwd(q, k, v, out, lse, dout, window, qc)
     if not _on_card(q.device):
@@ -255,15 +284,26 @@ def flash_swa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _function(SOURCES[2], "flash_swa_bwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, s, h, hkv, hd,
-        min(window, s), hd ** -0.5, stream)
+    name = bwd_kernel_for(q.dtype, hd)
+    tensors = (q, k, v, out, dout, lse, dsum, dq, dk, dv)
+    ptrs = [t.data_ptr() for t in tensors]
+    if name == "flash_swa_bwd_mma":
+        # 16-byte cp.async rows need hd % 8 == 0 and aligned bf16 bases
+        vec = int(hd % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                      for t in tensors
+                                      if t.dtype == torch.bfloat16))
+        rc = _function(SOURCES[3], "flash_swa_bwd_mma")(
+            *ptrs, b, s, h, hkv, hd, min(window, s), hd ** -0.5, vec, stream)
+    else:
+        rc = _function(SOURCES[2], "flash_swa_bwd")(
+            *ptrs, _DTYPE_CODE[q.dtype], b, s, h, hkv, hd, min(window, s),
+            hd ** -0.5, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_swa_bwd: kernel launch failed with CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc}")
     LAUNCHES["flash_swa_bwd"] += 1
+    if name == "flash_swa_bwd_mma":
+        LAUNCHES["flash_swa_bwd_mma"] += 1
     return dq, dk, dv
 
 

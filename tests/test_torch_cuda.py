@@ -1168,7 +1168,8 @@ def test_banded_attention_launches_k7_once(card):
 
 
 # ---------------------------------------------------------------------------
-# K7's backward (csrc/flash_swa_bwd.cu) and the autograd function.
+# K7's backward (csrc/flash_swa_bwd_mma.cu for bfloat16 heads up to 128,
+# csrc/flash_swa_bwd.cu for the rest) and the autograd function.
 # ---------------------------------------------------------------------------
 
 #: (S, H, Hkv, hd, window, qc): the forward's shapes, plus the widest f32
@@ -1208,10 +1209,14 @@ def test_flash_swa_bwd_matches_plain(card, shape, dtype):
     _, want_lse = FK.flash_swa_plain(q.float(), k.float(), v.float(),
                                      window=window, qc=qc, return_lse=True)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
-    before = FK.LAUNCHES["flash_swa_bwd"]
+    before = dict(FK.LAUNCHES)
     got = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
     torch.cuda.synchronize()
-    assert FK.LAUNCHES["flash_swa_bwd"] == before + 1
+    assert FK.LAUNCHES["flash_swa_bwd"] == before["flash_swa_bwd"] + 1
+    # bf16 heads up to 128 wide take the tensor-core backward, the rest not
+    mma = dtype == torch.bfloat16 and hd <= 128
+    assert (FK.LAUNCHES["flash_swa_bwd_mma"]
+            == before["flash_swa_bwd_mma"] + mma)
     want = FK.flash_swa_bwd_plain(*(t.float() for t in (q, k, v, out)), lse,
                                   dout.float(), window=window, qc=qc)
     rtol, atol = SWA_BWD_TOL[dtype]
@@ -1226,13 +1231,61 @@ def test_flash_swa_bwd_matches_plain(card, shape, dtype):
 def test_flash_swa_bwd_is_deterministic(card, dtype):
     shape = (1024, 8, 2, 120, 256, 128)
     q, k, v, out, lse, dout = _swa_bwd_inputs(shape, dtype, card, 3)
+    before = FK.LAUNCHES["flash_swa_bwd_mma"]
     first = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=256, qc=128)
     second = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=256, qc=128)
+    mma = 2 if dtype == torch.bfloat16 else 0
+    assert FK.LAUNCHES["flash_swa_bwd_mma"] == before + mma
     for a, b in zip(first, second):
         assert torch.equal(a.view(torch.int16) if dtype == torch.bfloat16
                            else a.view(torch.int32),
                            b.view(torch.int16) if dtype == torch.bfloat16
                            else b.view(torch.int32))
+
+
+#: The tensor-core backward's own edges (S, H, Hkv, hd, window, qc): Danube's
+#: head (120: padded to 128, 15 n8 tiles), the widest (128), a head not a
+#: multiple of 8 (element loads) on an S that is not a multiple of the
+#: 64-row tile, each smaller padded width (24 -> 32, 64, 96), window 1, and
+#: S = qc + window + qc.
+BWD_MMA_SHAPES = [(512, 8, 2, 120, 128, 64), (192, 4, 2, 128, 64, 64),
+                  (160, 4, 2, 100, 64, 32), (200, 2, 1, 24, 40, 40),
+                  (320, 4, 1, 64, 192, 64), (256, 4, 4, 96, 128, 64),
+                  (130, 2, 1, 120, 1, 1)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", BWD_MMA_SHAPES, ids=str)
+def test_flash_swa_bwd_mma_edges(card, shape, offset):
+    """bf16 through ``csrc/flash_swa_bwd_mma.cu``, against the float32
+    plain backward (``SWA_BWD_TOL``), and twice for the same bits; offset
+    1 puts every operand one element (2 bytes) into its storage, so the
+    kernel takes its element loads."""
+    S, H, Hkv, hd, window, qc = shape
+    gen = torch.Generator().manual_seed(S + hd + offset)
+
+    def draw(heads):
+        n = 2 * S * heads * hd
+        t = torch.randn(n + offset, generator=gen).to(torch.bfloat16)
+        return t.to(card)[offset:].view(2, S, heads, hd)
+
+    q, k, v, dout = draw(H), draw(Hkv), draw(Hkv), draw(H)
+    out, lse = FK.flash_swa(q, k, v, window=window, qc=qc, return_lse=True)
+    before = dict(FK.LAUNCHES)
+    got = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
+    again = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
+    torch.cuda.synchronize()
+    for name in ("flash_swa_bwd", "flash_swa_bwd_mma"):
+        assert FK.LAUNCHES[name] == before[name] + 2, name
+    want = FK.flash_swa_bwd_plain(*(t.float() for t in (q, k, v, out)), lse,
+                                  dout.float(), window=window, qc=qc)
+    rtol, atol = SWA_BWD_TOL[torch.bfloat16]
+    for name, g, w, a in zip("qkv", got, want, again):
+        assert g.dtype == torch.bfloat16, name
+        torch.testing.assert_close(g.float(), w, rtol=rtol,
+                                   atol=atol * max(1.0, float(w.abs().max())),
+                                   msg=lambda m: f"d{name}: {m}")
+        assert torch.equal(g.view(torch.int16), a.view(torch.int16)), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1249,6 +1302,8 @@ def test_banded_attention_function_matches_autograd_of_plain(card, dtype):
     got = torch.autograd.grad(out, (q, k, v), dout)
     assert FK.LAUNCHES["flash_swa"] == before["flash_swa"] + 1
     assert FK.LAUNCHES["flash_swa_bwd"] == before["flash_swa_bwd"] + 1
+    assert (FK.LAUNCHES["flash_swa_bwd_mma"]
+            == before["flash_swa_bwd_mma"] + (dtype == torch.bfloat16))
     leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(
         FK.flash_swa_plain(*leaves, window=window, qc=qc), leaves,
@@ -1292,6 +1347,7 @@ def test_banded_danube_layer_backward_reaches_every_leaf(card):
     torch.cuda.synchronize()
     assert FK.LAUNCHES["flash_swa"] == before["flash_swa"] + 1
     assert FK.LAUNCHES["flash_swa_bwd"] == before["flash_swa_bwd"] + 1
+    assert FK.LAUNCHES["flash_swa_bwd_mma"] == before["flash_swa_bwd_mma"] + 1
     for path, leaf in leaves.items():
         assert leaf.grad is not None, path
         assert bool(torch.isfinite(leaf.grad).all()), path

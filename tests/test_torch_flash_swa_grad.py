@@ -13,7 +13,15 @@ bf16-rounded inputs at rtol 1e-2 (the output's bf16 rounding, 2^-9) and
 forward's bf16-rounded output: an error of about sqrt(hd) 2^-9 there,
 measured 2.2e-3 of the largest entry at hd 16); the whole attention's
 gradients against JAX's at 2e-5 of each leaf's largest entry in float32.
+
+Last, a CPU model of the tensor-core backward's rounding
+(``csrc/flash_swa_bwd_mma.cu``) against the float32 plain backward at the
+card's bf16 limits (rtol 1e-2, atol 1e-3 of max(1, max|want|)): with ``P``
+and ``dS`` split into bf16 halves it meets them at Danube's heads; with
+either rounded to bf16 alone it misses them.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -179,3 +187,117 @@ def test_backward_wrapper_takes_plain_version_only_on_cpu():
     with pytest.raises(ValueError, match="lse"):
         FK.flash_swa_bwd(q, k, v, out, lse[:, :1], dout, window=window,
                          qc=qc)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core backward's rounding (csrc/flash_swa_bwd_mma.cu), modelled
+# on the CPU.
+# ---------------------------------------------------------------------------
+
+#: (S, H, Hkv, hd, window, qc, seed): Danube's heads (32/8 of 120) at S
+#: 1,024 under windows of 512 and 1,024, and at S 2,048 under 1,024.
+BWD_MMA_CASES = [(1024, 32, 8, 120, 512, 128, 6),
+                 (1024, 32, 8, 120, 1024, 256, 8),
+                 (2048, 32, 8, 120, 1024, 256, 6)]
+#: The card's check of the bf16 backward against the float32 plain version
+#: (``chip_smoke.BWD_TOL_BF16``, ``tests/test_torch_cuda.py::
+#: SWA_BWD_TOL``): ``|got - want| <= rtol |want| + atol max(1, max|want|)``.
+BWD_BF16_RTOL, BWD_BF16_ATOL = 1e-2, 1e-3
+
+
+def _bf16(t):
+    return t.bfloat16().float()
+
+
+def _halves(t, split):
+    """``t`` as the kernel feeds it to the tensor cores: ``bf16(t)`` and,
+    with ``split``, ``bf16(t - bf16(t))``."""
+    hi = _bf16(t)
+    return (hi, _bf16(t - hi)) if split else (hi,)
+
+
+def _tensor_core_bwd_model(q, k, v, out, lse, dout, window, qc, *, split_p,
+                           split_ds):
+    """The tensor-core backward's arithmetic on bf16-valued float32
+    inputs: ``S = Q K^T`` and ``dP = dO V^T`` in float32 (bf16 products are
+    exact), ``P = exp2(S scale log2 e - lse log2 e)`` in the band, ``dS = P
+    (dP - D)``; ``P`` goes to ``P^T dO`` and ``dS`` to ``dS K`` and ``dS^T
+    Q`` as bf16 halves (:func:`_halves`), accumulated in float32; scale is
+    applied to the dq and dk sums, and the outputs are rounded to bf16
+    once.  The kernel's tiles change only the order of float32 sums."""
+    b, s, h, hd = q.shape
+    groups = h // k.shape[2]
+    kk, vv = (t.repeat_interleave(groups, dim=2) for t in (k, v))
+    scale, log2e = hd ** -0.5, 1.4426950408889634
+    dsum = (dout * out).sum(-1).transpose(1, 2)
+    dq = torch.empty(q.shape)
+    dk, dv = torch.zeros(b, s, h, hd), torch.zeros(b, s, h, hd)
+    for i in range(s // qc):
+        rows, start, band, mask = FK._band(i, s, window, qc, q.device)
+        keys = slice(start, start + band)
+        qb, dob, kb, vb = q[:, rows], dout[:, rows], kk[:, keys], vv[:, keys]
+        logits = torch.einsum("bqhd,bkhd->bhqk", qb, kb)
+        p = torch.where(mask, torch.exp2(logits * (scale * log2e)
+                                         - lse[:, :, rows, None] * log2e),
+                        0.0)
+        dp = torch.einsum("bqhd,bkhd->bhqk", dob, vb)
+        ds = p * (dp - dsum[:, :, rows, None])
+        dq[:, rows] = sum(torch.einsum("bhqk,bkhd->bqhd", x, kb)
+                          for x in _halves(ds, split_ds)) * scale
+        dk[:, keys] += sum(torch.einsum("bhqk,bqhd->bkhd", x, qb)
+                           for x in _halves(ds, split_ds))
+        dv[:, keys] += sum(torch.einsum("bhqk,bqhd->bkhd", x, dob)
+                           for x in _halves(p, split_p))
+    dk = dk.view(b, s, -1, groups, hd).sum(3) * scale
+    dv = dv.view(b, s, -1, groups, hd).sum(3)
+    return _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_model_inputs(case):
+    """bf16-valued ``(q, k, v, out, lse, dout)`` (``out`` rounded to bf16,
+    as the forward writes it) and the float32 plain backward on them."""
+    S, H, Hkv, hd, window, qc, seed = case
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (_bf16(torch.from_numpy(
+        rng.standard_normal((1, S, n, hd)).astype(np.float32)))
+        for n in (H, Hkv, Hkv, H))
+    out, lse = FK.flash_swa(q, k, v, window=window, qc=qc, return_lse=True)
+    inputs = (q, k, v, _bf16(out), lse, dout)
+    return inputs, FK.flash_swa_bwd_plain(*inputs, window=window, qc=qc)
+
+
+def _bwd_model_misses(case, split_p, split_ds):
+    """Elements of (dq, dk, dv) outside the card's check: the model against
+    the float32 plain backward on the same inputs."""
+    inputs, want = _bwd_model_inputs(case)
+    window, qc = case[4], case[5]
+    got = _tensor_core_bwd_model(*inputs, window, qc, split_p=split_p,
+                                 split_ds=split_ds)
+    return tuple(
+        int(((g - w).abs() > BWD_BF16_RTOL * w.abs() + BWD_BF16_ATOL
+             * max(1.0, float(w.abs().max()))).sum())
+        for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("case", BWD_MMA_CASES, ids=str)
+def test_tensor_core_bwd_rounding_meets_the_bf16_check(case):
+    """The kernel's choice: both P and dS split into bf16 halves."""
+    assert _bwd_model_misses(case, True, True) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("unsplit", ["P", "dS"])
+def test_unsplit_rounding_misses_the_bf16_check(unsplit):
+    """Why the kernel splits both: with either of P or dS rounded to bf16
+    alone, the gradients it feeds (dv for P; dq and dk for dS) leave
+    elements outside the check's limits.  dS misses on each of these
+    draws, P on two of the three (one element of dv each, near the start
+    of the sequence, where single terms of P are large): rare enough to
+    pass some draws, often enough to fail the card's check now and
+    then."""
+    split_p, split_ds = unsplit != "P", unsplit != "dS"
+    misses = [_bwd_model_misses(case, split_p, split_ds)
+              for case in BWD_MMA_CASES]
+    fed = [2] if unsplit == "P" else [0, 1]
+    assert sum(m[i] for m in misses for i in fed) > 0
+    assert all(m[i] == 0 for m in misses for i in {0, 1, 2} - set(fed))
