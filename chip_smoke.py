@@ -112,7 +112,8 @@ Phases, in order; any failure exits non-zero:
    window 4096) in float32 (atol/rtol 2e-5) and bfloat16 (rtol 1e-2, atol
    1e-4 against the float32 plain version on the same bf16-rounded
    inputs), at the edges ``window == S``, ``S == window == qc`` and
-   ``Hkv == H``, and against the port's own ``_attend`` over the
+   ``Hkv == H``, at one rank of phase 25's mesh (16/4 heads, S 8,192),
+   and against the port's own ``_attend`` over the
    whole 8,192-token sequence (8 GiB of float32 scores, freed after);
 17. lm data — H2O-Danube3-4B at full width and depth (24 layers, d_model
    3840, 3,961,839,360 parameters), weights drawn from ``--seed`` on the
@@ -142,7 +143,9 @@ Phases, in order; any failure exits non-zero:
    heads of 64, 120 (operands 2 bytes off 16-byte alignment: the element
    loads) and 128, all on the tensor-core kernel (``flash_swa_bwd_mma``);
    in float32 at S 2,048 (window 1,024; 2e-5) and at the edge with heads
-   of 256 (f32), both on the CUDA-core kernel; every case run twice for
+   of 256 (f32), both on the CUDA-core kernel; at one rank of phase 25's
+   mesh (16/4 heads): S 8,192 in bfloat16 and its f32 parity shape (S
+   2,048, window 1,024) in float32; every case run twice for
    the same bits, with the tensor-core counter checked; timed beside its
    bound, the flop it executes, its plain version, K7's forward with lse
    and SDPA's backward with the band mask;
@@ -165,8 +168,32 @@ Phases, in order; any failure exits non-zero:
    finite losses, norms and parameters, every leaf changed, the
    optimizer's step 3; ms a step, tokens/s, peak memory and the model
    flop share of the bf16 peak (``--profile``: one more step profiled);
-25. the ``kernels:`` summary, the JSON kernels line, and the final
-   ``{"ok": true, ...}`` line.
+25. lm mesh — the LM on a ``(data, model)`` mesh: the training steps
+   below first run on one device in this process (then freed); four
+   spawned ranks then share this card in one gloo group (300 s timeout;
+   NCCL takes one rank a card).  On the ``(2, 2)`` mesh: H2O-Danube3-4B at
+   full width, depth cut to 4, float32 master weights and AdamW state
+   stored as each rank's blocks (``param_specs``), bf16 compute, remat, S
+   8,192, global batch 4 in 2 microbatches, 3 steps; on every rank per
+   step 2 K7 launches and 1 backward launch a layer a microbatch on its
+   16/4 heads, all on the tensor cores; finite losses and norms, each
+   within 2e-2 (relative) of the one-device steps, every leaf changed and
+   the gathered parameters finite; per rank ms a step, tokens/s, peak
+   memory and collective calls, bytes and ms a step.  Then in float32 at
+   depth 2, S 2,048 (window 1,024, two sequences) ``loss_and_grads`` on
+   the mesh against one device's on rank 0 (loss 1e-5, every gathered
+   gradient leaf 1e-4 of its largest entry); one float32 step, a
+   checkpoint saved from ``(2, 2)`` and restored onto ``(1, 4)``, gathered
+   back bitwise.  Then ``make_serve_step`` on ``(1, 4)``: Danube at full
+   width and depth in bf16 (each rank draws its blocks), batch 1, a
+   4,096-slot ring cache with the KV heads over ``model``, 32 greedy
+   steps (ids in the vocabulary, logits finite, every rank the same ids);
+   at depth 2 in float32, 8 steps' logits within 2e-3 of one device's
+   ``decode_step``.  Four ranks on one card measure the sharded path's
+   overhead (gloo moves CUDA tensors through the host), not its scaling;
+26. the ``kernels:`` summary (K7's launches include every rank's in the
+   mesh phase), the JSON kernels line, and the final ``{"ok": true, ...}``
+   line.
 """
 from __future__ import annotations
 
@@ -273,6 +300,20 @@ LSE_TOL = 1e-4             # the forward's row log-sum-exp (natural log)
 # (sums in another order through two layers and 8,192 tokens)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
+
+MESH_RANKS = 4             # spawned ranks sharing the card (gloo)
+MESH_MODEL_AXIS = 2        # the training mesh: (data, model) = (2, 2)
+MESH_LAYERS = 4            # depth cut so four ranks and one device fit
+MESH_BATCH = 4             # one sequence a data rank a microbatch
+MESH_MICRO = 2
+MESH_STEPS = 3
+MESH_RTOL = 2e-2           # bf16 losses and grad norms against one device
+MESH_F32_LAYERS = 2
+MESH_F32_S = 2048
+MESH_F32_WINDOW = 1024     # attn_query_chunk 512: the band runs K7
+MESH_DECODE_CHECK = 8      # float32 steps held to one device's decode_step
+MESH_TIMEOUT_S = 300       # the group's collective timeout
+MESH_DEADLINE_S = 900      # the parent joins its ranks by then
 
 
 def log(*parts) -> None:
@@ -1203,9 +1244,12 @@ def sharded_drivers(splan, dplan, source: int, want: dict, sources=None,
     return rows
 
 
-def shard_rank(rank: int, world: int, port: int, job: dict, out_q) -> None:
-    """One rank of the four-rank phase (a spawned process): joins the gloo
-    group, runs :func:`shard_rank_job`, and reports to the parent."""
+def shard_rank(rank: int, world: int, port: int, job: dict, out_q,
+               fn: str = "shard_rank_job",
+               timeout_s: float = SHARD_TIMEOUT_S) -> None:
+    """One rank of a four-rank phase (a spawned process): joins the gloo
+    group, runs the job function named ``fn`` (:func:`shard_rank_job`, or
+    :func:`mesh_rank_job`), and reports to the parent."""
     import datetime
     import traceback
     sys.path.insert(0, str(SRC))
@@ -1216,9 +1260,8 @@ def shard_rank(rank: int, world: int, port: int, job: dict, out_q) -> None:
     try:
         dist.init_process_group(
             "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-            world_size=world,
-            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
-        out_q.put((rank, "ok", shard_rank_job(world, job)))
+            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        out_q.put((rank, "ok", globals()[fn](world, job)))
     except BaseException:                      # reported to the parent
         out_q.put((rank, "error", traceback.format_exc()))
     finally:
@@ -1279,10 +1322,13 @@ def shard_rank_job(world: int, job: dict) -> dict:
     return out
 
 
-def run_shard_ranks(world: int, job: dict) -> list:
-    """The four ranks, spawned; every rank's result in rank order.  Each
-    group has its own collective timeout, and the parent joins the ranks
-    by a deadline, kills what is left and fails."""
+def run_shard_ranks(world: int, job: dict, fn: str = "shard_rank_job",
+                    timeout_s: float = SHARD_TIMEOUT_S,
+                    deadline_s: float = SHARD_DEADLINE_S) -> list:
+    """The four ranks, spawned, each running the job function ``fn``;
+    every rank's result in rank order.  Each group has its own collective
+    timeout, and the parent joins the ranks by a deadline, kills what is
+    left and fails."""
     import multiprocessing as mp
     import queue
     import socket
@@ -1291,11 +1337,12 @@ def run_shard_ranks(world: int, job: dict) -> list:
         port = sock.getsockname()[1]
     ctx = mp.get_context("spawn")
     out_q = ctx.Queue()
-    procs = [ctx.Process(target=shard_rank, args=(r, world, port, job, out_q),
+    procs = [ctx.Process(target=shard_rank,
+                         args=(r, world, port, job, out_q, fn, timeout_s),
                          daemon=True) for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + SHARD_DEADLINE_S
+    deadline = time.monotonic() + deadline_s
     results = {}
     try:
         while len(results) < world and time.monotonic() < deadline:
@@ -1313,9 +1360,9 @@ def run_shard_ranks(world: int, job: dict) -> list:
                 p.kill()
                 p.join(timeout=30)
     for r in range(world):
-        check(r in results, f"sharded: rank {r} reported nothing within "
-              f"{SHARD_DEADLINE_S} s")
-        check(results[r][0] == "ok", f"sharded: rank {r} failed:\n"
+        check(r in results, f"{fn}: rank {r} reported nothing within "
+              f"{deadline_s} s")
+        check(results[r][0] == "ok", f"{fn}: rank {r} failed:\n"
               f"{results[r][1]}")
     return [results[r][1] for r in range(world)]
 
@@ -2080,7 +2127,10 @@ def phase_swa_parity(cfg, seed: int) -> float:
     cases = [(f"S {SWA_PARITY_S}", SWA_PARITY_S, h, hkv, window),
              ("window == S", 2 * qc, h, hkv, 2 * qc),
              ("S == window == qc", qc, h, hkv, qc),
-             ("Hkv == H", 2 * qc, hkv, hkv, qc)]
+             ("Hkv == H", 2 * qc, hkv, hkv, qc),
+             # one rank of the training mesh: its own heads
+             (f"mesh rank, S {TRAIN_SEQ}", TRAIN_SEQ, h // MESH_MODEL_AXIS,
+              hkv // MESH_MODEL_AXIS, window)]
     for name, s, nh, nkv, w in cases:
         tag = f"flash_swa [{name}, {nh}/{nkv} heads of {hd}, window {w}]"
         q, k, v = draw(s, nh), draw(s, nkv), draw(s, nkv)
@@ -2093,7 +2143,7 @@ def phase_swa_parity(cfg, seed: int) -> float:
         errs.append(check_close(f"{tag} bf16", FK.flash_swa(
             qb, kb, vb, window=w, qc=qc), want, SWA_RTOL_BF16,
             SWA_ATOL_BF16))
-        if s == SWA_PARITY_S:
+        if name == f"S {SWA_PARITY_S}":
             # the model's masked-softmax core over the whole sequence:
             # [1, H, S, S] float32 scores, freed right after
             pos = torch.arange(s, dtype=torch.int32, device=DEVICE)[None]
@@ -2430,7 +2480,15 @@ def phase_swa_bwd(cfg, seed: int) -> dict:
                           ("edge", edge_s, 8, 2, 128, window, qc, bf16,
                            BWD_TOL_BF16, 0),
                           ("edge", edge_s, 8, 2, 256, window, qc, f32,
-                           BWD_TOL_F32, 0)]:
+                           BWD_TOL_F32, 0),
+                          # one rank of the mesh phase: its own heads, at
+                          # its f32 parity shape and its training shape
+                          ("mesh rank f32", MESH_F32_S, h // MESH_MODEL_AXIS,
+                           hkv // MESH_MODEL_AXIS, hd, MESH_F32_WINDOW,
+                           MESH_F32_WINDOW // 2, f32, BWD_TOL_F32, 0),
+                          ("mesh rank", TRAIN_SEQ, h // MESH_MODEL_AXIS,
+                           hkv // MESH_MODEL_AXIS, hd, window, qc, bf16,
+                           BWD_TOL_BF16, 0)]:
         err, tensors = bwd_case(*args, gen, offset)
         errs.append(err)
         del tensors
@@ -2721,6 +2779,364 @@ def run_slice10(seed: int, profile: bool) -> tuple:
     return row, launches, e2e
 
 
+# ---------------------------------------------------------------------------
+# the LM on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+def mesh_one_device(cfg, seed: int) -> list:
+    """The mesh phase's training steps on one device in this process: the
+    metrics of each step (the ranks are held to them)."""
+    import torch
+    from repro_torch.data.synthetic import batch_at, for_model
+    from repro_torch.models.lm import init_params
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 13)
+    params, _ = init_params(cfg, gen, device=DEVICE)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, OptConfig(warmup_steps=1),
+                           num_microbatches=MESH_MICRO, dtype=torch.bfloat16)
+    dcfg = for_model(cfg, seq_len=TRAIN_SEQ, global_batch=MESH_BATCH,
+                     seed=seed)
+    out = []
+    for i in range(MESH_STEPS):
+        batch = batch_at(dcfg, i, cfg, device=DEVICE)
+        (params, opt, m), secs = wall_s(lambda: step(params, opt, batch))
+        out.append(({k: float(v) for k, v in m.items()}, secs))
+    del params, opt
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train(mesh, cfg, seed: int) -> dict:
+    """One rank's part of the sharded training steps on ``mesh``: each
+    step's metrics, time, K7 launches and collectives; then every leaf
+    changed (this rank's block) and finite (gathered whole)."""
+    import torch
+    from repro_torch.data.synthetic import batch_at, for_model
+    from repro_torch.models.lm import init_params, tree_leaves
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.step import (make_train_step, param_specs,
+                                        shardings_for)
+
+    dev = mesh.device
+    psh = shardings_for(mesh, param_specs(cfg))
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    params, _ = init_params(cfg, gen, device=dev, shardings=psh)
+    opt = init_opt_state(params)
+    samples = {path: leaf.reshape(-1)[::max(1, leaf.numel() // 4096)]
+               .clone() for path, leaf in tree_leaves(params)}
+    step = make_train_step(cfg, OptConfig(warmup_steps=1), mesh,
+                           num_microbatches=MESH_MICRO, dtype=torch.bfloat16)
+    dcfg = for_model(cfg, seq_len=TRAIN_SEQ, global_batch=MESH_BATCH,
+                     seed=seed)
+    # a layer a microbatch on this rank's heads: the forward and its remat
+    # recompute, then the backward, all on the tensor cores
+    per_step = dict(flash_swa=2 * cfg.num_layers * MESH_MICRO,
+                    flash_swa_mma=2 * cfg.num_layers * MESH_MICRO,
+                    flash_swa_bwd=cfg.num_layers * MESH_MICRO,
+                    flash_swa_bwd_mma=cfg.num_layers * MESH_MICRO)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for i in range(MESH_STEPS):
+        batch = batch_at(dcfg, i, cfg, device=dev)
+        reset_all_counts()
+        mesh.stats.reset()
+        (params, opt, m), secs = wall_s(lambda: step(params, opt, batch))
+        counts = {k: all_counts()[k] for k in per_step}
+        check(counts == per_step, f"lm mesh rank {mesh.rank} step {i + 1}: "
+              f"launches {counts}, expected {per_step}")
+        metrics = {k: float(v) for k, v in m.items()}
+        check(all(math.isfinite(v) for v in metrics.values()),
+              f"lm mesh rank {mesh.rank} step {i + 1}: non-finite "
+              f"{metrics}")
+        steps.append(dict(metrics=metrics, secs=secs, counts=counts,
+                          calls=mesh.stats.calls, bytes=mesh.stats.bytes,
+                          coll_s=mesh.stats.seconds))
+    peak = torch.cuda.max_memory_allocated(dev) if DEVICE == "cuda" else 0
+    check(int(opt["step"]) == MESH_STEPS,
+          f"lm mesh rank {mesh.rank}: optimizer step {int(opt['step'])}")
+    shardings = dict(tree_leaves(psh))
+    for path, leaf in tree_leaves(params):
+        now = leaf.reshape(-1)[::max(1, leaf.numel() // 4096)]
+        check(not torch.equal(now, samples[path]),
+              f"lm mesh rank {mesh.rank}: {path} did not change")
+        whole = shardings[path].gather(leaf)
+        check(bool(torch.isfinite(whole).all()),
+              f"lm mesh: {path} (gathered) not finite")
+        del whole
+    return dict(steps=steps, peak=peak, local_bytes=sum(
+        t.numel() * t.element_size() for tree in (params, opt["mu"],
+                                                  opt["nu"])
+        for _, t in tree_leaves(tree)))
+
+
+def mesh_f32_and_checkpoint(mesh, cfg, seed: int, ckpt_dir: str) -> dict:
+    """The float32 parity check of ``loss_and_grads`` on ``mesh`` against
+    one device (rank 0 computes it), one float32 train step, then a
+    checkpoint saved from ``mesh``, restored onto ``(1, world)`` and
+    gathered back (bitwise, leaf by leaf)."""
+    import torch
+    from repro_torch.data.synthetic import batch_at, for_model
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import init_params, tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.step import (loss_and_grads, make_train_step,
+                                        opt_shardings, param_specs,
+                                        shardings_for)
+
+    dev = mesh.device
+    f32 = torch.float32
+    psh = shardings_for(mesh, param_specs(cfg))
+    draw = lambda sh: init_params(cfg, torch.Generator(device=dev)
+                                  .manual_seed(seed + 14), device=dev,
+                                  shardings=sh)[0]
+    params = draw(psh)
+    batch = batch_at(for_model(cfg, seq_len=MESH_F32_S, global_batch=2,
+                               seed=seed), 0, cfg, device=dev)
+    reset_all_counts()
+    (loss, _, grads), secs = wall_s(lambda: loss_and_grads(
+        params, cfg, batch, 1, f32, mesh=mesh))
+    counts = {k: all_counts()[k] for k in ("flash_swa", "flash_swa_bwd")}
+    want_counts = dict(flash_swa=2 * cfg.num_layers,
+                       flash_swa_bwd=cfg.num_layers)
+    check(counts == want_counts, f"lm mesh f32 rank {mesh.rank}: launches "
+          f"{counts}, expected {want_counts}")
+    out = dict(f32_secs=secs, f32_counts=counts)
+    want = want_loss = None
+    if mesh.rank == 0:
+        full = draw(None)
+        want_loss, _, want = loss_and_grads(full, cfg, batch, 1, f32)
+        want = dict(tree_leaves(want))
+        del full
+    shardings = dict(tree_leaves(psh))
+    worst = 0.0
+    for path, g in tree_leaves(grads):
+        whole = shardings[path].gather(g)
+        if want is not None:
+            worst = max(worst, leaf_close(f"lm mesh f32 grad {path}", whole,
+                                          want[path], TRAIN_GRAD_TOL))
+    if mesh.rank == 0:
+        check(abs(float(loss) - float(want_loss))
+              <= TRAIN_LOSS_RTOL * abs(float(want_loss)),
+              f"lm mesh f32: loss {float(loss)!r} vs one device "
+              f"{float(want_loss)!r}")
+        out.update(f32_loss=(float(loss), float(want_loss)), f32_worst=worst)
+    del grads, want
+
+    osh = opt_shardings(mesh, psh)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, OptConfig(warmup_steps=1), mesh, dtype=f32)
+    params, opt, _ = step(params, opt, batch)
+    _, save_s = wall_s(lambda: ckpt.save(ckpt_dir, 1, params, opt,
+                                         param_sh=psh, opt_sh=osh))
+    other = make_host_mesh(mesh.size, device=DEVICE)            # (1, 4)
+    psh2 = shardings_for(other, param_specs(cfg))
+    osh2 = opt_shardings(other, psh2)
+    (p2, o2, meta), load_s = wall_s(lambda: ckpt.restore(
+        ckpt_dir, 1, params, opt, param_sh=psh2, opt_sh=osh2))
+    same = meta["step"] == 1
+    for (tree, sh), (tree2, sh2) in (((params, psh), (p2, psh2)),
+                                     ((opt, osh), (o2, osh2))):
+        sh, sh2, tree2 = (dict(tree_leaves(t)) for t in (sh, sh2, tree2))
+        for path, leaf in tree_leaves(tree):
+            a, b = sh[path].gather(leaf), sh2[path].gather(tree2[path])
+            same = same and a.dtype == b.dtype and torch.equal(a, b)
+    check(same, f"lm mesh rank {mesh.rank}: the checkpoint saved on "
+          f"{mesh.shape} and restored onto {other.shape} differs")
+    out.update(ckpt_save_s=save_s, ckpt_load_s=load_s,
+               ckpt_meshes=(mesh.shape, other.shape),
+               ckpt_bytes=os.path.getsize(os.path.join(
+                   ckpt_dir, "step_1", "arrays.npz")))
+    return out
+
+
+def mesh_decode(cfg, seed: int, world: int) -> dict:
+    """``make_serve_step`` on a ``(1, world)`` mesh: full depth in
+    bfloat16, greedy steps (ids in the vocabulary, logits finite, no K7
+    launch); then depth 2 in float32, each step's logits held to one
+    device's ``decode_step`` on rank 0."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import (cast_params, decode_step, init_cache,
+                                       init_params)
+    from repro_torch.serve.decode import make_serve_step, sample_logits
+
+    mesh = make_host_mesh(world, device=DEVICE)                 # (1, 4)
+    dev = mesh.device
+    bf16 = torch.bfloat16
+    step, psh, csh, cache = make_serve_step(
+        cfg, mesh, batch=1, seq_len=cfg.sliding_window, dtype=bf16)
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    params = cast_params(init_params(cfg, gen, device=dev,
+                                     shardings=psh)[0], bf16)
+    tok = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    reset_all_counts()
+    mesh.stats.reset()
+    ids, times = [], []
+    for t in range(DECODE_STEPS):
+        (logits, cache), secs = wall_s(lambda: step(params, tok, t, cache))
+        check(bool(torch.isfinite(logits).all()),
+              f"lm mesh decode step {t}: non-finite logits")
+        tok = sample_logits(None, logits, 0.0, vocab_size=cfg.vocab_size)
+        ids.append(int(tok))
+        times.append(secs)
+    check(all(0 <= i < cfg.vocab_size for i in ids),
+          f"lm mesh decode: ids {ids} outside the vocabulary")
+    check(all_counts()["flash_swa"] == 0, "lm mesh decode launched K7")
+    out = dict(decode_ms=statistics.median(times[1:]) * 1e3,
+               decode_first_ms=times[0] * 1e3, decode_ids=ids,
+               decode_calls=mesh.stats.calls / DECODE_STEPS,
+               decode_bytes=mesh.stats.bytes / DECODE_STEPS,
+               decode_coll_ms=mesh.stats.seconds / DECODE_STEPS * 1e3,
+               decode_cache=tuple(cache["k"].shape),
+               decode_mesh=mesh.shape)
+    del params, cache
+
+    cut = dataclasses.replace(cfg, num_layers=2)
+    f32 = torch.float32
+    step, psh, _, cache = make_serve_step(
+        cut, mesh, batch=1, seq_len=cfg.sliding_window, dtype=f32)
+    draw = lambda sh: init_params(cut, torch.Generator(device=dev)
+                                  .manual_seed(seed + 16), device=dev,
+                                  shardings=sh)[0]
+    params = draw(psh)
+    full = draw(None) if mesh.rank == 0 else None
+    plain = (init_cache(cut, 1, cfg.sliding_window, f32, device=dev)
+             if full is not None else None)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, MESH_DECODE_CHECK)).astype(np.int32)).to(dev)
+    worst = 0.0
+    for t in range(MESH_DECODE_CHECK):
+        logits, cache = step(params, tokens[:, t:t + 1], t, cache)
+        if full is not None:
+            want, plain = decode_step(full, cut, tokens[:, t:t + 1], t,
+                                      plain, dtype=f32)
+            check(torch.allclose(logits, want, rtol=LM_TOL, atol=LM_TOL),
+                  f"lm mesh decode f32 step {t}: logits differ from one "
+                  f"device's by {max_abs_err(logits, want)}")
+            worst = max(worst, max_abs_err(logits, want))
+    out.update(decode_f32_worst=worst)
+    return out
+
+
+def mesh_rank_job(world: int, job: dict) -> dict:
+    """The mesh phase on one rank: training on the ``(2, 2)`` mesh, the
+    float32 parity check and the checkpoint, then decode on ``(1, 4)``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    base = get_config(LM_ARCH)
+    mesh = make_host_mesh(MESH_MODEL_AXIS, device=DEVICE)
+    out = dict(mesh=str(mesh))
+    out.update(mesh_train(mesh, dataclasses.replace(
+        base, num_layers=MESH_LAYERS), job["seed"]))
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out.update(mesh_f32_and_checkpoint(mesh, dataclasses.replace(
+        base, num_layers=MESH_F32_LAYERS, sliding_window=MESH_F32_WINDOW,
+        attn_query_chunk=MESH_F32_WINDOW // 2), job["seed"],
+        job["ckpt_dir"]))
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out.update(mesh_decode(base, job["seed"], world))
+    return out
+
+
+def phase_lm_mesh(cfg, seed: int) -> tuple:
+    """The LM on a ``(data, model)`` mesh: the training steps on one
+    device first (freed), then four spawned ranks sharing this card in one
+    gloo group run :func:`mesh_rank_job`.  Returns the ranks' K7 launches
+    in the training steps and the e2e seconds."""
+    import torch
+
+    cut = dataclasses.replace(cfg, num_layers=MESH_LAYERS)
+    single = mesh_one_device(cut, seed)
+    for i, (m, secs) in enumerate(single):
+        log(f"lm mesh one device step {i + 1}: loss {m['loss']!r}, "
+            f"grad_norm {m['grad_norm']!r}, {secs * 1e3:.1f} ms")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        ranks, secs = wall_s(lambda: run_shard_ranks(
+            MESH_RANKS, dict(seed=seed, ckpt_dir=d), fn="mesh_rank_job",
+            timeout_s=MESH_TIMEOUT_S, deadline_s=MESH_DEADLINE_S))
+    log(f"lm mesh: {MESH_RANKS} processes on this card in one gloo group, "
+        f"{secs:.1f} s in all; four ranks share one card and gloo moves "
+        f"CUDA tensors through the host, so these times are the sharded "
+        f"path's overhead, not its scaling")
+    tokens = MESH_BATCH * TRAIN_SEQ
+    totals = {"flash_swa": 0, "flash_swa_bwd": 0}
+    e2e = {}
+    for r, res in enumerate(ranks):
+        for i, (row, (want, _)) in enumerate(zip(res["steps"], single)):
+            for key in ("loss", "grad_norm"):
+                got = row["metrics"][key]
+                check(abs(got - want[key]) <= MESH_RTOL * abs(want[key]),
+                      f"lm mesh rank {r} step {i + 1}: {key} {got!r} vs one "
+                      f"device {want[key]!r} (rtol {MESH_RTOL})")
+            for name in totals:
+                totals[name] += row["counts"][name]
+        steps = res["steps"]
+        step_s = statistics.median([row["secs"] for row in steps[1:]]
+                                   or [steps[0]["secs"]])
+        last = steps[-1]
+        log(f"lm mesh train rank {r} ({res['mesh']}): {cut.name} x "
+            f"{cut.num_layers} layers at full width, S {TRAIN_SEQ}, global "
+            f"batch {MESH_BATCH} in {MESH_MICRO} microbatches; losses "
+            f"{[row['metrics']['loss'] for row in steps]}, grad norms "
+            f"{[row['metrics']['grad_norm'] for row in steps]}; "
+            f"{step_s * 1e3:.1f} ms a step (median of steps 2-{MESH_STEPS};"
+            f" step 1 {steps[0]['secs'] * 1e3:.1f} ms), {tokens / step_s:.0f}"
+            f" tokens/s; peak device memory {res['peak'] / 2**30:.2f} GiB "
+            f"(its blocks of the weights and AdamW state "
+            f"{res['local_bytes'] / 2**30:.2f} GiB); collectives a step "
+            f"{last['calls']} calls, {last['bytes'] / 2**20:.1f} MiB, "
+            f"{last['coll_s'] * 1e3:.1f} ms; launches a step "
+            f"{json.dumps(last['counts'])}")
+        if r == 0:
+            e2e[f"train step[mesh 2x2, {cut.name} x {cut.num_layers}, S "
+                f"{TRAIN_SEQ}, batch {MESH_BATCH}]"] = step_s
+    r0 = ranks[0]
+    one = statistics.median([s for _, s in single[1:]] or [single[0][1]])
+    log(f"lm mesh one device: {one * 1e3:.1f} ms a step (median of steps "
+        f"2-{MESH_STEPS}), {tokens / one:.0f} tokens/s; every rank's losses "
+        f"and grad norms within {MESH_RTOL} of it")
+    loss, want_loss = r0["f32_loss"]
+    log(f"lm mesh f32 loss_and_grads ({MESH_F32_LAYERS} layers, S "
+        f"{MESH_F32_S}, window {MESH_F32_WINDOW}, 2 sequences, "
+        f"{r0['mesh']}): loss {loss!r} vs one device {want_loss!r}; every "
+        f"gathered gradient leaf within {r0['f32_worst']:.3e} of its "
+        f"largest entry (limit {TRAIN_GRAD_TOL}); launches "
+        f"{json.dumps(r0['f32_counts'])} a rank; {r0['f32_secs']:.2f} s")
+    before, after = r0["ckpt_meshes"]
+    log(f"lm mesh checkpoint: params and AdamW state "
+        f"({r0['ckpt_bytes'] / 2**30:.2f} GiB) saved from {before} in "
+        f"{r0['ckpt_save_s']:.1f} s, restored onto {after} in "
+        f"{r0['ckpt_load_s']:.1f} s, gathered back bitwise equal")
+    for r, res in enumerate(ranks):
+        check(res["decode_ids"] == r0["decode_ids"],
+              f"lm mesh decode: rank {r} sampled other ids")
+    log(f"lm mesh decode {cfg.name} x {cfg.num_layers} layers bf16 on "
+        f"{r0['decode_mesh']}: cache block {r0['decode_cache']} a rank, "
+        f"{DECODE_STEPS} greedy steps, {r0['decode_ms']:.2f} ms a step "
+        f"(median; first {r0['decode_first_ms']:.1f} ms), collectives a "
+        f"step {r0['decode_calls']:.0f} calls, "
+        f"{r0['decode_bytes'] / 2**10:.1f} KiB, {r0['decode_coll_ms']:.2f} "
+        f"ms; ids {r0['decode_ids'][:8]}...; float32 x 2 layers: "
+        f"{MESH_DECODE_CHECK} steps' logits within "
+        f"{r0['decode_f32_worst']:.2e} of one device's (limit {LM_TOL})")
+    e2e[f"decode step[mesh 1x{MESH_RANKS}, {cfg.name}, bf16]"] = (
+        r0["decode_ms"] / 1e3)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return totals, e2e
+
+
 def phase_profile(calls) -> None:
     """Device time by operation for each ``(name, call)`` (``--profile``):
     how much of each call the kernels are."""
@@ -2892,6 +3308,18 @@ def run(args, t_start: float) -> int:
     launches["flash_swa"] += train["flash_swa"]
     launches["flash_swa_bwd"] = train["flash_swa_bwd"]
     for name, secs in e2e4.items():
+        log(f"e2e {name}: {secs * 1e3:.1f} ms")
+
+    # the LM on a (data, model) mesh of four ranks on this card
+    from repro_torch.configs import get_config
+    mesh_counts, e2e5 = phase_lm_mesh(get_config(LM_ARCH), args.seed)
+    log(f"main-path launches flash_swa: {launches['flash_swa']} (prefill, "
+        f"training steps) + {mesh_counts['flash_swa']} (mesh training, "
+        f"every rank); flash_swa_bwd: {launches['flash_swa_bwd']} + "
+        f"{mesh_counts['flash_swa_bwd']}")
+    for name in mesh_counts:
+        launches[name] += mesh_counts[name]
+    for name, secs in e2e5.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
 
     kernels = []

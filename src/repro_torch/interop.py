@@ -110,39 +110,47 @@ def treelstm_params_from_arrays(params: Mapping[str, object], *,
 LM_REQUIRED = ("embed", "lm_head", "ln_f", "layers")
 
 
-def lm_params_from_arrays(params: Mapping[str, object], *,
-                          device=None) -> Dict[str, object]:
+def _carry(tree, dev: torch.device, shardings, dtype=None):
+    """Nested dicts of arrays -> tensors on ``dev``; with ``shardings`` (a
+    ``NamedSharding`` tree of the same nesting) each leaf is cut to this
+    rank's block before it moves."""
+    if isinstance(tree, Mapping):
+        return {name: _carry(value, dev, None if shardings is None
+                             else shardings[name], dtype)
+                for name, value in tree.items()}
+    t = torch.from_numpy(np.array(tree, dtype))
+    if shardings is not None:
+        t = shardings.shard(t)
+    return t.to(dev)
+
+
+def lm_params_from_arrays(params: Mapping[str, object], *, device=None,
+                          shardings=None) -> Dict[str, object]:
     """A reference ``lm.init_params`` tree (nested dicts, arrays as numpy,
     layer parameters stacked ``[L, ...]``) -> the port's tree on
-    ``device``, the same nesting, shapes and dtypes."""
+    ``device``, the same nesting, shapes and dtypes.  ``shardings`` (from
+    ``train.step.shardings_for``): this rank's block of every leaf, so
+    every rank of a mesh can carry the same reference weights."""
     missing = [n for n in LM_REQUIRED if n not in params]
     if missing:
         raise KeyError(f"LM parameter tree lacks {missing}")
-    dev = resolve_device(device)
-
-    def convert(tree):
-        if isinstance(tree, Mapping):
-            return {name: convert(value) for name, value in tree.items()}
-        return torch.from_numpy(np.array(tree)).to(dev)
-
-    return convert(params)
+    return _carry(params, resolve_device(device), shardings)
 
 
 def opt_state_from_arrays(opt_state: Mapping[str, object], *,
-                          device=None) -> Dict[str, object]:
+                          device=None, shardings=None) -> Dict[str, object]:
     """A reference ``init_opt_state``/``adamw_update`` state (``{"mu":
     tree, "nu": tree, "step": scalar}``, arrays as numpy) -> the port's:
-    float32 ``mu``/``nu`` trees and an int32 0-d ``step`` on ``device``."""
+    float32 ``mu``/``nu`` trees and an int32 0-d ``step`` on ``device``;
+    ``shardings`` (``train.step.opt_shardings``) as
+    :func:`lm_params_from_arrays` takes them."""
     missing = [n for n in ("mu", "nu", "step") if n not in opt_state]
     if missing:
         raise KeyError(f"optimizer state lacks {missing}")
     dev = resolve_device(device)
-
-    def convert(tree):
-        if isinstance(tree, Mapping):
-            return {name: convert(value) for name, value in tree.items()}
-        return torch.from_numpy(np.array(tree, np.float32)).to(dev)
-
-    return {"mu": convert(opt_state["mu"]), "nu": convert(opt_state["nu"]),
+    sh = shardings or {}
+    convert = lambda name: _carry(opt_state[name], dev, sh.get(name),
+                                  np.float32)
+    return {"mu": convert("mu"), "nu": convert("nu"),
             "step": torch.from_numpy(np.array(opt_state["step"], np.int32)
                                      ).to(dev)}

@@ -8,9 +8,14 @@ continuous-batching graph-query serving loop.
         --tokens 32 --device cpu
     python -m repro_torch.launch.serve --graph --queries 32 --lanes 8
 
-One device only.  Weights are drawn from ``--seed`` on the device and cast
-once to the serving dtype (bfloat16; float32 with ``--reduced``); the
-graph is drawn from ``--seed`` too.
+Weights are drawn from ``--seed`` on the device and cast once to the
+serving dtype (bfloat16; float32 with ``--reduced``); the graph is drawn
+from ``--seed`` too.  ``--mesh host|single|multi`` as ``launch.train``
+builds them (``torchrun`` with ``WORLD_SIZE`` above 1 joins an NCCL
+group when there is a card for every rank, else a ``gloo`` one; one
+process is the one-device path): each rank draws its blocks of
+the weights, holds its blocks of the cache, and every rank samples the
+same tokens from the same logits.  Graph serving runs on one device.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.models.lm import DecoderLM
+from repro_torch.launch.mesh import launcher_mesh, sharded
+from repro_torch.models.lm import cast_params, init_params
 from repro_torch.serve.decode import make_serve_step, sample_logits
 
 
@@ -77,9 +83,11 @@ def main(argv=None) -> None:
     ap.add_argument("--seq", type=int, default=1024, help="KV cache length")
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.8)
-    ap.add_argument("--mesh", choices=["host"], default="host",
-                    help="one device; the production meshes wait for "
-                         "sharding (ROADMAP.md, queue 1, item 3)")
+    ap.add_argument("--mesh", choices=["host", "single", "multi"],
+                    default="host")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="ranks on the model axis of --mesh host (the "
+                         "reference has no such flag)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--graph", action="store_true",
                     help="serve graph queries instead of LM decode")
@@ -97,22 +105,28 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.graph:
+        if args.mesh != "host" or args.model_axis != 1:
+            raise ValueError("--graph serves on one device; --mesh and "
+                             "--model-axis apply to LM decode")
         run_graph_serving(args)
         return
     if args.arch is None:
         ap.error("--arch is required unless --graph is given")
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
         args.seq = min(args.seq, 64)
     dtype = torch.float32 if args.reduced else torch.bfloat16
-    step, cache = make_serve_step(cfg, batch=args.batch, seq_len=args.seq,
-                                  dtype=dtype, device=device)
+    mesh = launcher_mesh(args.mesh, args.model_axis, args.device)
+    device = mesh.device
+    step, psh, _, cache = make_serve_step(cfg, sharded(mesh),
+                                          batch=args.batch,
+                                          seq_len=args.seq, dtype=dtype,
+                                          device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = DecoderLM.from_config(cfg, gen, device=device,
-                                   dtype=dtype).params()
+    params = cast_params(init_params(cfg, gen, device=device,
+                                     shardings=psh)[0], dtype)
 
     sampler = torch.Generator(device=device).manual_seed(args.seed + 1)
     tok = torch.zeros((args.batch, 1), dtype=torch.int32, device=device)

@@ -24,6 +24,15 @@ prompt longer than ``query_chunk + window`` takes the banded branch of
 autograd.  :func:`decode_step` updates the cache it is given in place and
 returns it.  :func:`lm_loss` is the next-token cross-entropy, chunked over
 the sequence under checkpoint when ``cfg.loss_seq_chunk`` divides it.
+
+``mesh=`` (an :class:`~repro_torch.launch.mesh.LMMesh`) runs
+:func:`lm_loss` and :func:`decode_step` on this rank's blocks of the
+parameters (placed by their specs) and its rows of the batch: attention and
+the MLP tensor-parallel (see :mod:`layers`), the embedding a vocab-parallel
+lookup, the loss a vocab-parallel cross-entropy normalised by the token
+count over every batch shard, and every other weight of a layer (SSM,
+experts, router) gathered whole at the start of its layer and run whole on
+every rank.  With ``mesh=None`` or a one-rank mesh none of this runs.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.launch.mesh import NamedSharding, sharded
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -98,14 +108,36 @@ def _layer_init(cfg, generator: torch.Generator, device) -> Tuple[Params,
     return params, specs
 
 
-def init_params(cfg, generator: torch.Generator, *,
-                device=None) -> Tuple[Params, Params]:
+#: Layer subtrees that run tensor-parallel on a mesh (``layers.attention``
+#: and ``layers.mlp``); the rest of a layer runs whole on every rank.
+TP_SUBTREES = ("attn", "mlp")
+
+
+def _whole(cfg, params: Params, mesh) -> Params:
+    """Layer ``params`` with every subtree outside :data:`TP_SUBTREES`
+    gathered whole over the axes its specs cut (no-op without a mesh)."""
+    if mesh is None:
+        return params
+    specs = param_specs(cfg)["layers"]        # specs [L, ...]: skip the L
+    return {name: (sub if name in TP_SUBTREES else tree_map(
+        lambda w, spec: L.gather_whole(w, spec[1:], mesh), sub,
+        specs[name])) for name, sub in params.items()}
+
+
+def init_params(cfg, generator: torch.Generator, *, device=None,
+                shardings=None) -> Tuple[Params, Params]:
     """``(params, specs)``: the reference's tree, shapes and ``U(-scale,
     scale)`` scales, float32, layer parameters stacked ``[L, ...]``, drawn
     from ``generator`` (on its device) and placed on ``device`` (``None``:
     the card; ``"meta"``: shapes only).  Layers are drawn one at a time
-    into the stacked tensors, so the peak is the model plus one layer."""
+    into the stacked tensors, so the peak is the model plus one layer.
+
+    ``shardings`` (``train.step.shardings_for``'s tree): each leaf is this
+    rank's block of the same draw, cut as it is drawn, so the peak is this
+    rank's blocks plus one whole layer."""
     dev = resolve_device(device)
+    cut = ((lambda t, sh: sh.shard(t)) if shardings is not None
+           else (lambda t, sh: t))
     scale = (3.0 / cfg.d_model) ** 0.5
     params: Params = {
         "embed": L._uniform(generator, (cfg.padded_vocab, cfg.d_model),
@@ -115,24 +147,43 @@ def init_params(cfg, generator: torch.Generator, *,
     }
     specs: Params = {"embed": ("model", "data"), "lm_head": ("data", "model")}
     params["ln_f"], specs["ln_f"] = L.rmsnorm_init(cfg.d_model, device=dev)
+    if shardings is not None:
+        for name in ("embed", "lm_head", "ln_f"):
+            params[name] = tree_map(cut, params[name], shardings[name])
 
     layer, layer_specs = _layer_init(cfg, generator, dev)
-    stacked = tree_map(lambda p: torch.empty((cfg.num_layers, *p.shape),
-                                             dtype=p.dtype, device=p.device),
-                       layer)
+    # each layer's block: the stacked leaf's placement without its L axis
+    # (without shardings ``cut`` ignores the tree it is handed)
+    per_layer = (tree_map(lambda s: NamedSharding(s.mesh, s.spec[1:]),
+                          shardings["layers"]) if shardings is not None
+                 else layer)
+    stacked = tree_map(lambda p, s: torch.empty(
+        (cfg.num_layers, *cut(p, s).shape), dtype=p.dtype, device=p.device),
+        layer, per_layer)
     for i in range(cfg.num_layers):
         if i:
             layer, _ = _layer_init(cfg, generator, dev)
-        tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
+        tree_map(lambda dst, src, s: dst[i].copy_(cut(src, s)), stacked,
+                 layer, per_layer)
     del layer
     params["layers"] = stacked
     specs["layers"] = tree_map(lambda spec: (None, *spec), layer_specs)
 
     if cfg.frontend is not None:
-        params["frontend_proj"] = L._uniform(
-            generator, (cfg.d_model, cfg.d_model), scale, device=dev)
+        params["frontend_proj"] = cut(L._uniform(
+            generator, (cfg.d_model, cfg.d_model), scale, device=dev),
+            shardings and shardings["frontend_proj"])
         specs["frontend_proj"] = ("data", "model")
     return params, specs
+
+
+@functools.lru_cache(maxsize=None)
+def param_specs(cfg) -> Params:
+    """The partition-spec tree of ``cfg``'s parameters (from the reduced
+    structural twin on the ``meta`` device: specs depend only on the
+    tree's structure).  Shared between calls: do not modify it."""
+    _, specs = init_params(cfg.reduced(), torch.Generator(), device="meta")
+    return specs
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
@@ -183,11 +234,24 @@ def _attn_kwargs(cfg) -> dict:
 def _moe(cfg, params: Params, h: torch.Tensor):
     return M.moe(params, h, num_experts=cfg.num_experts, top_k=cfg.top_k,
                  num_shared=cfg.num_shared_experts, dispatch=cfg.moe_dispatch,
-                 capacity_factor=cfg.capacity_factor)
+                 capacity_factor=cfg.capacity_factor,
+                 ep_pins=cfg.moe_ep_pins)
+
+
+def check_moe_mesh(cfg, mesh) -> None:
+    """Raise for what the port does not run on ``mesh``: an MoE layer
+    whose batch is split (the reference's capacity and load-balance terms
+    are over the whole batch; ROADMAP.md queues expert parallelism)."""
+    if cfg.family == "moe" and any(L.axis_size(mesh, a) > 1
+                                   for a in L.BATCH):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers over a split batch are not ported "
+            f"(capacity and aux loss are over the whole batch); use a mesh "
+            f"whose pod and data axes have one rank")
 
 
 def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
-           with_state: bool = True
+           with_state: bool = True, mesh=None
            ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder block over a whole sequence: ``(x, aux_loss, state)``,
     ``state`` holding the roped ``k``/``v`` and the SSM states that
@@ -195,11 +259,12 @@ def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
     ``with_state``, as the reference's ``_block_train``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     state: Dict[str, torch.Tensor] = {}
+    params = _whole(cfg, params, mesh)
     h = L.rmsnorm(params["ln1"], x)
     if cfg.family in ATTENTION_FAMILIES:
         attn = L.attention(
             params["attn"], h, positions, query_chunk=cfg.attn_query_chunk,
-            swa_banded=cfg.swa_banded, return_kv=with_state,
+            swa_banded=cfg.swa_banded, return_kv=with_state, mesh=mesh,
             **_attn_kwargs(cfg))
         if with_state:
             attn_out, state["k"], state["v"] = attn
@@ -234,7 +299,7 @@ def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
             cout, state["xprev_c"] = cout
         x = x + cout
     else:
-        x = x + L.mlp(params["mlp"], h2, cfg.activation)
+        x = x + L.mlp(params["mlp"], h2, cfg.activation, mesh)
     return x, aux, state
 
 
@@ -249,16 +314,38 @@ def _layer(params: Params, i: int) -> Params:
 
 def _embed(params: Params, cfg, tokens: torch.Tensor,
            prefix_embeds: Optional[torch.Tensor],
-           dtype: torch.dtype) -> torch.Tensor:
+           dtype: torch.dtype, mesh=None) -> torch.Tensor:
     """Token embeddings, with the projected frontend prefix in front.
     ``F.embedding``: its backward sums each id's rows in a fixed order on
-    the card, where indexing's scatter-add would add in atomic order."""
-    x = F.embedding(tokens.long(), params["embed"]).to(dtype)
+    the card, where indexing's scatter-add would add in atomic order.
+
+    On a mesh the table is placed ``(model, data)``: its ``data`` blocks
+    are gathered in ``dtype`` (the reference casts before it indexes), each
+    rank looks up the ids in its vocabulary rows, zeros the others, and the
+    rows are summed over ``model``."""
+    proj = params.get("frontend_proj")
+    if mesh is None:
+        x = F.embedding(tokens.long(), params["embed"]).to(dtype)
+    else:
+        x = _token_rows(params, tokens, dtype, mesh)
+        if proj is not None:
+            proj = L.gather_whole(proj, ("data", "model"), mesh)
     if cfg.frontend is not None:
         assert prefix_embeds is not None, f"{cfg.name} needs frontend stub"
-        pre = prefix_embeds.to(dtype) @ params["frontend_proj"].to(dtype)
+        pre = prefix_embeds.to(dtype) @ proj.to(dtype)
         x = torch.cat([pre, x], dim=1)
     return x
+
+
+def _token_rows(params: Params, tokens: torch.Tensor, dtype: torch.dtype,
+                mesh) -> torch.Tensor:
+    """The vocab-parallel lookup of :func:`_embed` on a mesh."""
+    table = L.gather(params["embed"].to(dtype), mesh, L.FSDP, 1)
+    n = table.shape[0]
+    ids = tokens.long() - mesh.coord(L.TP) * n
+    mine = ((ids >= 0) & (ids < n))[..., None]
+    x = torch.where(mine, F.embedding(ids.clamp(0, n - 1), table), 0.0)
+    return L.from_tp(x, mesh)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -267,28 +354,32 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def _block_train(cfg, params: Params, x: torch.Tensor,
-                 positions: torch.Tensor
+                 positions: torch.Tensor, mesh=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder block for :func:`forward_hidden`: ``(x, aux_loss)``."""
-    x, aux, _ = _block(cfg, params, x, positions, with_state=False)
+    x, aux, _ = _block(cfg, params, x, positions, with_state=False,
+                       mesh=mesh)
     return x, aux
 
 
 def forward_hidden(params: Params, cfg, tokens: torch.Tensor,
                    prefix_embeds: Optional[torch.Tensor] = None,
-                   dtype: torch.dtype = torch.bfloat16
+                   dtype: torch.dtype = torch.bfloat16, mesh=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone forward: ``(final-norm hidden [B,S,D], aux loss)``.  With
     ``cfg.remat`` and autograd recording, each layer runs under
     non-reentrant checkpoint: its activations are recomputed in the
-    backward (K7 launches twice a layer)."""
-    x = _embed(params, cfg, tokens, prefix_embeds, dtype)
+    backward (K7 launches twice a layer; on a mesh the layer's gathers run
+    again too)."""
+    mesh = sharded(mesh)
+    x = _embed(params, cfg, tokens, prefix_embeds, dtype, mesh)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
-        body = functools.partial(_block_train, cfg, _layer(params, i))
+        body = functools.partial(_block_train, cfg, _layer(params, i),
+                                 mesh=mesh)
         if remat:
             x, a = checkpoint(body, x, positions, use_reentrant=False)
         else:
@@ -312,24 +403,42 @@ def forward(params: Params, cfg, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _ce_terms(cfg, head: torch.Tensor, hidden: torch.Tensor,
-              labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+              labels: torch.Tensor, mesh=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(sum NLL, token count)`` for one hidden chunk ``[B, s, D]``; the
     vocabulary's padding columns are masked to -1e30, labels < 0 count
-    nothing."""
+    nothing.
+
+    On a mesh ``head`` is this rank's vocabulary columns (``V / tp``) and
+    the cross-entropy is vocab-parallel: the row maxima gathered over
+    ``model`` (so a NaN on any rank stays NaN), the sum-exp and the
+    label's logit (from the rank that holds it) summed over ``model``."""
     logits = (hidden @ head).float()
+    n = logits.shape[-1]
+    lo = 0 if mesh is None else mesh.coord(L.TP) * n
     if cfg.padded_vocab != cfg.vocab_size:   # mask vocab padding columns
-        pad_mask = torch.arange(cfg.padded_vocab,
+        pad_mask = torch.arange(lo, lo + n,
                                 device=logits.device) < cfg.vocab_size
         logits = torch.where(pad_mask, logits, -1e30)
     mask = (labels >= 0).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp(min=0).long()[..., None])[..., 0]
+    if L.axis_size(mesh, L.TP) == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp(min=0).long()[..., None])[..., 0]
+        return ((logz - gold) * mask).sum(), mask.sum()
+    top = mesh.all_gather(logits.detach().amax(dim=-1)[None], L.TP)
+    top = top.amax(dim=0)
+    sumexp = L.from_tp(torch.exp(logits - top[..., None]).sum(dim=-1), mesh)
+    logz = top + torch.log(sumexp)
+    ids = labels.clamp(min=0).long() - lo
+    mine = (ids >= 0) & (ids < n)
+    gold = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    gold = L.from_tp(torch.where(mine, gold, 0.0), mesh)
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
 def lm_loss(params: Params, cfg, batch: Dict[str, torch.Tensor],
-            dtype: torch.dtype = torch.bfloat16
+            dtype: torch.dtype = torch.bfloat16, mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE (+ 0.01 aux): ``(total, {"loss", "aux",
     "ntokens"})``.  batch: ``tokens [B, S]``, ``labels [B, S]`` (-1 =
@@ -338,18 +447,28 @@ def lm_loss(params: Params, cfg, batch: Dict[str, torch.Tensor],
     ``cfg.loss_seq_chunk``: when it divides S (and is smaller), the ``[B,
     S, V]`` float32 logits are never materialized: the CE runs one
     sequence chunk at a time under checkpoint, its logits recomputed in
-    the backward."""
+    the backward.
+
+    On ``mesh`` the batch is this rank's rows; the loss (and ``"ntokens"``)
+    are the whole batch's: the NLL sum over every batch shard divided by
+    the token count over every batch shard, so shards with more masked
+    labels weigh no more.  Each rank's gradient is that of its own NLL
+    term over the global count."""
+    mesh = sharded(mesh)
+    check_moe_mesh(cfg, mesh)
     hidden, aux = forward_hidden(params, cfg, batch["tokens"],
-                                 batch.get("prefix_embeds"), dtype=dtype)
+                                 batch.get("prefix_embeds"), dtype=dtype,
+                                 mesh=mesh)
     if cfg.frontend is not None:   # prefix positions predict nothing
         hidden = hidden[:, cfg.frontend_len:]
     labels = batch["labels"]
-    head = params["lm_head"].to(dtype)
+    head = L.gather_in(params["lm_head"], dtype, mesh)
+    hidden = L.to_tp(hidden, mesh)
 
     ck = cfg.loss_seq_chunk
     s = hidden.shape[1]
     if ck and s % ck == 0 and s > ck:
-        terms = functools.partial(_ce_terms, cfg)
+        terms = functools.partial(_ce_terms, cfg, mesh=mesh)
         nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
         count = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for i in range(0, s, ck):
@@ -361,9 +480,10 @@ def lm_loss(params: Params, cfg, batch: Dict[str, torch.Tensor],
                 nll, cnt = terms(head, h, lab)
             nll_sum, count = nll_sum + nll, count + cnt
     else:
-        nll_sum, count = _ce_terms(cfg, head, hidden, labels)
+        nll_sum, count = _ce_terms(cfg, head, hidden, labels, mesh)
 
-    loss = nll_sum / torch.clamp(count, min=1.0)
+    count = mesh.all_reduce(count, L.BATCH) if mesh is not None else count
+    loss = L.psum(nll_sum / torch.clamp(count, min=1.0), mesh, L.BATCH)
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux": aux, "ntokens": count}
 
@@ -447,12 +567,13 @@ def init_cache(cfg, batch: int, seq_len: int,
 
 
 def _block_decode(cfg, params: Params, x: torch.Tensor, pos: int,
-                  cache: Dict[str, torch.Tensor]):
+                  cache: Dict[str, torch.Tensor], mesh=None):
     new_cache: Dict[str, torch.Tensor] = {}
+    params = _whole(cfg, params, mesh)
     h = L.rmsnorm(params["ln1"], x)
     if cfg.family in ATTENTION_FAMILIES:
         attn_out, new_cache["k"], new_cache["v"] = L.attention_decode(
-            params["attn"], h, pos, cache["k"], cache["v"],
+            params["attn"], h, pos, cache["k"], cache["v"], mesh=mesh,
             **_attn_kwargs(cfg))
     if cfg.family == "ssm":
         tout, (xp, wkv) = S.rwkv6_block(
@@ -478,26 +599,51 @@ def _block_decode(cfg, params: Params, x: torch.Tensor, pos: int,
             params["cmix"], h2, x_prev=cache["xprev_c"], return_state=True)
         x = x + cout
     else:
-        x = x + L.mlp(params["mlp"], h2, cfg.activation)
+        x = x + L.mlp(params["mlp"], h2, cfg.activation, mesh)
     return x, new_cache
 
 
 def decode_step(params: Params, cfg, tokens: torch.Tensor, pos: int,
                 cache: Dict[str, torch.Tensor],
-                dtype: torch.dtype = torch.bfloat16):
+                dtype: torch.dtype = torch.bfloat16, mesh=None,
+                cache_sh: Optional[Dict[str, Any]] = None):
     """One-token decode. tokens: ``[B, 1]``; pos: an int (batch-synced).
     Updates ``cache`` (stacked ``[L, ...]``) in place and returns
-    ``(logits [B, 1, V], cache)``."""
-    x = params["embed"][tokens.long()].to(dtype)
+    ``(logits [B, 1, V], cache)``.
+
+    On ``mesh``: ``tokens`` are this rank's rows, ``cache`` this rank's
+    blocks placed by ``cache_sh`` (``{name: NamedSharding}``, from
+    ``serve.decode.cache_pspecs``), and the logits are this rank's rows
+    over the whole padded vocabulary.  The SSM states (``wkv``, ``h``)
+    are gathered whole over ``model`` for their layer's step and cut back
+    after it; the KV caches stay this rank's (see
+    :func:`layers.attention_decode`)."""
+    mesh = sharded(mesh)
+    trivial = mesh is None
+    if trivial:
+        x = params["embed"][tokens.long()].to(dtype)
+    else:
+        x = _token_rows(params, tokens, dtype, mesh)
+    states = {} if trivial else {
+        name: NamedSharding(mesh, tuple(a if a == L.TP else None
+                                        for a in sh.spec[1:]))
+        for name, sh in cache_sh.items() if name not in ("k", "v")}
     for i in range(cfg.num_layers):
         layer_cache = {name: c[i] for name, c in cache.items()}
-        x, new = _block_decode(cfg, _layer(params, i), x, int(pos),
-                               layer_cache)
+        work = {name: states[name].gather(c) if name in states else c
+                for name, c in layer_cache.items()}
+        x, new = _block_decode(cfg, _layer(params, i), x, int(pos), work,
+                               mesh)
         for name, value in new.items():
+            if name in states:
+                value = states[name].shard(value)
             if value is not layer_cache[name]:
                 layer_cache[name].copy_(value)
     x = L.rmsnorm(params["ln_f"], x)
-    return x @ params["lm_head"].to(dtype), cache
+    logits = x @ L.gather_in(params["lm_head"], dtype, mesh)
+    if not trivial:
+        logits = mesh.all_gather(logits, L.TP, dim=2)
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,10 @@ plus :func:`moe_capacity_einsum`, the dense one-hot specification.
 Every per-token combine sums a token's ``k`` atoms in atom order (each
 token has exactly ``k``), never with float atomics, so the bits do not
 change from run to run.  Aux loss: load-balancing (mean gate fraction x
-mean route fraction) + router z-loss.  The reference's ``ep_pins`` waits
-for sharding (one device).
+mean route fraction) + router z-loss.  On a mesh the experts run whole
+on every rank (``models.lm`` gathers them at the start of their layer), so
+the reference's ``ep_pins`` (pins of the expert buffers to the expert
+axis, which change no number) is accepted and does nothing.
 """
 from __future__ import annotations
 
@@ -144,7 +146,8 @@ def moe_capacity_einsum(params: Params, x: torch.Tensor, *,
 
 
 def moe_capacity(params: Params, x: torch.Tensor, *, num_experts: int,
-                 top_k: int, capacity_factor: float = 1.25
+                 top_k: int, capacity_factor: float = 1.25,
+                 ep_pins: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based capacity dispatch: atoms sorted by tile (one stable
     argsort), each atom's rank within its expert from the tile offsets,
@@ -173,6 +176,7 @@ def moe_capacity(params: Params, x: torch.Tensor, *, num_experts: int,
     xe_flat = x.new_zeros((num_experts * capacity + 1, d))
     xe_flat[slot] = x2d[atom_token[order]]
     xe = xe_flat[:-1].reshape(num_experts, capacity, d)
+    del ep_pins                   # experts are not placed (module docstring)
 
     he = _expert_ffn(params["w1"].to(x.dtype), params["w3"].to(x.dtype),
                      params["w2"].to(x.dtype), xe)
@@ -305,11 +309,13 @@ def moe_shared(params: Params, x: torch.Tensor) -> torch.Tensor:
 def moe(params: Params, x: torch.Tensor, *, num_experts: int, top_k: int,
         num_shared: int, dispatch: str = "capacity",
         capacity_factor: float = 1.25, schedule: str = "group_mapped",
-        execution_path: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+        execution_path: str = "auto",
+        ep_pins: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """One MoE layer: ``(out [B, S, D], aux_loss)``."""
     if dispatch == "capacity":
         out, aux = moe_capacity(params, x, num_experts=num_experts,
-                                top_k=top_k, capacity_factor=capacity_factor)
+                                top_k=top_k, capacity_factor=capacity_factor,
+                                ep_pins=ep_pins)
     elif dispatch == "grouped":
         out, aux = moe_capacity_grouped(params, x, num_experts=num_experts,
                                         top_k=top_k,

@@ -10,6 +10,11 @@ as the reference's tree paths), beside ``meta.json`` (``{"step": n,
 * **keep-k GC** and **latest-valid discovery** (:func:`latest_step`).
 * **Async**: the arrays are copied to the host before the optional
   writer thread starts, since the next step updates the tensors in place.
+* **Elastic resharding**: the file holds whole arrays whatever the mesh.
+  :func:`save` with ``param_sh``/``opt_sh`` gathers each leaf from the
+  ranks' blocks (every rank calls it) and rank 0 writes; :func:`restore`
+  with them cuts each array to this rank's block of the new mesh, which
+  may have another shape than the one that saved.
 
 Tensors are stored as numpy arrays (float32, int32 and other types numpy
 has; bfloat16 has no numpy type and raises).
@@ -45,15 +50,43 @@ def _host(t) -> np.ndarray:
     return np.array(t)
 
 
+def _whole(tree, shardings, prefix: str, write: bool) -> Dict[str, Any]:
+    """``{prefix/path: numpy}`` of ``tree``'s leaves, each gathered whole
+    first when ``shardings`` places them; empty where ``write`` is false
+    (those ranks only take part in the gathers)."""
+    shs = (_flatten(shardings) if shardings is not None else {})
+    out = {}
+    for k, v in _flatten(tree).items():
+        if k in shs:
+            v = shs[k].gather(v)
+        if write:
+            out[f"{prefix}/{k}"] = _host(v)
+    return out
+
+
 def save(ckpt_dir: str, step: int, params, opt_state, *,
          extra: Optional[Dict[str, Any]] = None, keep: int = 3,
-         async_save: bool = False) -> Optional[threading.Thread]:
+         async_save: bool = False, param_sh=None,
+         opt_sh=None) -> Optional[threading.Thread]:
     """Atomically write ``<ckpt_dir>/step_<step>``; keep the ``keep``
-    newest.  With ``async_save`` the write runs on a thread, returned."""
+    newest.  With ``async_save`` the write runs on a thread, returned.
+
+    ``param_sh``/``opt_sh`` (``NamedSharding`` trees): the trees are this
+    rank's blocks; every rank of the mesh calls ``save``, the leaves are
+    gathered whole, and rank 0 writes.  Unless ``async_save``, every rank
+    returns once the step is committed."""
+    sh = param_sh if param_sh is not None else opt_sh
+    mesh = None
+    if sh is not None:
+        mesh = next(leaf for _, leaf in tree_leaves(sh)).mesh
+    write = mesh is None or mesh.rank == 0
+    host = _whole(params, param_sh, "p", write)
+    host.update(_whole(opt_state, opt_sh, "o", write))
+    if not write:
+        if not async_save:
+            mesh.barrier()
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
-    host = {f"p/{k}": _host(v) for k, v in _flatten(params).items()}
-    host.update({f"o/{k}": _host(v)
-                 for k, v in _flatten(opt_state).items()})
     meta = {"step": int(step), "format": 1}
     meta.update(extra or {})
 
@@ -76,6 +109,8 @@ def save(ckpt_dir: str, step: int, params, opt_state, *,
         t.start()
         return t
     _write()
+    if mesh is not None:
+        mesh.barrier()
     return None
 
 
@@ -103,23 +138,31 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, step: int, params_like, opt_like, *,
-            device=None) -> Tuple[Any, Any, Dict[str, Any]]:
+            device=None, param_sh=None,
+            opt_sh=None) -> Tuple[Any, Any, Dict[str, Any]]:
     """``(params, opt_state, meta)`` of ``step``, in the structure of
     ``params_like``/``opt_like`` (trees of tensors), each leaf on
-    ``device`` or, by default, on its template leaf's device."""
+    ``device`` or, by default, on its template leaf's device.
+
+    ``param_sh``/``opt_sh`` (``NamedSharding`` trees of the mesh to
+    restore onto): each leaf is this rank's block of the saved array,
+    whatever mesh saved it (the reference's elastic resharding)."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as arrays:
-        def rebuild(prefix, like):
+        def rebuild(prefix, like, sh):
+            shs = _flatten(sh) if sh is not None else {}
+
             def one(key, leaf):
-                arr = arrays[f"{prefix}/{key}"]
-                dev = device if device is not None else leaf.device
-                return torch.from_numpy(np.array(arr)).to(dev)
+                t = torch.from_numpy(np.array(arrays[f"{prefix}/{key}"]))
+                if key in shs:
+                    t = shs[key].shard(t)
+                return t.to(device if device is not None else leaf.device)
             return _unflatten(like, {k: one(k, v)
                                      for k, v in _flatten(like).items()})
-        params = rebuild("p", params_like)
-        opt_state = rebuild("o", opt_like)
+        params = rebuild("p", params_like, param_sh)
+        opt_state = rebuild("o", opt_like, opt_sh)
     return params, opt_state, meta
 
 

@@ -6,6 +6,11 @@ scalar}``.  Unlike the reference, :func:`adamw_update` updates the
 parameters and ``mu``/``nu`` **in place** and uses the gradients as its
 scratch: at 3.96e9 parameters a leaf of 3.77 GB float32 leaves no room for
 the reference's new ``g``, ``m``, ``v`` and ``update`` arrays.
+
+On a mesh every rank updates its blocks of the parameters and the state
+(the update is elementwise); the gradient norm, and so the clipping, is
+the whole tree's (see :func:`global_norm`).  Weight decay keeps to leaves
+of two or more dimensions, which a block has as its whole leaf does.
 """
 from __future__ import annotations
 
@@ -58,30 +63,44 @@ def init_opt_state(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None) -> torch.Tensor:
     """``sqrt(sum of squares)`` over every leaf, float32, taken one leaf at
     a time without a squared copy (a dot product of the flattened leaf
-    with itself)."""
+    with itself).
+
+    ``shardings`` (a tree of ``NamedSharding`` like ``tree``): ``tree``
+    holds this rank's blocks; each block's squares count on one rank of
+    the ranks that hold the same block (a leaf replicated over an axis
+    counts once, not once a rank), and the sum is taken over the whole
+    mesh."""
     total = None
-    for _, g in tree_leaves(tree):
+    shs = dict(tree_leaves(shardings)) if shardings is not None else None
+    for path, g in tree_leaves(tree):
         flat = g.reshape(-1).float()
         sq = torch.dot(flat, flat)
+        if shs is not None and not shs[path].primary:
+            sq = torch.zeros_like(sq)
         total = sq if total is None else total + sq
     if total is None:
         return torch.zeros(())
+    if shs is not None:
+        mesh = next(iter(shs.values())).mesh
+        total = mesh.all_reduce(total, mesh.axis_names)
     return torch.sqrt(total)
 
 
-def adamw_update(params, grads, opt_state, cfg: OptConfig
+def adamw_update(params, grads, opt_state, cfg: OptConfig, *,
+                 shardings=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step with global-norm clipping and decoupled weight decay
     on matrices only (``ndim >= 2``): ``(params, opt_state, {"grad_norm",
     "lr"})``, the reported norm taken before clipping.  ``params``,
     ``mu``, ``nu`` are updated in place and returned; ``grads`` (float32
     or not) are overwritten with scratch.  One host read (the clip
-    scale)."""
+    scale).  ``shardings``: the trees are this rank's blocks, placed so
+    (see :func:`global_norm`)."""
     step = int(opt_state["step"]) + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     scale = min(1.0, cfg.clip_norm / max(float(gnorm), 1e-9))
     scale = float(np.float32(scale))
     lr_t = lr_at(cfg, step)

@@ -1,9 +1,21 @@
-"""The train step: microbatch accumulation, remat, AdamW (the reference's
-``train/step.py`` on one device).
+"""The train step: FSDP x TP sharding, microbatch accumulation, remat,
+AdamW (the reference's ``train/step.py``).
 
 ``make_train_step`` builds ``step(params, opt_state, batch) -> (params,
 opt_state, metrics)``:
 
+* **sharding** (``mesh``, an :class:`~repro_torch.launch.mesh.LMMesh`):
+  each rank holds its blocks of the parameters and of the AdamW state, as
+  :func:`shardings_for` places them from :func:`param_specs`, and every
+  rank calls the step with the same global batch; the step takes this
+  rank's rows (:func:`_constrain_batch`, split over ``("pod", "data")``).
+  FSDP over ``data`` and tensor parallelism over ``model`` run inside the
+  model (:mod:`repro_torch.models.layers`): weight blocks are all-gathered
+  right before use and the gathered weights' gradients reduce-scattered.
+  After the backward, each leaf's gradient is summed over the batch axes
+  it is not cut on (``pod``, and ``data`` for the replicated leaves), so
+  every rank holds its block of the whole batch's gradient.  With
+  ``mesh=None`` or a one-rank mesh none of this runs;
 * **gradients**: the stacked float32 parameter tree stays the state (as
   the reference's, for interop and checkpoints); for autograd each
   top-level leaf, and each layer's slice of a stacked leaf, becomes a
@@ -16,11 +28,8 @@ opt_state, metrics)``:
   buffer (float32, or a bfloat16 accumulator with ``cfg.grad_accum_bf16``,
   as the reference), then the sum is scaled by ``1 / n``;
 * **remat**: per-layer checkpoint inside the model (``cfg.remat``);
-* **update**: :func:`optimizer.adamw_update`, in place.
-
-The reference also shards parameters and optimizer state over a mesh
-(``param_specs``/``shardings_for``); here a mesh of more than one device
-raises ``NotImplementedError`` until the LM's sharding is ported.
+* **update**: :func:`optimizer.adamw_update`, in place, its gradient norm
+  over every rank's blocks.
 """
 from __future__ import annotations
 
@@ -28,31 +37,89 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.models.lm import init_params, lm_loss, tree_leaves, tree_map
+from repro_torch.launch.mesh import NamedSharding, sharded
+from repro_torch.models import layers as L
+from repro_torch.models.lm import (check_moe_mesh, lm_loss, param_specs,
+                                   tree_leaves, tree_map)
 from repro_torch.train.optimizer import OptConfig, adamw_update
 
 METRIC_KEYS = ("loss", "ntokens", "grad_norm", "lr")
 
-
-def param_specs(cfg):
-    """The partition-spec tree of ``cfg``'s parameters (from the reduced
-    structural twin on the ``meta`` device: specs depend only on the
-    tree's structure)."""
-    _, specs = init_params(cfg.reduced(), torch.Generator(), device="meta")
-    return specs
+BATCH_AXES = ("pod", "data")  # batch shards over every data-parallel axis
 
 
-def check_mesh(mesh) -> None:
-    """Accept no mesh or a one-shard one (``launch.mesh.GraphMesh``);
-    raise for more devices."""
+def batch_pspec(mesh) -> tuple:
+    """The batch dimension's spec: every batch axis the mesh has."""
+    axes = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
+    if not axes:
+        return ()
+    return (axes if len(axes) > 1 else axes[0],)
+
+
+def _fix(mesh, spec) -> tuple:
+    """``spec`` without the axes ``mesh`` lacks, as the reference's
+    ``shardings_for`` cleans it (a tuple keeps its remaining axes as a
+    tuple)."""
+    cleaned = []
+    for a in spec:
+        if a is None:
+            cleaned.append(None)
+        elif isinstance(a, tuple):
+            keep = tuple(x for x in a if x in mesh.axis_names)
+            cleaned.append(keep if keep else None)
+        else:
+            cleaned.append(a if a in mesh.axis_names else None)
+    return tuple(cleaned)
+
+
+def shardings_for(mesh, specs):
+    """Spec tree -> :class:`NamedSharding` tree, dropping axes the mesh
+    does not have (so the same specs serve single- and multi-pod
+    meshes)."""
+    return tree_map(lambda spec: NamedSharding(mesh, _fix(mesh, spec)),
+                    specs)
+
+
+def opt_shardings(mesh, param_sh) -> Dict[str, object]:
+    return {"mu": param_sh, "nu": param_sh,
+            "step": NamedSharding(mesh, ())}
+
+
+def shard_tree(tree, shardings):
+    """This rank's block of every leaf of a full ``tree``."""
+    return tree_map(lambda t, sh: sh.shard(t), tree, shardings)
+
+
+def gather_tree(tree, shardings):
+    """Every leaf whole again (a collective: every rank calls it)."""
+    return tree_map(lambda t, sh: sh.gather(t), tree, shardings)
+
+
+def _constrain_batch(batch: Dict[str, torch.Tensor], mesh):
+    """This rank's rows of a (micro)batch: the reference re-pins the batch
+    dimension's sharding there (GSPMD loses it after the microbatch
+    slice)."""
     if mesh is None:
-        return
-    size = mesh.num_shards
-    if size != 1:
-        raise NotImplementedError(
-            f"training over a mesh of {size} devices needs the LM's "
-            f"sharding (param_specs/shardings_for, ROADMAP queue 1 item 4, "
-            f"its sharding half), which is not ported; pass mesh=None")
+        return batch
+    spec = batch_pspec(mesh)
+    if spec == ():
+        return batch
+    sh = NamedSharding(mesh, spec)
+    return {k: sh.shard(v) for k, v in batch.items()}
+
+
+def _sum_over_batch(grads, cfg, mesh) -> None:
+    """Each gradient leaf summed, in place, over the batch axes its spec
+    does not cut it on (those it is cut on were summed by the gathers'
+    backward)."""
+    specs = dict(tree_leaves(param_specs(cfg)))
+    for path, g in tree_leaves(grads):
+        cut = {a for axes in specs[path] if axes is not None
+               for a in ((axes,) if isinstance(axes, str) else axes)}
+        axes = tuple(a for a in BATCH_AXES if a not in cut)
+        summed = mesh.all_reduce(g, axes)
+        if summed is not g:
+            g.copy_(summed)
 
 
 def _trainable(params, grads):
@@ -94,8 +161,12 @@ def loss_and_grads(params, cfg, batch, num_microbatches: int,
     mean of the microbatches' gradients).  As the reference: with one
     microbatch ``total`` is :func:`lm_loss`'s total and ``"loss"`` its
     cross-entropy; with more, both are the mean of the microbatches'
-    totals."""
-    check_mesh(mesh)
+    totals.
+
+    On ``mesh`` (see the module's docstring) ``params`` and the returned
+    ``grads`` are this rank's blocks, ``batch`` the global batch, and the
+    losses and ``"ntokens"`` the whole batch's."""
+    mesh = sharded(mesh)
     grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                            device=p.device), params)
     leaves = _trainable(params, grads)
@@ -105,15 +176,19 @@ def loss_and_grads(params, cfg, batch, num_microbatches: int,
         acc = tree_map(lambda g: torch.zeros_like(g, dtype=torch.bfloat16),
                        grads)
     if n == 1:
-        total, metrics = lm_loss(leaves, cfg, batch, dtype=dtype)
+        total, metrics = lm_loss(leaves, cfg, _constrain_batch(batch, mesh),
+                                 dtype=dtype, mesh=mesh)
         total.backward()
+        if mesh is not None:
+            _sum_over_batch(grads, cfg, mesh)
         return (total.detach(), {"loss": metrics["loss"].detach(),
                                  "ntokens": metrics["ntokens"].detach()},
                 grads)
     # as the reference: the microbatches' totals (aux included) averaged
     total_sum = ntok = 0.0
     for mb in _microbatches(batch, n):
-        total, metrics = lm_loss(leaves, cfg, mb, dtype=dtype)
+        total, metrics = lm_loss(leaves, cfg, _constrain_batch(mb, mesh),
+                                 dtype=dtype, mesh=mesh)
         total.backward()
         total_sum = total_sum + total.detach()
         ntok = ntok + metrics["ntokens"].detach()
@@ -127,6 +202,8 @@ def loss_and_grads(params, cfg, batch, num_microbatches: int,
         if acc is not None:
             for (_, g), (_, a) in zip(tree_leaves(grads), tree_leaves(acc)):
                 g.copy_(a)
+        if mesh is not None:
+            _sum_over_batch(grads, cfg, mesh)
         for _, g in tree_leaves(grads):
             g.mul_(1.0 / n)
     loss = total_sum * (1.0 / n)
@@ -141,16 +218,29 @@ def make_train_step(cfg, opt_cfg: OptConfig, mesh=None, *,
     with ``metrics`` keyed by :data:`METRIC_KEYS`.  ``params`` and
     ``opt_state`` are updated in place and returned (the reference donates
     them).  ``grad_compress`` (see :mod:`repro_torch.train.compress`)
-    maps the accumulated gradients before the optimizer."""
-    check_mesh(mesh)
+    maps the accumulated gradients before the optimizer.
+
+    On a ``mesh`` of more than one rank ``params`` and ``opt_state`` are
+    this rank's blocks, placed by :func:`shardings_for` and
+    :func:`opt_shardings` (:func:`shard_tree` cuts them from full trees),
+    and every rank calls the step with the same global batch.  A mesh
+    whose ``model`` axis does not divide the query and KV heads raises
+    (the reference's GSPMD would pad them)."""
+    param_sh = None
+    mesh = sharded(mesh)
+    if mesh is not None:
+        check_moe_mesh(cfg, mesh)
+        if cfg.num_heads:
+            L.local_heads(cfg.num_heads, cfg.num_kv_heads, mesh)
+        param_sh = shardings_for(mesh, param_specs(cfg))
 
     def step(params, opt_state, batch):
         loss, metrics, grads = loss_and_grads(params, cfg, batch,
-                                              num_microbatches, dtype)
+                                              num_microbatches, dtype, mesh)
         if grad_compress is not None:
             grads = grad_compress(grads)
-        params, opt_state, opt_metrics = adamw_update(params, grads,
-                                                      opt_state, opt_cfg)
+        params, opt_state, opt_metrics = adamw_update(
+            params, grads, opt_state, opt_cfg, shardings=param_sh)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         return params, opt_state, metrics

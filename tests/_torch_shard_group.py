@@ -1,4 +1,5 @@
-"""Spawned ``torch.distributed`` groups for the sharded traversal's tests.
+"""Spawned ``torch.distributed`` groups for the sharded traversal's and
+the sharded LM's tests.
 
 :func:`run_group` starts ``world`` processes (the ``spawn`` start method),
 joins them into a ``gloo`` group on the CPU with a timeout of its own, runs
@@ -306,4 +307,151 @@ def failing_job(S: int, data: dict) -> dict:
     return {"gathered": _np(mesh.all_gather(torch.ones(3)))}
 
 
-JOBS = {"matrix": matrix_job, "nan": nan_job, "failing": failing_job}
+def _tensors(tree):
+    import torch
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return _np(tree)
+
+
+def lm_train_job(world: int, data: dict) -> dict:
+    """The sharded train step on ``(world // m, m)`` meshes, every case of
+    ``data["cases"]``: ``loss_and_grads`` on each batch (the gradients
+    gathered whole), then ``make_train_step`` twice (the parameters
+    gathered whole).  With ``data["ckpt_dir"]`` the last case's trained
+    state is saved from its mesh and restored onto ``(1, world)`` and
+    ``(world, 1)``.  Rank 0 returns the arrays; every rank its losses."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import (lm_params_from_arrays,
+                                     opt_state_from_arrays)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import (gather_tree, loss_and_grads,
+                                        make_train_step, opt_shardings,
+                                        param_specs, shardings_for)
+
+    out = {}
+    for name, case in data["cases"].items():
+        cfg = get_config(case["arch"]).reduced(**case["overrides"])
+        mesh = make_host_mesh(case["model_axis"], device="cpu")
+        psh = shardings_for(mesh, param_specs(cfg))
+        osh = opt_shardings(mesh, psh)
+        n = case["microbatches"]
+        res = {"mesh": str(mesh), "shape": mesh.shape}
+        for key, batch in case["batches"].items():
+            params = lm_params_from_arrays(case["params"], device="cpu",
+                                           shardings=psh)
+            loss, metrics, grads = loss_and_grads(
+                params, cfg, _tensors(batch), n, torch.float32, mesh=mesh)
+            whole = _numpy(gather_tree(grads, psh))
+            res[f"loss/{key}"] = (float(loss), float(metrics["ntokens"]))
+            if mesh.rank == 0:
+                res[f"grads/{key}"] = whole
+        params = lm_params_from_arrays(case["params"], device="cpu",
+                                       shardings=psh)
+        opt = opt_state_from_arrays(case["opt"], device="cpu",
+                                    shardings=osh)
+        step = make_train_step(cfg, OptConfig(**data["opt_cfg"]), mesh,
+                               num_microbatches=n, dtype=torch.float32)
+        res["metrics"] = []
+        for batch in case["steps"]:
+            params, opt, m = step(params, opt, _tensors(batch))
+            res["metrics"].append({k: float(v) for k, v in m.items()})
+        trained = _numpy(gather_tree(params, psh))
+        if mesh.rank == 0:
+            res["params"] = trained
+        ckpt_dir = data.get("ckpt_dir")
+        if ckpt_dir and name == list(data["cases"])[-1]:
+            ckpt.save(ckpt_dir, 2, params, opt, param_sh=psh, opt_sh=osh)
+            full_opt = _numpy(gather_tree(opt, osh))
+            for m in (1, world):
+                other = make_host_mesh(m, device="cpu")
+                psh2 = shardings_for(other, param_specs(cfg))
+                osh2 = opt_shardings(other, psh2)
+                p2, o2, meta = ckpt.restore(ckpt_dir, 2, params, opt,
+                                            param_sh=psh2, opt_sh=osh2)
+                local_shapes = {k: tuple(v.shape) for k, v in
+                                _flat(p2).items()}
+                back = (_numpy(gather_tree(p2, psh2)),
+                        _numpy(gather_tree(o2, osh2)))
+                if mesh.rank == 0:
+                    res[f"restored/{other.shape['data']}x"
+                        f"{other.shape['model']}"] = (
+                        _same(back[0], trained) and _same(back[1], full_opt),
+                        meta["step"], local_shapes)
+        out[name] = res
+    return out
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def _same(a, b) -> bool:
+    fa, fb = _flat(a), _flat(b)
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and fa[k].shape == fb[k].shape
+        and fa[k].tobytes() == fb[k].tobytes()
+        for k in fa)
+
+
+def lm_serve_job(world: int, data: dict) -> dict:
+    """``make_serve_step`` on ``(world // m, m)`` meshes for every case of
+    ``data["cases"]``: the prompt's tokens fed one a step, every step's
+    logits (rank 0 returns them; every rank its last ones' checksum);
+    then ``launch.serve --mesh host`` (and ``launch.train --mesh host``)
+    on the launcher arguments of ``data``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import lm_params_from_arrays
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.decode import make_serve_step
+
+    out = {}
+    for name, case in data["cases"].items():
+        cfg = get_config(case["arch"]).reduced(**case["overrides"])
+        mesh = make_host_mesh(case["model_axis"], device="cpu")
+        tokens = case["tokens"]                     # [B, steps]
+        step, psh, csh, cache = make_serve_step(
+            cfg, mesh, batch=tokens.shape[0], seq_len=case["seq_len"],
+            dtype=torch.float32)
+        params = lm_params_from_arrays(case["params"], device="cpu",
+                                       shardings=psh)
+        logits = []
+        for t in range(tokens.shape[1]):
+            lg, cache = step(params, torch.from_numpy(tokens[:, t:t + 1]),
+                             t, cache)
+            logits.append(_np(lg))
+        res = {"specs": {k: sh.spec for k, sh in csh.items()},
+               "cache_shapes": {k: tuple(c.shape) for k, c in cache.items()},
+               "checksum": float(np.abs(logits[-1]).sum())}
+        if mesh.rank == 0:
+            res["logits"] = np.stack(logits)
+        out[name] = res
+    if data.get("serve_argv"):
+        import contextlib
+        import io
+        from repro_torch.launch import serve, train
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(data["serve_argv"])
+            metrics = train.main(data["train_argv"])
+        out["launchers"] = (buf.getvalue(), metrics)
+    return out
+
+
+JOBS = {"matrix": matrix_job, "nan": nan_job, "failing": failing_job,
+        "lm_train": lm_train_job, "lm_serve": lm_serve_job}

@@ -1353,3 +1353,29 @@ def test_banded_danube_layer_backward_reaches_every_leaf(card):
         assert bool(torch.isfinite(leaf.grad).all()), path
     for name in ("wq", "wk", "wv"):
         assert float(leaves[f"/attn/{name}"].grad.abs().max()) > 0, name
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_k7_on_a_ranks_local_heads(card, tp):
+    """K7 and its backward at the head counts a rank of a model axis of
+    ``tp`` runs for Danube (``32 / tp`` query and ``8 / tp`` KV heads of
+    120, the GQA group of 4 kept), bfloat16 on the tensor cores, against
+    their plain versions on the same inputs."""
+    shape = (1024, 32 // tp, 8 // tp, 120, 256, 128)
+    S, H, Hkv, hd, window, qc = shape
+    before = dict(FK.LAUNCHES)
+    q, k, v, out, lse, dout = _swa_bwd_inputs(shape, torch.bfloat16, card,
+                                              tp)
+    want_out = FK.flash_swa_plain(q.float(), k.float(), v.float(),
+                                  window=window, qc=qc)
+    torch.testing.assert_close(out.float(), want_out, rtol=1e-2, atol=1e-4)
+    got = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
+    for name in ("flash_swa_mma", "flash_swa_bwd_mma"):
+        assert FK.LAUNCHES[name] == before[name] + 1, name
+    want = FK.flash_swa_bwd_plain(*(t.float() for t in (q, k, v, out)), lse,
+                                  dout.float(), window=window, qc=qc)
+    rtol, atol = SWA_BWD_TOL[torch.bfloat16]
+    for name, g, w in zip("qkv", got, want):
+        torch.testing.assert_close(g.float(), w, rtol=rtol,
+                                   atol=atol * max(1.0, float(w.abs().max())),
+                                   msg=lambda m: f"d{name}: {m}")

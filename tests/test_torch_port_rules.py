@@ -77,6 +77,7 @@ def test_port_imports_without_jax():
             "import repro_torch.train.compress\n"
             "import repro_torch.train.quantized_opt\n"
             "import repro_torch.data.synthetic, repro_torch.launch.train\n"
+            "import repro_torch.launch.mesh\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]\n"
             "assert not bad, bad\n")

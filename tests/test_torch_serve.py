@@ -123,8 +123,9 @@ class TestGenerate:
 
     def test_serve_step_matches_decode_step(self, ref):
         _, _, cfg, params = _model(ref, "h2o_danube3_4b")
-        step, cache = make_serve_step(cfg, batch=2, seq_len=16,
-                                      dtype=torch.float32, device="cpu")
+        step, param_sh, cache_sh, cache = make_serve_step(
+            cfg, batch=2, seq_len=16, dtype=torch.float32, device="cpu")
+        assert param_sh is None and cache_sh is None
         assert cache["k"].shape == (cfg.num_layers, 2, 8, cfg.num_kv_heads,
                                     cfg.resolved_head_dim)
         other = TLM.init_cache(cfg, 2, 16, torch.float32, device="cpu")
@@ -153,10 +154,10 @@ class TestLauncher:
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 launch_serve.main(["--graph"])
-        with pytest.raises(SystemExit):        # only the host mesh parses
+        with pytest.raises(ValueError, match="one device"):
             launch_serve.main(["--graph", "--mesh", "single", "--device",
                                "cpu"])
-        with pytest.raises(SystemExit):
+        with pytest.raises(ValueError, match="the process group has 1$"):
             launch_serve.main(["--arch", "qwen15_05b", "--reduced",
                                "--mesh", "single", "--device", "cpu"])
 

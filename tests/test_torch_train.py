@@ -27,7 +27,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.interop import lm_params_from_arrays, opt_state_from_arrays
 from repro_torch.kernels.flash_swa import kernel as FK
-from repro_torch.launch.mesh import make_graph_mesh
+from repro_torch.launch.mesh import GraphMesh, LMMesh, make_host_mesh
 from repro_torch.models import lm_loss
 from repro_torch.models.lm import init_params, tree_leaves
 from repro_torch.train.optimizer import (OptConfig, adamw_update,
@@ -398,13 +398,38 @@ def test_moe_arch_trains():
 
 
 def test_meshes_of_more_than_one_device_raise():
+    """A one-rank mesh is the one-device path: two steps bitwise equal to
+    ``mesh=None``'s, and no collective.  A model axis of more than one
+    rank that does not divide the KV heads raises before any collective
+    (tests/test_torch_train_mesh.py runs the meshes that split)."""
+    from repro_torch.data.synthetic import batch_at, for_model
     cfg = get_config("qwen15_05b").reduced()
-    step = make_train_step(cfg, OptConfig(),
-                           make_graph_mesh(1, device="cpu"))
-    assert callable(step)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        make_train_step(cfg, OptConfig(),
-                        types.SimpleNamespace(num_shards=2))
+    mesh = make_host_mesh(device="cpu")
+    dcfg = for_model(cfg, seq_len=16, global_batch=4)
+    runs = []
+    for m in (None, mesh):
+        params, _ = init_params(cfg, torch.Generator().manual_seed(8),
+                                device="cpu")
+        opt = init_opt_state(params)
+        step = make_train_step(cfg, OptConfig(warmup_steps=1),
+                               m, num_microbatches=2, dtype=torch.float32)
+        for i in range(2):
+            params, opt, metrics = step(params, opt,
+                                        batch_at(dcfg, i, device="cpu"))
+        runs.append((params, opt, metrics))
+    (p0, o0, m0), (p1, o1, m1) = runs
+    for (path, a), (_, b) in zip(tree_leaves(p0), tree_leaves(p1)):
+        assert torch.equal(a, b), path
+    for (path, a), (_, b) in zip(tree_leaves(o0), tree_leaves(o1)):
+        assert torch.equal(a, b), path
+    assert {k: float(v) for k, v in m0.items()} == {
+        k: float(v) for k, v in m1.items()}
+    assert mesh.stats.calls == 0
+    cpu = torch.device("cpu")
+    wide = LMMesh(("data", "model"), (GraphMesh(1, 0, cpu),
+                                      GraphMesh(8, 0, cpu)), 0, cpu)
+    with pytest.raises(ValueError, match="do not split over a model axis"):
+        make_train_step(cfg, OptConfig(), wide)
 
 
 def test_param_specs_match_reference(ref):

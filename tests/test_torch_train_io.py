@@ -325,7 +325,10 @@ def test_launcher_trains_and_resumes(tmp_path):
 
 
 def test_launcher_refuses_sharded_meshes():
+    """``--mesh single`` is the reference's 16 x 16 production mesh: on a
+    world of one process it raises, naming the world's size."""
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match=r"\(16, 16\) needs 256 ranks; "
+                                         r"the process group has 1$"):
         main(["--arch", "qwen15_05b", "--reduced", "--device", "cpu",
               "--mesh", "single", "--steps", "1"])

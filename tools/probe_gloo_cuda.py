@@ -2,6 +2,11 @@
 """Which gloo collectives take CUDA tensors on this card, and how long a
 sharded-traversal-sized ``all_gather`` takes.
 
+Besides the sharded traversal's collectives it tries those of the LM's
+``(data, model)`` mesh: bfloat16 gathers and sums, ``reduce_scatter_tensor``
+(the FSDP gradient) in float32 and bfloat16, and a sum over a sub-group
+made with ``new_group``.
+
 Run on a machine with a card: ``python3 tools/probe_gloo_cuda.py``.  For 2
 and then 4 spawned ranks sharing ``cuda:0`` in one ``gloo`` group, it tries
 each collective the sharded traversal (``repro_torch.launch.mesh``) uses
@@ -25,6 +30,9 @@ def run(rank, world, port, out_q):
             "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=60))
         dev = torch.device("cuda:0")
+        # every rank makes every sub-group, in one order
+        pairs = [dist.new_group([2 * i, 2 * i + 1])
+                 for i in range(world // 2)]
         f32 = lambda n, v=1.0: torch.full((n,), float(v), device=dev)
         cases = {
             "all_gather_into_tensor float32": lambda: (
@@ -42,6 +50,18 @@ def run(rank, world, port, out_q):
                 f32(4), dist.ReduceOp.MIN),
             "broadcast_object_list": lambda: dist.broadcast_object_list(
                 ["x"], src=0),
+            "all_gather_into_tensor bfloat16": lambda: (
+                dist.all_gather_into_tensor(
+                    f32(world * 4).bfloat16(), f32(4, rank).bfloat16())),
+            "all_reduce SUM bfloat16": lambda: dist.all_reduce(
+                f32(4).bfloat16()),
+            "reduce_scatter_tensor float32": lambda: (
+                dist.reduce_scatter_tensor(f32(4), f32(world * 4))),
+            "reduce_scatter_tensor bfloat16": lambda: (
+                dist.reduce_scatter_tensor(f32(4).bfloat16(),
+                                           f32(world * 4).bfloat16())),
+            "all_reduce SUM on a new_group sub-group": lambda: (
+                dist.all_reduce(f32(4), group=pairs[rank // 2])),
         }
         for name, call in cases.items():
             try:
