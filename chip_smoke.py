@@ -191,9 +191,34 @@ Phases, in order; any failure exits non-zero:
    at depth 2 in float32, 8 steps' logits within 2e-3 of one device's
    ``decode_step``.  Four ranks on one card measure the sharded path's
    overhead (gloo moves CUDA tensors through the host), not its scaling;
-26. the ``kernels:`` summary (K7's launches include every rank's in the
-   mesh phase), the JSON kernels line, and the final ``{"ok": true, ...}``
-   line.
+26. pipeline — the GPipe pipeline (``train/pipeline.py``): the same 8
+   H2O-Danube3-4B layers at full width (float32 weights, bf16 compute,
+   remat a layer, positions 0..S-1) run first in order on one device
+   (``reference_apply``: 4 microbatches of one 8,192-token sequence, loss
+   ``mean(y.float()**2)``, forward and backward, 3 steps); then four
+   spawned ranks share this card in one gloo group (300 s timeout) on a
+   ``(pod, data) = (4, 1)`` mesh from ``make_mesh``, two layers a stage,
+   T = 7 ticks: per rank and step 28 K7 launches (7 ticks x 2 layers,
+   forward and recompute) and 14 backward launches, all on the tensor
+   cores; the loss finite and within 2e-2 of the one-device loss, every
+   stage gradient leaf finite and nonzero; ms a step, the bubble share
+   (P-1)/T, hop calls, bytes and ms (each hop staged through host memory
+   under gloo), the output broadcast, peak memory.  Then in float32 at
+   depth 4 (one layer a stage), S 2,048, window 1,024: the output and every
+   gathered stage gradient on rank 0 against ``reference_apply`` on one
+   device (output 1e-5, gradients 1e-4 of each leaf's largest entry).
+   Four stages on one card measure the pipeline's overhead, not its
+   scaling;
+27. dry-run check — three steps whose peak this run measures, traced on
+   the ``meta`` device by ``launch/dryrun.py``: phase 24's one-device
+   step, rank 0's step of phase 25's ``(2, 2)`` mesh (a fake group of 4)
+   and each stage's step of phase 26's pipeline (rank ``r`` of a fake
+   group of 4).  Each peak estimate (arguments plus the most bytes live in
+   the step) is held within 25% of the measured ``max_memory_allocated``;
+   phase 24's flop count is printed beside ``model_flops``' 6ND;
+28. the ``kernels:`` summary (K7's launches include every rank's in the
+   mesh and pipeline phases), the JSON kernels line, and the final
+   ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -213,9 +238,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12             # H100 SXM f32 without tensor cores
-BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 REF_KERNEL = "src/repro/kernels/spmv_merge/kernel.py"
 CSRC = "src/repro_torch/kernels/spmv_merge/csrc"
 SEGMM_REF = "src/repro/kernels/segmm/kernel.py"
@@ -314,6 +337,22 @@ MESH_F32_WINDOW = 1024     # attn_query_chunk 512: the band runs K7
 MESH_DECODE_CHECK = 8      # float32 steps held to one device's decode_step
 MESH_TIMEOUT_S = 300       # the group's collective timeout
 MESH_DEADLINE_S = 900      # the parent joins its ranks by then
+
+PIPE_RANKS = 4             # spawned ranks sharing the card: the stages
+PIPE_LAYERS = 8            # depth cut: two Danube layers a stage
+PIPE_MICRO = 4             # microbatches of one sequence: T = 7 ticks
+PIPE_STEPS = 3
+PIPE_F32_LAYERS = 4        # the float32 parity check: one layer a stage
+PIPE_F32_S = 2048
+PIPE_F32_WINDOW = 1024     # attn_query_chunk 512: the band runs K7
+PIPE_OUT_TOL = 1e-5        # the pipeline's float32 output against one device
+PIPE_TIMEOUT_S = 300       # the group's collective timeout
+PIPE_DEADLINE_S = 600      # the parent joins its ranks by then
+DRYRUN_PEAK_TOL = 0.25     # the dry run's peak estimates against the measured
+
+#: what later phases read of earlier ones (the measured peaks of phases
+#: 24, 25 and 26)
+MEASURED = {}
 
 
 def log(*parts) -> None:
@@ -820,6 +859,7 @@ def phase_determinism(A, x, g, plans, num_blocks: int, seed: int) -> dict:
     two runs, each timed beside the same call on ``index_add_`` sums;
     ``segment_sum_sorted`` at PageRank's fixup shape against its plain
     version, timed.  Returns e2e seconds."""
+    from repro_torch.launch import roofline as RL
     import torch
     from repro_torch.core import execute as E
     from repro_torch.core import segops
@@ -879,7 +919,7 @@ def phase_determinism(A, x, g, plans, num_blocks: int, seed: int) -> dict:
     # what a fixup now runs: the id cast, the stable sort, the kernel
     sort_ms = cuda_ms(lambda: segops.ordered_sum(vals, ids, num))
     nbytes = 4 * n + 8 * n + 4 * n + 4 * num
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = nbytes / RL.HBM_BW * 1e3
     library = cuda_ms(lambda: torch.zeros(num, device="cuda").index_add_(
         0, ids, vals))
     log(f"time segment_sum_sorted [PageRank's fixup: {n} partials into "
@@ -1008,6 +1048,7 @@ def lane_layout_times(plan, seed: int) -> None:
     serving step's and ``bfs_multi``'s launch) against the B-column
     launch.  The lanes' min partials equal the B-column ones and their sum
     partials each lane's one-column launch, bitwise."""
+    from repro_torch.launch import roofline as RL
     import torch
     from repro_torch.core import execute as E
     from repro_torch.kernels.spmv_merge import kernel as K
@@ -1055,7 +1096,7 @@ def lane_layout_times(plan, seed: int) -> None:
         f"[{spec.num_atoms} atoms, {SERVE_LANES} lanes, min]: B-column "
         f"launch {batched:.4f} ms; lanes end to end (one-column kernel) "
         f"{laid:.4f} ms; one lane alone {single:.4f} ms; bound "
-        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B by bytes: "
+        f"{nbytes / RL.HBM_BW * 1e3:.4f} ms ({nbytes} B by bytes: "
         f"values, tile ids once, partials); plain {plain:.3f} ms; library "
         f"{library:.4f} ms (scatter_reduce_ amin per tile); lane partials "
         f"bitwise equal (min: to the B-column launch; sum: to each lane's "
@@ -1866,6 +1907,7 @@ def phase_k2_forest(forest, dag, seed: int, *, per_column: bool = False):
     (for a port whose K2 takes one column) the combine is timed as 128
     one-column launches instead, and the fixup is left out.  Returns
     ``{name: row}``."""
+    from repro_torch.launch import roofline as RL
     import torch
     from repro_torch.core import execute as E
     from repro_torch.kernels.spmv_merge import kernel as K
@@ -1898,7 +1940,7 @@ def phase_k2_forest(forest, dag, seed: int, *, per_column: bool = False):
                  plain_ms=cuda_ms(plain, iters=3),
                  library_ms=cuda_ms(lambda: bins.index_add_(0, tids,
                                                             masked)),
-                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+                 bound_ms=nbytes / RL.HBM_BW * 1e3, bytes=nbytes)
         rows[name] = r
         log(f"time chunk_walk_tiles [forest, {name}]: {r['ms']:.4f} ms "
             f"on the device ({r['host_ms']:.4f} ms a call issued from "
@@ -1953,7 +1995,7 @@ def phase_k2_forest(forest, dag, seed: int, *, per_column: bool = False):
                                                      order=order)),
              plain_ms=cuda_ms(lambda: K.segment_sum_sorted_ref(
                  flat, keys, num, order), iters=3),
-             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+             bound_ms=nbytes / RL.HBM_BW * 1e3, bytes=nbytes)
     rows["segment_sum_sorted [forest fixup]"] = r
     log(f"time segment_sum_sorted [forest fixup, {n} x {FOREST_WIDTH} "
         f"partials into {num} segments]: {r['ms']:.4f} ms (bound "
@@ -1968,6 +2010,7 @@ def phase_segmm_times(cases, prepared):
     weights, with the achieved TFLOP/s (on the routed rows), its share of
     the 67 TFLOP/s float32 peak, the ratio to ``torch.bmm`` and K6's team
     and CTA count; the MoE w1 case fills the kernels line."""
+    from repro_torch.launch import roofline as RL
     import torch
     from repro_torch.kernels.segmm import kernel as SK
 
@@ -1982,7 +2025,7 @@ def phase_segmm_times(cases, prepared):
                   + busy * k_dim * n_dim * rhs.element_size()
                   + atoms * n_dim * 4)
         bound_flops = flops / F32_FLOP_PER_S * 1e3
-        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_bytes = nbytes / RL.HBM_BW * 1e3
         bound = max(bound_flops, bound_bytes)
         bound_by = "operations" if bound_flops >= bound_bytes else "bytes"
         nblk = o5.num_blocks
@@ -2307,6 +2350,7 @@ def sdpa_call(q, k, v, mask):
 def phase_swa_times(cfg, seed: int) -> dict:
     """K7 at the prefill's launch shape (CUDA events) beside its bound, its
     plain version and SDPA with the band mask."""
+    from repro_torch.launch import roofline as RL
     import torch
     from repro_torch.kernels.flash_swa import kernel as FK
 
@@ -2329,9 +2373,9 @@ def phase_swa_times(cfg, seed: int) -> dict:
     flops = 4 * hd * h * pairs
     executed = mma_executed_flop(PROMPT, window, h, hd)
     nbytes = 2 * PROMPT * hd * (2 * h + 2 * hkv)
-    bound_bf16 = flops / BF16_FLOP_PER_S * 1e3
+    bound_bf16 = flops / RL.PEAK_FLOPS_BF16 * 1e3
     bound_f32 = flops / F32_FLOP_PER_S * 1e3
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_bytes = nbytes / RL.HBM_BW * 1e3
     bound = max(bound_bf16, bound_bytes)
     bound_by = "operations" if bound_bf16 >= bound_bytes else "bytes"
 
@@ -2461,6 +2505,7 @@ def phase_swa_bwd(cfg, seed: int) -> dict:
     """K7's backward at the training shape (bf16) and the edges against
     its plain version, rerun for the same bits; timed beside its bound,
     its plain version, K7's forward with lse and SDPA's backward."""
+    from repro_torch.launch import roofline as RL
     import torch
     from repro_torch.kernels.flash_swa import kernel as FK
 
@@ -2510,8 +2555,8 @@ def phase_swa_bwd(cfg, seed: int) -> dict:
     nbytes = (2 * TRAIN_SEQ * hd * (3 * h + 2 * hkv)     # q, out, dout, k, v
               + 4 * h * TRAIN_SEQ                        # lse
               + 2 * TRAIN_SEQ * hd * (h + 2 * hkv))      # dq, dk, dv
-    bound_ops = flops / BF16_FLOP_PER_S * 1e3
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / RL.PEAK_FLOPS_BF16 * 1e3
+    bound_bytes = nbytes / RL.HBM_BW * 1e3
     bound = max(bound_ops, bound_bytes)
     bound_by = "operations" if bound_ops >= bound_bytes else "bytes"
 
@@ -2677,6 +2722,7 @@ def phase_train(cfg, seed: int, profile: bool) -> tuple:
     launches of the steps and their e2e seconds."""
     import torch
     from repro_torch.data.synthetic import batch_at, for_model
+    from repro_torch.launch import roofline as RL
     from repro_torch.models.lm import init_params, param_count, tree_leaves
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     from repro_torch.train.step import make_train_step
@@ -2728,14 +2774,15 @@ def phase_train(cfg, seed: int, profile: bool) -> tuple:
         now = leaf.reshape(-1)[::max(1, leaf.numel() // 4096)]
         check(not torch.equal(now, samples[path]),
               f"train: {path} did not change")
+    MEASURED["train_peak"] = peak
     step_s = statistics.median(times[1:] or times)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n_params = param_count(cfg)
     n_matmul = n_params - cfg.padded_vocab * cfg.d_model   # no embed table
     attn = (12 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim
             * band_pairs(TRAIN_SEQ, cfg.sliding_window) * TRAIN_BATCH)
-    model_flop = 6 * n_matmul * tokens + attn
-    share = model_flop / step_s / BF16_FLOP_PER_S
+    model_flop = int(RL.model_flops(cfg, train_case(), n_matmul)) + attn
+    share = model_flop / step_s / RL.PEAK_FLOPS_BF16
     log(f"train {cfg.name}: {cfg.num_layers} layers at full width "
         f"({n_params} parameters, float32 master weights and AdamW state), "
         f"S {TRAIN_SEQ}, global batch {TRAIN_BATCH} in {TRAIN_MICRO} "
@@ -2747,7 +2794,8 @@ def phase_train(cfg, seed: int, profile: bool) -> tuple:
         f"{n_matmul} (parameters less the embedding table) x {tokens} "
         f"tokens + 12 L H hd pairs B = {attn} (attention's band, forward "
         f"and backward), {model_flop / step_s / 1e12:.1f} TFLOP/s = "
-        f"{share:.3f} of the 989 TFLOP/s bf16 peak; init {init_s:.1f} s")
+        f"{share:.3f} of the {RL.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16 "
+        f"peak (roofline.PEAK_FLOPS_BF16); init {init_s:.1f} s")
     log("train launches: " + json.dumps(totals))
     e2e = {f"train step[{cfg.name}, S {TRAIN_SEQ}, batch {TRAIN_BATCH}]":
            step_s}
@@ -2760,6 +2808,12 @@ def phase_train(cfg, seed: int, profile: bool) -> tuple:
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return totals, e2e
+
+
+def train_case():
+    """Phase 24's cell: S 8,192, global batch 2 (``configs.ShapeCase``)."""
+    from repro_torch.configs import ShapeCase
+    return ShapeCase(f"train_{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH, "train")
 
 
 def run_slice10(seed: int, profile: bool) -> tuple:
@@ -3102,6 +3156,7 @@ def phase_lm_mesh(cfg, seed: int) -> tuple:
             e2e[f"train step[mesh 2x2, {cut.name} x {cut.num_layers}, S "
                 f"{TRAIN_SEQ}, batch {MESH_BATCH}]"] = step_s
     r0 = ranks[0]
+    MEASURED["mesh_peak"] = r0["peak"]
     one = statistics.median([s for _, s in single[1:]] or [single[0][1]])
     log(f"lm mesh one device: {one * 1e3:.1f} ms a step (median of steps "
         f"2-{MESH_STEPS}), {tokens / one:.0f} tokens/s; every rank's losses "
@@ -3135,6 +3190,353 @@ def phase_lm_mesh(cfg, seed: int) -> tuple:
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return totals, e2e
+
+
+# ---------------------------------------------------------------------------
+# the GPipe pipeline over ``pod``, and the dry run's estimate
+# ---------------------------------------------------------------------------
+
+def pipe_layers(cfg, seed: int, layers, device):
+    """Stacked ``params["layers"]`` of ``cfg``'s layers ``layers``, layer
+    ``j`` drawn from a seed of its own: a rank draws its stage alone and
+    gets the same values as the whole stack drawn in one process."""
+    import torch
+    from repro_torch.models.lm import init_params, tree_map
+    one = dataclasses.replace(cfg, num_layers=1)
+    drawn = []
+    for j in layers:
+        gen = torch.Generator(device=device).manual_seed(seed * 1009 + j)
+        drawn.append(init_params(one, gen, device=device)[0]["layers"])
+    return tree_map(lambda *ls: torch.cat(ls), *drawn)
+
+
+def pipe_inputs(cfg, seed: int, s: int, device, dtype):
+    """``xs``: ``PIPE_MICRO`` microbatches of one sequence ``[1, s,
+    d_model]``, the same on every rank."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed + 15)
+    return torch.randn((PIPE_MICRO, 1, s, cfg.d_model), generator=gen,
+                       device=device).to(dtype)
+
+
+def pipe_step(apply, params, xs):
+    """One training step's forward and backward through ``apply``:
+    ``(loss, y)`` with the loss ``mean(y.float()**2)``; the stage
+    gradients in ``.grad``."""
+    from repro_torch.models.lm import tree_leaves
+    for _, p in tree_leaves(params):
+        p.grad = None
+    y = apply(params, xs)
+    loss = (y.float() ** 2).mean()
+    loss.backward()
+    return loss.detach(), y.detach()
+
+
+def pipe_counts(ticks: int, layers: int, mma: bool) -> dict:
+    """K7 launches of one step: a layer a tick, forward and remat
+    recompute, then the backward."""
+    out = dict(flash_swa=2 * ticks * layers, flash_swa_bwd=ticks * layers)
+    if mma:
+        out.update(flash_swa_mma=2 * ticks * layers,
+                   flash_swa_bwd_mma=ticks * layers)
+    return out
+
+
+def pipe_sequential(cfg, seed: int) -> dict:
+    """The pipeline phase's steps run sequentially on one device in this
+    process (``reference_apply`` over every stage): ms a step, launches,
+    peak memory."""
+    import torch
+    from repro_torch.models.lm import tree_map
+    from repro_torch.train.pipeline import (block_stage_fn, reference_apply,
+                                            split_stages)
+
+    full = pipe_layers(cfg, seed, range(cfg.num_layers), DEVICE)
+    params = tree_map(lambda a: a.detach().requires_grad_(),
+                      split_stages(full, PIPE_RANKS))
+    del full
+    xs = pipe_inputs(cfg, seed, TRAIN_SEQ, DEVICE, torch.bfloat16)
+    stage_fn = block_stage_fn(cfg, TRAIN_SEQ)
+    apply = lambda p, x: reference_apply(stage_fn, p, x, PIPE_RANKS)
+    want = pipe_counts(PIPE_MICRO, cfg.num_layers, True)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(PIPE_STEPS):
+        reset_all_counts()
+        (loss, _), secs = wall_s(lambda: pipe_step(apply, params, xs))
+        counts = {k: all_counts()[k] for k in want}
+        check(counts == want, f"pipeline one device step {i + 1}: launches "
+              f"{counts}, expected {want}")
+        times.append(secs)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    del params, xs
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return dict(times=times, losses=losses, counts=want, peak=peak)
+
+
+def pipe_train(mesh, cfg, seed: int) -> dict:
+    """One rank's part of the pipeline's bf16 training steps: its stage's
+    float32 weights, each step's loss, time, launches, hops and
+    broadcast; every leaf of its gradient finite and nonzero."""
+    import torch
+    from repro_torch.models.lm import tree_leaves, tree_map
+    from repro_torch.train.pipeline import (block_stage_fn,
+                                            make_pipeline_apply)
+
+    dev, world = mesh.device, mesh.axis_size("pod")
+    stage, per = mesh.coord("pod"), cfg.num_layers // world
+    mine = pipe_layers(cfg, seed, range(stage * per, (stage + 1) * per), dev)
+    params = tree_map(lambda a: a[None].detach().requires_grad_(), mine)
+    del mine
+    xs = pipe_inputs(cfg, seed, TRAIN_SEQ, dev, torch.bfloat16)
+    apply = make_pipeline_apply(block_stage_fn(cfg, TRAIN_SEQ), mesh, world,
+                                PIPE_MICRO)
+    ticks = PIPE_MICRO + world - 1
+    want = pipe_counts(ticks, per, True)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for i in range(PIPE_STEPS):
+        reset_all_counts()
+        mesh.stats.reset()
+        (loss, _), secs = wall_s(lambda: pipe_step(apply, params, xs))
+        counts = {k: all_counts()[k] for k in want}
+        check(counts == want, f"pipeline rank {mesh.rank} step {i + 1}: "
+              f"launches {counts}, expected {want}")
+        check(math.isfinite(float(loss)), f"pipeline rank {mesh.rank} step "
+              f"{i + 1}: loss {float(loss)}")
+        kinds = mesh.stats.kinds
+        hop = kinds.get(("collective-permute", world), [0, 0, 0.0])
+        out = kinds.get(("broadcast", world), [0, 0, 0.0])
+        steps.append(dict(loss=float(loss), secs=secs, counts=counts,
+                          hop=list(hop), out=list(out)))
+    for path, p in tree_leaves(params):
+        check(bool(torch.isfinite(p.grad).all()),
+              f"pipeline rank {mesh.rank}: {path}'s gradient not finite")
+        check(bool((p.grad != 0).any()),
+              f"pipeline rank {mesh.rank}: {path}'s gradient is zero")
+    peak = torch.cuda.max_memory_allocated(dev) if DEVICE == "cuda" else 0
+    return dict(steps=steps, peak=peak, ticks=ticks)
+
+
+def pipe_f32(mesh, cfg, seed: int) -> dict:
+    """The float32 parity check: the pipeline's output and every stage's
+    gradient, gathered, on rank 0 against ``reference_apply`` on one
+    device."""
+    import torch
+    from repro_torch.launch.mesh import NamedSharding
+    from repro_torch.models.lm import tree_leaves, tree_map
+    from repro_torch.train.pipeline import (block_stage_fn,
+                                            make_pipeline_apply,
+                                            reference_apply, split_stages)
+
+    dev, world = mesh.device, mesh.axis_size("pod")
+    stage, f32 = mesh.coord("pod"), torch.float32
+    params = tree_map(lambda a: a[None].detach().requires_grad_(),
+                      pipe_layers(cfg, seed + 1, [stage], dev))
+    xs = pipe_inputs(cfg, seed + 1, PIPE_F32_S, dev, f32)
+    stage_fn = block_stage_fn(cfg, PIPE_F32_S)
+    apply = make_pipeline_apply(stage_fn, mesh, world, PIPE_MICRO)
+    reset_all_counts()
+    (loss, y), secs = wall_s(lambda: pipe_step(apply, params, xs))
+    counts = {k: all_counts()[k] for k in ("flash_swa", "flash_swa_bwd")}
+    want_counts = pipe_counts(PIPE_MICRO + world - 1, 1, False)
+    check(counts == want_counts, f"pipeline f32 rank {mesh.rank}: launches "
+          f"{counts}, expected {want_counts}")
+    by_stage = NamedSharding(mesh, ("pod",))
+    grads = {path: by_stage.gather(p.grad) for path, p in tree_leaves(params)}
+    out = dict(f32_secs=secs, f32_counts=counts)
+    if mesh.rank == 0:
+        full = tree_map(lambda a: a.detach().requires_grad_(), split_stages(
+            pipe_layers(cfg, seed + 1, range(world), dev), world))
+        want_y = reference_apply(stage_fn, full, xs, world)
+        (want_y.float() ** 2).mean().backward()
+        out["f32_out_err"] = check_close("pipeline f32 output", y,
+                                         want_y.detach(), PIPE_OUT_TOL)
+        out["f32_loss"] = (float(loss),
+                           float((want_y.detach().float() ** 2).mean()))
+        worst = 0.0
+        for path, p in tree_leaves(full):
+            worst = max(worst, leaf_close(f"pipeline f32 grad {path}",
+                                          grads[path], p.grad,
+                                          TRAIN_GRAD_TOL))
+        out["f32_worst"] = worst
+    return out
+
+
+def pipe_rank_job(world: int, job: dict) -> dict:
+    """The pipeline phase on one rank of the ``(pod, data) = (world, 1)``
+    mesh: the bf16 training steps, then the float32 parity check."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+
+    base = get_config(LM_ARCH)
+    mesh = make_mesh((world, 1), ("pod", "data"), device=DEVICE)
+    out = dict(mesh=str(mesh), backend=mesh.backend)
+    out.update(pipe_train(mesh, dataclasses.replace(
+        base, num_layers=PIPE_LAYERS), job["seed"]))
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out.update(pipe_f32(mesh, dataclasses.replace(
+        base, num_layers=PIPE_F32_LAYERS, sliding_window=PIPE_F32_WINDOW,
+        attn_query_chunk=PIPE_F32_WINDOW // 2), job["seed"]))
+    return out
+
+
+def phase_pipeline(cfg, seed: int) -> tuple:
+    """The GPipe pipeline (``train/pipeline.py``) over four spawned ranks
+    sharing this card in one gloo group, its stages Danube blocks at full
+    width; the same layers run sequentially on one device first.  Returns
+    the ranks' K7 launches and the e2e seconds."""
+    import torch
+
+    cut = dataclasses.replace(cfg, num_layers=PIPE_LAYERS)
+    one = pipe_sequential(cut, seed)
+    one_s = statistics.median(one["times"][1:] or one["times"])
+    log(f"pipeline one device: {cut.name} x {PIPE_LAYERS} layers at full "
+        f"width, {PIPE_MICRO} microbatches of S {TRAIN_SEQ}, bf16 compute "
+        f"from float32 weights, remat, run in order (reference_apply); "
+        f"losses {one['losses']}; {one_s * 1e3:.1f} ms a step (median of "
+        f"steps 2-{PIPE_STEPS}; step 1 {one['times'][0] * 1e3:.1f} ms); "
+        f"peak device memory {one['peak'] / 2**30:.2f} GiB; launches a step "
+        f"{json.dumps(one['counts'])}")
+    ranks, secs = wall_s(lambda: run_shard_ranks(
+        PIPE_RANKS, dict(seed=seed), fn="pipe_rank_job",
+        timeout_s=PIPE_TIMEOUT_S, deadline_s=PIPE_DEADLINE_S))
+    ticks = ranks[0]["ticks"]
+    MEASURED["pipe_peaks"] = [res["peak"] for res in ranks]
+    log(f"pipeline: {PIPE_RANKS} processes on this card in one gloo group "
+        f"({ranks[0]['mesh']}), {secs:.1f} s in all; four stages share one "
+        f"card and each hop goes through host memory, so these times are "
+        f"the pipeline's overhead, not its scaling")
+    totals = {"flash_swa": 0, "flash_swa_bwd": 0}
+    e2e = {}
+    for r, res in enumerate(ranks):
+        steps = res["steps"]
+        for i, row in enumerate(steps):
+            check(abs(row["loss"] - one["losses"][i])
+                  <= MESH_RTOL * abs(one["losses"][i]),
+                  f"pipeline rank {r} step {i + 1}: loss {row['loss']!r} vs "
+                  f"one device {one['losses'][i]!r} (rtol {MESH_RTOL})")
+            for name in totals:
+                totals[name] += row["counts"][name]
+        step_s = statistics.median([row["secs"] for row in steps[1:]]
+                                   or [steps[0]["secs"]])
+        last = steps[-1]
+        hop_calls, hop_bytes, hop_s = last["hop"]
+        log(f"pipeline rank {r} (stage {r}, {PIPE_LAYERS // PIPE_RANKS} "
+            f"layers): losses {[row['loss'] for row in steps]}; "
+            f"{step_s * 1e3:.1f} ms a step (median of steps 2-{PIPE_STEPS}; "
+            f"step 1 {steps[0]['secs'] * 1e3:.1f} ms); T = {ticks} ticks, "
+            f"bubble share (P-1)/T = {(PIPE_RANKS - 1) / ticks:.3f}; hops a "
+            f"step {hop_calls} calls, {hop_bytes / 2**20:.1f} MiB sent, "
+            f"{hop_s * 1e3:.1f} ms; output broadcast {last['out'][0]} call, "
+            f"{last['out'][1] / 2**20:.1f} MiB, {last['out'][2] * 1e3:.1f} "
+            f"ms; peak device memory {res['peak'] / 2**30:.2f} GiB; launches "
+            f"a step {json.dumps(last['counts'])}")
+        if r == 0:
+            e2e[f"pipeline step[{PIPE_RANKS} stages on one card, {cut.name} "
+                f"x {PIPE_LAYERS}, {PIPE_MICRO} x S {TRAIN_SEQ}]"] = step_s
+    e2e[f"pipeline step[one device, {cut.name} x {PIPE_LAYERS}, "
+        f"{PIPE_MICRO} x S {TRAIN_SEQ}]"] = one_s
+    r0 = ranks[0]
+    loss, want_loss = r0["f32_loss"]
+    log(f"pipeline f32 ({PIPE_F32_LAYERS} layers, one a stage, S "
+        f"{PIPE_F32_S}, window {PIPE_F32_WINDOW}, {PIPE_MICRO} "
+        f"microbatches): output within {r0['f32_out_err']!r} of "
+        f"reference_apply on one device (limit {PIPE_OUT_TOL}), loss "
+        f"{loss!r} vs {want_loss!r}; every gathered stage gradient leaf "
+        f"within {r0['f32_worst']:.3e} of its largest entry (limit "
+        f"{TRAIN_GRAD_TOL}); launches {json.dumps(r0['f32_counts'])} a rank; "
+        f"{r0['f32_secs']:.2f} s")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return totals, e2e
+
+
+def dryrun_peak(label: str, t: dict, measured: int) -> None:
+    """Log one traced step's peak estimate beside the measured peak and
+    hold it within ``DRYRUN_PEAK_TOL``."""
+    mem = t["memory"]
+    est = mem["peak_estimate_bytes"]
+    off = est / measured - 1.0
+    log(f"dry-run check {label}: traced on meta in {t['trace_s']:.1f} s, "
+        f"peak estimate {est / 2**30:.2f} GiB (arguments "
+        f"{mem['argument_size_in_bytes'] / 2**30:.2f} + most live in the "
+        f"step {mem['temp_size_in_bytes'] / 2**30:.2f}) vs measured "
+        f"max_memory_allocated {measured / 2**30:.2f} GiB: {off:+.3f} (limit "
+        f"{DRYRUN_PEAK_TOL}); launches tallied {json.dumps(t['kernels'])}")
+    check(abs(off) <= DRYRUN_PEAK_TOL,
+          f"dry-run check {label}: peak estimate {est} B is {off:+.3f} off "
+          f"the measured {measured} B (limit {DRYRUN_PEAK_TOL})")
+
+
+def phase_dryrun_check(cfg) -> None:
+    """Steps whose peak this run measured, traced on the ``meta`` device
+    by the dry run (``launch/dryrun.py``), each peak estimate held to the
+    measured one: phase 24's one-device train step (its flop count beside
+    6ND), rank 0's step of phase 25's ``(2, 2)`` mesh, and each stage's
+    step of phase 26's pipeline."""
+    import torch
+    from repro_torch.configs import ShapeCase
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.dryrun import build_cell, fake_world, trace_step
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models.lm import (active_param_count, param_shapes,
+                                       tree_map)
+    from repro_torch.train.pipeline import block_stage_fn, make_pipeline_apply
+
+    case = train_case()
+    step, args = build_cell(cfg, case, make_host_mesh(device="meta"),
+                            TRAIN_MICRO)
+    t = trace_step(step, args)
+    del step, args
+    dryrun_peak(f"{cfg.name} train step (full depth, S {TRAIN_SEQ}, batch "
+                f"{TRAIN_BATCH} in {TRAIN_MICRO} microbatches, float32 "
+                f"masters, bf16 compute, remat; phase 24)", t,
+                MEASURED["train_peak"])
+    mf = RL.model_flops(cfg, case, active_param_count(cfg))
+    log(f"dry-run check flops {t['flops']:.4g} ({t['kernel_flops']:.4g} of "
+        f"them K7's and its backward's) vs model_flops 6ND {mf:.4g} (ratio "
+        f"{t['flops'] / mf:.3f}); bytes read and written {t['bytes']:.4g}")
+
+    cut = dataclasses.replace(cfg, num_layers=MESH_LAYERS)
+    with fake_world(MESH_RANKS):
+        mesh = make_host_mesh(MESH_MODEL_AXIS, device="meta")
+        step, args = build_cell(cut, ShapeCase(f"train_{TRAIN_SEQ}", TRAIN_SEQ,
+                                               MESH_BATCH, "train"),
+                                mesh, MESH_MICRO)
+        t = trace_step(step, args, mesh)
+        del step, args
+    dryrun_peak(f"mesh rank 0 train step ((data, model) = "
+                f"({MESH_RANKS // MESH_MODEL_AXIS}, {MESH_MODEL_AXIS}), "
+                f"{cut.num_layers} "
+                f"layers, S {TRAIN_SEQ}, global batch {MESH_BATCH} in "
+                f"{MESH_MICRO} microbatches; phase 25)", t,
+                MEASURED["mesh_peak"])
+
+    cut = dataclasses.replace(cfg, num_layers=PIPE_LAYERS)
+    per = PIPE_LAYERS // PIPE_RANKS
+    for r, measured in enumerate(MEASURED["pipe_peaks"]):
+        with fake_world(PIPE_RANKS, r):
+            mesh = make_mesh((PIPE_RANKS, 1), ("pod", "data"), device="meta")
+            params = tree_map(
+                lambda a: a[None].detach().requires_grad_(),
+                param_shapes(dataclasses.replace(
+                    cfg, num_layers=per))["layers"])
+            xs = torch.empty((PIPE_MICRO, 1, TRAIN_SEQ, cfg.d_model),
+                             dtype=torch.bfloat16, device="meta")
+            apply = make_pipeline_apply(block_stage_fn(cut, TRAIN_SEQ), mesh,
+                                        PIPE_RANKS, PIPE_MICRO)
+            t = trace_step(lambda p, x: pipe_step(apply, p, x),
+                           (params, xs), mesh)
+            del params, xs, apply
+        dryrun_peak(f"pipeline stage {r} step ({per} layers, {PIPE_MICRO} "
+                    f"microbatches of S {TRAIN_SEQ}; phase 26)", t, measured)
 
 
 def phase_profile(calls) -> None:
@@ -3199,6 +3601,7 @@ def main(argv=None) -> int:
 
 
 def run(args, t_start: float) -> int:
+    from repro_torch.launch import roofline as RL
     import torch
 
     card_line, sms = phase_card()
@@ -3246,7 +3649,7 @@ def run(args, t_start: float) -> int:
     for name, secs in e2e.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
     for name, row in rows.items():
-        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        row["bound_ms"] = row["bytes"] / RL.HBM_BW * 1e3
         row["bound_by"] = "bytes"
     del A, g, x, plans, plan
     torch.cuda.empty_cache()
@@ -3321,6 +3724,19 @@ def run(args, t_start: float) -> int:
         launches[name] += mesh_counts[name]
     for name, secs in e2e5.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
+
+    # the GPipe pipeline over four ranks on this card, then the dry run's
+    # estimates of the steps of phases 24-26 against their measurements
+    pipe_launches, e2e6 = phase_pipeline(get_config(LM_ARCH), args.seed)
+    log(f"main-path launches flash_swa: {launches['flash_swa']} (prefill, "
+        f"training steps, mesh training) + {pipe_launches['flash_swa']} "
+        f"(pipeline, every rank); flash_swa_bwd: {launches['flash_swa_bwd']}"
+        f" + {pipe_launches['flash_swa_bwd']}")
+    for name in pipe_launches:
+        launches[name] += pipe_launches[name]
+    for name, secs in e2e6.items():
+        log(f"e2e {name}: {secs * 1e3:.1f} ms")
+    phase_dryrun_check(get_config(LM_ARCH))
 
     kernels = []
     for name, (source_file, replaces) in KERNELS.items():

@@ -33,15 +33,17 @@ checks its operands as the reference does (``S % qc == 0`` and ``window %
 qc == 0``; ``qc`` is only checked: the kernels pick their own tiles),
 allocates the output (and, with ``return_lse``, the row log-sum-exp the
 backward needs), and for CUDA tensors launches the kernel that
-:func:`kernel_for` names on the current stream and adds one to its
-counters in :data:`LAUNCHES`; for CPU tensors it runs
-:func:`flash_swa_plain`, which is also what the kernels are tested
-against.  :func:`flash_swa_bwd` does the same with the kernel that
-:func:`bwd_kernel_for` names and with :func:`flash_swa_bwd_plain`.  Other
-devices raise.  Unlike the reference kernel they take GQA operands
-directly (``k``/``v`` with ``Hkv`` heads, ``H % Hkv == 0``).  float32
-stays off the tensor cores: TF32 would round its inputs.  ``ops.py`` ties
-the two into an autograd function.
+:func:`kernel_for` names on the current stream and adds one to its counters
+in :data:`LAUNCHES`; for CPU tensors it runs :func:`flash_swa_plain`, which
+is also what the kernels are tested against.  :func:`flash_swa_bwd` does
+the same with the kernel that :func:`bwd_kernel_for` names and with
+:func:`flash_swa_bwd_plain`.  For ``meta`` tensors (the dry run) both
+return empty outputs of the kernels' shapes, launch nothing and add the
+kernels' useful flop and bytes to :data:`repro_torch.kernels.tally.TALLY`.
+Other devices raise.  Unlike the reference kernel they take GQA operands
+directly (``k``/``v`` with ``Hkv`` heads, ``H % Hkv == 0``).  float32 stays
+off the tensor cores: TF32 would round its inputs.  ``ops.py`` ties the two
+into an autograd function.
 """
 from __future__ import annotations
 
@@ -50,7 +52,7 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tally
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 
@@ -156,7 +158,8 @@ def _function(source: pathlib.Path, name: str):
 
 
 def _on_card(device: torch.device) -> bool:
-    """True for CUDA (launch the kernel), False for CPU (plain version)."""
+    """True for CUDA (launch the kernel), False for CPU (plain version).
+    ``meta`` tensors take neither (see :mod:`repro_torch.kernels.tally`)."""
     if device.type == "cuda":
         return True
     if device.type == "cpu":
@@ -173,6 +176,14 @@ def flash_swa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with ``return_lse`` also each row's log-sum-exp, float32 ``[B, H,
     S]``."""
     b, s, h, hkv, hd = _check(q, k, v, window, qc)
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+               if return_lse else None)
+        tally.add("flash_swa", 4 * hd * h * b * tally.band_pairs(s, window),
+                  tally.nbytes(q, k, v, out, *(() if lse is None
+                                               else (lse,))))
+        return (out, lse) if return_lse else out
     if not _on_card(q.device):
         return flash_swa_plain(q, k, v, window=window, qc=qc,
                                return_lse=return_lse)
@@ -275,6 +286,12 @@ def flash_swa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_swa_bwd_mma`` for the first); CPU tensors run
     :func:`flash_swa_bwd_plain`."""
     b, s, h, hkv, hd = _check_bwd(q, k, v, out, lse, dout, window, qc)
+    if q.device.type == "meta":
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+        tally.add("flash_swa_bwd",
+                  10 * hd * h * b * tally.band_pairs(s, window),
+                  tally.nbytes(q, k, v, out, lse, dout, *grads))
+        return grads
     if not _on_card(q.device):
         return flash_swa_bwd_plain(q, k, v, out, lse, dout, window=window,
                                    qc=qc)

@@ -9,13 +9,16 @@ launch counter                CUDA source         replaces (reference)
 ============================  ==================  ==========================
 
 A wrapper checks its operands as the reference does (``m_pad % bm == 0``,
-``bk = min(bk, K)``, ``bn = min(bn, N)``, ``K % bk == 0``, ``N % bn == 0``),
-allocates the output, and for CUDA tensors launches the kernel on the
+``bk = min(bk, K)``, ``bn = min(bn, N)``, ``K % bk == 0``, ``N % bn ==
+0``), allocates the output, and for CUDA tensors launches the kernel on the
 current stream and adds one to :data:`LAUNCHES`; for CPU tensors it runs
 the plain version beside it (``*_plain``), which is also what the kernel is
-tested against.  Other devices raise.  ``bn``/``bk`` only have to pass the
-checks: the kernels pick their own tiles, and every output element is one
-ascending-k float32 FMA chain whatever ``bm``, ``bn`` and ``bk`` are.
+tested against.  For ``meta`` tensors (the dry run) it returns an empty
+output, launches nothing and adds the kernel's flop and bytes to
+:data:`repro_torch.kernels.tally.TALLY`.  Other devices raise.
+``bn``/``bk`` only have to pass the checks: the kernels pick their own
+tiles, and every output element is one ascending-k float32 FMA chain
+whatever ``bm``, ``bn`` and ``bk`` are.
 
 Launch geometry (plain Python, so the CPU tests reach it): both kernels
 compute 128 x 128 output tiles from groups of :func:`block_group` M-blocks.
@@ -35,7 +38,7 @@ import pathlib
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tally
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 
@@ -168,6 +171,20 @@ def _on_card(device: torch.device) -> bool:
     raise ValueError(f"no kernel or plain version for device {device}")
 
 
+def _meta_out(name: str, lhs_padded: torch.Tensor, rhs: torch.Tensor,
+              *operands: torch.Tensor) -> torch.Tensor:
+    """The ``meta`` path of both kernels: an empty f32 ``[M_pad, N]``, no
+    launch, and ``2 M_pad K N`` flop in :data:`tally.TALLY` (each
+    M-block's rows against one expert's ``[K, N]``)."""
+    m_pad, k_dim = lhs_padded.shape
+    n_dim = rhs.shape[2]
+    out = torch.empty((m_pad, n_dim), dtype=torch.float32,
+                      device=lhs_padded.device)
+    tally.add(name, 2 * m_pad * k_dim * n_dim,
+              tally.nbytes(lhs_padded, rhs, out, *operands))
+    return out
+
+
 def _check_int32(t, name: str, device: torch.device,
                  length: int | None = None) -> None:
     if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
@@ -224,6 +241,8 @@ def segmented_matmul(lhs_padded: torch.Tensor, rhs: torch.Tensor,
     """
     m_pad, k_dim, n_dim, e_dim = _check_operands(lhs_padded, rhs,
                                                  block_expert, bm, bn, bk)
+    if lhs_padded.device.type == "meta":
+        return _meta_out("segmented_matmul", lhs_padded, rhs, block_expert)
     if not _on_card(lhs_padded.device):
         return segmented_matmul_plain(lhs_padded, rhs, block_expert, bm=bm,
                                       bn=bn, bk=bk)
@@ -306,6 +325,9 @@ def segmented_matmul_chunked(lhs_padded: torch.Tensor, rhs: torch.Tensor,
                                                  block_expert, bm, bn, bk)
     num_physical = _check_queue(block_chunks_flat, chunk_counts,
                                 lhs_padded.device, max_chunks)
+    if lhs_padded.device.type == "meta":
+        return _meta_out("segmented_matmul_chunked", lhs_padded, rhs,
+                         block_expert, block_chunks_flat, chunk_counts)
     if not _on_card(lhs_padded.device):
         return segmented_matmul_chunked_plain(
             lhs_padded, rhs, block_expert, block_chunks_flat, chunk_counts,

@@ -32,10 +32,16 @@ card.
 Every collective is counted in :attr:`GraphMesh.stats`: calls, bytes, and
 the host time between a device synchronize before it and one after it
 (so the time is the collective's, waiting for the slowest rank included,
-not the queued work that produces its operand).
+not the queued work that produces its operand), in all and by kind and
+group size (:data:`KINDS`), which the roofline's ring factors read.
+Besides the collectives above, an axis sends to its neighbours
+(:meth:`GraphMesh.shift`, the reference's ``ppermute``) and broadcasts
+(:meth:`GraphMesh.broadcast`); under gloo those two stage CUDA tensors
+through host memory.
 
 The LM's mesh (:class:`LMMesh`, from :func:`make_host_mesh` or
-:func:`make_production_mesh`, the reference's ``launch/mesh.py``) lays the
+:func:`make_production_mesh`, or of any shape from :func:`make_mesh`: the
+reference's ``launch/mesh.py``) lays the
 ranks of a process group out row-major over its axes: ``data`` is the FSDP
 and batch axis, ``model`` the tensor-parallel one, ``pod`` a second batch
 axis.  Each axis is a :class:`GraphMesh` over the sub-group of the ranks
@@ -61,22 +67,48 @@ import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 
-__all__ = ["CollectiveStats", "GraphMesh", "LMMesh", "NamedSharding",
-           "launcher_backend", "launcher_mesh", "make_graph_mesh",
-           "make_host_mesh", "make_production_mesh", "sharded"]
+__all__ = ["KINDS", "CollectiveStats", "GraphMesh", "LMMesh",
+           "NamedSharding", "launcher_backend", "launcher_mesh",
+           "make_graph_mesh", "make_host_mesh", "make_mesh",
+           "make_production_mesh", "sharded"]
+
+
+#: The collective kinds :class:`CollectiveStats` records, as the
+#: reference's roofline names them (``broadcast`` is the port's own: the
+#: pipeline's output from its last stage).
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute", "broadcast")
 
 
 @dataclasses.dataclass
 class CollectiveStats:
-    """Running totals of one mesh's collectives."""
+    """Running totals of one mesh's collectives, and by kind: ``kinds[(kind,
+    group size)] = [calls, bytes, seconds]``, the bytes each call returned
+    (what a collective-permute sent; the roofline's ring factors apply to
+    them: ``repro_torch.launch.roofline.stats_wire_bytes``)."""
 
     calls: int = 0
     bytes: int = 0              # bytes each collective returned
     seconds: float = 0.0        # host clock, synchronized on both sides
+    kinds: Dict[Tuple[str, int], list] = dataclasses.field(
+        default_factory=dict)
 
     def reset(self) -> None:
         self.calls = self.bytes = 0
         self.seconds = 0.0
+        self.kinds.clear()
+
+    def record(self, kind: str, group_size: int, nbytes: int,
+               seconds: float) -> None:
+        if kind not in KINDS:
+            raise ValueError(f"unknown collective kind {kind!r}")
+        self.calls += 1
+        self.bytes += nbytes
+        self.seconds += seconds
+        row = self.kinds.setdefault((kind, group_size), [0, 0, 0.0])
+        row[0] += 1
+        row[1] += nbytes
+        row[2] += seconds
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +156,7 @@ class GraphMesh:
             warnings.simplefilter("ignore", FutureWarning)
             dist.all_gather_into_tensor(out, src, group=self.group)
         self._sync()
-        self._count(t0, out)
+        self._count(t0, out, "all-gather")
         return out.view(torch.bool) if as_bytes else out
 
     def all_reduce(self, x: torch.Tensor,
@@ -137,7 +169,7 @@ class GraphMesh:
         t0 = time.perf_counter()
         dist.all_reduce(out, op=op, group=self.group)
         self._sync()
-        self._count(t0, out)
+        self._count(t0, out, "all-reduce")
         return out
 
     def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
@@ -154,13 +186,75 @@ class GraphMesh:
             warnings.simplefilter("ignore", FutureWarning)
             dist.reduce_scatter_tensor(out, x, group=self.group)
         self._sync()
-        self._count(t0, out)
+        self._count(t0, out, "reduce-scatter")
         return out
 
-    def _count(self, t0: float, out: torch.Tensor) -> None:
-        self.stats.seconds += time.perf_counter() - t0
-        self.stats.calls += 1
-        self.stats.bytes += out.numel() * out.element_size()
+    def _global(self, coord: int) -> int:
+        """The default group's rank of coordinate ``coord`` on this axis
+        (point-to-point calls name their peer so)."""
+        return dist.get_process_group_ranks(self.group)[coord]
+
+    def _host_staged(self, x: torch.Tensor) -> bool:
+        """Whether ``x`` goes through host memory: a CUDA tensor under
+        gloo, whose point-to-point calls and broadcast are used here on
+        host buffers only (NCCL takes the CUDA tensor)."""
+        return x.device.type == "cuda" and self.backend == "gloo"
+
+    def shift(self, x: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """A collective-permute: coordinate ``r`` sends ``x`` to ``r +
+        step`` and returns what ``r - step`` sent, zeros where no rank
+        sends (the reference's ``ppermute`` with pairs ``(r, r + step)``).
+        Every rank of the axis calls it; the sends and receives are posted
+        together, then waited for, so neighbours cannot deadlock."""
+        x = x.contiguous()
+        if self.num_shards == 1:
+            return torch.zeros_like(x)
+        dst, src = self.rank + step, self.rank - step
+        send_to = dst if 0 <= dst < self.num_shards else None
+        recv_from = src if 0 <= src < self.num_shards else None
+        staged = self._host_staged(x)
+        out = torch.zeros_like(x)
+        buf = torch.empty_like(x, device="cpu") if staged else out
+        payload = x.cpu() if staged and send_to is not None else x
+        self._sync()
+        t0 = time.perf_counter()
+        works = []
+        if send_to is not None:
+            works.append(dist.isend(payload, self._global(send_to),
+                                    group=self.group))
+        if recv_from is not None:
+            works.append(dist.irecv(buf, self._global(recv_from),
+                                    group=self.group))
+        for w in works:
+            w.wait()
+        if staged and recv_from is not None:
+            out.copy_(buf)
+        self._sync()
+        sent = x if send_to is not None else x[:0]
+        self._count(t0, sent, "collective-permute")
+        return out
+
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Coordinate ``src``'s ``x`` on every rank of the axis (a new
+        tensor; the others' ``x`` gives only its shape and type)."""
+        if self.num_shards == 1:
+            return x
+        out = x.contiguous().clone()
+        staged = self._host_staged(out)
+        buf = out.cpu() if staged else out
+        self._sync()
+        t0 = time.perf_counter()
+        dist.broadcast(buf, self._global(src), group=self.group)
+        if staged:
+            out.copy_(buf)
+        self._sync()
+        self._count(t0, out, "broadcast")
+        return out
+
+    def _count(self, t0: float, out: torch.Tensor, kind: str) -> None:
+        self.stats.record(kind, self.num_shards,
+                          out.numel() * out.element_size(),
+                          time.perf_counter() - t0)
 
 
 def _mesh_device(device, rank: int) -> torch.device:
@@ -255,6 +349,17 @@ class LMMesh:
                 return a
         return None
 
+    def axis(self, name: str) -> GraphMesh:
+        """The 1-axis mesh along ``name``: its size, this rank's coordinate
+        and the sub-group of the ranks that share every other coordinate
+        (for the point-to-point calls of :mod:`repro_torch.train.pipeline`);
+        counted in this mesh's :attr:`stats`."""
+        for n, a in zip(self.axis_names, self.axes):
+            if n == name:
+                return a
+        raise ValueError(f"the mesh has no axis {name!r} "
+                         f"({self.axis_names})")
+
     def all_gather(self, x: torch.Tensor, axis: str,
                    dim: int = 0) -> torch.Tensor:
         """The ranks' ``x`` along ``axis`` concatenated on ``dim`` in
@@ -342,6 +447,22 @@ def _ravel(coords, shape) -> int:
     for c, s in zip(coords, shape):
         r = r * s + c
     return r
+
+
+def make_mesh(shape, axis_names, *, group=None, device=None) -> LMMesh:
+    """The mesh of ``shape`` with axes ``axis_names`` over every rank of
+    the process group (default: the default group, or this process alone),
+    row-major (the reference's ``make_mesh``; the pipeline's ``("pod",
+    "data")`` mesh, for one)."""
+    shape, names = tuple(int(n) for n in shape), tuple(axis_names)
+    if len(shape) != len(names) or len(set(names)) != len(names):
+        raise ValueError(f"mesh shape {shape} and axis names {names} must "
+                         f"pair up, the names distinct")
+    group, n = _world(group)
+    if min(shape, default=1) < 1 or math.prod(shape) != n:
+        raise ValueError(f"the mesh {shape} needs {math.prod(shape)} ranks; "
+                         f"the process group has {n}")
+    return _lm_mesh(shape, names, group, device)
 
 
 def make_host_mesh(model_axis: int = 1, *, group=None,

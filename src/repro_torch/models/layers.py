@@ -141,9 +141,20 @@ def gather_whole(w: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return w
 
 
+def heads_split(num_heads: int, num_kv_heads: int, mesh) -> bool:
+    """Whether ``model`` divides both head counts, so that attention runs
+    tensor-parallel on ``mesh``.  Where it does not (Danube's 8 KV heads
+    on the production mesh's 16), the reference's GSPMD pads the heads;
+    the port runs that layer's attention whole on every rank of ``model``
+    (its weights gathered whole, as ``models.lm`` does for the SSM
+    blocks)."""
+    tp = axis_size(mesh, TP)
+    return num_heads % tp == 0 and num_kv_heads % tp == 0
+
+
 def local_heads(num_heads: int, num_kv_heads: int, mesh) -> Tuple[int, int]:
-    """This rank's query and KV head counts (``H / tp``, ``Hkv / tp``).
-    The reference pads heads that do not split (GSPMD); the port raises."""
+    """This rank's query and KV head counts (``H / tp``, ``Hkv / tp``);
+    raises where they do not split (see :func:`heads_split`)."""
     tp = axis_size(mesh, TP)
     if num_heads % tp or num_kv_heads % tp:
         raise ValueError(
@@ -298,7 +309,8 @@ def attention(params: Params, x: torch.Tensor, positions: torch.Tensor, *,
               num_heads: int, num_kv_heads: int, head_dim: int,
               rope_theta: float, sliding_window: Optional[int] = None,
               query_chunk: Optional[int] = None, swa_banded: bool = False,
-              return_kv: bool = False, mesh=None):
+              return_kv: bool = False, mesh=None,
+              unroll_chunks: bool = False):
     """Training/prefill causal self-attention. x: ``[B, S, D]``.
 
     Three branches, on the reference's conditions:
@@ -316,7 +328,14 @@ def attention(params: Params, x: torch.Tensor, positions: torch.Tensor, *,
     for prefill cache emission.  On ``mesh`` every branch runs this rank's
     heads (``num_heads`` and ``num_kv_heads`` are the model's; the GQA group
     is unchanged) and the output is summed over ``model``.
+
+    ``unroll_chunks`` is there for name parity with the reference only,
+    where it switches between a ``lax.scan`` over the query chunks and an
+    unrolled loop (for its cost analysis).  No code of the port passes it,
+    and it changes nothing: the port's chunk loop is a Python loop, always
+    unrolled.
     """
+    del unroll_chunks
     b, s, _ = x.shape
     num_heads, num_kv_heads = local_heads(num_heads, num_kv_heads, mesh)
     x = to_tp(x, mesh)
@@ -428,13 +447,12 @@ def _decode_seq_split(params: Params, x: torch.Tensor, pos: int,
     combine joins them: the global max (the ranks' maxima gathered, so a
     NaN on any rank stays), then the rescaled sum-exp and weighted values
     summed over ``model``.  ``wo`` stays row-parallel: each rank projects
-    its own heads' rows of the combined output."""
+    its own heads' rows of the combined output (where ``model`` does not
+    divide the query heads either, every rank projects all of them with
+    ``wo`` gathered whole)."""
     b = x.shape[0]
     pos = int(pos)
     tp, rank = mesh.axis_size(TP), mesh.coord(TP)
-    if num_heads % tp:
-        raise ValueError(f"{num_heads} query heads do not split over a "
-                         f"model axis of {tp}")
     n_loc = cache_k.shape[1]
     s_cache = n_loc * tp
     q, k, v = (mesh.all_gather(t, TP, dim=2) for t in _proj(params, x, mesh))
@@ -463,6 +481,10 @@ def _decode_seq_split(params: Params, x: torch.Tensor, pos: int,
                       p.sum(dim=-1, keepdim=True)], dim=-1)
     part = mesh.all_reduce(part, TP)
     out = (part[..., :head_dim] / part[..., head_dim:]).to(x.dtype)
+    if num_heads % tp:      # the query heads do not split: wo runs whole
+        wo = gather_whole(params["wo"].to(x.dtype), (TP, FSDP), mesh)
+        out = out.transpose(1, 2).reshape(b, 1, num_heads * head_dim) @ wo
+        return out, cache_k, cache_v
     h_loc = num_heads // tp
     out = out[:, rank * h_loc:(rank + 1) * h_loc].transpose(1, 2)
     out = from_tp(out.reshape(b, 1, h_loc * head_dim) @ gather_out(

@@ -26,9 +26,12 @@ returns it.  :func:`lm_loss` is the next-token cross-entropy, chunked over
 the sequence under checkpoint when ``cfg.loss_seq_chunk`` divides it.
 
 ``mesh=`` (an :class:`~repro_torch.launch.mesh.LMMesh`) runs
-:func:`lm_loss` and :func:`decode_step` on this rank's blocks of the
-parameters (placed by their specs) and its rows of the batch: attention and
-the MLP tensor-parallel (see :mod:`layers`), the embedding a vocab-parallel
+:func:`lm_loss`, :func:`prefill` and :func:`decode_step` on this rank's
+blocks of the parameters (placed by their specs) and its rows of the batch:
+attention and the MLP tensor-parallel (see :mod:`layers`; where ``model``
+does not divide the heads, attention runs whole on every rank of it, its
+weights gathered at the start of the layer, except in decode, whose
+sequence-split cache takes any head count), the embedding a vocab-parallel
 lookup, the loss a vocab-parallel cross-entropy normalised by the token
 count over every batch shard, and every other weight of a layer (SSM,
 experts, router) gathered whole at the start of its layer and run whole on
@@ -113,13 +116,27 @@ def _layer_init(cfg, generator: torch.Generator, device) -> Tuple[Params,
 TP_SUBTREES = ("attn", "mlp")
 
 
-def _whole(cfg, params: Params, mesh) -> Params:
+def _attn_mesh(cfg, mesh):
+    """The mesh attention runs tensor-parallel on: ``mesh``, or ``None``
+    where ``model`` does not divide the heads (:func:`layers.heads_split`:
+    the layer's attention then runs whole on every rank)."""
+    if mesh is None or L.heads_split(cfg.num_heads, cfg.num_kv_heads, mesh):
+        return mesh
+    return None
+
+
+def _whole(cfg, params: Params, mesh, decode: bool = False) -> Params:
     """Layer ``params`` with every subtree outside :data:`TP_SUBTREES`
+    (and ``attn`` where :func:`_attn_mesh` runs it whole, but for
+    ``decode``, whose attention reads this rank's columns either way)
     gathered whole over the axes its specs cut (no-op without a mesh)."""
     if mesh is None:
         return params
+    split = set(TP_SUBTREES)
+    if not decode and _attn_mesh(cfg, mesh) is None:
+        split.discard("attn")
     specs = param_specs(cfg)["layers"]        # specs [L, ...]: skip the L
-    return {name: (sub if name in TP_SUBTREES else tree_map(
+    return {name: (sub if name in split else tree_map(
         lambda w, spec: L.gather_whole(w, spec[1:], mesh), sub,
         specs[name])) for name, sub in params.items()}
 
@@ -241,13 +258,14 @@ def _moe(cfg, params: Params, h: torch.Tensor):
 def check_moe_mesh(cfg, mesh) -> None:
     """Raise for what the port does not run on ``mesh``: an MoE layer
     whose batch is split (the reference's capacity and load-balance terms
-    are over the whole batch; ROADMAP.md queues expert parallelism)."""
+    are over the whole batch; expert parallelism is ROADMAP.md queue 3a)."""
     if cfg.family == "moe" and any(L.axis_size(mesh, a) > 1
                                    for a in L.BATCH):
         raise NotImplementedError(
             f"{cfg.name}: MoE layers over a split batch are not ported "
-            f"(capacity and aux loss are over the whole batch); use a mesh "
-            f"whose pod and data axes have one rank")
+            f"(capacity and aux loss are over the whole batch; expert "
+            f"parallelism is ROADMAP.md queue 3a); use a mesh whose pod and "
+            f"data axes have one rank")
 
 
 def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -264,8 +282,8 @@ def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
     if cfg.family in ATTENTION_FAMILIES:
         attn = L.attention(
             params["attn"], h, positions, query_chunk=cfg.attn_query_chunk,
-            swa_banded=cfg.swa_banded, return_kv=with_state, mesh=mesh,
-            **_attn_kwargs(cfg))
+            swa_banded=cfg.swa_banded, return_kv=with_state,
+            mesh=_attn_mesh(cfg, mesh), **_attn_kwargs(cfg))
         if with_state:
             attn_out, state["k"], state["v"] = attn
         else:
@@ -506,28 +524,55 @@ def _emit_kv_cache(k: torch.Tensor, cache_len: int) -> torch.Tensor:
 def prefill(params: Params, cfg, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None,
             dtype: torch.dtype = torch.bfloat16,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, mesh=None,
+            cache_sh: Optional[Dict[str, Any]] = None):
     """Inference prefill: consume the prompt, return ``(last-position
     logits [B, 1, V], stacked decode caches sized for cache_len total
-    positions)``.  Only the final position's logits are computed."""
-    x = _embed(params, cfg, tokens, prefix_embeds, dtype)
+    positions)``.  Only the final position's logits are computed.
+
+    On ``mesh``, as :func:`decode_step`: ``tokens`` (and
+    ``prefix_embeds``) are this rank's rows, ``params`` this rank's blocks,
+    the blocks run as in :func:`forward_hidden`, and the returned caches
+    are this rank's blocks placed by ``cache_sh`` (``{name:
+    NamedSharding}`` from ``serve.decode.cache_pspecs``); the logits are
+    this rank's rows over the whole padded vocabulary."""
+    mesh = sharded(mesh)
+    if mesh is not None:
+        check_moe_mesh(cfg, mesh)
+    x = _embed(params, cfg, tokens, prefix_embeds, dtype, mesh)
     b, s, _ = x.shape
     if cache_len is None:
         cache_len = s
     positions = _positions(b, s, x.device)
     win = min(cache_len, cfg.sliding_window or cache_len)
+    # what a block returns whole (attention run whole, the SSM states) is
+    # cut to this rank's block over ``model``; the rows are this rank's
+    whole = set() if mesh is None else {"wkv", "h", "xprev_t", "xprev_c"}
+    if mesh is not None and _attn_mesh(cfg, mesh) is None:
+        whole |= {"k", "v"}
+    cut = {} if mesh is None else {
+        name: NamedSharding(mesh, tuple(a if a == L.TP else None
+                                        for a in sh.spec[1:]))
+        for name, sh in cache_sh.items() if name in whole}
     caches = []
     for i in range(cfg.num_layers):
-        x, _, cache = _block(cfg, _layer(params, i), x, positions)
+        x, _, cache = _block(cfg, _layer(params, i), x, positions,
+                             mesh=mesh)
         for name in ("k", "v"):
             if name in cache:
                 cache[name] = _emit_kv_cache(cache[name], win)
-        caches.append({name: c if c.dtype == torch.float32 else c.to(dtype)
-                       for name, c in cache.items()})
+        layer = {}
+        for name, c in cache.items():
+            c = cut[name].shard(c) if name in cut else c
+            layer[name] = c if c.dtype == torch.float32 else c.to(dtype)
+        caches.append(layer)
     cache = tree_map(lambda *cs: torch.stack(cs), *caches)
     del caches
     x = L.rmsnorm(params["ln_f"], x[:, -1:])
-    return x @ params["lm_head"].to(dtype), cache
+    logits = x @ L.gather_in(params["lm_head"], dtype, mesh)
+    if mesh is not None:
+        logits = mesh.all_gather(logits, L.TP, dim=2)
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------
@@ -569,7 +614,7 @@ def init_cache(cfg, batch: int, seq_len: int,
 def _block_decode(cfg, params: Params, x: torch.Tensor, pos: int,
                   cache: Dict[str, torch.Tensor], mesh=None):
     new_cache: Dict[str, torch.Tensor] = {}
-    params = _whole(cfg, params, mesh)
+    params = _whole(cfg, params, mesh, decode=True)
     h = L.rmsnorm(params["ln1"], x)
     if cfg.family in ATTENTION_FAMILIES:
         attn_out, new_cache["k"], new_cache["v"] = L.attention_decode(

@@ -88,8 +88,9 @@ def make_serve_step(cfg, mesh=None, *, batch: int, seq_len: int,
     if cfg.family == "moe" and daxes:
         raise NotImplementedError(
             f"{cfg.name}: MoE decode over a split batch is not ported "
-            f"(capacity is over the whole batch); use a batch the data "
-            f"axes do not divide, or a data axis of one rank")
+            f"(capacity is over the whole batch; expert parallelism is "
+            f"ROADMAP.md queue 3a); use a batch the data axes do not "
+            f"divide, or a data axis of one rank")
     param_sh = shardings_for(mesh, param_specs(cfg))
     cache_sh = shardings_for(mesh, cache_pspecs(cfg, mesh, batch))
     tok_sh = NamedSharding(mesh, (daxes if daxes else None, None))

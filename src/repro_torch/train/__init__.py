@@ -1,1 +1,2 @@
-"""Training: optimizer, step, compression, checkpoints, int8 state."""
+"""Training: optimizer, step, compression, checkpoints, int8 state, and
+the GPipe pipeline over ``pod``."""

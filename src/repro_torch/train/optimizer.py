@@ -96,13 +96,20 @@ def adamw_update(params, grads, opt_state, cfg: OptConfig, *,
     on matrices only (``ndim >= 2``): ``(params, opt_state, {"grad_norm",
     "lr"})``, the reported norm taken before clipping.  ``params``,
     ``mu``, ``nu`` are updated in place and returned; ``grads`` (float32
-    or not) are overwritten with scratch.  One host read (the clip
-    scale).  ``shardings``: the trees are this rank's blocks, placed so
-    (see :func:`global_norm`)."""
+    or not) are overwritten with scratch.  The clip scale stays on the
+    gradients' device, so the norm is never read back to the host:
+    ``min(1, clip_norm / max(norm, 1e-9))`` in float64, then rounded to
+    float32, as the reference's host arithmetic does, and every gradient
+    multiplied by it (a multiplication by 1 changes no bit, but it is one
+    more pass over the float32 gradients when nothing is clipped).  One
+    host read remains: the step counter, read where it lies (on the card
+    in training, a CPU scalar in the dry run's stand-ins).
+    ``shardings``: the trees are this rank's blocks, placed so (see
+    :func:`global_norm`)."""
     step = int(opt_state["step"]) + 1
     gnorm = global_norm(grads, shardings)
-    scale = min(1.0, cfg.clip_norm / max(float(gnorm), 1e-9))
-    scale = float(np.float32(scale))
+    scale = torch.clamp(cfg.clip_norm / gnorm.double().clamp_min(1e-9),
+                        max=1.0).float()
     lr_t = lr_at(cfg, step)
     lr = float(lr_t)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -116,8 +123,7 @@ def adamw_update(params, grads, opt_state, cfg: OptConfig, *,
     with torch.no_grad():
         for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
             g = g if g.dtype == torch.float32 else g.float()
-            if scale != 1.0:
-                g.mul_(scale)
+            g.mul_(scale)
             m.mul_(b1).add_(g, alpha=1 - b1)
             v.mul_(b2).addcmul_(g, g, value=1 - b2)
             # update = (m / bc1) / (sqrt(v / bc2) + eps), built in g

@@ -38,7 +38,6 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.launch.mesh import NamedSharding, sharded
-from repro_torch.models import layers as L
 from repro_torch.models.lm import (check_moe_mesh, lm_loss, param_specs,
                                    tree_leaves, tree_map)
 from repro_torch.train.optimizer import OptConfig, adamw_update
@@ -223,15 +222,14 @@ def make_train_step(cfg, opt_cfg: OptConfig, mesh=None, *,
     On a ``mesh`` of more than one rank ``params`` and ``opt_state`` are
     this rank's blocks, placed by :func:`shardings_for` and
     :func:`opt_shardings` (:func:`shard_tree` cuts them from full trees),
-    and every rank calls the step with the same global batch.  A mesh
-    whose ``model`` axis does not divide the query and KV heads raises
-    (the reference's GSPMD would pad them)."""
+    and every rank calls the step with the same global batch.  Where the
+    ``model`` axis does not divide the query and KV heads, attention runs
+    whole on every rank of it (``layers.heads_split``; the reference's
+    GSPMD pads the heads)."""
     param_sh = None
     mesh = sharded(mesh)
     if mesh is not None:
         check_moe_mesh(cfg, mesh)
-        if cfg.num_heads:
-            L.local_heads(cfg.num_heads, cfg.num_kv_heads, mesh)
         param_sh = shardings_for(mesh, param_specs(cfg))
 
     def step(params, opt_state, batch):

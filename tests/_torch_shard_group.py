@@ -453,5 +453,116 @@ def lm_serve_job(world: int, data: dict) -> dict:
     return out
 
 
+def lm_prefill_job(world: int, data: dict) -> dict:
+    """``prefill(mesh=)`` on ``(world // m, m)`` meshes for every case of
+    ``data``: this rank's rows of the prompt and blocks of the weights in,
+    the logits gathered over the batch axes and the caches gathered whole
+    out (rank 0 returns them)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.interop import lm_params_from_arrays
+    from repro_torch.launch.mesh import NamedSharding, make_host_mesh
+    from repro_torch.models.lm import prefill
+    from repro_torch.serve.decode import _data_axes, cache_pspecs
+    from repro_torch.train.step import param_specs, shardings_for
+
+    out = {}
+    for name, case in data.items():
+        cfg = get_config(case["arch"]).reduced(**case["overrides"])
+        mesh = make_host_mesh(case["model_axis"], device="cpu")
+        tokens = torch.from_numpy(case["tokens"])
+        b = tokens.shape[0]
+        psh = shardings_for(mesh, param_specs(cfg))
+        csh = shardings_for(mesh, cache_pspecs(cfg, mesh, b))
+        daxes = _data_axes(mesh, b) or None
+        rows = NamedSharding(mesh, (daxes, None))
+        rows3 = NamedSharding(mesh, (daxes, None, None))
+        params = lm_params_from_arrays(case["params"], device="cpu",
+                                       shardings=psh)
+        prefix = case.get("prefix")
+        with torch.no_grad():
+            logits, cache = prefill(
+                params, cfg, rows.shard(tokens),
+                None if prefix is None else rows3.shard(
+                    torch.from_numpy(prefix)),
+                dtype=torch.float32, mesh=mesh, cache_sh=csh)
+            whole = {k: _np(csh[k].gather(c)) for k, c in cache.items()}
+            logits = _np(rows3.gather(logits))
+        if mesh.rank == 0:
+            out[name] = {"logits": logits, "cache": whole}
+    return out
+
+
+def pipe_hop_job(world: int, data: dict) -> dict:
+    """The pipeline's point-to-point hop and output broadcast on
+    ``data["device"]`` tensors (CUDA ones go through host memory under
+    gloo), both ways in float32 and bfloat16; then :func:`pipeline_job` on
+    ``data["cases"]``."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((world, 1), ("pod", "data"), device=data["device"])
+    ax, dev, r = mesh.axis("pod"), mesh.device, mesh.rank
+    ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((3, 5), float(r + 1), dtype=dtype, device=dev)
+        up, down = ax.shift(x, 1), ax.shift(x, -1)
+        ok &= bool((up == (r if r > 0 else 0)).all())
+        ok &= bool((down == (r + 2 if r + 1 < world else 0)).all())
+        ok &= up.device == dev and up.dtype == dtype
+        ok &= bool((ax.broadcast(x, world - 1) == world).all())
+    return {"ok": bool(ok), "cases": pipeline_job(world, data["cases"])}
+
+
+def pipeline_job(world: int, data: dict) -> dict:
+    """``make_pipeline_apply`` on every case of ``data`` whose ``(pod,
+    data)`` mesh has ``world`` ranks: ``tanh(x W + b)`` stages (the
+    reference test's), or reduced Danube blocks (``"danube"``: the
+    config's overrides, ``block_stage_fn``), on ``case["device"]`` (default
+    the CPU).  Each rank returns the output, its stage's gradients of
+    ``sum(y ** 2)`` and its ``pod`` coordinate."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import tree_map
+    from repro_torch.train.pipeline import (block_stage_fn,
+                                            make_pipeline_apply,
+                                            split_stages)
+
+    def tanh_stages(p, x):
+        for i in range(p["w"].shape[0]):
+            x = torch.tanh(x @ p["w"][i] + p["b"][i])
+        return x
+
+    out = {}
+    for name, case in data.items():
+        p_size, d_size = case["mesh"]
+        if p_size * d_size != world:
+            continue
+        mesh = make_mesh((p_size, d_size), ("pod", "data"),
+                         device=case.get("device", "cpu"))
+        xs = torch.from_numpy(case["xs"]).to(mesh.device)
+        if "danube" in case:
+            cfg = get_config("h2o_danube3_4b").reduced(**case["danube"])
+            stage_fn = block_stage_fn(cfg, xs.shape[2])
+        else:
+            stage_fn = tanh_stages
+        stages = split_stages(tree_map(lambda a: a.to(mesh.device),
+                                       _tensors(case["layers"])), p_size)
+        c = mesh.coord("pod")
+        mine = tree_map(lambda a: a[c:c + 1].clone().requires_grad_(),
+                        stages)
+        apply = make_pipeline_apply(stage_fn, mesh, p_size, xs.shape[0])
+        y = apply(mine, xs)
+        (y ** 2).sum().backward()
+        out[name] = {"y": _np(y), "coord": c,
+                     "grads": tree_map(lambda a: _np(a.grad[0]), mine),
+                     "kinds": {f"{k}@{n}": v[:2] for (k, n), v
+                               in mesh.stats.kinds.items()}}
+    return out
+
+
 JOBS = {"matrix": matrix_job, "nan": nan_job, "failing": failing_job,
-        "lm_train": lm_train_job, "lm_serve": lm_serve_job}
+        "lm_train": lm_train_job, "lm_serve": lm_serve_job,
+        "pipe_hop": pipe_hop_job, "pipeline": pipeline_job,
+        "lm_prefill": lm_prefill_job}

@@ -1379,3 +1379,85 @@ def test_k7_on_a_ranks_local_heads(card, tp):
         torch.testing.assert_close(g.float(), w, rtol=rtol,
                                    atol=atol * max(1.0, float(w.abs().max())),
                                    msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_paths_match_the_kernels_shapes(card, dtype):
+    """On ``meta`` tensors K7, its backward and K5/K6 return what the
+    kernels return on the card (shapes and types), launch nothing, and
+    tally their useful flop (``kernels.tally``)."""
+    from repro_torch.kernels import tally
+    S, H, Hkv, hd, window, qc = 1024, 8, 2, 120, 256, 128
+    gen = torch.Generator(device=card).manual_seed(31)
+    q = torch.randn((1, S, H, hd), generator=gen, device=card).to(dtype)
+    k, v = (torch.randn((1, S, Hkv, hd), generator=gen,
+                        device=card).to(dtype) for _ in range(2))
+    out, lse = FK.flash_swa(q, k, v, window=window, qc=qc, return_lse=True)
+    grads = FK.flash_swa_bwd(q, k, v, out, lse, out, window=window, qc=qc)
+    lhs = torch.randn((256, 64), generator=gen, device=card).to(dtype)
+    rhs = torch.randn((2, 64, 128), generator=gen, device=card).to(dtype)
+    experts = torch.tensor([0, 1], dtype=torch.int32, device=card)
+    queue = (torch.tensor([1, 0], dtype=torch.int32, device=card),
+             torch.tensor([2], dtype=torch.int32, device=card))
+    k5 = SK.segmented_matmul(lhs, rhs, experts)
+    k6 = SK.segmented_matmul_chunked(lhs, rhs, experts, *queue,
+                                     max_chunks=2)
+    on_card = [out, lse, *grads, k5, k6]
+    launches = (dict(FK.LAUNCHES), dict(SK.LAUNCHES))
+    tally.reset()
+    meta = lambda t: t.to("meta")
+    m_out, m_lse = FK.flash_swa(meta(q), meta(k), meta(v), window=window,
+                                qc=qc, return_lse=True)
+    m_grads = FK.flash_swa_bwd(*map(meta, (q, k, v, out, lse, out)),
+                               window=window, qc=qc)
+    m_k5 = SK.segmented_matmul(*map(meta, (lhs, rhs, experts)))
+    m_k6 = SK.segmented_matmul_chunked(*map(meta, (lhs, rhs, experts)),
+                                       *map(meta, queue), max_chunks=2)
+    for got, want in zip([m_out, m_lse, *m_grads, m_k5, m_k6], on_card):
+        assert got.device.type == "meta"
+        assert (got.shape, got.dtype) == (want.shape, want.dtype)
+    assert (dict(FK.LAUNCHES), dict(SK.LAUNCHES)) == launches
+    pairs = tally.band_pairs(S, window)
+    assert tally.TALLY["flops"] == (14 * hd * H * pairs
+                                    + 2 * 2 * 256 * 64 * 128)
+    assert tally.TALLY["calls"] == {"flash_swa": 1, "flash_swa_bwd": 1,
+                                    "segmented_matmul": 1,
+                                    "segmented_matmul_chunked": 1}
+
+
+def test_pipeline_hop_on_cuda_tensors_through_gloo(card):
+    """Two spawned ranks sharing the card in one gloo group: the
+    pipeline's hop (``GraphMesh.shift``, staged through host memory) and
+    its output broadcast on CUDA tensors, both ways, in float32 and
+    bfloat16; then a two-stage ``make_pipeline_apply`` of ``tanh(x W +
+    b)`` on the card, forward and stage gradients against
+    ``reference_apply`` on the CPU (1e-5 / 1e-4)."""
+    from repro_torch.models.lm import tree_map
+    from repro_torch.train.pipeline import reference_apply, split_stages
+    from _torch_shard_group import _flat, run_group
+    rng = np.random.default_rng(7)
+    layers = {"w": (rng.standard_normal((4, 8, 8)) * 0.3).astype(np.float32),
+              "b": (rng.standard_normal((4, 8)) * 0.1).astype(np.float32)}
+    xs = rng.standard_normal((3, 2, 8)).astype(np.float32)
+    case = {"mesh": (2, 1), "layers": layers, "xs": xs, "device": "cuda"}
+    res = run_group(2, "pipe_hop", {"device": "cuda",
+                                    "cases": {"tanh": case}})
+    assert [r["ok"] for r in res] == [True, True]
+
+    def stage_fn(p, x):
+        for i in range(p["w"].shape[0]):
+            x = torch.tanh(x @ p["w"][i] + p["b"][i])
+        return x
+
+    stages = tree_map(lambda a: a.requires_grad_(), split_stages(
+        {k: torch.from_numpy(v) for k, v in layers.items()}, 2))
+    want = reference_apply(stage_fn, stages, torch.from_numpy(xs), 2)
+    (want ** 2).sum().backward()
+    for r in res:
+        got = r["cases"]["tanh"]
+        np.testing.assert_allclose(got["y"], want.detach().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        for k, g in _flat(got["grads"]).items():
+            w = stages[k.strip("/")].grad[got["coord"]].numpy()
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                       err_msg=k)

@@ -22,9 +22,9 @@ from repro_torch.kernels.spmv_merge import kernel as TK
 from _torch_parity import assert_bitwise, np_of, reference_modules
 from _torch_parity import isolated_autotune_cache  # noqa: F401 (autouse)
 
-#: Reference exports the port does not have yet: the frontend's
-#: jax.ShapeDtypeStruct helper (ROADMAP queue 1 item 5).
-MODELS_NOT_PORTED = {"frontend_embed_shape"}
+#: Reference exports the port does not have yet (none since
+#: ``frontend_embed_shape``, a meta tensor in the port).
+MODELS_NOT_PORTED = set()
 
 #: Every sparse and core name is ported (the sharded traversal, its
 #: executors, cost terms and plans since the sharding slice).
@@ -145,3 +145,48 @@ def test_segment_sum_sorted_checks_its_operands():
                               keys.to("meta"), 3, order.to("meta"))
     with pytest.raises(ValueError, match=r"\[n\] or \[n, B\]"):
         T.segops.ordered_sum(torch.ones(4, 2, 2), keys, 3)
+
+
+#: Reference names of ``launch/*.py`` and ``train/*.py`` the port has
+#: under another name: the dry run traces where the reference lowers and
+#: compiles, and the collective bandwidth is NVLink's, not a TPU link's.
+RENAMED = {"launch.dryrun": {"lower_compile": "trace_step"},
+           "launch.roofline": {"ICI_BW": "LINK_BW"}}
+
+
+def _public_names(path):
+    """Top-level functions, classes and upper-case constants a reference
+    file defines (read from its source: importing ``launch/dryrun.py``
+    would set ``XLA_FLAGS`` in this process)."""
+    import ast
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name) and t.id.isupper())
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("package", ["launch", "train"])
+def test_launch_and_train_modules_hold_every_name(package):
+    """Every module of the reference's ``launch``/``train`` has its port,
+    with each public name the reference file defines (or the port's name
+    for it in :data:`RENAMED`)."""
+    import importlib
+    import pathlib
+    src = pathlib.Path(__file__).resolve().parent.parent / "src"
+    files = sorted(p for p in (src / "repro" / package).glob("*.py")
+                   if p.name != "__init__.py")
+    assert files
+    for path in files:
+        key = f"{package}.{path.stem}"
+        port = importlib.import_module(f"repro_torch.{key}")
+        renamed = RENAMED.get(key, {})
+        for name in sorted(_public_names(path)):
+            assert hasattr(port, renamed.get(name, name)), (key, name)
+        for old in renamed:
+            assert not hasattr(port, old), (key, old)
+    from repro_torch.launch.mesh import make_mesh  # re-exported there
+    assert callable(make_mesh)

@@ -181,9 +181,17 @@ def test_backward_wrapper_takes_plain_version_only_on_cpu():
     before = dict(FK.LAUNCHES)
     FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
     assert FK.LAUNCHES == before
+    # meta tensors (the dry run): empty gradients of the kernel's shapes,
+    # no launch, ``10 hd H pairs`` flop tallied
+    from repro_torch.kernels import tally
+    tally.reset()
     meta = [t.to("meta") for t in (q, k, v, out, lse, dout)]
-    with pytest.raises(ValueError, match="device"):
-        FK.flash_swa_bwd(*meta, window=window, qc=qc)
+    grads = FK.flash_swa_bwd(*meta, window=window, qc=qc)
+    assert [(g.device.type, g.shape) for g in grads] == [
+        ("meta", t.shape) for t in (q, k, v)]
+    assert FK.LAUNCHES == before
+    assert tally.TALLY["flops"] == (10 * hd * H * q.shape[0]
+                                    * tally.band_pairs(S, window))
     with pytest.raises(ValueError, match="lse"):
         FK.flash_swa_bwd(q, k, v, out, lse[:, :1], dout, window=window,
                          qc=qc)

@@ -6,7 +6,8 @@
 * constructors called without ``device=`` mean the card, and raise where
   there is none — there is no silent CPU fallback;
 * a kernel wrapper runs its plain version only for CPU tensors, and counts
-  a launch only when it launches;
+  a launch only when it launches; on ``meta`` tensors (the dry run) K5-K7
+  return empty outputs and tally their work, K1 raises;
 * ``chip_smoke.py`` fails, printing no result, without a card or without
   the repository around it.
 """
@@ -77,7 +78,10 @@ def test_port_imports_without_jax():
             "import repro_torch.train.compress\n"
             "import repro_torch.train.quantized_opt\n"
             "import repro_torch.data.synthetic, repro_torch.launch.train\n"
-            "import repro_torch.launch.mesh\n"
+            "import repro_torch.launch.mesh, repro_torch.train.pipeline\n"
+            "import repro_torch.launch.specs, repro_torch.launch.roofline\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.report\n"
+            "import repro_torch.kernels.tally\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]\n"
             "assert not bad, bad\n")
@@ -148,20 +152,29 @@ def test_wrappers_take_plain_version_only_on_cpu():
     assert (SK.segmented_matmul_chunked(lhs, rhs, experts, *queue, bm=8,
                                         max_chunks=2) == 8).all()
     assert SK.LAUNCHES == seg_before
+    # meta tensors (the dry run): the kernel's output shape, no launch,
+    # the kernel's flop tallied (repro_torch.kernels.tally)
+    from repro_torch.kernels import tally
+    tally.reset()
     meta = [t.to("meta") for t in (lhs, rhs, experts)]
-    with pytest.raises(ValueError, match="device"):
-        SK.segmented_matmul(*meta, bm=8)
-    with pytest.raises(ValueError, match="device"):
-        SK.segmented_matmul_chunked(*meta, *[q.to("meta") for q in queue],
-                                    bm=8, max_chunks=2)
+    out = SK.segmented_matmul(*meta, bm=8)
+    assert out.device.type == "meta" and out.shape == (16, 8)
+    out = SK.segmented_matmul_chunked(*meta, *[q.to("meta") for q in queue],
+                                      bm=8, max_chunks=2)
+    assert out.device.type == "meta" and out.dtype == torch.float32
+    assert SK.LAUNCHES == seg_before
+    assert tally.TALLY["flops"] == 2 * (2 * 16 * 8 * 8)
     swa_before = dict(FK.LAUNCHES)
     q = torch.ones(1, 16, 4, 8)
     kv = torch.ones(1, 16, 2, 8)
     assert torch.allclose(FK.flash_swa(q, kv, kv, window=8, qc=8), q)
     assert FK.LAUNCHES == swa_before
-    with pytest.raises(ValueError, match="device"):
-        FK.flash_swa(q.to("meta"), kv.to("meta"), kv.to("meta"), window=8,
-                     qc=8)
+    out, lse = FK.flash_swa(q.to("meta"), kv.to("meta"), kv.to("meta"),
+                            window=8, qc=8, return_lse=True)
+    assert (out.device.type, out.shape, lse.shape) == ("meta", q.shape,
+                                                       (1, 4, 16))
+    assert FK.LAUNCHES == swa_before
+    assert tally.TALLY["calls"]["flash_swa"] == 1
 
 
 def test_build_needs_nvcc():

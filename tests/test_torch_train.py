@@ -400,8 +400,9 @@ def test_moe_arch_trains():
 def test_meshes_of_more_than_one_device_raise():
     """A one-rank mesh is the one-device path: two steps bitwise equal to
     ``mesh=None``'s, and no collective.  A model axis of more than one
-    rank that does not divide the KV heads raises before any collective
-    (tests/test_torch_train_mesh.py runs the meshes that split)."""
+    rank that does not divide the KV heads builds a step whose attention
+    runs whole on every rank of it, with no collective at build time
+    (tests/test_torch_train_mesh.py runs both kinds of mesh)."""
     from repro_torch.data.synthetic import batch_at, for_model
     cfg = get_config("qwen15_05b").reduced()
     mesh = make_host_mesh(device="cpu")
@@ -428,8 +429,10 @@ def test_meshes_of_more_than_one_device_raise():
     cpu = torch.device("cpu")
     wide = LMMesh(("data", "model"), (GraphMesh(1, 0, cpu),
                                       GraphMesh(8, 0, cpu)), 0, cpu)
-    with pytest.raises(ValueError, match="do not split over a model axis"):
-        make_train_step(cfg, OptConfig(), wide)
+    from repro_torch.models.layers import heads_split
+    assert not heads_split(cfg.num_heads, cfg.num_kv_heads, wide)
+    assert callable(make_train_step(cfg, OptConfig(), wide))
+    assert wide.stats.calls == 0
 
 
 def test_param_specs_match_reference(ref):

@@ -7,7 +7,8 @@ Two groups run once each (``tests/_torch_shard_group.py``, job
 ``(2, 2)``, with reduced Qwen and reduced Danube (``sliding_window=4,
 attn_query_chunk=4, swa_banded=True``, so its 32-token sequences take the
 banded branch, with remat, and ``num_kv_heads=2`` so that a model axis of
-2 splits its KV heads; the plain ``reduced()`` has one), and reduced
+2 splits its KV heads; the plain ``reduced()`` has one, so case
+``1x2/danube-kv1`` runs its attention whole on both ranks), and reduced
 Qwen with the sequence-chunked cross-entropy (``loss_seq_chunk=8``) on
 ``(1, 2)``.  Every case
 starts from the reference's weights, carried to each rank's blocks with
@@ -59,13 +60,18 @@ ARCHS = {"qwen": ("qwen15_05b", {}),
          "danube": ("h2o_danube3_4b", dict(
              sliding_window=4, attn_query_chunk=4, swa_banded=True,
              num_kv_heads=2, remat=True)),
-         "qwen-chunked-ce": ("qwen15_05b", dict(loss_seq_chunk=8))}
+         "qwen-chunked-ce": ("qwen15_05b", dict(loss_seq_chunk=8)),
+         # one KV head: a model axis of 2 runs attention whole on each rank
+         "danube-kv1": ("h2o_danube3_4b", dict(
+             sliding_window=4, attn_query_chunk=4, swa_banded=True,
+             remat=True))}
 #: the archs the reference's (2, 2) subprocess runs
 REFERENCE_ARCHS = ("qwen", "danube")
 #: case -> (world, model axis, arch key)
 CASES = {"2x1/qwen": (2, 1, "qwen"), "1x2/qwen": (2, 2, "qwen"),
          "1x2/danube": (2, 2, "danube"),
          "1x2/qwen-chunked-ce": (2, 2, "qwen-chunked-ce"),
+         "1x2/danube-kv1": (2, 2, "danube-kv1"),
          "2x2/qwen": (4, 2, "qwen"), "2x2/danube": (4, 2, "danube")}
 B, S = 4, 32
 
@@ -273,15 +279,21 @@ def test_matches_reference_2x2(groups, reference, key):
 
 def test_heads_that_do_not_split_raise():
     """Reduced Danube has one KV head: a model axis of 2 cannot split it
-    (the reference's GSPMD pads; the port refuses before any collective)."""
+    (the reference's GSPMD pads).  The port builds the step, whose
+    attention runs whole on both ranks (case ``1x2/danube-kv1`` holds it
+    to one device); ``local_heads`` still refuses to split such heads.  An
+    MoE layer on a split batch raises, naming ROADMAP queue 3a."""
+    from repro_torch.models.layers import heads_split, local_heads
     cpu = torch.device("cpu")
     mesh = LMMesh(("data", "model"), (GraphMesh(1, 0, cpu),
                                       GraphMesh(2, 0, cpu)), 0, cpu)
     cfg = get_config("h2o_danube3_4b").reduced()
+    assert not heads_split(cfg.num_heads, cfg.num_kv_heads, mesh)
+    assert callable(make_train_step(cfg, OptConfig(), mesh))
     with pytest.raises(ValueError, match="1 KV heads do not split"):
-        make_train_step(cfg, OptConfig(), mesh)
+        local_heads(cfg.num_heads, cfg.num_kv_heads, mesh)
     moe = get_config("olmoe_1b_7b").reduced()
     split = LMMesh(("data", "model"), (GraphMesh(2, 0, cpu),
                                        GraphMesh(1, 0, cpu)), 0, cpu)
-    with pytest.raises(NotImplementedError, match="split batch"):
+    with pytest.raises(NotImplementedError, match="split batch.*queue 3a"):
         make_train_step(moe, OptConfig(), split)

@@ -7,6 +7,11 @@ Besides the sharded traversal's collectives it tries those of the LM's
 (the FSDP gradient) in float32 and bfloat16, and a sum over a sub-group
 made with ``new_group``.
 
+Last, in two processes of their own, it tries the pipeline's hop
+(``isend``/``irecv``) on CUDA tensors without staging them through host
+memory: on torch 2.11 gloo aborts the process there (``gloo::IoException``,
+``writev``: bad address), which is why the hop stages them.
+
 Run on a machine with a card: ``python3 tools/probe_gloo_cuda.py``.  For 2
 and then 4 spawned ranks sharing ``cuda:0`` in one ``gloo`` group, it tries
 each collective the sharded traversal (``repro_torch.launch.mesh``) uses
@@ -89,6 +94,29 @@ def run(rank, world, port, out_q):
     out_q.put((rank, out))
 
 
+def run_hop(rank, world, port, out_q):
+    """The pipeline's hop on CUDA tensors without host staging (what
+    ``launch/mesh.py::GraphMesh.shift`` avoids): ``isend`` to the next
+    rank, ``irecv`` from the previous one.  In its own processes, since
+    gloo may abort the process rather than raise."""
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=60))
+    dev = torch.device("cuda:0")
+    got = torch.full((4,), -1.0, device=dev)
+    works = [dist.isend(torch.full((4,), float(rank), device=dev),
+                        (rank + 1) % world),
+             dist.irecv(got, (rank - 1) % world)]
+    for w in works:
+        w.wait()
+    torch.cuda.synchronize()
+    ok = bool((got == (rank - 1) % world).all())
+    out_q.put((rank, "ok" if ok else f"received {got.tolist()}"))
+    dist.destroy_process_group()
+
+
 def main() -> int:
     import multiprocessing as mp
     import socket
@@ -116,6 +144,26 @@ def main() -> int:
         print(f"{world} ranks on cuda:0, rank 0:")
         for name, value in results[0].items():
             print(f"  {name}: {value}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=run_hop, args=(r, 2, port, out_q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=120)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    got = {}
+    while not out_q.empty():
+        rank, status = out_q.get()
+        got[rank] = status
+    print("isend/irecv of a CUDA tensor between 2 ranks (no host staging):")
+    for r, p in enumerate(procs):
+        print(f"  rank {r}: {got.get(r, f'no result, exit code {p.exitcode}')}")
     return 0
 
 
