@@ -209,16 +209,42 @@ Phases, in order; any failure exits non-zero:
    device (output 1e-5, gradients 1e-4 of each leaf's largest entry).
    Four stages on one card measure the pipeline's overhead, not its
    scaling;
-27. dry-run check — three steps whose peak this run measures, traced on
-   the ``meta`` device by ``launch/dryrun.py``: phase 24's one-device
-   step, rank 0's step of phase 25's ``(2, 2)`` mesh (a fake group of 4)
-   and each stage's step of phase 26's pipeline (rank ``r`` of a fake
-   group of 4).  Each peak estimate (arguments plus the most bytes live in
-   the step) is held within 25% of the measured ``max_memory_allocated``;
+27. dry-run check (run after phase 28, whose peak it reads) — four steps
+   whose peak this run measures, traced on the ``meta`` device by
+   ``launch/dryrun.py``: phase 24's one-device step, rank 0's step of
+   phase 25's ``(2, 2)`` mesh and of phase 28's (fake groups of 4) and
+   each stage's step of phase 26's pipeline (rank ``r`` of a fake group of
+   4).  Each peak estimate (arguments plus the most bytes live in the
+   step) is held within 25% of the measured ``max_memory_allocated``;
    phase 24's flop count is printed beside ``model_flops``' 6ND;
-28. the ``kernels:`` summary (K7's launches include every rank's in the
-   mesh and pipeline phases), the JSON kernels line, and the final
-   ``{"ok": true, ...}`` line.
+28. moe mesh — expert parallelism: OLMoE-1B-7B at full width (d_model
+   2048, 16 heads, 64 experts of d_ff 1024, top-8, ``grouped``), depth cut
+   to 2, S 4,096, global batch 4 in 2 microbatches, float32 weights and
+   AdamW state, bf16 compute: 3 steps on one device in this process
+   (freed), then four spawned ranks share this card in one gloo group
+   (300 s timeout) on ``(data, model) = (2, 2)``, 32 experts a rank: 3
+   steps, the loss and grad norm within 2e-2 of one device's at each
+   step, every leaf changed, the gathered parameters finite; per rank ms
+   a step, tokens/s, peak memory and collectives by kind (calls, MiB, ms).
+   Then in float32 at depth 2, S 1,024, two sequences, ``loss_and_grads``
+   on the mesh against one device's on rank 0 for OLMoE with ``grouped``,
+   with ``capacity`` and DeepSeek-MoE-16B at full width (d_ff 1408, 2
+   shared experts, top-6, vocab 102,400): the loss 1e-5, every gathered
+   gradient leaf and the router's on both model ranks 1e-4 of its largest
+   entry.  Then ``make_serve_step`` on ``(2, 2)``: OLMoE at full width and
+   depth in bf16 (each rank draws its blocks), batch 4, 8 greedy steps
+   (ids in the vocabulary, logits finite, every rank the same ids); at
+   depth 2 in float32, 8 steps' logits within 2e-3 of one device's
+   ``decode_step`` for each of ``grouped``, ``capacity`` and ``sorted``.
+   Then ``prefill(mesh=)`` with ``sorted`` at full width, depth 2, S
+   4,096, batch 2: K5 launched three times a layer on every rank, on its
+   own experts, the logits within 2e-2 (of max(1, max|logit|)) of one
+   device's prefill; each rank's K5 and K6 at its own shape, bitwise
+   equal, timed beside ``torch.bmm`` on the same experts.  Four ranks on
+   one card measure the path's overhead, not its scaling;
+29. the ``kernels:`` summary (K7's launches include every rank's in the
+   mesh and pipeline phases, K5's the MoE mesh's), the JSON kernels line,
+   and the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -330,6 +356,8 @@ MESH_LAYERS = 4            # depth cut so four ranks and one device fit
 MESH_BATCH = 4             # one sequence a data rank a microbatch
 MESH_MICRO = 2
 MESH_STEPS = 3
+#: (sequence, global batch, microbatches, steps) of phase 25's training
+MESH_SHAPE = (TRAIN_SEQ, MESH_BATCH, MESH_MICRO, MESH_STEPS)
 MESH_RTOL = 2e-2           # bf16 losses and grad norms against one device
 MESH_F32_LAYERS = 2
 MESH_F32_S = 2048
@@ -350,8 +378,26 @@ PIPE_TIMEOUT_S = 300       # the group's collective timeout
 PIPE_DEADLINE_S = 600      # the parent joins its ranks by then
 DRYRUN_PEAK_TOL = 0.25     # the dry run's peak estimates against the measured
 
+MOE_MESH_ARCH = "olmoe_1b_7b"
+MOE_PARITY_ARCH = "deepseek_moe_16b"   # full width: d_ff 1408, 2 shared, top-6
+MOE_MESH_LAYERS = 2        # depth cut from 16: one device's state fits
+MOE_MESH_SEQ = 4096        # train_4k's sequence
+MOE_MESH_BATCH = 4         # cut from 256: a sequence a data rank a microbatch
+MOE_MESH_MICRO = 2
+MOE_MESH_STEPS = 3
+MOE_MESH_SHAPE = (MOE_MESH_SEQ, MOE_MESH_BATCH, MOE_MESH_MICRO,
+                  MOE_MESH_STEPS)
+MOE_MESH_F32_S = 1024      # the float32 parity check, two sequences
+MOE_SERVE_BATCH = 4        # two rows a data rank
+MOE_SERVE_STEPS = 16       # each gathers every layer's weights over data
+MOE_SERVE_CACHE = 4096
+MOE_SERVE_CHECK = 8        # float32 steps held to one device's decode_step
+MOE_PREFILL_S = 4096
+MOE_PREFILL_BATCH = 2      # one sequence a data rank
+MOE_PREFILL_TOL = 2e-2     # bf16 prefill logits against one device's
+
 #: what later phases read of earlier ones (the measured peaks of phases
-#: 24, 25 and 26)
+#: 24, 25, 26 and 28)
 MEASURED = {}
 
 
@@ -2837,24 +2883,25 @@ def run_slice10(seed: int, profile: bool) -> tuple:
 # the LM on a (data, model) mesh
 # ---------------------------------------------------------------------------
 
-def mesh_one_device(cfg, seed: int) -> list:
-    """The mesh phase's training steps on one device in this process: the
-    metrics of each step (the ranks are held to them)."""
+def mesh_one_device(cfg, seed: int, shape: tuple) -> list:
+    """The mesh phase's training steps on one device in this process, at
+    ``shape`` (``MESH_SHAPE``, ``MOE_MESH_SHAPE``): the metrics of each
+    step (the ranks are held to them)."""
     import torch
     from repro_torch.data.synthetic import batch_at, for_model
     from repro_torch.models.lm import init_params
     from repro_torch.train.optimizer import OptConfig, init_opt_state
     from repro_torch.train.step import make_train_step
 
+    seq, batch_size, micro, steps = shape
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 13)
     params, _ = init_params(cfg, gen, device=DEVICE)
     opt = init_opt_state(params)
     step = make_train_step(cfg, OptConfig(warmup_steps=1),
-                           num_microbatches=MESH_MICRO, dtype=torch.bfloat16)
-    dcfg = for_model(cfg, seq_len=TRAIN_SEQ, global_batch=MESH_BATCH,
-                     seed=seed)
+                           num_microbatches=micro, dtype=torch.bfloat16)
+    dcfg = for_model(cfg, seq_len=seq, global_batch=batch_size, seed=seed)
     out = []
-    for i in range(MESH_STEPS):
+    for i in range(steps):
         batch = batch_at(dcfg, i, cfg, device=DEVICE)
         (params, opt, m), secs = wall_s(lambda: step(params, opt, batch))
         out.append(({k: float(v) for k, v in m.items()}, secs))
@@ -2864,10 +2911,14 @@ def mesh_one_device(cfg, seed: int) -> list:
     return out
 
 
-def mesh_train(mesh, cfg, seed: int) -> dict:
-    """One rank's part of the sharded training steps on ``mesh``: each
-    step's metrics, time, K7 launches and collectives; then every leaf
-    changed (this rank's block) and finite (gathered whole)."""
+def mesh_train(mesh, cfg, seed: int, shape: tuple) -> dict:
+    """One rank's part of the sharded training steps on ``mesh`` at
+    ``shape`` (as :func:`mesh_one_device`'s): each
+    step's metrics, time, kernel launches (K7's a layer a microbatch on
+    this rank's heads; none of the port's in the MoE cell, whose attention
+    has no window and whose experts run ``grouped``) and collectives, in
+    all and by kind; then every leaf changed (this rank's block) and
+    finite (gathered whole)."""
     import torch
     from repro_torch.data.synthetic import batch_at, for_model
     from repro_torch.models.lm import init_params, tree_leaves
@@ -2882,45 +2933,50 @@ def mesh_train(mesh, cfg, seed: int) -> dict:
     opt = init_opt_state(params)
     samples = {path: leaf.reshape(-1)[::max(1, leaf.numel() // 4096)]
                .clone() for path, leaf in tree_leaves(params)}
+    seq, batch_size, micro, n_steps = shape
+    moe = cfg.family == "moe"
     step = make_train_step(cfg, OptConfig(warmup_steps=1), mesh,
-                           num_microbatches=MESH_MICRO, dtype=torch.bfloat16)
-    dcfg = for_model(cfg, seq_len=TRAIN_SEQ, global_batch=MESH_BATCH,
-                     seed=seed)
+                           num_microbatches=micro, dtype=torch.bfloat16)
+    dcfg = for_model(cfg, seq_len=seq, global_batch=batch_size, seed=seed)
     # a layer a microbatch on this rank's heads: the forward and its remat
     # recompute, then the backward, all on the tensor cores
-    per_step = dict(flash_swa=2 * cfg.num_layers * MESH_MICRO,
-                    flash_swa_mma=2 * cfg.num_layers * MESH_MICRO,
-                    flash_swa_bwd=cfg.num_layers * MESH_MICRO,
-                    flash_swa_bwd_mma=cfg.num_layers * MESH_MICRO)
+    per_layer = 0 if moe else cfg.num_layers * micro
+    per_step = dict(flash_swa=2 * per_layer, flash_swa_mma=2 * per_layer,
+                    flash_swa_bwd=per_layer, flash_swa_bwd_mma=per_layer)
+    if moe:
+        per_step.update(segmented_matmul=0, segmented_matmul_chunked=0)
+    tag = "moe mesh" if moe else "lm mesh"
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     steps = []
-    for i in range(MESH_STEPS):
+    for i in range(n_steps):
         batch = batch_at(dcfg, i, cfg, device=dev)
         reset_all_counts()
         mesh.stats.reset()
         (params, opt, m), secs = wall_s(lambda: step(params, opt, batch))
         counts = {k: all_counts()[k] for k in per_step}
-        check(counts == per_step, f"lm mesh rank {mesh.rank} step {i + 1}: "
+        check(counts == per_step, f"{tag} rank {mesh.rank} step {i + 1}: "
               f"launches {counts}, expected {per_step}")
         metrics = {k: float(v) for k, v in m.items()}
         check(all(math.isfinite(v) for v in metrics.values()),
-              f"lm mesh rank {mesh.rank} step {i + 1}: non-finite "
+              f"{tag} rank {mesh.rank} step {i + 1}: non-finite "
               f"{metrics}")
         steps.append(dict(metrics=metrics, secs=secs, counts=counts,
                           calls=mesh.stats.calls, bytes=mesh.stats.bytes,
-                          coll_s=mesh.stats.seconds))
+                          coll_s=mesh.stats.seconds,
+                          kinds={f"{k}@{n}": list(v) for (k, n), v
+                                 in mesh.stats.kinds.items()}))
     peak = torch.cuda.max_memory_allocated(dev) if DEVICE == "cuda" else 0
-    check(int(opt["step"]) == MESH_STEPS,
-          f"lm mesh rank {mesh.rank}: optimizer step {int(opt['step'])}")
+    check(int(opt["step"]) == n_steps,
+          f"{tag} rank {mesh.rank}: optimizer step {int(opt['step'])}")
     shardings = dict(tree_leaves(psh))
     for path, leaf in tree_leaves(params):
         now = leaf.reshape(-1)[::max(1, leaf.numel() // 4096)]
         check(not torch.equal(now, samples[path]),
-              f"lm mesh rank {mesh.rank}: {path} did not change")
+              f"{tag} rank {mesh.rank}: {path} did not change")
         whole = shardings[path].gather(leaf)
         check(bool(torch.isfinite(whole).all()),
-              f"lm mesh: {path} (gathered) not finite")
+              f"{tag}: {path} (gathered) not finite")
         del whole
     return dict(steps=steps, peak=peak, local_bytes=sum(
         t.numel() * t.element_size() for tree in (params, opt["mu"],
@@ -3090,7 +3146,7 @@ def mesh_rank_job(world: int, job: dict) -> dict:
     mesh = make_host_mesh(MESH_MODEL_AXIS, device=DEVICE)
     out = dict(mesh=str(mesh))
     out.update(mesh_train(mesh, dataclasses.replace(
-        base, num_layers=MESH_LAYERS), job["seed"]))
+        base, num_layers=MESH_LAYERS), job["seed"], MESH_SHAPE))
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     out.update(mesh_f32_and_checkpoint(mesh, dataclasses.replace(
@@ -3111,7 +3167,7 @@ def phase_lm_mesh(cfg, seed: int) -> tuple:
     import torch
 
     cut = dataclasses.replace(cfg, num_layers=MESH_LAYERS)
-    single = mesh_one_device(cut, seed)
+    single = mesh_one_device(cut, seed, MESH_SHAPE)
     for i, (m, secs) in enumerate(single):
         log(f"lm mesh one device step {i + 1}: loss {m['loss']!r}, "
             f"grad_norm {m['grad_norm']!r}, {secs * 1e3:.1f} ms")
@@ -3458,6 +3514,462 @@ def phase_pipeline(cfg, seed: int) -> tuple:
     return totals, e2e
 
 
+# ---------------------------------------------------------------------------
+# expert parallelism: the MoE configs on the (data, model) mesh
+# ---------------------------------------------------------------------------
+
+def moe_cfg(name: str, layers: int = None, **over):
+    """``name``'s config at full width, ``layers`` deep (its own depth
+    when ``None``), with ``over``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
+                               **over)
+
+
+def counted(fn):
+    """``(fn(), the segmm launches it made)``."""
+    before = {k: all_counts()[k] for k in ("segmented_matmul",
+                                           "segmented_matmul_chunked")}
+    out = fn()
+    return out, {k: all_counts()[k] - v for k, v in before.items()}
+
+
+def moe_f32(mesh, seed: int) -> dict:
+    """The float32 parity of ``loss_and_grads`` on ``mesh`` against one
+    device's on rank 0, depth 2 at full width: OLMoE with ``grouped`` and
+    with ``capacity``, and DeepSeek-MoE.  Every gathered gradient leaf is
+    held to one device's, and the router's gradient (copied on every
+    rank) on each rank of ``model``."""
+    import torch
+    from repro_torch.data.synthetic import batch_at, for_model
+    from repro_torch.models.lm import init_params, tree_leaves
+    from repro_torch.train.step import (loss_and_grads, param_specs,
+                                        shardings_for)
+
+    dev, f32 = mesh.device, torch.float32
+    out = {}
+    for label, cfg in (
+            ("olmoe grouped", moe_cfg(MOE_MESH_ARCH, 2)),
+            ("olmoe capacity", moe_cfg(MOE_MESH_ARCH, 2,
+                                       moe_dispatch="capacity")),
+            ("deepseek grouped", moe_cfg(MOE_PARITY_ARCH, 2))):
+        psh = shardings_for(mesh, param_specs(cfg))
+        draw = lambda sh: init_params(cfg, torch.Generator(device=dev)
+                                      .manual_seed(seed + 17), device=dev,
+                                      shardings=sh)[0]
+        params = draw(psh)
+        batch = batch_at(for_model(cfg, seq_len=MOE_MESH_F32_S,
+                                   global_batch=2, seed=seed), 0, cfg,
+                         device=dev)
+        (loss, _, grads), secs = wall_s(lambda: loss_and_grads(
+            params, cfg, batch, 1, f32, mesh=mesh))
+        routers = mesh.all_gather(grads["layers"]["moe"]["router"][None],
+                                  "model")
+        want = want_loss = None
+        if mesh.rank == 0:
+            full = draw(None)
+            want_loss, _, want = loss_and_grads(full, cfg, batch, 1, f32)
+            want = dict(tree_leaves(want))
+            del full
+        shardings = dict(tree_leaves(psh))
+        worst = 0.0
+        for path, g in tree_leaves(grads):
+            whole = shardings[path].gather(g)
+            if want is not None:
+                worst = max(worst, leaf_close(f"moe mesh f32 {label} grad "
+                                              f"{path}", whole, want[path],
+                                              TRAIN_GRAD_TOL))
+        res = dict(secs=secs, mesh=str(mesh))
+        if mesh.rank == 0:
+            for m in range(routers.shape[0]):
+                worst = max(worst, leaf_close(
+                    f"moe mesh f32 {label} router grad on model rank {m}",
+                    routers[m], want["/layers/moe/router"], TRAIN_GRAD_TOL))
+            check(abs(float(loss) - float(want_loss))
+                  <= TRAIN_LOSS_RTOL * abs(float(want_loss)),
+                  f"moe mesh f32 {label}: loss {float(loss)!r} vs one "
+                  f"device {float(want_loss)!r}")
+            res.update(loss=(float(loss), float(want_loss)), worst=worst)
+        out[label] = res
+        del params, grads, want, routers
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def moe_decode(mesh, seed: int) -> dict:
+    """``make_serve_step`` on ``mesh``: OLMoE at full width and depth in
+    bfloat16 (each rank draws its blocks), greedy steps (ids in the
+    vocabulary, logits finite); then depth 2 in float32 with each
+    dispatch, each step's logits held to one device's ``decode_step`` on
+    rank 0."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import (cast_params, decode_step, init_cache,
+                                       init_params)
+    from repro_torch.serve.decode import make_serve_step, sample_logits
+
+    dev, bf16, f32 = mesh.device, torch.bfloat16, torch.float32
+    cfg = moe_cfg(MOE_MESH_ARCH)
+    step, psh, _, cache = make_serve_step(
+        cfg, mesh, batch=MOE_SERVE_BATCH, seq_len=MOE_SERVE_CACHE,
+        dtype=bf16)
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    params = cast_params(init_params(cfg, gen, device=dev,
+                                     shardings=psh)[0], bf16)
+    rng = np.random.default_rng(seed)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        MOE_SERVE_BATCH, 1)).astype(np.int32)).to(dev)
+    mesh.stats.reset()
+    ids, times = [], []
+    for t in range(MOE_SERVE_STEPS):
+        (logits, cache), secs = wall_s(lambda: step(params, tok, t, cache))
+        check(bool(torch.isfinite(logits).all()),
+              f"moe mesh decode step {t}: non-finite logits")
+        tok = sample_logits(None, logits, 0.0, vocab_size=cfg.vocab_size)
+        ids.append(tok[:, 0].tolist())
+        times.append(secs)
+    check(all(0 <= i < cfg.vocab_size for row in ids for i in row),
+          f"moe mesh decode: ids outside the vocabulary")
+    out = dict(decode_ms=statistics.median(times[1:]) * 1e3,
+               decode_first_ms=times[0] * 1e3, decode_ids=ids,
+               decode_calls=mesh.stats.calls / MOE_SERVE_STEPS,
+               decode_bytes=mesh.stats.bytes / MOE_SERVE_STEPS,
+               decode_coll_ms=mesh.stats.seconds / MOE_SERVE_STEPS * 1e3,
+               decode_cache=tuple(cache["k"].shape), decode_layers=
+               cfg.num_layers)
+    del params, cache
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        MOE_SERVE_BATCH, MOE_SERVE_CHECK)).astype(np.int32)).to(dev)
+    launches = {"segmented_matmul": 0, "segmented_matmul_chunked": 0}
+    worst = {}
+    for dispatch in ("grouped", "capacity", "sorted"):
+        cut = moe_cfg(MOE_MESH_ARCH, 2, moe_dispatch=dispatch)
+        step, psh, _, cache = make_serve_step(
+            cut, mesh, batch=MOE_SERVE_BATCH, seq_len=MOE_SERVE_CHECK,
+            dtype=f32)
+        draw = lambda sh: init_params(cut, torch.Generator(device=dev)
+                                      .manual_seed(seed + 19), device=dev,
+                                      shardings=sh)[0]
+        params = draw(psh)
+        full = draw(None) if mesh.rank == 0 else None
+        plain = (init_cache(cut, MOE_SERVE_BATCH, MOE_SERVE_CHECK, f32,
+                            device=dev) if full is not None else None)
+        worst[dispatch] = 0.0
+        for t in range(MOE_SERVE_CHECK):
+            (logits, cache), n = counted(lambda: step(
+                params, tokens[:, t:t + 1], t, cache))
+            for k in launches:
+                launches[k] += n[k]
+            if full is not None:
+                with torch.no_grad():
+                    want, plain = decode_step(full, cut, tokens[:, t:t + 1],
+                                              t, plain, dtype=f32)
+                err = max_abs_err(logits, want)
+                check(torch.allclose(logits, want, rtol=LM_TOL, atol=LM_TOL),
+                      f"moe mesh decode f32 {dispatch} step {t}: logits "
+                      f"differ from one device's by {err}")
+                worst[dispatch] = max(worst[dispatch], err)
+        del params, full, plain, cache
+    check(launches["segmented_matmul"] > 0, f"moe mesh decode rank "
+          f"{mesh.rank}: the sorted dispatch launched no K5")
+    out.update(decode_f32_worst=worst, decode_launches=launches)
+    return out
+
+
+def moe_prefill(mesh, seed: int) -> dict:
+    """``prefill(mesh=)`` with ``moe_dispatch="sorted"``: each rank's
+    grouped GEMMs (K5) over the atoms routed to its experts, the logits
+    against one device's prefill on rank 0; then each rank's K5 and K6 at
+    its own shape (the atoms of a sequence routed to its experts by the
+    first layer's router), bitwise equal, K5 held to its plain version on
+    the same bf16 operands, timed (one rank at a time) beside ``torch.bmm``
+    on the same experts and its bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.segmm import kernel as SK
+    from repro_torch.launch import roofline as RL
+    from repro_torch.kernels.segmm.ops import segmm_operands
+    from repro_torch.launch.mesh import NamedSharding
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import (cast_params, init_params, prefill)
+    from repro_torch.models.moe import _router
+    from repro_torch.serve.decode import _data_axes, cache_pspecs
+    from repro_torch.train.step import param_specs, shardings_for
+
+    dev, bf16 = mesh.device, torch.bfloat16
+    cfg = moe_cfg(MOE_MESH_ARCH, 2, moe_dispatch="sorted")
+    b = MOE_PREFILL_BATCH
+    psh = shardings_for(mesh, param_specs(cfg))
+    csh = shardings_for(mesh, cache_pspecs(cfg, mesh, b))
+    daxes = _data_axes(mesh, b) or None
+    rows = NamedSharding(mesh, (daxes, None))
+    rows3 = NamedSharding(mesh, (daxes, None, None))
+    draw = lambda sh: cast_params(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed + 20), device=dev,
+        shardings=sh)[0], bf16)
+    params = draw(psh)
+    tokens = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (b, MOE_PREFILL_S)).astype(np.int32)).to(dev)
+    mesh.stats.reset()
+    with torch.no_grad():
+        ((logits, cache), n), secs = wall_s(lambda: counted(
+            lambda: prefill(params, cfg, rows.shard(tokens), dtype=bf16,
+                            mesh=mesh, cache_sh=csh)))
+        logits = rows3.gather(logits)
+    check(n["segmented_matmul"] == 3 * cfg.num_layers,
+          f"moe mesh prefill rank {mesh.rank}: K5 launches {n}, expected "
+          f"{3 * cfg.num_layers} (three grouped GEMMs a layer)")
+    out = dict(prefill_s=secs, prefill_launches=n,
+               prefill_calls=mesh.stats.calls, prefill_bytes=
+               mesh.stats.bytes, prefill_coll_s=mesh.stats.seconds)
+    del cache
+    if mesh.rank == 0:
+        with torch.no_grad():
+            full = draw(None)
+            want, _ = prefill(full, cfg, tokens, dtype=bf16)
+            del full
+        err = max_abs_err(logits, want)
+        scale = max(1.0, float(want.float().abs().max()))
+        check(err <= MOE_PREFILL_TOL * scale,
+              f"moe mesh prefill: logits differ from one device's by {err} "
+              f"(limit {MOE_PREFILL_TOL} x {scale})")
+        out.update(prefill_err=err, prefill_scale=scale)
+
+    # each rank's K5/K6 at its own shape: a sequence's atoms routed to its
+    # experts by layer 0's router
+    layer = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    with torch.no_grad():
+        w1 = L.gather(layer["w1"], mesh, L.FSDP, 1).contiguous()
+    n_loc = w1.shape[0]
+    first = mesh.coord(L.TP) * n_loc
+    gen = torch.Generator(device=dev).manual_seed(seed + 21 + mesh.rank)
+    x = torch.randn((MOE_PREFILL_S, cfg.d_model), generator=gen,
+                    device=dev).to(bf16)
+    idx, _, _ = _router(layer, x, cfg.num_experts, cfg.top_k)
+    experts = idx.reshape(-1)
+    mine = (experts >= first) & (experts < first + n_loc)
+    atoms = x.repeat_interleave(cfg.top_k, dim=0)[mine]
+    local = (experts[mine] - first).to(torch.int32)
+    o5 = segmm_operands(atoms, local, num_experts=n_loc, bm=128,
+                        schedule="group_mapped", path="pure")
+    o6 = segmm_operands(atoms, local, num_experts=n_loc, bm=128,
+                        schedule="chunked_lpt", path="native")
+    chunks, counts, cmax = o6.queue
+    y5 = SK.segmented_matmul(o5.lhs, w1, o5.block_expert, bm=128)[o5.rows]
+    y6 = SK.segmented_matmul_chunked(o6.lhs, w1, o6.block_expert, chunks,
+                                     counts, bm=128,
+                                     max_chunks=cmax)[o6.rows]
+    check(torch.equal(y5, y6), f"moe mesh rank {mesh.rank}: K6 differs from "
+          f"K5 at the rank's shape")
+    # K5 against its plain version on these bf16 operands: a product of two
+    # bf16 values is exact in f32, so only the order of the f32 sums
+    # differs: each is within K u sum_k |a_k b_k| of the exact sum (u =
+    # 2**-24), so they are within twice that of each other;
+    # integer-valued stand-ins make every sum exact, so there it is bitwise
+    plain = SK.segmented_matmul_plain(o5.lhs, w1, o5.block_expert,
+                                      bm=128)[o5.rows]
+    limit = (2 * cfg.d_model * 2.0 ** -24) * SK.segmented_matmul_plain(
+        o5.lhs.abs(), w1.abs(), o5.block_expert, bm=128)[o5.rows]
+    err5 = max_abs_err(y5, plain)
+    over = int(((y5 - plain).abs() > limit).sum())
+    check(over == 0, f"moe mesh rank {mesh.rank}: K5 bf16 differs from its "
+          f"plain version beyond the f32 sum-order bound in {over} entries "
+          f"(max abs err {err5})")
+    unit_lhs, unit_w1 = unit_values(o5.lhs), unit_values(w1)
+    check(torch.equal(
+        SK.segmented_matmul(unit_lhs, unit_w1, o5.block_expert, bm=128),
+        SK.segmented_matmul_plain(unit_lhs, unit_w1, o5.block_expert,
+                                  bm=128)),
+          f"moe mesh rank {mesh.rank}: K5 bf16 on integer-valued operands "
+          f"not bitwise equal to its plain version")
+    out.update(k5_plain_err=err5, k5_plain_limit=float(limit.max()),
+               k5_typical=float(plain.abs().median()))
+    del plain, limit, unit_lhs, unit_w1
+    nblk = o5.num_blocks
+    lhs_b = o5.lhs.view(nblk, 128, cfg.d_model)
+    rhs_g = w1[o5.block_expert.long()]
+    k5 = lambda: SK.segmented_matmul(o5.lhs, w1, o5.block_expert, bm=128)
+    # the ranks share one card, and a CUDA event pair on one rank also
+    # spans the other ranks' kernels time-sliced in between: K5 once with
+    # every rank timing at the same time, then each rank alone in turn
+    mesh.barrier()
+    out.update(k5_shared_ms=cuda_ms(k5, iters=5))
+    for r in range(mesh.size):
+        mesh.barrier()
+        if r == mesh.rank:
+            out.update(
+                k5_ms=cuda_ms(k5, iters=5),
+                k6_ms=cuda_ms(lambda: SK.segmented_matmul_chunked(
+                    o6.lhs, w1, o6.block_expert, chunks, counts, bm=128,
+                    max_chunks=cmax), iters=5),
+                bmm_ms=cuda_ms(lambda: torch.bmm(lhs_b, rhs_g), iters=5))
+    mesh.barrier()
+    out.update(k5_shape=(int(atoms.shape[0]), nblk, n_loc, tuple(w1.shape)),
+               k5_flop=2 * int(atoms.shape[0]) * cfg.d_model * cfg.d_ff)
+    # its bound: each operand read once (bf16 atoms, the busy experts'
+    # bf16 w1), the f32 output written once; flop at the bf16 tensor peak
+    # and at the f32 CUDA-core rate K5's FMA chain runs at
+    busy = int(torch.unique(local).numel())
+    nbytes = (int(atoms.shape[0]) * cfg.d_model * 2
+              + busy * cfg.d_model * cfg.d_ff * 2
+              + int(atoms.shape[0]) * cfg.d_ff * 4)
+    out.update(k5_bytes_ms=nbytes / RL.HBM_BW * 1e3,
+               k5_bf16_ms=out["k5_flop"] / RL.PEAK_FLOPS_BF16 * 1e3,
+               k5_f32_ms=out["k5_flop"] / F32_FLOP_PER_S * 1e3)
+    del params, w1, rhs_g, lhs_b
+    return out
+
+
+def moe_rank_job(world: int, job: dict) -> dict:
+    """Phase 28 on one rank of the ``(2, 2)`` mesh: training, the float32
+    parity checks, serving and the ``sorted`` prefill."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(MESH_MODEL_AXIS, device=DEVICE)
+    out = dict(mesh=str(mesh))
+    out.update(mesh_train(mesh, moe_cfg(MOE_MESH_ARCH, MOE_MESH_LAYERS),
+                          job["seed"], MOE_MESH_SHAPE))
+    for part in (moe_f32, moe_decode, moe_prefill):
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        out[part.__name__] = part(mesh, job["seed"])
+    return out
+
+
+def phase_moe_mesh(seed: int) -> tuple:
+    """Expert parallelism: OLMoE-1B-7B's training steps on one device
+    first (freed), then four spawned ranks sharing this card in one gloo
+    group run :func:`moe_rank_job` on ``(data, model) = (2, 2)``.  Returns
+    the ranks' segmm launches on the mesh path and the e2e seconds."""
+    import torch
+
+    cut = moe_cfg(MOE_MESH_ARCH, MOE_MESH_LAYERS)
+    seq, batch, micro, steps = MOE_MESH_SHAPE
+    tokens = batch * seq
+    single = mesh_one_device(cut, seed, MOE_MESH_SHAPE)
+    for i, (m, secs) in enumerate(single):
+        log(f"moe mesh one device step {i + 1}: loss {m['loss']!r}, "
+            f"grad_norm {m['grad_norm']!r}, {secs * 1e3:.1f} ms")
+    ranks, secs = wall_s(lambda: run_shard_ranks(
+        MESH_RANKS, dict(seed=seed), fn="moe_rank_job",
+        timeout_s=MESH_TIMEOUT_S, deadline_s=MESH_DEADLINE_S))
+    log(f"moe mesh: {MESH_RANKS} processes on this card in one gloo group, "
+        f"{secs:.1f} s in all; four ranks share one card and gloo moves "
+        f"CUDA tensors through the host, so these times are the "
+        f"expert-parallel path's overhead, not its scaling")
+    e2e = {}
+    for r, res in enumerate(ranks):
+        for i, (row, (want, _)) in enumerate(zip(res["steps"], single)):
+            for key in ("loss", "grad_norm"):
+                got = row["metrics"][key]
+                check(abs(got - want[key]) <= MESH_RTOL * abs(want[key]),
+                      f"moe mesh rank {r} step {i + 1}: {key} {got!r} vs "
+                      f"one device {want[key]!r} (rtol {MESH_RTOL})")
+        rows = res["steps"]
+        step_s = statistics.median([row["secs"] for row in rows[1:]]
+                                   or [rows[0]["secs"]])
+        last = rows[-1]
+        kinds = ", ".join(f"{k} {v[0]} calls {v[1] / 2**20:.1f} MiB "
+                          f"{v[2] * 1e3:.1f} ms"
+                          for k, v in sorted(last["kinds"].items()))
+        log(f"moe mesh train rank {r} ({res['mesh']}): {cut.name} x "
+            f"{cut.num_layers} layers at full width ({cut.num_experts} "
+            f"experts, {cut.num_experts // MESH_MODEL_AXIS} a rank, top-"
+            f"{cut.top_k}, {cut.moe_dispatch}), S {seq}, global batch "
+            f"{batch} in {micro} microbatches; losses "
+            f"{[row['metrics']['loss'] for row in rows]}, grad norms "
+            f"{[row['metrics']['grad_norm'] for row in rows]}; "
+            f"{step_s * 1e3:.1f} ms a step (median of steps 2-{steps}; "
+            f"step 1 {rows[0]['secs'] * 1e3:.1f} ms), {tokens / step_s:.0f}"
+            f" tokens/s; peak device memory {res['peak'] / 2**30:.2f} GiB "
+            f"(its blocks of the weights and AdamW state "
+            f"{res['local_bytes'] / 2**30:.2f} GiB); collectives a step "
+            f"{last['calls']} calls, {last['bytes'] / 2**20:.1f} MiB, "
+            f"{last['coll_s'] * 1e3:.1f} ms; by kind: {kinds}")
+        if r == 0:
+            e2e[f"moe train step[mesh 2x2, {cut.name} x {cut.num_layers}, "
+                f"S {seq}, batch {batch}]"] = step_s
+    r0 = ranks[0]
+    MEASURED["moe_mesh_peak"] = r0["peak"]
+    one = statistics.median([s for _, s in single[1:]] or [single[0][1]])
+    log(f"moe mesh one device: {one * 1e3:.1f} ms a step (median of steps "
+        f"2-{steps}), {tokens / one:.0f} tokens/s; every rank's losses and "
+        f"grad norms within {MESH_RTOL} of it")
+    e2e[f"moe train step[one device, {cut.name} x {cut.num_layers}, S "
+        f"{seq}, batch {batch}]"] = one
+    for label, res in r0["moe_f32"].items():
+        loss, want_loss = res["loss"]
+        log(f"moe mesh f32 loss_and_grads {label} (2 layers at full width, "
+            f"S {MOE_MESH_F32_S}, 2 sequences, {res['mesh']}): loss "
+            f"{loss!r} vs one device {want_loss!r}; every gathered gradient "
+            f"leaf and the router's on each model rank within "
+            f"{res['worst']:.3e} of its largest entry (limit "
+            f"{TRAIN_GRAD_TOL}); {res['secs']:.2f} s")
+    dec = r0["moe_decode"]
+    for r, res in enumerate(ranks):
+        check(res["moe_decode"]["decode_ids"] == dec["decode_ids"],
+              f"moe mesh decode: rank {r} sampled other ids")
+    log(f"moe mesh decode {MOE_MESH_ARCH} x {dec['decode_layers']} layers "
+        f"bf16 on {r0['mesh']}: batch {MOE_SERVE_BATCH}, cache block "
+        f"{dec['decode_cache']} a rank, {MOE_SERVE_STEPS} greedy steps, "
+        f"{dec['decode_ms']:.2f} ms a step (median; first "
+        f"{dec['decode_first_ms']:.1f} ms), collectives a step "
+        f"{dec['decode_calls']:.0f} calls, "
+        f"{dec['decode_bytes'] / 2**20:.1f} MiB, "
+        f"{dec['decode_coll_ms']:.2f} ms; ids {dec['decode_ids'][:2]}...; "
+        f"float32 x 2 layers, {MOE_SERVE_CHECK} steps' logits within "
+        f"{json.dumps(dec['decode_f32_worst'])} of one device's (limit "
+        f"{LM_TOL}); segmm launches in the sorted steps "
+        f"{json.dumps(dec['decode_launches'])}")
+    e2e[f"moe decode step[mesh 2x2, {MOE_MESH_ARCH}, bf16, batch "
+        f"{MOE_SERVE_BATCH}]"] = dec["decode_ms"] / 1e3
+    totals = {"segmented_matmul": 0, "segmented_matmul_chunked": 0}
+    for r, res in enumerate(ranks):
+        pre = res["moe_prefill"]
+        for k in totals:
+            totals[k] += (pre["prefill_launches"][k]
+                          + res["moe_decode"]["decode_launches"][k])
+        atoms, nblk, n_loc, w_shape = pre["k5_shape"]
+        tflops = pre["k5_flop"] / pre["k5_ms"] / 1e9
+        log(f"moe mesh prefill rank {r}: sorted, 2 layers, S "
+            f"{MOE_PREFILL_S}, one sequence a data rank: "
+            f"{pre['prefill_s']:.2f} s, segmm launches {json.dumps(pre['prefill_launches'])}, "
+            f"collectives {pre['prefill_calls']} calls, "
+            f"{pre['prefill_bytes'] / 2**20:.1f} MiB, "
+            f"{pre['prefill_coll_s'] * 1e3:.1f} ms; K5 at the rank's shape "
+            f"({atoms} atoms on its {n_loc} experts, {nblk} M-blocks, w1 "
+            f"{w_shape}, bf16), each rank timed alone: {pre['k5_ms']:.4f} "
+            f"ms ({tflops:.2f} TFLOP/s; {pre['k5_shared_ms']:.4f} ms with "
+            f"the four ranks timing it at once), K6 {pre['k6_ms']:.4f} ms "
+            f"(bitwise K5's), torch.bmm on the same experts "
+            f"{pre['bmm_ms']:.4f} ms; bound "
+            f"{max(pre['k5_bf16_ms'], pre['k5_bytes_ms']):.4f} ms at the "
+            f"bf16 tensor peak ({pre['k5_bf16_ms']:.4f} ms of flop, "
+            f"{pre['k5_bytes_ms']:.4f} ms of bytes), "
+            f"{max(pre['k5_f32_ms'], pre['k5_bytes_ms']):.4f} ms at the "
+            f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s f32 CUDA-core rate; K5 "
+            f"against its plain version on the same bf16 operands: max abs "
+            f"err {pre['k5_plain_err']!r}, every entry within the f32 "
+            f"sum-order bound (largest {pre['k5_plain_limit']!r}; median "
+            f"|output| {pre['k5_typical']!r}), bitwise on integer-valued "
+            f"operands")
+    log(f"moe mesh prefill logits on {r0['mesh']} within "
+        f"{r0['moe_prefill']['prefill_err']!r} of one device's (limit "
+        f"{MOE_PREFILL_TOL} x {r0['moe_prefill']['prefill_scale']!r})")
+    e2e[f"moe prefill[mesh 2x2, {MOE_MESH_ARCH} x 2, sorted, S "
+        f"{MOE_PREFILL_S}, batch {MOE_PREFILL_BATCH}]"] = (
+        r0["moe_prefill"]["prefill_s"])
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return totals, e2e
+
+
 def dryrun_peak(label: str, t: dict, measured: int) -> None:
     """Log one traced step's peak estimate beside the measured peak and
     hold it within ``DRYRUN_PEAK_TOL``."""
@@ -3479,8 +3991,8 @@ def phase_dryrun_check(cfg) -> None:
     """Steps whose peak this run measured, traced on the ``meta`` device
     by the dry run (``launch/dryrun.py``), each peak estimate held to the
     measured one: phase 24's one-device train step (its flop count beside
-    6ND), rank 0's step of phase 25's ``(2, 2)`` mesh, and each stage's
-    step of phase 26's pipeline."""
+    6ND), rank 0's step of phase 25's ``(2, 2)`` mesh, rank 0's OLMoE
+    step of phase 28's, and each stage's step of phase 26's pipeline."""
     import torch
     from repro_torch.configs import ShapeCase
     from repro_torch.launch import roofline as RL
@@ -3518,6 +4030,23 @@ def phase_dryrun_check(cfg) -> None:
                 f"layers, S {TRAIN_SEQ}, global batch {MESH_BATCH} in "
                 f"{MESH_MICRO} microbatches; phase 25)", t,
                 MEASURED["mesh_peak"])
+
+    cut = moe_cfg(MOE_MESH_ARCH, MOE_MESH_LAYERS)
+    with fake_world(MESH_RANKS):
+        mesh = make_host_mesh(MESH_MODEL_AXIS, device="meta")
+        step, args = build_cell(cut, ShapeCase(
+            f"train_{MOE_MESH_SEQ}", MOE_MESH_SEQ, MOE_MESH_BATCH, "train"),
+            mesh, MOE_MESH_MICRO)
+        t = trace_step(step, args, mesh)
+        del step, args
+    dryrun_peak(f"moe mesh rank 0 train step ({cut.name} x {cut.num_layers}"
+                f" layers, (data, model) = ({MESH_RANKS // MESH_MODEL_AXIS}, "
+                f"{MESH_MODEL_AXIS}), S {MOE_MESH_SEQ}, global batch "
+                f"{MOE_MESH_BATCH} in {MOE_MESH_MICRO} microbatches; phase "
+                f"28)", t, MEASURED["moe_mesh_peak"])
+    log("dry-run check moe mesh collectives traced: " + ", ".join(
+        f"{k}@{n} {v[0]} calls {v[1] / 2**20:.1f} MiB"
+        for (k, n), v in sorted(t["collectives"].items())))
 
     cut = dataclasses.replace(cfg, num_layers=PIPE_LAYERS)
     per = PIPE_LAYERS // PIPE_RANKS
@@ -3735,6 +4264,17 @@ def run(args, t_start: float) -> int:
     for name in pipe_launches:
         launches[name] += pipe_launches[name]
     for name, secs in e2e6.items():
+        log(f"e2e {name}: {secs * 1e3:.1f} ms")
+
+    # expert parallelism: OLMoE and DeepSeek-MoE on the (2, 2) mesh, K5 on
+    # each rank's own experts; then the dry run's estimates of the steps
+    # of phases 24-26 and 28 against their measurements
+    moe_mesh_counts, e2e7 = phase_moe_mesh(args.seed)
+    for name, n in moe_mesh_counts.items():
+        log(f"main-path launches {name}: {launches[name]} + {n} (moe mesh: "
+            f"sorted prefill and decode, every rank)")
+        launches[name] += n
+    for name, secs in e2e7.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
     phase_dryrun_check(get_config(LM_ARCH))
 

@@ -28,9 +28,10 @@ keys, with the port's measures in place of XLA's:
 
 On the single-pod mesh the units of one and two layers (one microbatch)
 are traced too and composed by ``roofline.compose``, as the reference
-does.  A cell that raises is recorded (``error``) and the sweep goes on:
-the MoE configs on a split batch raise ``NotImplementedError``, naming
-ROADMAP.md queue 3a (expert parallelism).
+does.  A cell that raises is recorded (``error``) and the sweep goes on.
+The MoE cells run expert-parallel (``models.moe``): their records hold
+the combine's all-reduces over ``model`` and the router statistics'
+over the batch axes beside the FSDP gathers.
 """
 from __future__ import annotations
 

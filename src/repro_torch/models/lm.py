@@ -31,11 +31,13 @@ blocks of the parameters (placed by their specs) and its rows of the batch:
 attention and the MLP tensor-parallel (see :mod:`layers`; where ``model``
 does not divide the heads, attention runs whole on every rank of it, its
 weights gathered at the start of the layer, except in decode, whose
-sequence-split cache takes any head count), the embedding a vocab-parallel
-lookup, the loss a vocab-parallel cross-entropy normalised by the token
-count over every batch shard, and every other weight of a layer (SSM,
-experts, router) gathered whole at the start of its layer and run whole on
-every rank.  With ``mesh=None`` or a one-rank mesh none of this runs.
+sequence-split cache takes any head count), the MoE layer expert-parallel
+over ``model`` with its router statistics over the whole batch (see
+:mod:`moe`), the embedding a vocab-parallel lookup, the loss a
+vocab-parallel cross-entropy normalised by the token count over every
+batch shard, and every other weight of a layer (the SSM blocks) gathered
+whole at the start of its layer and run whole on every rank.  With
+``mesh=None`` or a one-rank mesh none of this runs.
 """
 from __future__ import annotations
 
@@ -111,9 +113,10 @@ def _layer_init(cfg, generator: torch.Generator, device) -> Tuple[Params,
     return params, specs
 
 
-#: Layer subtrees that run tensor-parallel on a mesh (``layers.attention``
-#: and ``layers.mlp``); the rest of a layer runs whole on every rank.
-TP_SUBTREES = ("attn", "mlp")
+#: Layer subtrees that run tensor-parallel on a mesh (``layers.attention``,
+#: ``layers.mlp``, and ``moe.moe`` expert-parallel); the rest of a layer
+#: runs whole on every rank.
+TP_SUBTREES = ("attn", "mlp", "moe")
 
 
 def _attn_mesh(cfg, mesh):
@@ -248,33 +251,32 @@ def _attn_kwargs(cfg) -> dict:
                 sliding_window=cfg.sliding_window)
 
 
-def _moe(cfg, params: Params, h: torch.Tensor):
+def _moe(cfg, params: Params, h: torch.Tensor, mesh=None,
+         rows: Tuple[str, ...] = L.BATCH):
+    """The MoE layer; on ``mesh`` expert-parallel, ``h`` this rank's rows
+    cut over the axes ``rows``."""
     return M.moe(params, h, num_experts=cfg.num_experts, top_k=cfg.top_k,
                  num_shared=cfg.num_shared_experts, dispatch=cfg.moe_dispatch,
                  capacity_factor=cfg.capacity_factor,
-                 ep_pins=cfg.moe_ep_pins)
+                 ep_pins=cfg.moe_ep_pins, mesh=mesh, batch_axes=rows)
 
 
-def check_moe_mesh(cfg, mesh) -> None:
-    """Raise for what the port does not run on ``mesh``: an MoE layer
-    whose batch is split (the reference's capacity and load-balance terms
-    are over the whole batch; expert parallelism is ROADMAP.md queue 3a)."""
-    if cfg.family == "moe" and any(L.axis_size(mesh, a) > 1
-                                   for a in L.BATCH):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers over a split batch are not ported "
-            f"(capacity and aux loss are over the whole batch; expert "
-            f"parallelism is ROADMAP.md queue 3a); use a mesh whose pod and "
-            f"data axes have one rank")
+def _rows(cache_sh) -> Tuple[str, ...]:
+    """The axes a serving batch's rows are cut over: the KV cache's batch
+    dimension's (``serve.decode.cache_pspecs``; none where the data axes
+    do not divide the batch, or without a mesh)."""
+    return cache_sh["k"].dim_axes(1) if cache_sh and "k" in cache_sh else ()
 
 
 def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
-           with_state: bool = True, mesh=None
+           with_state: bool = True, mesh=None,
+           rows: Tuple[str, ...] = L.BATCH
            ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder block over a whole sequence: ``(x, aux_loss, state)``,
     ``state`` holding the roped ``k``/``v`` and the SSM states that
     :func:`prefill` turns into this layer's decode cache (empty without
-    ``with_state``, as the reference's ``_block_train``)."""
+    ``with_state``, as the reference's ``_block_train``).  On ``mesh``,
+    ``x`` is this rank's rows, cut over the axes ``rows``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     state: Dict[str, torch.Tensor] = {}
     params = _whole(cfg, params, mesh)
@@ -309,7 +311,7 @@ def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
 
     h2 = L.rmsnorm(params["ln2"], x)
     if cfg.family == "moe":
-        out, aux = _moe(cfg, params["moe"], h2)
+        out, aux = _moe(cfg, params["moe"], h2, mesh, rows)
         x = x + out
     elif cfg.family == "ssm":
         cout = S.rwkv_cmix(params["cmix"], h2, return_state=with_state)
@@ -473,7 +475,6 @@ def lm_loss(params: Params, cfg, batch: Dict[str, torch.Tensor],
     labels weigh no more.  Each rank's gradient is that of its own NLL
     term over the global count."""
     mesh = sharded(mesh)
-    check_moe_mesh(cfg, mesh)
     hidden, aux = forward_hidden(params, cfg, batch["tokens"],
                                  batch.get("prefix_embeds"), dtype=dtype,
                                  mesh=mesh)
@@ -537,8 +538,6 @@ def prefill(params: Params, cfg, tokens: torch.Tensor,
     NamedSharding}`` from ``serve.decode.cache_pspecs``); the logits are
     this rank's rows over the whole padded vocabulary."""
     mesh = sharded(mesh)
-    if mesh is not None:
-        check_moe_mesh(cfg, mesh)
     x = _embed(params, cfg, tokens, prefix_embeds, dtype, mesh)
     b, s, _ = x.shape
     if cache_len is None:
@@ -554,10 +553,11 @@ def prefill(params: Params, cfg, tokens: torch.Tensor,
         name: NamedSharding(mesh, tuple(a if a == L.TP else None
                                         for a in sh.spec[1:]))
         for name, sh in cache_sh.items() if name in whole}
+    rows = _rows(cache_sh)
     caches = []
     for i in range(cfg.num_layers):
         x, _, cache = _block(cfg, _layer(params, i), x, positions,
-                             mesh=mesh)
+                             mesh=mesh, rows=rows)
         for name in ("k", "v"):
             if name in cache:
                 cache[name] = _emit_kv_cache(cache[name], win)
@@ -612,7 +612,8 @@ def init_cache(cfg, batch: int, seq_len: int,
 
 
 def _block_decode(cfg, params: Params, x: torch.Tensor, pos: int,
-                  cache: Dict[str, torch.Tensor], mesh=None):
+                  cache: Dict[str, torch.Tensor], mesh=None,
+                  rows: Tuple[str, ...] = ()):
     new_cache: Dict[str, torch.Tensor] = {}
     params = _whole(cfg, params, mesh, decode=True)
     h = L.rmsnorm(params["ln1"], x)
@@ -637,7 +638,7 @@ def _block_decode(cfg, params: Params, x: torch.Tensor, pos: int,
 
     h2 = L.rmsnorm(params["ln2"], x)
     if cfg.family == "moe":
-        out, _ = _moe(cfg, params["moe"], h2)
+        out, _ = _moe(cfg, params["moe"], h2, mesh, rows)
         x = x + out
     elif cfg.family == "ssm":
         cout, new_cache["xprev_c"] = S.rwkv_cmix(
@@ -673,12 +674,13 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, pos: int,
         name: NamedSharding(mesh, tuple(a if a == L.TP else None
                                         for a in sh.spec[1:]))
         for name, sh in cache_sh.items() if name not in ("k", "v")}
+    rows = _rows(cache_sh)
     for i in range(cfg.num_layers):
         layer_cache = {name: c[i] for name, c in cache.items()}
         work = {name: states[name].gather(c) if name in states else c
                 for name, c in layer_cache.items()}
         x, new = _block_decode(cfg, _layer(params, i), x, int(pos), work,
-                               mesh)
+                               mesh, rows)
         for name, value in new.items():
             if name in states:
                 value = states[name].shard(value)

@@ -8,7 +8,10 @@ Decode sharding policy, as the reference's ``serve/decode.py``:
   where each rank's softmax over its slots needs the flash-decode combine
   (``models.layers.attention_decode``; GSPMD emits it in the reference);
 * the SSM states as the reference places them (``wkv``'s K and hybrid
-  ``h``'s inner width over ``model``).
+  ``h``'s inner width over ``model``);
+* MoE layers expert-parallel over ``model``, their router statistics (and
+  the ``capacity`` dispatch's ranks) over the rows of every batch shard
+  (``models.moe``).
 
 Every rank of the mesh calls the step with the same global tokens and
 gets the same global logits.
@@ -85,12 +88,6 @@ def make_serve_step(cfg, mesh=None, *, batch: int, seq_len: int,
     from repro_torch.train.step import param_specs, shardings_for
 
     daxes = _data_axes(mesh, batch)
-    if cfg.family == "moe" and daxes:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE decode over a split batch is not ported "
-            f"(capacity is over the whole batch; expert parallelism is "
-            f"ROADMAP.md queue 3a); use a batch the data axes do not "
-            f"divide, or a data axis of one rank")
     param_sh = shardings_for(mesh, param_specs(cfg))
     cache_sh = shardings_for(mesh, cache_pspecs(cfg, mesh, batch))
     tok_sh = NamedSharding(mesh, (daxes if daxes else None, None))

@@ -38,8 +38,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.launch.mesh import NamedSharding, sharded
-from repro_torch.models.lm import (check_moe_mesh, lm_loss, param_specs,
-                                   tree_leaves, tree_map)
+from repro_torch.models.lm import (lm_loss, param_specs, tree_leaves,
+                                   tree_map)
 from repro_torch.train.optimizer import OptConfig, adamw_update
 
 METRIC_KEYS = ("loss", "ntokens", "grad_norm", "lr")
@@ -225,11 +225,19 @@ def make_train_step(cfg, opt_cfg: OptConfig, mesh=None, *,
     and every rank calls the step with the same global batch.  Where the
     ``model`` axis does not divide the query and KV heads, attention runs
     whole on every rank of it (``layers.heads_split``; the reference's
-    GSPMD pads the heads)."""
+    GSPMD pads the heads).  MoE layers run expert-parallel over ``model``
+    (``models.moe``); with ``moe_dispatch="sorted"`` a split batch raises
+    ``NotImplementedError``, as the reference's step does."""
     param_sh = None
     mesh = sharded(mesh)
     if mesh is not None:
-        check_moe_mesh(cfg, mesh)
+        if (cfg.family == "moe" and cfg.moe_dispatch == "sorted"
+                and any(mesh.axis_size(a) > 1 for a in BATCH_AXES)):
+            raise NotImplementedError(
+                f"{cfg.name}: training with moe_dispatch='sorted' on a "
+                f"split batch is not supported, as in the reference, whose "
+                f"train step cannot differentiate its segmented-GEMM "
+                f"kernel; use 'grouped' or 'capacity' to train")
         param_sh = shardings_for(mesh, param_specs(cfg))
 
     def step(params, opt_state, batch):

@@ -323,10 +323,11 @@ def _numpy(tree):
 def lm_train_job(world: int, data: dict) -> dict:
     """The sharded train step on ``(world // m, m)`` meshes, every case of
     ``data["cases"]``: ``loss_and_grads`` on each batch (the gradients
-    gathered whole), then ``make_train_step`` twice (the parameters
-    gathered whole).  With ``data["ckpt_dir"]`` the last case's trained
-    state is saved from its mesh and restored onto ``(1, world)`` and
-    ``(world, 1)``.  Rank 0 returns the arrays; every rank its losses."""
+    gathered whole; an MoE case's router gradient as each rank holds
+    it), then ``make_train_step`` twice (the parameters gathered whole).
+    With ``data["ckpt_dir"]`` the last case's trained state is saved from
+    its mesh and restored onto ``(1, world)`` and ``(world, 1)``.  Rank 0
+    returns the arrays; every rank its losses."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.interop import (lm_params_from_arrays,
@@ -353,6 +354,8 @@ def lm_train_job(world: int, data: dict) -> dict:
                 params, cfg, _tensors(batch), n, torch.float32, mesh=mesh)
             whole = _numpy(gather_tree(grads, psh))
             res[f"loss/{key}"] = (float(loss), float(metrics["ntokens"]))
+            if cfg.family == "moe":      # copied on every rank: its own
+                res[f"router/{key}"] = _np(grads["layers"]["moe"]["router"])
             if mesh.rank == 0:
                 res[f"grads/{key}"] = whole
         params = lm_params_from_arrays(case["params"], device="cpu",
@@ -493,6 +496,49 @@ def lm_prefill_job(world: int, data: dict) -> dict:
     return out
 
 
+def moe_layer_job(world: int, data: dict) -> dict:
+    """``models.moe.moe(mesh=)`` on ``(world, 1)`` and ``(1, world)``
+    meshes for every case of ``data["cases"]``: this rank's rows of ``x``
+    and blocks of the weights (placed by ``data["specs"]``) in, the output
+    gathered over ``data`` out.  Each rank returns, per case and mesh, the
+    output, the aux loss, its ``w1`` block's shape and the expert count of
+    every expert FFN or grouped GEMM it ran."""
+    import torch
+    from repro_torch.kernels.segmm import ops as segmm_ops
+    from repro_torch.launch.mesh import NamedSharding, make_host_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.train.step import shardings_for
+
+    seen = []
+
+    def wrap(owner, name, experts):
+        fn = getattr(owner, name)
+
+        def counted(*a, **kw):
+            seen.append(experts(a, kw))
+            return fn(*a, **kw)
+        setattr(owner, name, counted)
+    wrap(M, "_expert_ffn", lambda a, kw: a[0].shape[0])
+    wrap(M, "_grouped_ffn", lambda a, kw: a[0].shape[0])
+    wrap(segmm_ops, "grouped_matmul", lambda a, kw: kw["num_experts"])
+    out = {}
+    for m in (1, world):
+        mesh = make_host_mesh(m, device="cpu")
+        psh = shardings_for(mesh, data["specs"])
+        rows = NamedSharding(mesh, ("data", None, None))
+        for name, case in data["cases"].items():
+            params = {k: psh[k].shard(torch.from_numpy(v))
+                      for k, v in case["params"].items()}
+            seen.clear()
+            with torch.no_grad():
+                y, aux = M.moe(params, rows.shard(torch.from_numpy(
+                    case["x"])), mesh=mesh, **case["kw"])
+            out[f"{mesh.shape['data']}x{m}/{name}"] = dict(
+                y=_np(rows.gather(y)), aux=float(aux),
+                w1=tuple(params["w1"].shape), experts=list(seen))
+    return out
+
+
 def pipe_hop_job(world: int, data: dict) -> dict:
     """The pipeline's point-to-point hop and output broadcast on
     ``data["device"]`` tensors (CUDA ones go through host memory under
@@ -565,4 +611,4 @@ def pipeline_job(world: int, data: dict) -> dict:
 JOBS = {"matrix": matrix_job, "nan": nan_job, "failing": failing_job,
         "lm_train": lm_train_job, "lm_serve": lm_serve_job,
         "pipe_hop": pipe_hop_job, "pipeline": pipeline_job,
-        "lm_prefill": lm_prefill_job}
+        "lm_prefill": lm_prefill_job, "moe_layer": moe_layer_job}

@@ -7,15 +7,17 @@ and destroys the group itself, so no other test sees it.  The record has
 the reference's keys with the port's measures (``trace_s`` for
 ``lower_s``/``compile_s``; flops from ``FlopCounterMode`` plus the
 kernels' tally; the peak from ``StepTracer``), a traced step leaves no
-tensor on a real device, an MoE cell on the split batch is recorded as a
-failure naming ROADMAP queue 3a, and ``report.main`` prints the three
-tables.
+tensor on a real device, an MoE train cell on the split batch traces
+(its experts split over ``model``: reduced OLMoE with 16 experts, one a
+rank), and ``report.main`` prints the three tables with no failure.
 
 ``prefill(mesh=)`` (the prefill cells' step) runs on spawned gloo groups
 of 2 CPU ranks on ``(1, 2)`` and ``(2, 1)``, reduced configs whose heads
 split over ``model`` (Qwen) and whose heads do not (Danube, banded, and
 Hymba: attention whole on each rank), with SSM states (RWKV6, Hymba) and
-a frontend prefix (InternVL2), against one device's ``prefill`` at 1e-5.
+a frontend prefix (InternVL2), and reduced OLMoE with ``moe_dispatch=
+"sorted"`` (the grouped GEMMs on each rank's experts), against one
+device's ``prefill`` at 1e-5.
 """
 import contextlib
 import dataclasses
@@ -39,6 +41,7 @@ TRAIN = ShapeCase("train_small", 64, 32, "train")
 DECODE = ShapeCase("decode_small", 256, 32, "decode")
 PREFILL = ShapeCase("prefill_small", 64, 32, "prefill")
 DANUBE = dict(sliding_window=16, attn_query_chunk=8, swa_banded=True)
+OLMOE = dict(num_experts=16)     # a model axis of 16 splits the experts
 KEYS = {"arch", "shape", "mesh", "multi_pod", "kind", "num_microbatches",
         "params", "params_active", "trace_s", "memory", "cost_analysis_raw",
         "kernels", "collectives"}
@@ -53,12 +56,13 @@ TOL = 1e-5
 def records(tmp_path_factory):
     """A dense train cell (Qwen, both meshes), a banded prefill cell
     (Danube: K7 on its meta path), a decode cell (GLM-4, the sequence-split
-    cache) and an MoE train cell, written to one directory."""
+    cache) and an MoE train cell (OLMoE), written to one directory."""
     out = tmp_path_factory.mktemp("dryrun")
     recs, errors = {}, {}
     cells = [("qwen15_05b", TRAIN, {}, False), ("qwen15_05b", TRAIN, {}, True),
              ("h2o_danube3_4b", PREFILL, DANUBE, False),
-             ("glm4_9b", DECODE, {}, False), ("olmoe_1b_7b", TRAIN, {}, False)]
+             ("glm4_9b", DECODE, {}, False),
+             ("olmoe_1b_7b", TRAIN, OLMOE, False)]
     for arch, case, over, multi in cells:
         key = (arch, multi)
         try:
@@ -106,13 +110,30 @@ def test_kernel_meta_paths_count_in_the_flops(records):
 
 
 def test_moe_cell_fails_naming_queue_3a(records):
+    """The OLMoE train cell on the split batch, which failed naming ROADMAP
+    queue 3a until expert parallelism was ported, traces: a peak, flops
+    beside the roofline's 6ND, and the MoE's all-reduces over ``model``
+    (its combine) and over ``data`` (the router statistics) in its
+    record."""
     out, recs, errors = records
-    assert ("olmoe_1b_7b", False) not in recs
-    assert "queue 3a" in str(errors[("olmoe_1b_7b", False)])
+    assert not errors
+    rec = recs[("olmoe_1b_7b", False)]
+    assert "error" not in rec and rec["memory"]["peak_estimate_bytes"] > 0
+    cfg = get_config("olmoe_1b_7b").reduced(**OLMOE)
+    six_nd = rec["roofline"]["model_flops_global"]
+    assert six_nd == 6.0 * rec["params_active"] * TRAIN.global_batch * \
+        TRAIN.seq_len
+    # remat off: a forward and a backward of every layer, gathers and
+    # dispatch glue on top; each rank runs one of the 16 experts
+    assert 0.5 < rec["cost_analysis_raw"]["flops"] * 256 / six_nd < 20
+    calls = {k: v[0] for k, v in rec["collectives"].items()}
+    assert calls["all-reduce@16"] > 0 and calls["all-gather@16"] > 0
+    # per layer and microbatch the combine's sum over model, its gradient
+    # (to_tp on the tokens and on the combine weights), the aux statistics
+    layers, micro = cfg.num_layers, rec["num_microbatches"]
+    assert calls["all-reduce@16"] >= 4 * layers * micro
     with open(out / "olmoe_1b_7b__train_small__single.json") as f:
-        rec = json.load(f)
-    assert rec["error"].startswith("NotImplementedError") and \
-        "queue 3a" in rec["error"]
+        assert "error" not in json.load(f)
 
 
 def test_report_prints_the_tables(records):
@@ -125,8 +146,8 @@ def test_report_prints_the_tables(records):
         in text
     # one row a cell, 16x16 / 2x16x16 side by side
     assert "| qwen15_05b | train_small | train | 2 / 1 |" in text
-    assert ("failed (1): olmoe_1b_7b train_small 16x16: "
-            "NotImplementedError") in text
+    assert "olmoe_1b_7b | train_small | train |" in text
+    assert "failed" not in text
     assert text.count("| qwen15_05b | train_small |") == 3  # 3 tables
     assert report.fmt_bytes(2 ** 30) == "1.00"
 
@@ -232,6 +253,7 @@ PREFILL_ARCHS = {
     "hymba": ("hymba_15b", {}),
     "rwkv": ("rwkv6_3b", {}),
     "internvl": ("internvl2_1b", {}),
+    "olmoe-sorted": ("olmoe_1b_7b", dict(moe_dispatch="sorted")),
 }
 B, S = 2, 16
 

@@ -8,8 +8,13 @@ split over ``model``), reduced GLM-4-9B and H2O-Danube3-4B (one KV head
 on a model axis of 2: the cache's ring slots split over ``model``, with
 the flash-decode combine; Danube's 8-slot window ring wraps within the 12
 steps), reduced RWKV6 (``wkv`` cut over ``model``) and reduced Hymba
-(hybrid: split slots plus the ``h`` state).  On ``(2, 2)`` a batch of 2
-splits over ``data`` and a batch of 1 is replicated.  Each step's logits
+(hybrid: split slots plus the ``h`` state); and reduced OLMoE-1B-7B and
+DeepSeek-MoE-16B (shared experts) with each MoE dispatch (``grouped``,
+``capacity``, ``sorted``), their experts split over ``model``; on ``(2,
+2)`` the ``capacity`` dispatch's global capacity (one atom an expert for
+the two tokens of a step) drops atoms by their order over both data
+shards.  On ``(2, 2)`` a batch of 2 splits over ``data`` and a batch of 1
+is replicated.  Each step's logits
 must lie within 1e-5 of the largest logit of the one-device step's.  The
 world-2 group also runs ``launch.serve`` and ``launch.train`` with
 ``--mesh host``.  A one-rank mesh is the one-device path: bitwise the same
@@ -31,11 +36,18 @@ from _torch_shard_group import run_group
 TOL = 1e-5
 STEPS = 12
 SEQ = 16
-ARCHS = ("qwen15_05b", "glm4_9b", "h2o_danube3_4b", "rwkv6_3b", "hymba_15b")
-#: case -> (world, model axis, arch, batch)
-CASES = {f"1x2/{a}": (2, 2, a, 2) for a in ARCHS}
-CASES.update({f"2x2/{a}": (4, 2, a, 2) for a in ARCHS})
-CASES["2x2/qwen15_05b/b1"] = (4, 2, "qwen15_05b", 1)
+DENSE = ("qwen15_05b", "glm4_9b", "h2o_danube3_4b", "rwkv6_3b",
+         "hymba_15b")
+MOE = ("olmoe_1b_7b", "deepseek_moe_16b")
+ARCHS = DENSE + MOE
+DISPATCHES = ("grouped", "capacity", "sorted")
+#: case -> (world, model axis, arch, batch, config overrides)
+CASES = {f"1x2/{a}": (2, 2, a, 2, {}) for a in DENSE}
+CASES.update({f"2x2/{a}": (4, 2, a, 2, {}) for a in DENSE})
+CASES["2x2/qwen15_05b/b1"] = (4, 2, "qwen15_05b", 1, {})
+for _w, _mesh in ((2, "1x2"), (4, "2x2")):
+    CASES.update({f"{_mesh}/{a}/{d}": (_w, 2, a, 2, {"moe_dispatch": d})
+                  for a in MOE for d in DISPATCHES})
 
 
 def _np_tree(t):
@@ -73,10 +85,10 @@ def groups(weights):
     def get(world):
         if world not in cache:
             cases = {}
-            for name, (w, m, arch, b) in CASES.items():
+            for name, (w, m, arch, b, over) in CASES.items():
                 if w == world:
                     cfg, params = weights[arch]
-                    cases[name] = dict(arch=arch, overrides={},
+                    cases[name] = dict(arch=arch, overrides=over,
                                        params=_np_tree(params),
                                        model_axis=m, seq_len=SEQ,
                                        tokens=_tokens(cfg, b))
@@ -100,8 +112,9 @@ def _single(cfg, params, tokens):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_logits_match_one_device(groups, weights, case):
-    world, m, arch, b = CASES[case]
-    cfg, params = weights[arch]
+    world, m, arch, b, over = CASES[case]
+    cfg = get_config(arch).reduced(**over)
+    params = weights[arch][1]
     ranks = groups(world)
     want = _single(cfg, params, _tokens(cfg, b))
     got = ranks[0][case]["logits"]
@@ -118,7 +131,7 @@ def test_cache_blocks(groups, weights, case):
     """Each rank's cache blocks: KV heads over ``model`` where it divides
     them, else the ring's slots; the batch over ``data`` where it
     divides it."""
-    world, m, arch, b = CASES[case]
+    world, m, arch, b, _ = CASES[case]
     cfg = weights[arch][0]
     res = groups(world)[0][case]
     d = world // m
@@ -154,7 +167,7 @@ def test_launchers_run_on_a_group(groups):
     assert outs[0][1] == outs[1][1]
 
 
-@pytest.mark.parametrize("arch", ["qwen15_05b", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", ["qwen15_05b", "rwkv6_3b", "olmoe_1b_7b"])
 def test_one_rank_mesh_is_the_one_device_path(weights, arch):
     cfg, params = weights[arch]
     mesh = make_host_mesh(device="cpu")

@@ -10,7 +10,14 @@ banded branch, with remat, and ``num_kv_heads=2`` so that a model axis of
 2 splits its KV heads; the plain ``reduced()`` has one, so case
 ``1x2/danube-kv1`` runs its attention whole on both ranks), and reduced
 Qwen with the sequence-chunked cross-entropy (``loss_seq_chunk=8``) on
-``(1, 2)``.  Every case
+``(1, 2)``; and the MoE configs, expert-parallel over ``model`` with the
+router statistics over the whole batch: reduced OLMoE-1B-7B (8 experts,
+top-2, ``grouped``) on all three meshes, reduced DeepSeek-MoE-16B (shared
+experts) on ``(2, 2)``, and OLMoE with ``moe_dispatch="capacity"`` on
+``(2, 1)`` and ``(2, 2)``, its router's column 0 raised so that expert 0
+overflows the global capacity and the drops fall on the second data
+shard's rows.  The router's weight is copied on every rank of ``model``:
+each rank's own gradient of it is held to one device.  Every case
 starts from the reference's weights, carried to each rank's blocks with
 ``interop.lm_params_from_arrays(shardings=)``, and runs in float32 with
 two microbatches of a global batch of 4.  One batch masks far more labels
@@ -64,11 +71,21 @@ ARCHS = {"qwen": ("qwen15_05b", {}),
          # one KV head: a model axis of 2 runs attention whole on each rank
          "danube-kv1": ("h2o_danube3_4b", dict(
              sliding_window=4, attn_query_chunk=4, swa_banded=True,
-             remat=True))}
+             remat=True)),
+         "olmoe": ("olmoe_1b_7b", {}),
+         "deepseek": ("deepseek_moe_16b", {}),
+         "olmoe-capacity": ("olmoe_1b_7b", dict(moe_dispatch="capacity"))}
+#: arch keys whose router's column 0 is raised by this much
+ROUTER_RAISE = {"olmoe-capacity": 1.0}
 #: the archs the reference's (2, 2) subprocess runs
-REFERENCE_ARCHS = ("qwen", "danube")
-#: case -> (world, model axis, arch key)
-CASES = {"2x1/qwen": (2, 1, "qwen"), "1x2/qwen": (2, 2, "qwen"),
+REFERENCE_ARCHS = ("qwen", "danube", "olmoe", "deepseek", "olmoe-capacity")
+#: case -> (world, model axis, arch key); the checkpoint case (2x2/danube)
+#: stays the last of world 4
+CASES = {"2x1/olmoe": (2, 1, "olmoe"), "1x2/olmoe": (2, 2, "olmoe"),
+         "2x1/olmoe-capacity": (2, 1, "olmoe-capacity"),
+         "2x2/olmoe": (4, 2, "olmoe"), "2x2/deepseek": (4, 2, "deepseek"),
+         "2x2/olmoe-capacity": (4, 2, "olmoe-capacity"),
+         "2x1/qwen": (2, 1, "qwen"), "1x2/qwen": (2, 2, "qwen"),
          "1x2/danube": (2, 2, "danube"),
          "1x2/qwen-chunked-ce": (2, 2, "qwen-chunked-ce"),
          "1x2/danube-kv1": (2, 2, "danube-kv1"),
@@ -102,10 +119,12 @@ def data():
         for key, (arch, over) in ARCHS.items():
             jcfg = jconf.get_config(arch).reduced(**over)
             params, _ = jlm.init_params(jcfg, jax.random.PRNGKey(3))
+            params = jax.tree.map(np.array, params)
+            if key in ROUTER_RAISE:
+                params["layers"]["moe"]["router"][..., 0] += ROUTER_RAISE[key]
             cfg = get_config(arch).reduced(**over)
             out[key] = dict(
-                arch=arch, overrides=over, cfg=cfg,
-                params=jax.tree.map(np.asarray, params),
+                arch=arch, overrides=over, cfg=cfg, params=params,
                 opt=jax.tree.map(np.asarray, jopt.init_opt_state(params)),
                 batches={"even": _batch(cfg, 5),
                          "uneven": _batch(cfg, 6, uneven=True)},
@@ -165,7 +184,7 @@ def single(data):
             loss, m, grads = loss_and_grads(params, cfg, _tensors(batch), 2,
                                             torch.float32)
             res[name] = (float(loss), float(m["ntokens"]),
-                         {p: g.numpy() for p, g in tree_leaves(grads)})
+                         {p: g.numpy().copy() for p, g in tree_leaves(grads)})
         params = lm_params_from_arrays(case["params"], device="cpu")
         opt = opt_state_from_arrays(case["opt"], device="cpu")
         step = make_train_step(cfg, OptConfig(**OPT), num_microbatches=2,
@@ -219,6 +238,14 @@ def test_loss_and_grads_match_one_device(groups, single, case, batch):
         np.testing.assert_allclose(
             got[path], want, rtol=0,
             atol=GRAD_TOL * max(np.abs(want).max(), 1e-30), err_msg=path)
+    if "/layers/moe/router" in grads:
+        # copied on every rank of the mesh: each holds the whole gradient
+        want = grads["/layers/moe/router"]
+        for i, r in enumerate(ranks):
+            np.testing.assert_allclose(
+                r[case][f"router/{batch}"], want, rtol=0,
+                atol=GRAD_TOL * np.abs(want).max(),
+                err_msg=f"rank {i}'s router gradient")
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -282,7 +309,8 @@ def test_heads_that_do_not_split_raise():
     (the reference's GSPMD pads).  The port builds the step, whose
     attention runs whole on both ranks (case ``1x2/danube-kv1`` holds it
     to one device); ``local_heads`` still refuses to split such heads.  An
-    MoE layer on a split batch raises, naming ROADMAP queue 3a."""
+    MoE step on a split batch builds; with ``moe_dispatch="sorted"`` it
+    raises, as the reference's train step does."""
     from repro_torch.models.layers import heads_split, local_heads
     cpu = torch.device("cpu")
     mesh = LMMesh(("data", "model"), (GraphMesh(1, 0, cpu),
@@ -295,5 +323,7 @@ def test_heads_that_do_not_split_raise():
     moe = get_config("olmoe_1b_7b").reduced()
     split = LMMesh(("data", "model"), (GraphMesh(2, 0, cpu),
                                        GraphMesh(1, 0, cpu)), 0, cpu)
-    with pytest.raises(NotImplementedError, match="split batch.*queue 3a"):
-        make_train_step(moe, OptConfig(), split)
+    assert callable(make_train_step(moe, OptConfig(), split))
+    with pytest.raises(NotImplementedError, match="sorted.*split batch"):
+        make_train_step(get_config("olmoe_1b_7b").reduced(
+            moe_dispatch="sorted"), OptConfig(), split)
