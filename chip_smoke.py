@@ -83,12 +83,22 @@ Phases, in order; any failure exits non-zero:
 12. segmm parity — K5 and K6 at the MoE's ``w1`` shapes (``bm=128``) and at
    the forest's level-GEMM shapes (``bm=8``, ``K=N=128``) against their
    plain versions: bitwise on integer-valued operands, rtol 1e-4 on real
-   ones, and K6 bitwise equal to K5 on real ones;
+   ones, and K6 bitwise equal to K5 on real ones; then at the ``w1``
+   shape with tokens and ``w1`` cast once to bf16 (the tensor-core
+   routine, each launch counted in ``segmm_mma``): bitwise on
+   integer-valued operands, every real entry within 2 K 2^-24 sum|ab| of
+   the plain version (and rtol 1e-4), K6 bitwise equal to K5;
 13. moe     — counters zeroed; ``MoELayer`` (``moe_sorted``) at both
    skews on ``group_mapped``, ``chunked_rr`` and ``chunked_lpt`` x
    native/pure, plus ``"auto"``: outputs bitwise equal, equal to ``moe_capacity`` with a
    capacity that drops nothing (rtol/atol 2e-3), ``aux`` equal, three
-   segmm launches per call;
+   segmm launches per call, none on the tensor cores; then the same
+   layers with bf16 weights and input: outputs bitwise equal, three
+   tensor-core launches per call, within 3e-2 (of each entry plus 3e-2 of
+   the largest) of ``moe_capacity`` in bf16 with a capacity that drops
+   nothing (the two round to bf16 at different places); the counts are
+   read, then the bf16 layer is timed beside the ``grouped`` dispatch on
+   the same input (launches outside the counted run);
 14. wavefront — counters zeroed; ``treelstm_forest`` with a clip activation
    on ``chunked_lpt`` and ``merge_path`` (native), and
    ``build_wavefront(path="pure")`` + ``treelstm_embed``: bitwise equal to
@@ -104,9 +114,11 @@ Phases, in order; any failure exits non-zero:
    partials) against its plain version, beside its bound;
 15. times  — each kernel (CUDA events) beside its bound, its plain version
    and a PyTorch library call where one computes the same thing (K5/K6 at
-   both segmm shapes, with their TFLOP/s, share of the f32 peak, ratio to
-   ``torch.bmm`` and K6's team and CTA count); end-to-end times of the
-   entry points;
+   the three segmm shapes, with their TFLOP/s, share of the f32 peak, or
+   of the 989 TFLOP/s bf16 peak for the bf16 ``w1`` shape, whose bound
+   takes flop at that peak and bytes at 3.35 TB/s, ratio to
+   ``torch.bmm`` (bf16 in and out for the bf16 shape) and K6's team and
+   CTA count); end-to-end times of the entry points;
 16. flash parity — K7 (``flash_swa``) against its plain version at
    H2O-Danube3-4B's attention shapes (B 1, S 8192, 32/8 heads of 120,
    window 4096) in float32 (atol/rtol 2e-5) and bfloat16 (rtol 1e-2, atol
@@ -238,13 +250,19 @@ Phases, in order; any failure exits non-zero:
    ``decode_step`` for each of ``grouped``, ``capacity`` and ``sorted``.
    Then ``prefill(mesh=)`` with ``sorted`` at full width, depth 2, S
    4,096, batch 2: K5 launched three times a layer on every rank, on its
-   own experts, the logits within 2e-2 (of max(1, max|logit|)) of one
-   device's prefill; each rank's K5 and K6 at its own shape, bitwise
-   equal, timed beside ``torch.bmm`` on the same experts.  Four ranks on
-   one card measure the path's overhead, not its scaling;
+   own experts, every launch on the tensor cores (bf16 x bf16), the
+   logits within 2e-2 (of max(1, max|logit|)) of one device's prefill;
+   each rank's K5 and K6 at its own shape, bitwise equal, on the tensor
+   cores, K5 within the float32 sum-order bound of its plain version
+   (bitwise on integer-valued operands), timed beside ``torch.bmm`` on
+   the same experts.  Four ranks on one card measure the path's
+   overhead, not its scaling;
 29. the ``kernels:`` summary (K7's launches include every rank's in the
-   mesh and pipeline phases, K5's the MoE mesh's), the JSON kernels line,
-   and the final ``{"ok": true, ...}`` line.
+   mesh and pipeline phases, K5's the MoE mesh's; ``segmm_mma`` is a
+   route of K5 and K6, not a kernel of its own: it counts again the K5/K6
+   launches that ran on the tensor cores, its row timed as K5 at the bf16
+   ``w1`` shape), the JSON kernels line, and the final ``{"ok":
+   true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -277,6 +295,10 @@ KERNELS = {   # counter name -> (CUDA source, the Pallas kernel it replaces)
     "segmented_matmul": (f"{SEGMM_CSRC}/segmm.cu", f"{SEGMM_REF}:50"),
     "segmented_matmul_chunked": (f"{SEGMM_CSRC}/segmm.cu",
                                  f"{SEGMM_REF}:128"),
+    # a route of K5 and K6, not a kernel: their launches on bf16 x bf16
+    # operands (the tensor-core routine), counted again here
+    "segmm_mma": (f"{SEGMM_CSRC}/segmm.cu",
+                  f"{SEGMM_REF}:50, {SEGMM_REF}:128"),
     "flash_swa": ("src/repro_torch/kernels/flash_swa/csrc/flash_swa_mma.cu",
                   "src/repro/kernels/flash_swa/kernel.py:79"),
     # the reference differentiates its jnp band (K7 has no backward)
@@ -307,6 +329,13 @@ MOE_ARCH = "olmoe_1b_7b"
 MOE_TOKENS = 4096
 MOE_SKEWS = (0.0, 0.5)     # router column bias -skew * arange(E)
 MOE_TOL = 2e-3             # sorted vs capacity dispatch (tests/test_models.py)
+# the bf16 layer (bf16 weights and input) against the capacity dispatch in
+# bf16: the two round to bf16 at different places (capacity rounds h1, h3,
+# their gated product and each weighted atom; sorted keeps h1 and h3 in
+# float32 and rounds h once), each rounding up to 2**-9 relative; 3e-2 of
+# each entry plus 3e-2 of the largest (a CPU run at this width reads up to
+# 1.2e-2 of the largest)
+MOE_BF16_TOL = 3e-2
 # Path B: a TreeLSTM forest at Stanford Sentiment Treebank scale
 FOREST_TREES = 11_855      # SST sentences
 FOREST_MAX_LEAVES = 56
@@ -1580,8 +1609,15 @@ def all_counts() -> dict:
 
 
 def segmm_launches() -> int:
+    """K5 and K6 launches (``segmm_mma`` counts some of them again)."""
     from repro_torch.kernels.segmm import kernel as SK
-    return sum(SK.LAUNCHES.values())
+    return (SK.LAUNCHES["segmented_matmul"]
+            + SK.LAUNCHES["segmented_matmul_chunked"])
+
+
+def mma_launches() -> int:
+    from repro_torch.kernels.segmm import kernel as SK
+    return SK.LAUNCHES["segmm_mma"]
 
 
 def phase_moe_data(seed: int):
@@ -1603,7 +1639,7 @@ def phase_moe_data(seed: int):
         f"experts={cfg.num_experts} top_k={cfg.top_k}; expert weights "
         f"{expert_bytes / 2**30:.2f} GiB f32, drawn in {secs:.2f} s; "
         f"x {tuple(x.shape)}")
-    layers = {}
+    layers, layers_bf16 = {}, {}
     for skew in MOE_SKEWS:
         bias = -skew * torch.arange(cfg.num_experts, device="cuda",
                                     dtype=torch.float32)
@@ -1611,6 +1647,12 @@ def phase_moe_data(seed: int):
         params["router"] = params["router"] + bias[None, :]
         layers[skew] = MoELayer(params, num_experts=cfg.num_experts,
                                 top_k=cfg.top_k, dispatch="sorted")
+        # the same layer with its weights cast once to bf16 (the input
+        # too, in phase_moe): K5/K6 on the tensor cores
+        layers_bf16[skew] = MoELayer(
+            {k: v.to(torch.bfloat16) for k, v in params.items()},
+            num_experts=cfg.num_experts, top_k=cfg.top_k,
+            dispatch="sorted", capacity_factor=cfg.capacity_factor)
         idx, _, _ = _router(params, x.reshape(-1, cfg.d_model),
                             cfg.num_experts, cfg.top_k)
         sizes = torch.bincount(idx.reshape(-1).long(),
@@ -1619,7 +1661,7 @@ def phase_moe_data(seed: int):
         log(f"moe routing skew {skew}: {int((sizes > 0).sum())} experts "
             f"hold tokens, atoms per expert min {int(sizes.min())} / max "
             f"{int(sizes.max())}, busiest experts {top}")
-    return dict(cfg=cfg, x=x, layers=layers)
+    return dict(cfg=cfg, x=x, layers=layers, layers_bf16=layers_bf16)
 
 
 def random_binary_tree(leaves: int, rng):
@@ -1734,17 +1776,66 @@ def segmm_cases(moe, forest, seed: int):
     return [("moe w1", x2d[atom_token], idx.reshape(-1), params["w1"],
              cfg.num_experts, 128),
             ("forest level", tree_x, torch.from_numpy(forest["ops"]).cuda(),
-             tree_w, 2, 8)]
+             tree_w, 2, 8),
+            # tokens and w1 cast once to bf16: the tensor-core routine
+            ("moe w1 bf16", x2d[atom_token].to(torch.bfloat16),
+             idx.reshape(-1), params["w1"].to(torch.bfloat16),
+             cfg.num_experts, 128)]
+
+
+def sum_order_limit(lhs, rhs, block_expert, bm: int):
+    """``2 K 2**-24 sum_k |a_k b_k|`` for each output row of K5 on these
+    operands: a product of two bf16 values is exact in float32, so two
+    float32 sums of the same products in different orders (the
+    tensor-core chain of mma k-steps, the plain version's matmul) are each
+    within ``K u sum|a b|`` of the exact sum (``u = 2**-24``), and within
+    twice that of each other."""
+    from repro_torch.kernels.segmm import kernel as SK
+    return (2 * lhs.shape[1] * 2.0 ** -24) * SK.segmented_matmul_plain(
+        lhs.abs(), rhs.abs(), block_expert, bm=bm)
+
+
+def compare_sum_order(name: str, got, want, limit) -> float:
+    """Hold a bf16 x bf16 K5/K6 result to its plain version within the
+    float32 sum-order bound ``limit`` (elementwise); returns the max
+    absolute error."""
+    import torch
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} vs "
+          f"{tuple(want.shape)}")
+    err = max_abs_err(got, want)
+    over = int(((got - want).abs() > limit).sum())
+    check(over == 0, f"{name}: {over} entries differ from the plain version "
+          f"beyond the float32 sum-order bound (max abs err {err})")
+    log(f"parity {name}: max abs err {err!r}, every entry within 2 K 2^-24 "
+        f"sum|ab| (largest bound {float(limit.max())!r}, median |want| "
+        f"{float(want.abs().median())!r})")
+    return err
 
 
 def phase_segmm_parity(cases):
-    """K5 and K6 against their plain versions at both paths' shapes;
-    returns the largest real-valued error and each case's operands."""
+    """K5 and K6 against their plain versions at both paths' shapes, and
+    on bf16 x bf16 operands at the MoE's ``w1`` shape (the tensor-core
+    routine: each launch counted in ``segmm_mma``, real data within the
+    float32 sum-order bound); returns the largest real-valued error of
+    the CUDA-core and of the tensor-core cases, and each case's
+    operands."""
     from repro_torch.kernels.segmm import kernel as SK
     from repro_torch.kernels.segmm import ops as SO
 
-    errs, prepared = [], {}
+    errs, mma_errs, prepared = [], [], {}
     for name, tokens, experts, rhs, num_experts, bm in cases:
+        mma = SK.kernel_for(tokens.dtype, rhs.dtype) == "segmm_mma"
+        case_errs = mma_errs if mma else errs
+
+        def counted_launch(fn):
+            before = mma_launches()
+            out = fn()
+            check(mma_launches() == before + mma,
+                  f"segmm {name}: {mma_launches() - before} tensor-core "
+                  f"launches counted, expected {int(mma)}")
+            return out
+
         def operands(t):
             return (SO.segmm_operands(t, experts, num_experts=num_experts,
                                       bm=bm, schedule="group_mapped",
@@ -1756,31 +1847,43 @@ def phase_segmm_parity(cases):
                                     unit_values(rhs), True),
                                    ("real", tokens, rhs, False)):
             o5, o6 = operands(t)
-            k5 = SK.segmented_matmul(o5.lhs, r, o5.block_expert, bm=bm)
-            errs.append(compare(
-                f"segmented_matmul {name} ({label})", k5,
-                SK.segmented_matmul_plain(o5.lhs, r, o5.block_expert,
-                                          bm=bm), exact=exact))
+            k5 = counted_launch(lambda: SK.segmented_matmul(
+                o5.lhs, r, o5.block_expert, bm=bm))
+            plain5 = SK.segmented_matmul_plain(o5.lhs, r, o5.block_expert,
+                                               bm=bm)
+            case_errs.append(compare(f"segmented_matmul {name} ({label})",
+                                     k5, plain5, exact=exact))
             chunks, counts, cmax = o6.queue
-            k6 = SK.segmented_matmul_chunked(o6.lhs, r, o6.block_expert,
-                                             chunks, counts, bm=bm,
-                                             max_chunks=cmax)
-            errs.append(compare(
-                f"segmented_matmul_chunked {name} ({label})", k6,
-                SK.segmented_matmul_chunked_plain(
-                    o6.lhs, r, o6.block_expert, chunks, counts, bm=bm,
-                    max_chunks=cmax), exact=exact))
+            k6 = counted_launch(lambda: SK.segmented_matmul_chunked(
+                o6.lhs, r, o6.block_expert, chunks, counts, bm=bm,
+                max_chunks=cmax))
+            plain6 = SK.segmented_matmul_chunked_plain(
+                o6.lhs, r, o6.block_expert, chunks, counts, bm=bm,
+                max_chunks=cmax)
+            case_errs.append(compare(
+                f"segmented_matmul_chunked {name} ({label})", k6, plain6,
+                exact=exact))
+            if mma and not exact:
+                for kname, got, want, o in (
+                        ("segmented_matmul", k5, plain5, o5),
+                        ("segmented_matmul_chunked", k6, plain6, o6)):
+                    compare_sum_order(
+                        f"{kname} {name} (real)", got, want,
+                        sum_order_limit(o.lhs, r, o.block_expert, bm))
+            del plain5, plain6
             if not exact:
                 compare(f"segmented_matmul_chunked == segmented_matmul "
                         f"{name} (real)", k6, k5, exact=True)
                 prepared[name] = (o5, o6, r)
             del k5, k6
         o5, o6, _ = prepared[name]
-        log(f"segmm {name}: tokens {tuple(tokens.shape)}, M_pad "
-            f"{o5.lhs.shape[0]} ({o5.num_blocks} M-blocks of {bm}), rhs "
-            f"{tuple(rhs.shape)}, K6 queues {o6.queue[1].numel()} x "
-            f"{o6.queue[2]} blocks")
-    return max(errs), prepared
+        log(f"segmm {name}: tokens {tuple(tokens.shape)} "
+            f"{str(tokens.dtype)[6:]}, M_pad {o5.lhs.shape[0]} "
+            f"({o5.num_blocks} M-blocks of {bm}), rhs {tuple(rhs.shape)} "
+            f"{str(rhs.dtype)[6:]}, K6 queues {o6.queue[1].numel()} x "
+            f"{o6.queue[2]} blocks, routine "
+            f"{SK.kernel_for(tokens.dtype, rhs.dtype)}")
+    return max(errs), max(mma_errs), prepared
 
 
 def phase_moe(moe, e2e):
@@ -1828,11 +1931,86 @@ def phase_moe(moe, e2e):
         log(f"moe skew {skew}: {len(outs)} runs bitwise equal, aux "
             f"{float(first_aux)!r}, max |sorted - capacity| {err!r} "
             f"(atol/rtol {MOE_TOL}); auto picked {auto}")
+    check(mma_launches() == 0, "moe: a float32 layer ran on the tensor "
+          "cores")
+    phase_moe_bf16(moe, e2e)
     counts = all_counts()
     log("moe launches: " + json.dumps(counts))
-    for name in ("segmented_matmul", "segmented_matmul_chunked"):
+    for name in ("segmented_matmul", "segmented_matmul_chunked",
+                 "segmm_mma"):
         check(counts[name] > 0, f"{name} was never launched by the MoE path")
+    time_moe_bf16(moe)
     return counts
+
+
+def phase_moe_bf16(moe, e2e):
+    """The bf16 ``MoELayer`` (weights and input cast once to bf16) on every
+    policy x path and "auto", both skews: outputs bitwise equal, three
+    tensor-core launches a call, within ``MOE_BF16_TOL`` of the capacity
+    dispatch in bf16 with a capacity that drops nothing."""
+    import torch
+    from repro_torch.kernels.segmm import ops as SO
+    from repro_torch.models.moe import moe_capacity
+
+    cfg, x = moe["cfg"], moe["x"].to(torch.bfloat16)
+    runs = [(s, p) for s in SO.SCHEDULE_POLICIES for p in ("native", "pure")]
+    runs.append(("auto", "auto"))
+    for skew, layer in moe["layers_bf16"].items():
+        outs = []
+        for schedule, path in runs:
+            layer.schedule, layer.execution_path = schedule, path
+            before, before_mma = segmm_launches(), mma_launches()
+            (out, aux), secs = wall_s(lambda: layer(x))
+            check(segmm_launches() == before + 3
+                  and mma_launches() == before_mma + 3,
+                  f"moe bf16 {schedule}/{path}: expected 3 segmm launches, "
+                  f"all on the tensor cores")
+            check(out.shape == x.shape and out.dtype == torch.bfloat16
+                  and bool(torch.isfinite(out).all()),
+                  f"moe bf16 {schedule}/{path}: bad output")
+            e2e[f"moe_sorted bf16[skew {skew}, {schedule}@{path}]"] = secs
+            outs.append((f"{schedule}@{path}", out, aux))
+        first_name, first, first_aux = outs[0]
+        for tag, out, aux in outs[1:]:
+            check(torch.equal(out.view(torch.int16),
+                              first.view(torch.int16)),
+                  f"moe bf16 skew {skew}: {tag} != {first_name} bitwise")
+            check(float(aux) == float(first_aux),
+                  f"moe bf16 skew {skew}: aux of {tag} differs")
+        cap, _ = moe_capacity(
+            layer.params(), x, num_experts=cfg.num_experts, top_k=cfg.top_k,
+            capacity_factor=float(cfg.num_experts / cfg.top_k))
+        diff = (cap.float() - first.float()).abs()
+        scale = float(cap.float().abs().max())
+        err = float(diff.max())
+        over = int((diff > MOE_BF16_TOL * cap.float().abs()
+                    + MOE_BF16_TOL * scale).sum())
+        check(over == 0, f"moe bf16 skew {skew}: sorted vs capacity differ "
+              f"in {over} entries beyond rtol {MOE_BF16_TOL} + atol "
+              f"{MOE_BF16_TOL} x {scale} (max abs err {err})")
+        del cap, diff
+        log(f"moe bf16 skew {skew}: {len(outs)} runs bitwise equal, 3 "
+            f"tensor-core launches each, max |sorted - capacity| {err!r} "
+            f"(largest |capacity| {scale!r}; rtol/atol {MOE_BF16_TOL} of "
+            f"it)")
+
+
+def time_moe_bf16(moe):
+    """The bf16 ``MoELayer``'s time (sorted, group_mapped@native) beside
+    the ``grouped`` dispatch's (the config's capacity factor) on the same
+    input, both skews; called after the counts of phase 13 are read."""
+    import torch
+    x = moe["x"].to(torch.bfloat16)
+    for skew, layer in moe["layers_bf16"].items():
+        layer.schedule, layer.execution_path = "group_mapped", "native"
+        sorted_ms = cuda_ms(lambda: layer(x), warmup=1, iters=5)
+        layer.dispatch = "grouped"
+        grouped_ms = cuda_ms(lambda: layer(x), warmup=1, iters=5)
+        layer.dispatch = "sorted"
+        log(f"moe bf16 skew {skew}: layer {sorted_ms:.3f} ms (sorted, "
+            f"group_mapped@native, mean of 5 on CUDA events) against the "
+            f"grouped dispatch {grouped_ms:.3f} ms (capacity factor "
+            f"{moe['cfg'].capacity_factor}) on the same bf16 input")
 
 
 def layer_atoms(layer, x, cfg):
@@ -2050,69 +2228,101 @@ def phase_k2_forest(forest, dag, seed: int, *, per_column: bool = False):
     return rows
 
 
-def phase_segmm_times(cases, prepared):
-    """K5/K6 times at both cases' shapes (CUDA events) beside the bound,
-    the plain version and ``torch.bmm`` (TF32 off) on the gathered expert
+def time_segmm_case(name: str, tokens, experts, rhs, bm: int, o5, o6):
+    """K5/K6 times at one case's shape (CUDA events) beside the bound, the
+    plain version and ``torch.bmm`` (TF32 off) on the gathered expert
     weights, with the achieved TFLOP/s (on the routed rows), its share of
-    the 67 TFLOP/s float32 peak, the ratio to ``torch.bmm`` and K6's team
-    and CTA count; the MoE w1 case fills the kernels line."""
+    the peak of the routine's type (67 TFLOP/s float32 on the CUDA cores,
+    989 TFLOP/s bf16 on the tensor cores), the ratio to ``torch.bmm``,
+    K6's team and CTA count and the zero fill of K6's output (its wrapper
+    zeroes ``[M_pad, N]`` float32 before the launch; K5's does not).
+    Returns ``{kernel: row}``."""
     from repro_torch.launch import roofline as RL
     import torch
     from repro_torch.kernels.segmm import kernel as SK
 
+    atoms, k_dim = tokens.shape
+    n_dim = rhs.shape[2]
+    # the types, not SK.kernel_for: tools/time_segmm.py also times ports
+    # whose wrapper has no picker
+    mma = tokens.dtype == rhs.dtype == torch.bfloat16
+    peak, peak_name = ((RL.PEAK_FLOPS_BF16, "bf16 tensor-core") if mma
+                       else (F32_FLOP_PER_S, "f32"))
+    busy = int(torch.unique(experts).numel())
+    flops = 2 * atoms * k_dim * n_dim
+    nbytes = (atoms * k_dim * tokens.element_size()
+              + busy * k_dim * n_dim * rhs.element_size()
+              + atoms * n_dim * 4)
+    bound_flops = flops / peak * 1e3
+    bound_bytes = nbytes / RL.HBM_BW * 1e3
+    bound = max(bound_flops, bound_bytes)
+    bound_by = "operations" if bound_flops >= bound_bytes else "bytes"
+    nblk = o5.num_blocks
+    lhs_b = o5.lhs.view(nblk, bm, k_dim)
+    rhs_g = rhs[o5.block_expert.long()]
+    library = cuda_ms(lambda: torch.bmm(lhs_b, rhs_g), iters=3)
+    del rhs_g
+    chunks, counts, cmax = o6.queue
+    team, ctas = SK.queues_grid(int(counts.numel()), cmax, bm, n_dim)
+    zero_ms = cuda_ms(lambda: torch.zeros((o6.lhs.shape[0], n_dim),
+                                          dtype=torch.float32,
+                                          device=o6.lhs.device), iters=5)
+    calls = {
+        "segmented_matmul": (
+            lambda: SK.segmented_matmul(o5.lhs, rhs, o5.block_expert,
+                                        bm=bm),
+            lambda: SK.segmented_matmul_plain(o5.lhs, rhs, o5.block_expert,
+                                              bm=bm)),
+        "segmented_matmul_chunked": (
+            lambda: SK.segmented_matmul_chunked(
+                o6.lhs, rhs, o6.block_expert, chunks, counts, bm=bm,
+                max_chunks=cmax),
+            lambda: SK.segmented_matmul_chunked_plain(
+                o6.lhs, rhs, o6.block_expert, chunks, counts, bm=bm,
+                max_chunks=cmax))}
+    bmm_note = ("; torch.bmm writes a bf16 output, half the output bytes"
+                if mma else "")
+    rows = {}
+    for kname, (kernel, plain) in calls.items():
+        row = dict(ms=cuda_ms(kernel, iters=5),
+                   plain_ms=cuda_ms(plain, iters=3), library_ms=library,
+                   bound_ms=bound, bound_by=bound_by, flops=flops,
+                   bytes=nbytes)
+        tflops = flops / row["ms"] / 1e9
+        geometry = (f"; K6 team {team}, {ctas} CTAs, its output's zero "
+                    f"fill {zero_ms:.4f} ms of it"
+                    if kname == "segmented_matmul_chunked" else "")
+        log(f"time {kname} [{name}]: {row['ms']:.4f} ms, "
+            f"{tflops:.2f} TFLOP/s ({100 * tflops / (peak / 1e12):.1f}% of "
+            f"the {peak / 1e12:.0f} TFLOP/s {peak_name} peak), "
+            f"{row['ms'] / library:.3f}x torch.bmm (bound {bound:.4f} ms by "
+            f"{bound_by}: {flops} flop at {peak / 1e12:.0f} TFLOP/s = "
+            f"{bound_flops:.4f} ms, {nbytes} bytes at 3.35 TB/s = "
+            f"{bound_bytes:.4f} ms; plain {row['plain_ms']:.3f} ms; "
+            f"torch.bmm {library:.4f} ms{bmm_note}; {busy} experts hold "
+            f"tokens{geometry})")
+        rows[kname] = row
+    return rows
+
+
+def phase_segmm_times(cases, prepared):
+    """:func:`time_segmm_case` at every case's shape; the MoE w1 case's K5
+    and K6 rows fill the kernels line for the CUDA-core routine, the bf16
+    case's K5 row for the tensor-core one (``segmm_mma``)."""
     rows = {}
     for name, tokens, experts, _, _, bm in cases:
         o5, o6, rhs = prepared[name]
-        atoms, k_dim = tokens.shape
-        n_dim = rhs.shape[2]
-        busy = int(torch.unique(experts).numel())
-        flops = 2 * atoms * k_dim * n_dim
-        nbytes = (atoms * k_dim * tokens.element_size()
-                  + busy * k_dim * n_dim * rhs.element_size()
-                  + atoms * n_dim * 4)
-        bound_flops = flops / F32_FLOP_PER_S * 1e3
-        bound_bytes = nbytes / RL.HBM_BW * 1e3
-        bound = max(bound_flops, bound_bytes)
-        bound_by = "operations" if bound_flops >= bound_bytes else "bytes"
-        nblk = o5.num_blocks
-        lhs_b = o5.lhs.view(nblk, bm, k_dim)
-        rhs_g = rhs[o5.block_expert.long()]
-        library = cuda_ms(lambda: torch.bmm(lhs_b, rhs_g), iters=3)
-        del rhs_g
-        chunks, counts, cmax = o6.queue
-        team, ctas = SK.queues_grid(int(counts.numel()), cmax, bm,
-                                    rhs.shape[2])
-        calls = {
-            "segmented_matmul": (
-                lambda: SK.segmented_matmul(o5.lhs, rhs, o5.block_expert,
-                                            bm=bm),
-                lambda: SK.segmented_matmul_plain(o5.lhs, rhs,
-                                                  o5.block_expert, bm=bm)),
-            "segmented_matmul_chunked": (
-                lambda: SK.segmented_matmul_chunked(
-                    o6.lhs, rhs, o6.block_expert, chunks, counts, bm=bm,
-                    max_chunks=cmax),
-                lambda: SK.segmented_matmul_chunked_plain(
-                    o6.lhs, rhs, o6.block_expert, chunks, counts, bm=bm,
-                    max_chunks=cmax))}
-        for kname, (kernel, plain) in calls.items():
-            row = dict(ms=cuda_ms(kernel, iters=5),
-                       plain_ms=cuda_ms(plain, iters=3), library_ms=library,
-                       bound_ms=bound, bound_by=bound_by, flops=flops,
-                       bytes=nbytes)
-            tflops = flops / row["ms"] / 1e9
-            geometry = (f"; K6 team {team}, {ctas} CTAs"
-                        if kname == "segmented_matmul_chunked" else "")
-            log(f"time {kname} [{name}]: {row['ms']:.4f} ms, "
-                f"{tflops:.2f} TFLOP/s ({100 * tflops / 67:.1f}% of the "
-                f"67 TFLOP/s f32 peak), {row['ms'] / library:.3f}x "
-                f"torch.bmm (bound {bound:.4f} ms by {bound_by}: {flops} "
-                f"flop at 67 TFLOP/s = {bound_flops:.4f} ms, {nbytes} bytes "
-                f"at 3.35 TB/s = {bound_bytes:.4f} ms; plain "
-                f"{row['plain_ms']:.3f} ms; torch.bmm {library:.3f} ms; "
-                f"{busy} experts hold tokens{geometry})")
-            if name == "moe w1":
-                rows[kname] = row
+        case = time_segmm_case(name, tokens, experts, rhs, bm, o5, o6)
+        if name == "moe w1":
+            rows.update(case)
+        elif name == "moe w1 bf16":
+            rows["segmm_mma"] = case["segmented_matmul"]
+            k5, k6 = (case[k]["ms"] for k in ("segmented_matmul",
+                                               "segmented_matmul_chunked"))
+            f32 = rows["segmented_matmul"]["ms"]
+            log(f"segmm moe w1: K5 bf16 {k5:.4f} ms against K5 f32 "
+                f"{f32:.4f} ms ({f32 / k5:.2f}x), K6 bf16 {k6:.4f} ms "
+                f"({k6 / k5:.3f}x K5)")
     return rows
 
 
@@ -3528,9 +3738,11 @@ def moe_cfg(name: str, layers: int = None, **over):
 
 
 def counted(fn):
-    """``(fn(), the segmm launches it made)``."""
+    """``(fn(), the segmm launches it made)``: K5, K6 and those of them
+    that ran on the tensor cores."""
     before = {k: all_counts()[k] for k in ("segmented_matmul",
-                                           "segmented_matmul_chunked")}
+                                           "segmented_matmul_chunked",
+                                           "segmm_mma")}
     out = fn()
     return out, {k: all_counts()[k] - v for k, v in before.items()}
 
@@ -3645,7 +3857,8 @@ def moe_decode(mesh, seed: int) -> dict:
 
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
         MOE_SERVE_BATCH, MOE_SERVE_CHECK)).astype(np.int32)).to(dev)
-    launches = {"segmented_matmul": 0, "segmented_matmul_chunked": 0}
+    launches = {"segmented_matmul": 0, "segmented_matmul_chunked": 0,
+                "segmm_mma": 0}
     worst = {}
     for dispatch in ("grouped", "capacity", "sorted"):
         cut = moe_cfg(MOE_MESH_ARCH, 2, moe_dispatch=dispatch)
@@ -3677,6 +3890,8 @@ def moe_decode(mesh, seed: int) -> dict:
         del params, full, plain, cache
     check(launches["segmented_matmul"] > 0, f"moe mesh decode rank "
           f"{mesh.rank}: the sorted dispatch launched no K5")
+    check(launches["segmm_mma"] == 0, f"moe mesh decode rank {mesh.rank}: "
+          f"a float32 step ran K5/K6 on the tensor cores")
     out.update(decode_f32_worst=worst, decode_launches=launches)
     return out
 
@@ -3724,6 +3939,10 @@ def moe_prefill(mesh, seed: int) -> dict:
     check(n["segmented_matmul"] == 3 * cfg.num_layers,
           f"moe mesh prefill rank {mesh.rank}: K5 launches {n}, expected "
           f"{3 * cfg.num_layers} (three grouped GEMMs a layer)")
+    check(n["segmm_mma"] == n["segmented_matmul"],
+          f"moe mesh prefill rank {mesh.rank}: {n['segmm_mma']} of the "
+          f"{n['segmented_matmul']} K5 launches ran on the tensor cores "
+          f"(bf16 weights and activations: all should)")
     out = dict(prefill_s=secs, prefill_launches=n,
                prefill_calls=mesh.stats.calls, prefill_bytes=
                mesh.stats.bytes, prefill_coll_s=mesh.stats.seconds)
@@ -3760,26 +3979,23 @@ def moe_prefill(mesh, seed: int) -> dict:
     o6 = segmm_operands(atoms, local, num_experts=n_loc, bm=128,
                         schedule="chunked_lpt", path="native")
     chunks, counts, cmax = o6.queue
-    y5 = SK.segmented_matmul(o5.lhs, w1, o5.block_expert, bm=128)[o5.rows]
-    y6 = SK.segmented_matmul_chunked(o6.lhs, w1, o6.block_expert, chunks,
-                                     counts, bm=128,
-                                     max_chunks=cmax)[o6.rows]
+    (y5, y6), n = counted(lambda: (
+        SK.segmented_matmul(o5.lhs, w1, o5.block_expert, bm=128)[o5.rows],
+        SK.segmented_matmul_chunked(o6.lhs, w1, o6.block_expert, chunks,
+                                    counts, bm=128,
+                                    max_chunks=cmax)[o6.rows]))
+    check(n["segmm_mma"] == 2, f"moe mesh rank {mesh.rank}: K5/K6 at the "
+          f"rank's bf16 shape did not run on the tensor cores ({n})")
     check(torch.equal(y5, y6), f"moe mesh rank {mesh.rank}: K6 differs from "
           f"K5 at the rank's shape")
-    # K5 against its plain version on these bf16 operands: a product of two
-    # bf16 values is exact in f32, so only the order of the f32 sums
-    # differs: each is within K u sum_k |a_k b_k| of the exact sum (u =
-    # 2**-24), so they are within twice that of each other;
-    # integer-valued stand-ins make every sum exact, so there it is bitwise
+    # K5 against its plain version on these bf16 operands: within the
+    # float32 sum-order bound (sum_order_limit), and bitwise on
+    # integer-valued stand-ins, whose every sum is exact
     plain = SK.segmented_matmul_plain(o5.lhs, w1, o5.block_expert,
                                       bm=128)[o5.rows]
-    limit = (2 * cfg.d_model * 2.0 ** -24) * SK.segmented_matmul_plain(
-        o5.lhs.abs(), w1.abs(), o5.block_expert, bm=128)[o5.rows]
-    err5 = max_abs_err(y5, plain)
-    over = int(((y5 - plain).abs() > limit).sum())
-    check(over == 0, f"moe mesh rank {mesh.rank}: K5 bf16 differs from its "
-          f"plain version beyond the f32 sum-order bound in {over} entries "
-          f"(max abs err {err5})")
+    limit = sum_order_limit(o5.lhs, w1, o5.block_expert, 128)[o5.rows]
+    err5 = compare_sum_order(f"segmented_matmul moe mesh rank {mesh.rank} "
+                             f"(real)", y5, plain, limit)
     unit_lhs, unit_w1 = unit_values(o5.lhs), unit_values(w1)
     check(torch.equal(
         SK.segmented_matmul(unit_lhs, unit_w1, o5.block_expert, bm=128),
@@ -3813,7 +4029,8 @@ def moe_prefill(mesh, seed: int) -> dict:
                k5_flop=2 * int(atoms.shape[0]) * cfg.d_model * cfg.d_ff)
     # its bound: each operand read once (bf16 atoms, the busy experts'
     # bf16 w1), the f32 output written once; flop at the bf16 tensor peak
-    # and at the f32 CUDA-core rate K5's FMA chain runs at
+    # (the routine's) and at the f32 CUDA-core rate (the parent's FMA
+    # chain's)
     busy = int(torch.unique(local).numel())
     nbytes = (int(atoms.shape[0]) * cfg.d_model * 2
               + busy * cfg.d_model * cfg.d_ff * 2
@@ -3929,7 +4146,8 @@ def phase_moe_mesh(seed: int) -> tuple:
         f"{json.dumps(dec['decode_launches'])}")
     e2e[f"moe decode step[mesh 2x2, {MOE_MESH_ARCH}, bf16, batch "
         f"{MOE_SERVE_BATCH}]"] = dec["decode_ms"] / 1e3
-    totals = {"segmented_matmul": 0, "segmented_matmul_chunked": 0}
+    totals = {"segmented_matmul": 0, "segmented_matmul_chunked": 0,
+              "segmm_mma": 0}
     for r, res in enumerate(ranks):
         pre = res["moe_prefill"]
         for k in totals:
@@ -4190,7 +4408,7 @@ def run(args, t_start: float) -> int:
     moe = phase_moe_data(args.seed)
     forest = phase_forest_data(args.seed)
     cases = segmm_cases(moe, forest, args.seed)
-    err, prepared = phase_segmm_parity(cases)
+    err, mma_err, prepared = phase_segmm_parity(cases)
     e2e2 = {}
     moe_counts = phase_moe(moe, e2e2)
     wave_counts, forest_dag = phase_wavefront(forest, args.seed, e2e2)
@@ -4198,7 +4416,7 @@ def run(args, t_start: float) -> int:
     del forest_dag
     seg_rows = phase_segmm_times(cases, prepared)
     for name, row in seg_rows.items():
-        row["err"] = err
+        row["err"] = mma_err if name == "segmm_mma" else err
         rows[name] = row
         launches[name] = moe_counts[name] + wave_counts[name]
         log(f"main-path launches {name}: {moe_counts[name]} (moe) + "
@@ -4207,6 +4425,10 @@ def run(args, t_start: float) -> int:
         from repro_torch.models.treelstm import treelstm_forest
         layer = moe["layers"][0.0]
         layer.schedule, layer.execution_path = "chunked_lpt", "native"
+        layer_bf16 = moe["layers_bf16"][0.0]
+        layer_bf16.schedule = "chunked_lpt"
+        layer_bf16.execution_path = "native"
+        x_bf16 = moe["x"].to(torch.bfloat16)
         wave_x = torch.from_numpy(forest["x"]).cuda()
         wave_ops = torch.from_numpy(forest["ops"]).cuda()
         from repro_torch.interop import treelstm_params_from_arrays
@@ -4214,12 +4436,14 @@ def run(args, t_start: float) -> int:
             {"w": forest["w"], "b": forest["b"]}, device="cuda")
         phase_profile([
             ("moe[skew 0, chunked_lpt@native]", lambda: layer(moe["x"])),
+            ("moe bf16[skew 0, chunked_lpt@native]",
+             lambda: layer_bf16(x_bf16)),
             ("treelstm_forest[chunked_lpt]", lambda: treelstm_forest(
                 wave_params, forest["trees"], wave_x, wave_ops,
                 schedule="chunked_lpt", activation=clip16))])
         # the layer's 1.5 GiB of experts would stay on the card through
         # the training phases
-        del layer, wave_x, wave_ops, wave_params
+        del layer, layer_bf16, x_bf16, wave_x, wave_ops, wave_params
     for name, secs in e2e2.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
     del moe, forest, cases, prepared

@@ -3,7 +3,9 @@
 Each ``csrc/*.cu`` file is compiled on first use into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds):
 ``build/kernels/<stem>-<hash>.so`` under the repository root, keyed by the
-content of the source and of the headers beside it.  :func:`build` starts
+content of the source and of every header it includes with quotes, in
+its own directory or elsewhere (``kernels/csrc/mma_sync.cuh``), so that an
+edit to a shared header rebuilds every source that includes it.  :func:`build` starts
 one ``nvcc`` per source, all at once, and returns each one's ``-Xptxas -v``
 report (registers, shared memory, spills).
 """
@@ -13,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -25,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _NVCC_TIMEOUT_S = 600
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 _LOADED: Dict[pathlib.Path, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -43,11 +47,27 @@ def nvcc_path() -> str:
                        "built")
 
 
+def included_headers(source: pathlib.Path) -> list:
+    """Every header that ``source`` includes with quotes, directly or
+    through another header, each resolved beside the file that names it
+    (as nvcc resolves them), in a fixed order."""
+    found: Dict[pathlib.Path, None] = {}
+    todo = [source]
+    while todo:
+        current = todo.pop()
+        for name in _INCLUDE.findall(current.read_text()):
+            header = (current.parent / name).resolve()
+            if header not in found:
+                found[header] = None
+                todo.append(header)
+    return sorted(found)
+
+
 def library_path(source: pathlib.Path) -> pathlib.Path:
     """The library a source builds into (its name carries a content hash
-    of the source and the headers next to it)."""
+    of the source and of every header it includes)."""
     digest = hashlib.sha256()
-    for part in [source, *sorted(source.parent.glob("*.cuh"))]:
+    for part in [source, *included_headers(source)]:
         digest.update(part.name.encode())
         digest.update(part.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

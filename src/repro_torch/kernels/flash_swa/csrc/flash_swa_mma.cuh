@@ -1,11 +1,10 @@
-// The mma.sync primitives that K7's tensor-core kernels share: the forward
+// The mma.sync helpers that K7's tensor-core kernels share: the forward
 // (flash_swa_mma.cu) and the backward (flash_swa_bwd_mma.cu).
 //
-// * cp.async copies global -> shared (16 bytes, or 4 for f32 rows), with a
-//   zero fill where the source is out of range;
-// * ldmatrix loads of bf16 8x8 matrices, plain and transposed, in the
-//   fragment layouts of mma.m16n8k16 (FlashAttention-2's register layout);
-// * mma: d += a b, bf16 operands and f32 accumulators;
+// * cp.async, ldmatrix (plain and transposed) and mma (d += a b, bf16
+//   operands and f32 accumulators) come from the port's shared header
+//   kernels/csrc/mma_sync.cuh, which the segmented GEMM's tensor-core
+//   instance (segmm/csrc/segmm.cu) also includes;
 // * split: an f32 pair as bf16 hi and lo halves (hi + lo carries 16 bits of
 //   mantissa), for products whose bf16 rounding alone misses the check,
 //   and mma_rows_trans, which runs both halves of an A operand against a
@@ -18,76 +17,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/mma_sync.cuh"
+
 namespace swa_mma {
+
+using namespace mma_sync;
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxHeadDim = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zeros when !valid (nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// 4 bytes global -> shared; zeros when !valid (nothing is read)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
-
-// d += a b: a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);

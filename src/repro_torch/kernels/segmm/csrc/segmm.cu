@@ -6,33 +6,64 @@
 //
 // Both compute out[i*bm:(i+1)*bm, :] = lhs[i*bm:(i+1)*bm, :] @
 // rhs[block_expert[i]] in float32: lhs [M_pad, K] and rhs [E, K, N] are
-// float32 or bfloat16 (converted exactly to float32 on the way into shared
-// memory, as the reference does), out is float32 [M_pad, N].  An M-block
-// whose expert id lies outside [0, E) gets zero rows.
+// float32 or bfloat16, out is float32 [M_pad, N].  An M-block whose expert
+// id lies outside [0, E) gets zero rows.  The pair of operand types picks
+// one of two tile routines, which both kernels share:
 //
-// Numerics: every output element is one fmaf chain over k = 0, 1, ..., K-1
-// in ascending order, starting from +0.0f, computed by the one device
-// routine tile_product() below for both kernels.  So the bits of an output
-// row depend only on its lhs row and its expert, never on bm, bn, bk, the
-// tile, the grouping, the queue, the team or the CTA order: K6 is bitwise
-// equal to K5, and grouped_matmul is bitwise equal across its schedule
-// policies and execution paths.  No split-K, no TF32, no tensor cores.  The
-// k tail of the last slice is skipped (the chain stops at K-1), and rows
-// past a tile's end and columns past N are computed on zero-filled operands
-// but never stored.
+// * bf16 x bf16: tile_product_mma(), on the tensor cores;
+// * float32 x float32, float32 x bf16, bf16 x float32: tile_product(), on
+//   the CUDA cores (bf16 operands converted exactly to float32 on the way
+//   into shared memory, as the reference does).
 //
-// Design (CUDA cores, one tile shape): a CTA of 128 threads computes
-// 128 x 128 output tiles.  Each thread holds an 8 x 16 register tile, so
-// one k step is 2 + 4 float4 shared loads for 128 FMAs, and the fragments
-// of step k + 1 are loaded before the FMAs of step k.  k goes through a
-// ring of kStages shared-memory slices kBK deep, filled ahead of the math:
-// rhs rows by 16-byte cp.async copies (4-byte copies where N % 4 or the
-// alignment forbids them; zero-fill past K and N), lhs quads by 16-byte
-// register loads issued a slice ahead and stored transposed (a[k][row],
-// padded) after the slice's math; bfloat16 operands go through registers
-// and are converted exactly.  ptxas fits the float32 instance in 255
-// registers without spills; two CTAs share an SM (66.5 KB of dynamic
-// shared memory each).
+// Numerics.  The CUDA-core routine computes every output element as one
+// fmaf chain over k = 0, 1, ..., K-1 in ascending order from +0.0f.  The
+// tensor-core routine computes it as one chain over k-steps of 16 in
+// ascending order from +0.0f, each step one mma.sync that adds the step's
+// 16 exact products (a product of two bf16 values is exact in float32)
+// into the float32 accumulator; the last step's k past K multiplies
+// zero-filled operands.  Either way the bits of an output row depend only
+// on its lhs row, its expert and the operand types, never on bm, bn, bk,
+// the tile, the grouping, the queue, the team or the CTA order: K6 is
+// bitwise equal to K5, and grouped_matmul is bitwise equal across its
+// schedule policies and execution paths.  No split-K, no TF32.  The two
+// routines add in different orders, so a bf16 x bf16 result differs from
+// the float32 chain's (and from torch.matmul in float32) by the order of
+// the float32 additions only: within 2 K 2^-24 sum_k |a_k b_k|, and not at
+// all where every partial sum is exact (integer-valued operands).
+//
+// Design, CUDA cores (float32 and the mixed pairs): a CTA of 128 threads
+// computes 128 x 128 output tiles.  Each thread holds an 8 x 16 register
+// tile, so one k step is 2 + 4 float4 shared loads for 128 FMAs, and the
+// fragments of step k + 1 are loaded before the FMAs of step k.  k goes
+// through a ring of kStages shared-memory slices kBK deep, filled ahead of
+// the math: rhs rows by 16-byte cp.async copies (4-byte copies where N % 4
+// or the alignment forbids them; zero-fill past K and N), lhs quads by
+// 16-byte register loads issued a slice ahead and stored transposed
+// (a[k][row], padded) after the slice's math; bfloat16 operands go
+// through registers and are converted exactly.  ptxas fits the float32
+// instance in 255 registers without spills; two CTAs share an SM (66.5 KB
+// of dynamic shared memory each).  Bound on the H100: float32 operations
+// (2 * rows * K * N at 67 TFLOP/s) at the MoE widths and at the
+// wavefront's level GEMM; what holds it near half of that is the math
+// loop itself, shared loads feeding FMAs (PERF.md).
+//
+// Design, tensor cores (bf16 x bf16): the same CTA of 128 threads and 128
+// x 128 tile, as four warps of 64 x 64, each a grid of 4 x 8 m16n8k16
+// mma.sync tiles (128 float32 accumulators a thread).  The operands stay
+// bf16 in shared memory, in a ring of kMmaStages slices kMmaBK deep: a 128
+// x kMmaBK lhs slice, its rows gathered through the tile's row table
+// s_row, and a kMmaBK x 128 rhs slice, both filled ahead of the math by
+// 16-byte cp.async copies of 8 bf16 (zero-fill past K, N and the tile's
+// rows), or element by element where K % 8, N % 8 or a base misaligned to
+// 16 bytes forbids them.  Rows are padded by 8 bf16, so the 8 rows an
+// ldmatrix reads fall in 8 distinct 16-byte bank groups; lhs fragments
+// come from ldmatrix.x4, rhs fragments from ldmatrix.x4.trans of the
+// row-major [K, N] slice.  Each thread stores its accumulators straight
+// to out (float2 where N % 8 == 0), columns below N only.  Bound on the
+// H100: the bytes (bf16 operands read once, the float32 output written
+// once, at 3.35 TB/s) at the MoE widths, close to the operations (989
+// TFLOP/s bf16); mma.sync issued from registers reaches only part of that
+// peak, which wgmma and TMA would raise (ROADMAP, queue 2).
 //
 // Work: a CTA takes a group of up to `group` M-blocks (group = 128 / bm
 // for bm < 128, else 1) and one N tile; consecutive group entries with the
@@ -45,16 +76,13 @@
 // group t and writing each of its M-blocks in place.  The wrapper zeroes
 // the output beforehand, so the rows of M-blocks no queue pops stay zero.
 // Grids are 1-D.
-//
-// Bound on the H100: float32 operations (2 * rows * K * N at 67 TFLOP/s)
-// at the MoE widths and at the wavefront's level GEMM.  What holds the
-// kernel near half of that is the math loop itself, shared loads feeding
-// FMAs (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <type_traits>
+
+#include "../../csrc/mma_sync.cuh"
 
 namespace {
 
@@ -79,6 +107,36 @@ static_assert(kTM * kBK / 4 % kThreads == 0, "lhs quads per thread");
 static_assert(kBK * kTN / 4 % kThreads == 0, "rhs quads per thread");
 static_assert(kStages >= 2, "ring of at least two slices");
 static_assert(kCols % 4 == 0 && kTN % kCols == 0, "column groups");
+
+// The tensor-core instance (bf16 x bf16): tile_product_mma().
+using bf16 = __nv_bfloat16;
+constexpr int kMmaBK = 32;             // k depth of a slice: two mma k-steps
+constexpr int kMmaStages = 4;          // slices in the ring
+constexpr int kALd = kMmaBK + 8;       // lhs slice row, padded (80 bytes)
+constexpr int kBLd = kTN + 8;          // rhs slice row, padded (272 bytes)
+constexpr int kAElems = kTM * kALd;
+constexpr int kMmaStageElems = kAElems + kMmaBK * kBLd;
+constexpr int kMmaSmemBytes = kMmaStages * kMmaStageElems * 2;
+constexpr int kWarpM = 64;             // a warp's tile: kWarpM x kWarpN
+constexpr int kWarpN = 64;
+constexpr int kMTiles = kWarpM / 16;   // m16 mma tiles a warp
+constexpr int kNTiles = kWarpN / 8;    // n8 mma tiles a warp
+constexpr int kAChunks = kTM * kMmaBK / 8 / kThreads;   // 16-byte copies
+constexpr int kBChunks = kMmaBK * kTN / 8 / kThreads;   // a thread a slice
+
+static_assert((kTM / kWarpM) * (kTN / kWarpN) * 32 == kThreads,
+              "one warp per warp tile");
+static_assert(kMmaBK % 16 == 0 && kMmaStages >= 3, "k-steps of 16; ring");
+static_assert(kAChunks * kThreads * 8 == kTM * kMmaBK, "lhs copies");
+static_assert(kBChunks * kThreads * 8 == kMmaBK * kTN, "rhs copies");
+static_assert(kALd * 2 % 16 == 0 && kBLd * 2 % 16 == 0 &&
+                  kAElems * 2 % 16 == 0 && kMmaStageElems * 2 % 16 == 0,
+              "16-byte aligned rows and slices");
+
+// The tensor-core routine runs the bf16 pair.
+template <typename TA, typename TB>
+constexpr bool kMma = std::is_same<TA, bf16>::value &&
+                      std::is_same<TB, bf16>::value;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -331,6 +389,153 @@ __device__ void tile_product(const TA* __restrict__ lhs,
   }
 }
 
+// tile_product() for bf16 x bf16 on the tensor cores: out[s_row[m], n0 +
+// c] = sum_k lhs[s_row[m], k] * rhs_e[k, n0 + c] for m < nrows, n0 + c <
+// N, as one ascending chain of mma k-steps of 16 per element.  kVec: K % 8
+// == 0, N % 8 == 0 and 16-byte aligned bases (16-byte copies, float2
+// stores).  Every thread of the CTA calls it (it synchronises).
+template <bool kVec>
+__device__ void tile_product_mma(const bf16* __restrict__ lhs,
+                                 const bf16* __restrict__ rhs_e,
+                                 float* __restrict__ out, const int* s_row,
+                                 int nrows, int n0, int K, int N,
+                                 bf16* smem) {
+  namespace tc = mma_sync;
+  constexpr int kACols = kMmaBK / 8;       // 8-element chunks a lhs row
+  constexpr int kARowStep = kThreads / kACols;
+  constexpr int kBCols = kTN / 8;          // 8-element chunks a rhs row
+  constexpr int kBRowStep = kThreads / kBCols;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const bf16 zero = __float2bfloat16(0.0f);
+
+  // lhs chunks: k columns ac.. of tile rows ar + j * kARowStep, gathered
+  // through s_row (row pointers set once per tile); rows past nrows and k
+  // past K are zero-filled.
+  const int ac = (tid % kACols) * 8, ar = tid / kACols;
+  const bf16* arow[kAChunks];
+  int arows_left[kAChunks];
+#pragma unroll
+  for (int j = 0; j < kAChunks; ++j) {
+    const int m = ar + j * kARowStep;
+    arow[j] = lhs + static_cast<size_t>(m < nrows ? s_row[m] : 0) * K + ac;
+    arows_left[j] = m < nrows ? K - ac : 0;
+  }
+  // rhs chunks: columns n0 + bc.. of slice rows br + j * kBRowStep
+  const int bc = (tid % kBCols) * 8, br = tid / kBCols;
+  const int b_left = N - n0 - bc;
+  const bf16* brow = rhs_e + static_cast<size_t>(br) * N + n0 + bc;
+  auto load_slice = [&](int k0, int stage) {
+    bf16* as = smem + stage * kMmaStageElems;
+    bf16* bs = as + kAElems;
+#pragma unroll
+    for (int j = 0; j < kAChunks; ++j) {
+      bf16* dst = as + (ar + j * kARowStep) * kALd + ac;
+      const int left = arows_left[j] - k0;   // <= 0: none is real
+      if constexpr (kVec) {
+        tc::cp_async16(dst, arow[j] + k0, left > 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = e < left ? arow[j][k0 + e] : zero;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBChunks; ++j) {
+      const int k = br + j * kBRowStep;
+      bf16* dst = bs + k * kBLd + bc;
+      const bf16* src = brow + static_cast<size_t>(k0 + j * kBRowStep) * N;
+      const int left = k0 + k < K ? b_left : 0;
+      if constexpr (kVec) {
+        tc::cp_async16(dst, src, left > 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dst[e] = e < left ? src[e] : zero;
+      }
+    }
+  };
+
+  // Warp (wm, wn) owns rows wm * kWarpM.. and columns wn * kWarpN.. of the
+  // tile: kMTiles x kNTiles mma tiles.
+  const int wm = warp / (kTN / kWarpN), wn = warp % (kTN / kWarpN);
+  float acc[kMTiles][kNTiles][4];
+#pragma unroll
+  for (int i = 0; i < kMTiles; ++i)
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
+  // a_off: the lhs rows and k half this lane's ldmatrix address names;
+  // b_off: the rhs k row and column half
+  const int a_off = (wm * kWarpM + (lane & 15)) * kALd + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * kBLd +
+                    wn * kWarpN + (lane >> 4) * 8;
+  auto k_step = [&](const bf16* as, const bf16* bs, int kk) {
+    uint32_t a[kMTiles][4], b[kNTiles][2];
+#pragma unroll
+    for (int i = 0; i < kMTiles; ++i)
+      tc::ldmatrix_x4(a[i], as + a_off + i * 16 * kALd + kk);
+#pragma unroll
+    for (int j = 0; j < kNTiles / 2; ++j) {
+      uint32_t r[4];
+      tc::ldmatrix_x4_trans(r, bs + b_off + kk * kBLd + j * 16);
+      b[2 * j][0] = r[0];
+      b[2 * j][1] = r[1];
+      b[2 * j + 1][0] = r[2];
+      b[2 * j + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int i = 0; i < kMTiles; ++i)
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j)
+        tc::mma(acc[i][j], a[i], b[j][0], b[j][1]);
+  };
+
+  const int ktiles = (K + kMmaBK - 1) / kMmaBK;
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (s < ktiles) load_slice(s * kMmaBK, s);
+    tc::cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    tc::cp_async_wait<kMmaStages - 2>();
+    __syncthreads();   // slice kt landed; slice kt - 1 is read by all
+    const int next = kt + kMmaStages - 1;
+    if (next < ktiles) load_slice(next * kMmaBK, next % kMmaStages);
+    tc::cp_async_commit();
+    const bf16* as = smem + (kt % kMmaStages) * kMmaStageElems;
+    const bf16* bs = as + kAElems;
+    // the chain has ceil(K / 16) steps: a step wholly past K is not run
+    const int ksteps = min(K - kt * kMmaBK + 15, kMmaBK) / 16;
+#pragma unroll
+    for (int ks = 0; ks < kMmaBK / 16; ++ks)
+      if (ks < ksteps) k_step(as, bs, ks * 16);
+  }
+  tc::cp_async_wait<0>();
+
+  // accumulator r of tile (i, j): row i * 16 + lane / 4 + (r / 2) * 8,
+  // column j * 8 + (lane % 4) * 2 + r % 2 of the warp's tile
+#pragma unroll
+  for (int i = 0; i < kMTiles; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = wm * kWarpM + i * 16 + h * 8 + lane / 4;
+      if (m >= nrows) continue;
+      float* orow = out + static_cast<size_t>(s_row[m]) * N + n0;
+#pragma unroll
+      for (int j = 0; j < kNTiles; ++j) {
+        const int c = wn * kWarpN + j * 8 + (lane % 4) * 2;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (kVec) {   // N % 8 == 0: both columns real, 8-byte aligned
+          if (n0 + c < N)
+            *reinterpret_cast<float2*>(orow + c) = make_float2(v0, v1);
+        } else {
+          if (n0 + c < N) orow[c] = v0;
+          if (n0 + c + 1 < N) orow[c + 1] = v1;
+        }
+      }
+    }
+}
+
 // Zero the rows of M-block blk in the N tile from n0.
 __device__ void zero_block(const Params& p, int blk, int n0) {
   for (int idx = threadIdx.x; idx < p.bm * kTN; idx += kThreads) {
@@ -381,8 +586,12 @@ __device__ void group_product(const Params& p, const int* queue, int s0,
         s_row[m] = m < nrows ? s_blk[i + r / p.bm] * p.bm + r % p.bm : 0;
       }
       __syncthreads();
-      tile_product<TA, TB, kVec>(lhs, rhs_e, p.out, s_row, nrows, n0, p.K,
-                                 p.N, smem);
+      if constexpr (kMma<TA, TB>)
+        tile_product_mma<kVec>(lhs, rhs_e, p.out, s_row, nrows, n0, p.K,
+                               p.N, reinterpret_cast<bf16*>(smem));
+      else
+        tile_product<TA, TB, kVec>(lhs, rhs_e, p.out, s_row, nrows, n0,
+                                   p.K, p.N, smem);
     }
     i = j;
   }
@@ -415,11 +624,12 @@ template <typename TA, typename TB, bool kVec>
 int run(const Params& p, long long grid, cudaStream_t stream) {
   if (grid <= 0) return 0;
   if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = kMma<TA, TB> ? kMmaSmemBytes : kSmemBytes;
   auto* kernel = &segmm_kernel<TA, TB, kVec>;
   const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(grid), kThreads, kSmemBytes, stream>>>(p);
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -447,8 +657,10 @@ int dispatch(int lhs_dtype, int rhs_dtype, int vec, const Params& p,
 
 }  // namespace
 
-// vec = 1 when K % 4 == 0, N % 4 == 0 and every float32 operand is 16-byte
-// aligned: 16-byte copies and float4 output stores.
+// vec = 1 when the operands allow 16-byte copies: for the CUDA-core
+// instances K % 4 == 0, N % 4 == 0 and every float32 operand 16-byte
+// aligned (float4 output stores); for bf16 x bf16 K % 8 == 0, N % 8 == 0
+// and both operands 16-byte aligned (float2 output stores).
 extern "C" int segmm_blocks(const void* lhs, int lhs_dtype, const void* rhs,
                             int rhs_dtype, const int* block_expert,
                             int num_blocks, int bm, int group, int K, int N,

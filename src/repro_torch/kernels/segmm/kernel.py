@@ -6,7 +6,18 @@ launch counter                CUDA source         replaces (reference)
 ============================  ==================  ==========================
 ``segmented_matmul``          ``csrc/segmm.cu``   ``segmented_matmul``
 ``segmented_matmul_chunked``  ``csrc/segmm.cu``   ``segmented_matmul_chunked``
+``segmm_mma``                 ``csrc/segmm.cu``   (either, bf16 x bf16)
 ============================  ==================  ==========================
+
+Both kernels share one tile routine for each pair of operand types, and
+the pair alone picks it (:func:`kernel_for`): bf16 x bf16 runs on the
+tensor cores (``mma.sync`` m16n8k16, f32 accumulators) and adds one to
+``segmm_mma`` on top of the kernel's own counter; float32 x float32 and
+the mixed pairs run a float32 FMA chain on the CUDA cores.  On the H100
+the bf16 pair is bound by its bytes (bf16 operands read once, the f32
+output written once) at the MoE widths, and the CUDA-core pairs by
+float32 operations (67 TFLOP/s); ``csrc/segmm.cu``'s header says what each
+design does about its bound.
 
 A wrapper checks its operands as the reference does (``m_pad % bm == 0``,
 ``bk = min(bk, K)``, ``bn = min(bn, N)``, ``K % bk == 0``, ``N % bn ==
@@ -17,8 +28,13 @@ tested against.  For ``meta`` tensors (the dry run) it returns an empty
 output, launches nothing and adds the kernel's flop and bytes to
 :data:`repro_torch.kernels.tally.TALLY`.  Other devices raise.
 ``bn``/``bk`` only have to pass the checks: the kernels pick their own
-tiles, and every output element is one ascending-k float32 FMA chain
-whatever ``bm``, ``bn`` and ``bk`` are.
+tiles.  Every output element is one ascending-k float32 chain whatever
+``bm``, ``bn``, ``bk``, the policy and the queue are: of FMAs on the CUDA
+cores, of ``mma`` k-steps of 16 exact bf16 products on the tensor cores.
+So K6 is bitwise equal to K5 for every pair of types, and the tensor-core
+result differs from the plain version (``torch.matmul`` in float32) only
+in the order of its float32 additions: within ``2 K 2**-24 sum|a b|``,
+bitwise on integer-valued operands.
 
 Launch geometry (plain Python, so the CPU tests reach it): both kernels
 compute 128 x 128 output tiles from groups of :func:`block_group` M-blocks.
@@ -45,8 +61,11 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 #: Every CUDA source of this package, built in parallel by :func:`build`.
 SOURCES = (CSRC / "segmm.cu",)
 
-#: Kernel launches since the last :func:`reset_launch_counts`.
-LAUNCHES = {"segmented_matmul": 0, "segmented_matmul_chunked": 0}
+#: Kernel launches since the last :func:`reset_launch_counts`:
+#: ``segmented_matmul`` (K5) and ``segmented_matmul_chunked`` (K6) count
+#: every launch, ``segmm_mma`` those of either that ran on the tensor cores.
+LAUNCHES = {"segmented_matmul": 0, "segmented_matmul_chunked": 0,
+            "segmm_mma": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -139,14 +158,38 @@ def queue_pops(cta: int, *, num_physical: int, n_tiles: int, counts,
     return queue, tile, slots
 
 
+def kernel_for(lhs_dtype: torch.dtype, rhs_dtype: torch.dtype) -> str:
+    """The tile routine that K5 and K6 run on operands of these types:
+    ``"segmm_mma"`` (bf16 x bf16: the tensor cores, counted in
+    :data:`LAUNCHES` under that name) or ``"segmm_fma"`` (float32 x
+    float32 and the mixed pairs: the CUDA cores' float32 FMA chain).  The
+    pair of types alone decides."""
+    if lhs_dtype == torch.bfloat16 and rhs_dtype == torch.bfloat16:
+        return "segmm_mma"
+    return "segmm_fma"
+
+
 def _vector_copies(lhs: torch.Tensor, rhs: torch.Tensor) -> int:
-    """1 when the kernel may copy its operands in 16-byte quads and store
-    float4s (K % 4 == 0, N % 4 == 0 and every float32 operand 16-byte
-    aligned), else 0 (4-byte loads and copies, scalar stores: the same
-    arithmetic)."""
+    """1 when the kernel may copy its operands in 16-byte chunks, else 0
+    (smaller loads and copies, scalar stores: the same arithmetic).  The
+    CUDA-core routine copies quads and stores float4s: K % 4 == 0, N % 4
+    == 0 and every float32 operand 16-byte aligned.  The tensor-core
+    routine copies 8 bf16 at a time and stores float2s: K % 8 == 0, N % 8
+    == 0 and both operands 16-byte aligned."""
+    if kernel_for(lhs.dtype, rhs.dtype) == "segmm_mma":
+        aligned = lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
+        return int(lhs.shape[1] % 8 == 0 and rhs.shape[2] % 8 == 0
+                   and aligned)
     aligned = all(t.dtype != torch.float32 or t.data_ptr() % 16 == 0
                   for t in (lhs, rhs))
     return int(lhs.shape[1] % 4 == 0 and rhs.shape[2] % 4 == 0 and aligned)
+
+
+def _count(name: str, lhs: torch.Tensor, rhs: torch.Tensor) -> None:
+    """One launch of ``name``, and of ``segmm_mma`` on the tensor cores."""
+    LAUNCHES[name] += 1
+    if kernel_for(lhs.dtype, rhs.dtype) == "segmm_mma":
+        LAUNCHES["segmm_mma"] += 1
 
 
 def _int32(x: int, what: str) -> int:
@@ -257,7 +300,7 @@ def segmented_matmul(lhs_padded: torch.Tensor, rhs: torch.Tensor,
             block_group(bm), _int32(k_dim, "K"), _int32(n_dim, "N"),
             _int32(e_dim, "E"), _vector_copies(lhs_padded, rhs),
             out.data_ptr())
-    LAUNCHES["segmented_matmul"] += 1
+    _count("segmented_matmul", lhs_padded, rhs)
     return out
 
 
@@ -346,7 +389,7 @@ def segmented_matmul_chunked(lhs_padded: torch.Tensor, rhs: torch.Tensor,
             block_group(bm), _int32(k_dim, "K"), _int32(n_dim, "N"),
             _int32(e_dim, "E"), _vector_copies(lhs_padded, rhs),
             out.data_ptr())
-    LAUNCHES["segmented_matmul_chunked"] += 1
+    _count("segmented_matmul_chunked", lhs_padded, rhs)
     return out
 
 

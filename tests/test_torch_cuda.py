@@ -18,7 +18,9 @@ float64 sum within 1e-5 of each segment's absolute sum, bitwise on
 integer-valued data, and bitwise across runs.  The segmented-matmul
 kernels (K5/K6) are held to their plain versions bitwise on integer-valued
 operands and to rtol 1e-4 on real ones (5e-2 for bfloat16), and to each
-other bitwise.  The banded sliding-window attention kernels (K7) are held
+other bitwise; on bf16 x bf16 operands (the tensor-core routine, counted
+in ``segmm_mma``) every real entry also lies within ``2 K 2**-24 sum|ab|``
+of the plain version, the float32 sum-order bound.  The banded sliding-window attention kernels (K7) are held
 to their plain version at atol/rtol 2e-5 in float32, and for bfloat16
 inputs to the float32 plain version on the same bf16-rounded inputs at
 rtol 1e-2, atol 1e-4: the error there is the bf16 rounding of the output
@@ -882,22 +884,44 @@ def _draw(shape, integer, gen, card, dtype=torch.float32, misaligned=False):
     return flat.view(shape)
 
 
+def _sum_order_bound(lhs, rhs, be, **kw):
+    """``2 K 2**-24 sum_k |a_k b_k|`` for every output element: how far two
+    float32 sums of the same exact products, added in different orders,
+    can lie apart (each within ``K u sum|a b|`` of the exact sum)."""
+    return (2 * lhs.shape[1] * 2.0 ** -24) * SK.segmented_matmul_plain(
+        lhs.abs(), rhs.abs(), be, **kw)
+
+
 def _check_k5_k6(lhs, rhs, be, chunks, counts, cmax, bm, integer, tag):
+    """K5 and K6 against their plain versions and each other; a bf16 x
+    bf16 launch counted on the tensor cores (``segmm_mma``), any other on
+    the CUDA cores only; two K5 runs bitwise equal."""
     k_dim, n_dim = lhs.shape[1], rhs.shape[2]
     kw = dict(bm=bm, bn=n_dim, bk=k_dim)
+    mma = SK.kernel_for(lhs.dtype, rhs.dtype) == "segmm_mma"
+    before = SK.LAUNCHES["segmm_mma"]
     k5 = SK.segmented_matmul(lhs, rhs, be, **kw)
+    assert SK.LAUNCHES["segmm_mma"] == before + mma, f"{tag}: K5 route"
     plain = SK.segmented_matmul_plain(lhs, rhs, be, **kw)
     k6 = SK.segmented_matmul_chunked(lhs, rhs, be, chunks, counts,
                                      max_chunks=cmax, **kw)
+    assert SK.LAUNCHES["segmm_mma"] == before + 2 * mma, f"{tag}: K6 route"
     plain6 = SK.segmented_matmul_chunked_plain(lhs, rhs, be, chunks, counts,
                                                max_chunks=cmax, **kw)
+    again = SK.segmented_matmul(lhs, rhs, be, **kw)
     torch.cuda.synchronize()
+    assert_bitwise(again, k5, f"{tag}: K5 run twice")
     if integer:
         assert_bitwise(k5, plain, f"{tag}: K5 vs plain")
         assert_bitwise(k6, plain6, f"{tag}: K6 vs plain")
     else:
         torch.testing.assert_close(k5, plain, rtol=1e-4, atol=1e-4,
                                    msg=f"{tag}: K5 vs plain")
+        if mma:
+            over = (k5 - plain).abs() > _sum_order_bound(lhs, rhs, be, **kw)
+            assert not bool(over.any()), (
+                f"{tag}: {int(over.sum())} entries beyond the float32 "
+                f"sum-order bound")
     popped = SK._popped_blocks(chunks, counts, cmax, be.shape[0])
     rows = (popped[:, None] * bm
             + torch.arange(bm, device=popped.device)).reshape(-1)
@@ -1006,6 +1030,137 @@ def test_segmm_more_than_65535_m_blocks(card):
     chunks = slot.clamp(max=nblk - 1).reshape(-1).to(torch.int32).to(card)
     _check_k5_k6(lhs, rhs, be, chunks, counts, cmax, bm, True,
                  "70,001 M-blocks")
+
+
+# The tensor-core instance (bf16 x bf16) through the same edges: K6's team
+# geometry, K and N tails (8-element copies where K % 8 == N % 8 == 0,
+# element loads elsewhere), more than 65,535 M-blocks, zero rows.
+
+BF16 = dict(dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case", QUEUE_CASES, ids=lambda c: c[0])
+def test_k6_team_geometry_bf16(card, case, integer):
+    name, bm, k_dim, n_dim, e_dim, lengths, cmax, spare = case
+    gen = torch.Generator().manual_seed(len(lengths) + bm + 1)
+    nblk = sum(lengths) + spare
+    lhs = _draw((nblk * bm, k_dim), integer, gen, card, **BF16)
+    rhs = _draw((e_dim, k_dim, n_dim), integer, gen, card, **BF16)
+    be = torch.randint(0, e_dim, (nblk,), generator=gen,
+                       dtype=torch.int32).sort().values.to(card)
+    chunks, counts = _queues(lengths, cmax, nblk, gen, card)
+    _check_k5_k6(lhs, rhs, be, chunks, counts, cmax, bm, integer,
+                 f"bf16 {name}")
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("bm", [8, 128])
+@pytest.mark.parametrize("k_dim", [3, 16, 72, 136])
+@pytest.mark.parametrize("n_dim", [4, 7, 24, 100, 130])
+def test_segmm_bf16_k_and_n_tails(card, n_dim, k_dim, bm, integer):
+    gen = torch.Generator().manual_seed(k_dim * n_dim + bm + integer)
+    nblk, e_dim = 37, 3
+    lhs = _draw((nblk * bm, k_dim), integer, gen, card, **BF16)
+    rhs = _draw((e_dim, k_dim, n_dim), integer, gen, card, **BF16)
+    be = torch.randint(-1, e_dim + 1, (nblk,), generator=gen,
+                       dtype=torch.int32).to(card)
+    chunks, counts = _queues([10, 10, 9, 8], 10, nblk, gen, card)
+    _check_k5_k6(lhs, rhs, be, chunks, counts, 10, bm, integer,
+                 f"bf16 K={k_dim} N={n_dim} bm={bm}")
+
+
+def test_segmm_bf16_more_than_65535_m_blocks(card):
+    gen = torch.Generator().manual_seed(4)
+    bm, nblk, k_dim, n_dim = 8, 70_001, 32, 48
+    lhs = _draw((nblk * bm, k_dim), True, gen, card, **BF16)
+    rhs = _draw((2, k_dim, n_dim), True, gen, card, **BF16)
+    be = (torch.arange(nblk, device=card) * 2 // nblk).to(torch.int32)
+    queues = 8
+    cmax = -(-nblk // queues)
+    slot = (torch.arange(queues)[:, None]
+            + torch.arange(cmax)[None, :] * queues)
+    counts = (slot < nblk).sum(1).to(torch.int32).to(card)
+    chunks = slot.clamp(max=nblk - 1).reshape(-1).to(torch.int32).to(card)
+    _check_k5_k6(lhs, rhs, be, chunks, counts, cmax, bm, True,
+                 "bf16 70,001 M-blocks")
+
+
+def test_segmm_bf16_zero_rows_for_bad_experts_and_unpopped_blocks(card):
+    lhs = torch.ones((4 * 8, 8), device=card, dtype=torch.bfloat16)
+    rhs = torch.ones((2, 8, 8), device=card, dtype=torch.bfloat16)
+    be = torch.tensor([0, 1, 5, -1], dtype=torch.int32, device=card)
+    before = SK.LAUNCHES["segmm_mma"]
+    out = SK.segmented_matmul(lhs, rhs, be, bm=8)
+    assert_bitwise(out, SK.segmented_matmul_plain(lhs, rhs, be, bm=8))
+    assert (out[16:] == 0).all() and (out[:16] == 8).all()
+    chunked = SK.segmented_matmul_chunked(
+        lhs, rhs, be, torch.tensor([1, 0], dtype=torch.int32, device=card),
+        torch.tensor([1], dtype=torch.int32, device=card), bm=8,
+        max_chunks=2)
+    assert (chunked[8:16] == 8).all() and (chunked[:8] == 0).all()
+    assert (chunked[16:] == 0).all()
+    assert SK.LAUNCHES["segmm_mma"] == before + 2
+
+
+def test_segmm_cuda_core_pairs_never_count_the_tensor_cores(card):
+    gen = torch.Generator().manual_seed(9)
+    before = SK.LAUNCHES["segmm_mma"]
+    for lt, rt in ((torch.float32, torch.float32),
+                   (torch.float32, torch.bfloat16),
+                   (torch.bfloat16, torch.float32)):
+        lhs = _draw((4 * 128, 64), False, gen, card, lt)
+        rhs = _draw((2, 64, 128), False, gen, card, rt)
+        be = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=card)
+        SK.segmented_matmul(lhs, rhs, be)
+        SK.segmented_matmul_chunked(
+            lhs, rhs, be, torch.arange(4, dtype=torch.int32, device=card),
+            torch.tensor([4], dtype=torch.int32, device=card), max_chunks=4)
+        assert SK.kernel_for(lt, rt) == "segmm_fma"
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["segmm_mma"] == before
+
+
+#: bf16 MoE layer (sorted) against the capacity dispatch in bf16 with a
+#: capacity that drops nothing: the two round to bf16 at different places
+#: (capacity rounds h1, h3, their gated product and each weighted atom;
+#: sorted keeps h1 and h3 in float32 and rounds h once), each rounding up
+#: to 2**-9 relative; held to 3e-2 of each entry plus 3e-2 of the largest
+#: (the CPU run at OLMoE-1B-7B width reads up to 1.2e-2 of the largest).
+MOE_BF16_TOL = 3e-2
+
+
+def test_moe_sorted_bf16_on_the_tensor_cores(card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    cfg = get_config("olmoe_1b_7b").reduced(d_model=128, d_ff=256,
+                                            num_experts=16, top_k=4)
+    params, _ = M.moe_init(torch.Generator().manual_seed(0), cfg.d_model,
+                           cfg.d_ff, cfg.num_experts, 0, cfg.activation,
+                           device=card)
+    params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    x = torch.randn(2, 300, cfg.d_model, generator=torch.Generator(
+        ).manual_seed(1)).to(card).to(torch.bfloat16)
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k)
+    base, aux = M.moe_sorted(params, x, **kw)
+    assert base.dtype == torch.bfloat16
+    for schedule, path in POLICY_PATHS + [("auto", "auto")]:
+        before = dict(SK.LAUNCHES)
+        out, aux2 = M.moe_sorted(params, x, schedule=schedule,
+                                 execution_path=path, **kw)
+        assert SK.LAUNCHES["segmm_mma"] == before["segmm_mma"] + 3
+        assert (SK.LAUNCHES["segmented_matmul"]
+                + SK.LAUNCHES["segmented_matmul_chunked"]
+                == before["segmented_matmul"]
+                + before["segmented_matmul_chunked"] + 3)
+        # bf16 -> float32 is exact: equal float32 bits are equal bf16 bits
+        assert_bitwise(out.float(), base.float(), f"{schedule}/{path}")
+        assert float(aux2) == float(aux)
+    cap, _ = M.moe_capacity(params, x, capacity_factor=float(
+        cfg.num_experts / cfg.top_k), **kw)
+    scale = float(cap.float().abs().max())
+    torch.testing.assert_close(base.float(), cap.float(), rtol=MOE_BF16_TOL,
+                               atol=MOE_BF16_TOL * scale)
 
 
 def test_moe_sorted_policies_bitwise_and_counted(card):

@@ -6,6 +6,8 @@ batching-table swap of ``_torch_parity``.  Tolerances: bitwise on
 integer-valued data (every sum exact in float32), rtol/atol 1e-4 on real
 data and 5e-2 for bfloat16 (the reference's own, ``tests/test_kernels.py``).
 """
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -246,6 +248,115 @@ class TestKernelsPlainVersions:
         be = torch.zeros(2, dtype=torch.int32)
         out = TK.segmented_matmul(lhs, rhs, be, bm=8, bn=128, bk=512)
         assert out.shape == (16, 40) and (out == 24).all()
+
+
+class TestBf16Operands:
+    """The bf16 x bf16 pair: the tensor-core routine on the card, the same
+    plain versions and ``meta`` tally on the CPU."""
+
+    @pytest.mark.parametrize("lhs_dtype,rhs_dtype,route", [
+        (torch.bfloat16, torch.bfloat16, "segmm_mma"),
+        (torch.float32, torch.float32, "segmm_fma"),
+        (torch.float32, torch.bfloat16, "segmm_fma"),
+        (torch.bfloat16, torch.float32, "segmm_fma")])
+    def test_kernel_for(self, lhs_dtype, rhs_dtype, route):
+        assert TK.kernel_for(lhs_dtype, rhs_dtype) == route
+        assert route == "segmm_fma" or route in TK.LAUNCHES
+
+    @pytest.mark.parametrize("chunked", [False, True])
+    def test_meta_tally_of_the_bf16_pair(self, chunked):
+        from repro_torch.kernels import tally
+        nblk, bm, K, N, E = 5, 32, 48, 80, 3
+        meta = dict(device="meta")
+        lhs = torch.empty((nblk * bm, K), dtype=torch.bfloat16, **meta)
+        rhs = torch.empty((E, K, N), dtype=torch.bfloat16, **meta)
+        be = torch.empty(nblk, dtype=torch.int32, **meta)
+        before = dict(TK.LAUNCHES)
+        tally.reset()
+        if chunked:
+            queue = (torch.empty(2 * 3, dtype=torch.int32, **meta),
+                     torch.empty(2, dtype=torch.int32, **meta))
+            out = TK.segmented_matmul_chunked(lhs, rhs, be, *queue, bm=bm,
+                                              max_chunks=3)
+        else:
+            out = TK.segmented_matmul(lhs, rhs, be, bm=bm)
+        assert (out.device.type, out.shape, out.dtype) == (
+            "meta", (nblk * bm, N), torch.float32)
+        assert TK.LAUNCHES == before
+        assert tally.TALLY["flops"] == 2 * (nblk * bm) * K * N
+
+    @pytest.mark.parametrize("bm", [8, 32])
+    def test_k5_k6_plain_on_bf16_match_reference_kernels(self, ref, bm):
+        """Integer-valued bf16 operands: every product and partial sum is
+        exact, so the plain versions equal the reference's Pallas kernels
+        (which cast both blocks to float32) bitwise."""
+        import jax.numpy as jnp
+        rng = np.random.default_rng(bm + 1)
+        nblk, K, N, E = 6, 32, 64, 3
+        lhs = rng.integers(-3, 4, (nblk * bm, K)).astype(np.float32)
+        rhs = rng.integers(-3, 4, (E, K, N)).astype(np.float32)
+        be = np.array([0, 0, 2, 1, 2, 2], np.int32)
+        # two queues popping every block once
+        chunks = np.array([5, 1, 3, 0, 2, 4], np.int32)
+        counts = np.array([3, 3], np.int32)
+        jl, jr = (jnp.asarray(a, jnp.bfloat16) for a in (lhs, rhs))
+        tl, tr = (torch.from_numpy(a).to(torch.bfloat16) for a in (lhs, rhs))
+        want5 = ref[2].segmented_matmul(jl, jr, jnp.asarray(be), bm=bm,
+                                        bn=32, bk=16)
+        assert_bitwise(TK.segmented_matmul(tl, tr, torch.from_numpy(be),
+                                           bm=bm, bn=32, bk=16), want5)
+        want6 = ref[2].segmented_matmul_chunked(
+            jl, jr, *map(jnp.asarray, (be, chunks, counts)), bm=bm, bn=32,
+            bk=32, max_chunks=3)
+        assert_bitwise(TK.segmented_matmul_chunked(
+            tl, tr, *map(torch.from_numpy, (be, chunks, counts)), bm=bm,
+            bn=32, bk=32, max_chunks=3), want6)
+
+    def test_plain_on_bf16_is_the_float32_product(self):
+        """The plain versions take bf16 operands exactly to float32 and
+        multiply there: the same bits as on the float32 casts."""
+        gen = torch.Generator().manual_seed(3)
+        lhs = torch.randn(4 * 16, 40, generator=gen).to(torch.bfloat16)
+        rhs = torch.randn(3, 40, 24, generator=gen).to(torch.bfloat16)
+        be = torch.tensor([2, 0, 0, 1], dtype=torch.int32)
+        queue = (torch.tensor([3, 1, 0, 2], dtype=torch.int32),
+                 torch.tensor([4], dtype=torch.int32))
+        assert_bitwise(TK.segmented_matmul(lhs, rhs, be, bm=16),
+                       TK.segmented_matmul(lhs.float(), rhs.float(), be,
+                                           bm=16))
+        assert_bitwise(
+            TK.segmented_matmul_chunked(lhs, rhs, be, *queue, bm=16,
+                                        max_chunks=4),
+            TK.segmented_matmul_chunked(lhs.float(), rhs.float(), be,
+                                        *queue, bm=16, max_chunks=4))
+
+
+def test_build_key_covers_every_included_header(tmp_path):
+    """A source's library name hashes the headers it includes with quotes,
+    also from another directory and through another header, so an edit to
+    a shared header (``kernels/csrc/mma_sync.cuh``) rebuilds it."""
+    from repro_torch.kernels import _build
+    (tmp_path / "shared").mkdir()
+    (tmp_path / "pkg").mkdir()
+    shared = tmp_path / "shared" / "prims.cuh"
+    inner = tmp_path / "shared" / "inner.cuh"
+    local = tmp_path / "pkg" / "local.cuh"
+    source = tmp_path / "pkg" / "k.cu"
+    inner.write_text("// inner\n")
+    shared.write_text('#pragma once\n#include "inner.cuh"\n')
+    local.write_text('#include "../shared/prims.cuh"\n')
+    source.write_text('#include <cuda_runtime.h>\n#include "local.cuh"\n')
+    assert _build.included_headers(source) == sorted(
+        h.resolve() for h in (inner, shared, local))
+    keys = {_build.library_path(source)}
+    for header in (inner, shared, local):
+        header.write_text(header.read_text() + "// edited\n")
+        keys.add(_build.library_path(source))
+    assert len(keys) == 4
+    (tmp_path / "pkg" / "unused.cuh").write_text("// not included\n")
+    assert _build.library_path(source) in keys
+    real = pathlib.Path(TK.__file__).parent / "csrc" / "segmm.cu"
+    assert "mma_sync.cuh" in [h.name for h in _build.included_headers(real)]
 
 
 def test_grouped_matmul_oracle_matches_reference(ref):
