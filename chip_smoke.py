@@ -257,8 +257,39 @@ Phases, in order; any failure exits non-zero:
    (bitwise on integer-valued operands), timed beside ``torch.bmm`` on
    the same experts.  Four ranks on one card measure the path's
    overhead, not its scaling;
-29. the ``kernels:`` summary (K7's launches include every rank's in the
-   mesh and pipeline phases, K5's the MoE mesh's; ``segmm_mma`` is a
+29. ssm mesh — tensor parallelism of the SSM blocks: RWKV6-3B (d_model
+   2,560, 40 heads of 64, d_ff 8,960, vocab 65,536) and Hymba-1.5B
+   (d_model 1,600, 25/5 attention heads of 64, window 1,024, ``d_inner``
+   1,600, state 16) at full width, depth cut to 2, S 4,096, global batch
+   4 in 2 microbatches, float32 weights and AdamW state, bf16 compute,
+   remat: 3 steps each on one device in this process (freed), then four
+   spawned ranks share this card in one gloo group (300 s timeout) on
+   ``(data, model) = (2, 2)``: RWKV6's time mix on 20 heads a rank, its
+   channel mix on 4,480 of ``d_ff`` and 1,280 gate columns, Hymba's mamba
+   on 800 channels a rank (its attention whole on every rank): 3 steps
+   each, the loss and grad norm within 2e-2 of one device's at each step,
+   every leaf changed, the gathered parameters finite; on every Hymba
+   rank 8 K7 and 4 backward launches a step, all on the tensor cores; per
+   rank ms a step, tokens/s, peak memory and collectives by kind.  Then
+   in float32 at depth 2, S 2,048, two sequences (Hymba with window
+   1,024 and ``attn_query_chunk`` 512, so that the band runs K7),
+   ``loss_and_grads`` on the mesh against one device's on rank 0: the
+   loss 1e-5, every gathered gradient leaf and each model rank's copy of
+   ``mu``, ``decay_base``, ``bonus_u``, ``wb`` and ``wc`` 1e-4 of its
+   largest entry.  Then ``make_serve_step`` on ``(1, 4)``: both models at
+   full width and depth in bf16 (each rank draws its blocks), batch 1, 8
+   greedy steps (ids in the vocabulary, logits finite, every rank the
+   same ids; ms a step and collectives by kind); at depth 2 in float32,
+   8 steps' logits within 2e-3 of one device's ``decode_step``.  Then
+   Hymba's ``prefill(mesh=)`` at full depth, S 4,096: K7 once a layer on
+   every rank, on the tensor cores, the states returned as the cache
+   places them.  With ``--parent-src DIR`` (another checkout's ``src``,
+   e.g. the parent commit unpacked with ``git archive``),
+   ``tools/time_ssm_decode.py`` then times that tree's decode step and
+   this one's on the same ``(1, 4)`` mesh, printed side by side.  Four
+   ranks on one card measure the path's overhead, not its scaling;
+30. the ``kernels:`` summary (K7's launches include every rank's in the
+   mesh, pipeline and ssm mesh phases, K5's the MoE mesh's; ``segmm_mma`` is a
    route of K5 and K6, not a kernel of its own: it counts again the K5/K6
    launches that ran on the tensor cores, its row timed as K5 at the bf16
    ``w1`` shape), the JSON kernels line, and the final ``{"ok":
@@ -424,6 +455,21 @@ MOE_SERVE_CHECK = 8        # float32 steps held to one device's decode_step
 MOE_PREFILL_S = 4096
 MOE_PREFILL_BATCH = 2      # one sequence a data rank
 MOE_PREFILL_TOL = 2e-2     # bf16 prefill logits against one device's
+
+SSM_ARCHS = ("rwkv6_3b", "hymba_15b")
+SSM_MESH_LAYERS = 2        # depth cut from 32: one device's state fits
+SSM_MESH_SEQ = 4096        # train_4k's; > qc + window = 2,048: K7's band
+SSM_MESH_BATCH = 4         # cut from 256: a sequence a data rank a microbatch
+SSM_MESH_MICRO = 2
+SSM_MESH_STEPS = 3
+SSM_MESH_SHAPE = (SSM_MESH_SEQ, SSM_MESH_BATCH, SSM_MESH_MICRO,
+                  SSM_MESH_STEPS)
+SSM_F32_S = 2048           # the float32 parity check, two sequences
+SSM_F32_WINDOW = 1024      # Hymba's attn_query_chunk 512: the band runs K7
+SSM_SERVE_STEPS = 8        # bf16 greedy steps at full depth, batch 1 (cut
+                           # from 16: the phase's 150 s)
+SSM_SERVE_CHECK = 8        # float32 steps held to one device's decode_step
+SSM_PREFILL_S = 4096       # Hymba's prefill on (1, 4): K7 on every rank
 
 #: what later phases read of earlier ones (the measured peaks of phases
 #: 24, 25, 26 and 28)
@@ -3148,14 +3194,19 @@ def mesh_train(mesh, cfg, seed: int, shape: tuple) -> dict:
     step = make_train_step(cfg, OptConfig(warmup_steps=1), mesh,
                            num_microbatches=micro, dtype=torch.bfloat16)
     dcfg = for_model(cfg, seq_len=seq, global_batch=batch_size, seed=seed)
-    # a layer a microbatch on this rank's heads: the forward and its remat
-    # recompute, then the backward, all on the tensor cores
-    per_layer = 0 if moe else cfg.num_layers * micro
+    # a layer a microbatch where the band runs (this rank's heads, or all
+    # of them where attention runs whole): the forward and its remat
+    # recompute, then the backward, all on the tensor cores; none without
+    # a window (RWKV6, OLMoE)
+    banded = bool(cfg.swa_banded and cfg.sliding_window
+                  and seq > cfg.attn_query_chunk + cfg.sliding_window)
+    per_layer = cfg.num_layers * micro if banded else 0
     per_step = dict(flash_swa=2 * per_layer, flash_swa_mma=2 * per_layer,
                     flash_swa_bwd=per_layer, flash_swa_bwd_mma=per_layer)
     if moe:
         per_step.update(segmented_matmul=0, segmented_matmul_chunked=0)
-    tag = "moe mesh" if moe else "lm mesh"
+    tag = ("moe mesh" if moe else "ssm mesh"
+           if cfg.family in ("ssm", "hybrid") else "lm mesh")
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     steps = []
@@ -3728,7 +3779,7 @@ def phase_pipeline(cfg, seed: int) -> tuple:
 # expert parallelism: the MoE configs on the (data, model) mesh
 # ---------------------------------------------------------------------------
 
-def moe_cfg(name: str, layers: int = None, **over):
+def arch_cfg(name: str, layers: int = None, **over):
     """``name``'s config at full width, ``layers`` deep (its own depth
     when ``None``), with ``over``."""
     from repro_torch.configs import get_config
@@ -3762,10 +3813,10 @@ def moe_f32(mesh, seed: int) -> dict:
     dev, f32 = mesh.device, torch.float32
     out = {}
     for label, cfg in (
-            ("olmoe grouped", moe_cfg(MOE_MESH_ARCH, 2)),
-            ("olmoe capacity", moe_cfg(MOE_MESH_ARCH, 2,
+            ("olmoe grouped", arch_cfg(MOE_MESH_ARCH, 2)),
+            ("olmoe capacity", arch_cfg(MOE_MESH_ARCH, 2,
                                        moe_dispatch="capacity")),
-            ("deepseek grouped", moe_cfg(MOE_PARITY_ARCH, 2))):
+            ("deepseek grouped", arch_cfg(MOE_PARITY_ARCH, 2))):
         psh = shardings_for(mesh, param_specs(cfg))
         draw = lambda sh: init_params(cfg, torch.Generator(device=dev)
                                       .manual_seed(seed + 17), device=dev,
@@ -3823,7 +3874,7 @@ def moe_decode(mesh, seed: int) -> dict:
     from repro_torch.serve.decode import make_serve_step, sample_logits
 
     dev, bf16, f32 = mesh.device, torch.bfloat16, torch.float32
-    cfg = moe_cfg(MOE_MESH_ARCH)
+    cfg = arch_cfg(MOE_MESH_ARCH)
     step, psh, _, cache = make_serve_step(
         cfg, mesh, batch=MOE_SERVE_BATCH, seq_len=MOE_SERVE_CACHE,
         dtype=bf16)
@@ -3861,7 +3912,7 @@ def moe_decode(mesh, seed: int) -> dict:
                 "segmm_mma": 0}
     worst = {}
     for dispatch in ("grouped", "capacity", "sorted"):
-        cut = moe_cfg(MOE_MESH_ARCH, 2, moe_dispatch=dispatch)
+        cut = arch_cfg(MOE_MESH_ARCH, 2, moe_dispatch=dispatch)
         step, psh, _, cache = make_serve_step(
             cut, mesh, batch=MOE_SERVE_BATCH, seq_len=MOE_SERVE_CHECK,
             dtype=f32)
@@ -3917,7 +3968,7 @@ def moe_prefill(mesh, seed: int) -> dict:
     from repro_torch.train.step import param_specs, shardings_for
 
     dev, bf16 = mesh.device, torch.bfloat16
-    cfg = moe_cfg(MOE_MESH_ARCH, 2, moe_dispatch="sorted")
+    cfg = arch_cfg(MOE_MESH_ARCH, 2, moe_dispatch="sorted")
     b = MOE_PREFILL_BATCH
     psh = shardings_for(mesh, param_specs(cfg))
     csh = shardings_for(mesh, cache_pspecs(cfg, mesh, b))
@@ -4050,7 +4101,7 @@ def moe_rank_job(world: int, job: dict) -> dict:
 
     mesh = make_host_mesh(MESH_MODEL_AXIS, device=DEVICE)
     out = dict(mesh=str(mesh))
-    out.update(mesh_train(mesh, moe_cfg(MOE_MESH_ARCH, MOE_MESH_LAYERS),
+    out.update(mesh_train(mesh, arch_cfg(MOE_MESH_ARCH, MOE_MESH_LAYERS),
                           job["seed"], MOE_MESH_SHAPE))
     for part in (moe_f32, moe_decode, moe_prefill):
         if DEVICE == "cuda":
@@ -4066,7 +4117,7 @@ def phase_moe_mesh(seed: int) -> tuple:
     the ranks' segmm launches on the mesh path and the e2e seconds."""
     import torch
 
-    cut = moe_cfg(MOE_MESH_ARCH, MOE_MESH_LAYERS)
+    cut = arch_cfg(MOE_MESH_ARCH, MOE_MESH_LAYERS)
     seq, batch, micro, steps = MOE_MESH_SHAPE
     tokens = batch * seq
     single = mesh_one_device(cut, seed, MOE_MESH_SHAPE)
@@ -4188,6 +4239,384 @@ def phase_moe_mesh(seed: int) -> tuple:
     return totals, e2e
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism of the SSM blocks: RWKV6-3B and Hymba-1.5B
+# ---------------------------------------------------------------------------
+
+#: the leaves of the SSM blocks that are whole over ``model``: each rank's
+#: copy of their gradient is held to one device's
+SSM_COPIED = ("/layers/tmix/mu", "/layers/tmix/decay_base",
+              "/layers/tmix/bonus_u", "/layers/cmix/mu", "/layers/mamba/wb",
+              "/layers/mamba/wc")
+
+
+def ssm_f32_cfg(name: str):
+    """``name`` at full width and depth 2 for the float32 parity check
+    (Hymba with phase 25's window, so that the band runs K7 at S
+    2,048)."""
+    if name == "hymba_15b":
+        return arch_cfg(name, 2, sliding_window=SSM_F32_WINDOW,
+                        attn_query_chunk=SSM_F32_WINDOW // 2)
+    return arch_cfg(name, 2)
+
+
+def ssm_f32(mesh, seed: int) -> dict:
+    """The float32 parity of ``loss_and_grads`` on ``mesh`` against one
+    device's on rank 0, depth 2 at full width, for both SSM models: the
+    loss, every gathered gradient leaf, and each model rank's copy of
+    the leaves whole over ``model`` (:data:`SSM_COPIED`)."""
+    import torch
+    from repro_torch.data.synthetic import batch_at, for_model
+    from repro_torch.models.lm import init_params, tree_leaves
+    from repro_torch.train.step import (loss_and_grads, param_specs,
+                                        shardings_for)
+
+    dev, f32 = mesh.device, torch.float32
+    out = {}
+    for name in SSM_ARCHS:
+        cfg = ssm_f32_cfg(name)
+        psh = shardings_for(mesh, param_specs(cfg))
+        draw = lambda sh: init_params(cfg, torch.Generator(device=dev)
+                                      .manual_seed(seed + 22), device=dev,
+                                      shardings=sh)[0]
+        params = draw(psh)
+        batch = batch_at(for_model(cfg, seq_len=SSM_F32_S, global_batch=2,
+                                   seed=seed), 0, cfg, device=dev)
+        reset_all_counts()
+        (loss, _, grads), secs = wall_s(lambda: loss_and_grads(
+            params, cfg, batch, 1, f32, mesh=mesh))
+        counts = {k: all_counts()[k] for k in ("flash_swa", "flash_swa_bwd")}
+        want_counts = ({"flash_swa": 2 * cfg.num_layers,
+                        "flash_swa_bwd": cfg.num_layers}
+                       if cfg.family == "hybrid"
+                       else {"flash_swa": 0, "flash_swa_bwd": 0})
+        check(counts == want_counts, f"ssm mesh f32 {name} rank "
+              f"{mesh.rank}: launches {counts}, expected {want_counts}")
+        want = want_loss = None
+        if mesh.rank == 0:
+            full = draw(None)
+            want_loss, _, want = loss_and_grads(full, cfg, batch, 1, f32)
+            want = dict(tree_leaves(want))
+            del full
+        shardings = dict(tree_leaves(psh))
+        worst, copies = 0.0, 0
+        for path, g in tree_leaves(grads):
+            whole = shardings[path].gather(g)
+            if want is not None:
+                worst = max(worst, leaf_close(f"ssm mesh f32 {name} grad "
+                                              f"{path}", whole, want[path],
+                                              TRAIN_GRAD_TOL))
+            if path in SSM_COPIED:
+                ranks = mesh.all_gather(whole[None], "model")
+                copies += ranks.shape[0]
+                for m in range(ranks.shape[0] if want is not None else 0):
+                    worst = max(worst, leaf_close(
+                        f"ssm mesh f32 {name} grad {path} on model rank {m}",
+                        ranks[m], want[path], TRAIN_GRAD_TOL))
+            del whole
+        res = dict(secs=secs, counts=counts, copies=copies,
+                   copied=[p for p in SSM_COPIED if p in shardings])
+        if mesh.rank == 0:
+            check(abs(float(loss) - float(want_loss))
+                  <= TRAIN_LOSS_RTOL * abs(float(want_loss)),
+                  f"ssm mesh f32 {name}: loss {float(loss)!r} vs one "
+                  f"device {float(want_loss)!r}")
+            res.update(loss=(float(loss), float(want_loss)), worst=worst)
+        out[name] = res
+        del params, grads, want
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def ssm_decode(mesh, seed: int) -> dict:
+    """``make_serve_step`` on ``mesh`` (``(1, 4)``) for both SSM models:
+    full width and depth in bfloat16 (each rank draws its blocks), batch
+    1, greedy steps (ids in the vocabulary, logits finite), each step's
+    time and collectives by kind; then depth 2 in float32, each step's
+    logits held to one device's ``decode_step`` on rank 0."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import (cast_params, decode_step, init_cache,
+                                       init_params)
+    from repro_torch.serve.decode import make_serve_step, sample_logits
+
+    dev, bf16, f32 = mesh.device, torch.bfloat16, torch.float32
+    out = {}
+    for name in SSM_ARCHS:
+        cfg = arch_cfg(name)
+        cache_len = cfg.sliding_window or SSM_SERVE_STEPS
+        step, psh, _, cache = make_serve_step(
+            cfg, mesh, batch=1, seq_len=cache_len, dtype=bf16)
+        gen = torch.Generator(device=dev).manual_seed(seed + 23)
+        params = cast_params(init_params(cfg, gen, device=dev,
+                                         shardings=psh)[0], bf16)
+        tok = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        reset_all_counts()
+        ids, times, kinds = [], [], {}
+        for t in range(SSM_SERVE_STEPS):
+            mesh.stats.reset()
+            (logits, cache), secs = wall_s(lambda: step(params, tok, t,
+                                                        cache))
+            check(bool(torch.isfinite(logits).all()),
+                  f"ssm mesh decode {name} step {t}: non-finite logits")
+            tok = sample_logits(None, logits, 0.0, vocab_size=cfg.vocab_size)
+            ids.append(int(tok))
+            times.append(secs)
+            if t:                   # steps after the first, summed
+                for (k, n), v in mesh.stats.kinds.items():
+                    row = kinds.setdefault(f"{k}@{n}", [0, 0, 0.0])
+                    for j in range(3):
+                        row[j] += v[j]
+        check(all(0 <= i < cfg.vocab_size for i in ids),
+              f"ssm mesh decode {name}: ids {ids} outside the vocabulary")
+        check(all_counts()["flash_swa"] == 0,
+              f"ssm mesh decode {name} launched K7")
+        n = SSM_SERVE_STEPS - 1
+        out[name] = dict(
+            ms=statistics.median(times[1:]) * 1e3, first_ms=times[0] * 1e3,
+            ids=ids, layers=cfg.num_layers, kinds={
+                k: [v[0] / n, v[1] / n, v[2] / n] for k, v in kinds.items()},
+            cache={k: tuple(c.shape) for k, c in cache.items()})
+        del params, cache
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+
+        cut = ssm_f32_cfg(name)
+        step, psh, _, cache = make_serve_step(
+            cut, mesh, batch=1, seq_len=cache_len, dtype=f32)
+        draw = lambda sh: init_params(cut, torch.Generator(device=dev)
+                                      .manual_seed(seed + 24), device=dev,
+                                      shardings=sh)[0]
+        params = draw(psh)
+        full = draw(None) if mesh.rank == 0 else None
+        plain = (init_cache(cut, 1, cache_len, f32, device=dev)
+                 if full is not None else None)
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cut.vocab_size, (1, SSM_SERVE_CHECK)).astype(np.int32)
+        ).to(dev)
+        worst = 0.0
+        for t in range(SSM_SERVE_CHECK):
+            logits, cache = step(params, tokens[:, t:t + 1], t, cache)
+            if full is not None:
+                with torch.no_grad():
+                    want, plain = decode_step(full, cut, tokens[:, t:t + 1],
+                                              t, plain, dtype=f32)
+                err = max_abs_err(logits, want)
+                check(torch.allclose(logits, want, rtol=LM_TOL, atol=LM_TOL),
+                      f"ssm mesh decode f32 {name} step {t}: logits differ "
+                      f"from one device's by {err}")
+                worst = max(worst, err)
+        out[name]["f32_worst"] = worst
+        del params, full, plain, cache
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def ssm_prefill(mesh, seed: int) -> dict:
+    """Hymba's ``prefill(mesh=)`` on ``mesh`` (``(1, 4)``) at full width
+    and depth in bfloat16, one sequence of ``SSM_PREFILL_S``: K7 once a
+    layer on every rank (its attention runs whole there), all on the
+    tensor cores; finite logits; the returned states placed as the cache
+    stores them."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import (cache_shape, cast_params,
+                                       init_params, prefill)
+    from repro_torch.serve.decode import cache_pspecs
+    from repro_torch.train.step import param_specs, shardings_for
+
+    dev, bf16 = mesh.device, torch.bfloat16
+    cfg = arch_cfg("hymba_15b")
+    psh = shardings_for(mesh, param_specs(cfg))
+    csh = shardings_for(mesh, cache_pspecs(cfg, mesh, 1))
+    params = cast_params(init_params(cfg, torch.Generator(device=dev)
+                                     .manual_seed(seed + 25), device=dev,
+                                     shardings=psh)[0], bf16)
+    tokens = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab_size, (1, SSM_PREFILL_S)).astype(np.int32)).to(dev)
+    reset_all_counts()
+    mesh.stats.reset()
+    with torch.no_grad():
+        (logits, cache), secs = wall_s(lambda: prefill(
+            params, cfg, tokens, dtype=bf16, cache_len=cfg.sliding_window,
+            mesh=mesh, cache_sh=csh))
+    counts = {k: all_counts()[k] for k in ("flash_swa", "flash_swa_mma")}
+    want = {"flash_swa": cfg.num_layers, "flash_swa_mma": cfg.num_layers}
+    check(counts == want, f"ssm mesh prefill rank {mesh.rank}: launches "
+          f"{counts}, expected {want}")
+    check(bool(torch.isfinite(logits).all()),
+          f"ssm mesh prefill rank {mesh.rank}: non-finite logits")
+    for name, (shape, _) in cache_shape(cfg, 1, cfg.sliding_window).items():
+        local = csh[name].local_shape(shape)
+        check(tuple(cache[name].shape) == local, f"ssm mesh prefill: cache "
+              f"{name} {tuple(cache[name].shape)}, expected this rank's "
+              f"block {local}")
+    out = dict(secs=secs, counts=counts, calls=mesh.stats.calls,
+               bytes=mesh.stats.bytes, coll_s=mesh.stats.seconds,
+               h=tuple(cache["h"].shape))
+    del params, cache
+    return out
+
+
+def ssm_rank_job(world: int, job: dict) -> dict:
+    """Phase 29 on one rank: both models' training steps and the float32
+    parity check on ``(data, model) = (2, 2)``, then serving and Hymba's
+    prefill on ``(1, 4)``."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(MESH_MODEL_AXIS, device=DEVICE)
+    out = dict(mesh=str(mesh))
+    for name in SSM_ARCHS:
+        out[name] = mesh_train(mesh, arch_cfg(name, SSM_MESH_LAYERS),
+                               job["seed"], SSM_MESH_SHAPE)
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    out["f32"] = ssm_f32(mesh, job["seed"])
+    serve = make_host_mesh(world, device=DEVICE)                # (1, 4)
+    out["serve_mesh"] = str(serve)
+    out["decode"] = ssm_decode(serve, job["seed"])
+    out["prefill"] = ssm_prefill(serve, job["seed"])
+    return out
+
+
+def kinds_text(kinds: dict) -> str:
+    return ", ".join(f"{k} {v[0]:.0f} calls {v[1] / 2**20:.2f} MiB "
+                     f"{v[2] * 1e3:.1f} ms" for k, v in sorted(kinds.items()))
+
+
+def phase_ssm_mesh(seed: int, card_line: str) -> tuple:
+    """Tensor parallelism of the SSM blocks: each model's training steps
+    on one device first (freed), then four spawned ranks sharing this
+    card in one gloo group run :func:`ssm_rank_job`.  Returns the ranks'
+    K7 launches in the training steps and Hymba's prefill, and the e2e
+    seconds."""
+    import torch
+
+    seq, batch, micro, steps = SSM_MESH_SHAPE
+    tokens = batch * seq
+    single = {}
+    for name in SSM_ARCHS:
+        single[name] = mesh_one_device(arch_cfg(name, SSM_MESH_LAYERS), seed,
+                                       SSM_MESH_SHAPE)
+        for i, (m, secs) in enumerate(single[name]):
+            log(f"ssm mesh one device {name} step {i + 1}: loss "
+                f"{m['loss']!r}, grad_norm {m['grad_norm']!r}, "
+                f"{secs * 1e3:.1f} ms")
+    ranks, secs = wall_s(lambda: run_shard_ranks(
+        MESH_RANKS, dict(seed=seed), fn="ssm_rank_job",
+        timeout_s=MESH_TIMEOUT_S, deadline_s=MESH_DEADLINE_S))
+    log(f"ssm mesh: {MESH_RANKS} processes on this card in one gloo group, "
+        f"{secs:.1f} s in all; four ranks share one card and gloo moves "
+        f"CUDA tensors through the host, so these times are the "
+        f"tensor-parallel path's overhead, not its scaling ({card_line})")
+    totals = {"flash_swa": 0, "flash_swa_bwd": 0}
+    e2e = {}
+    for name in SSM_ARCHS:
+        cut = arch_cfg(name, SSM_MESH_LAYERS)
+        one = statistics.median([s for _, s in single[name][1:]]
+                                or [single[name][0][1]])
+        for r, res in enumerate(ranks):
+            rows = res[name]["steps"]
+            for i, (row, (want, _)) in enumerate(zip(rows, single[name])):
+                for key in ("loss", "grad_norm"):
+                    got = row["metrics"][key]
+                    check(abs(got - want[key]) <= MESH_RTOL * abs(want[key]),
+                          f"ssm mesh {name} rank {r} step {i + 1}: {key} "
+                          f"{got!r} vs one device {want[key]!r} (rtol "
+                          f"{MESH_RTOL})")
+                for k in totals:
+                    totals[k] += row["counts"][k]
+            step_s = statistics.median([row["secs"] for row in rows[1:]]
+                                       or [rows[0]["secs"]])
+            last = rows[-1]
+            log(f"ssm mesh train {name} rank {r} ({res['mesh']}): "
+                f"{cut.num_layers} layers at full width, S {seq}, global "
+                f"batch {batch} in {micro} microbatches; losses "
+                f"{[row['metrics']['loss'] for row in rows]}, grad norms "
+                f"{[row['metrics']['grad_norm'] for row in rows]}; "
+                f"{step_s * 1e3:.1f} ms a step (median of steps 2-{steps}; "
+                f"step 1 {rows[0]['secs'] * 1e3:.1f} ms; one device "
+                f"{one * 1e3:.1f} ms), {tokens / step_s:.0f} tokens/s (one "
+                f"device {tokens / one:.0f}); peak device memory "
+                f"{res[name]['peak'] / 2**30:.2f} GiB; collectives a step "
+                f"{last['calls']} calls, {last['bytes'] / 2**20:.1f} MiB, "
+                f"{last['coll_s'] * 1e3:.1f} ms; by kind: "
+                f"{kinds_text(last['kinds'])}; launches a step "
+                f"{json.dumps(last['counts'])}")
+            if r == 0:
+                e2e[f"ssm train step[mesh 2x2, {cut.name} x "
+                    f"{cut.num_layers}, S {seq}, batch {batch}]"] = step_s
+        e2e[f"ssm train step[one device, {cut.name} x {cut.num_layers}, S "
+            f"{seq}, batch {batch}]"] = one
+    r0 = ranks[0]
+    for name, res in r0["f32"].items():
+        loss, want_loss = res["loss"]
+        log(f"ssm mesh f32 loss_and_grads {name} (2 layers at full width, "
+            f"S {SSM_F32_S}, 2 sequences, {r0['mesh']}): loss {loss!r} vs "
+            f"one device {want_loss!r}; every gathered gradient leaf and "
+            f"the {res['copies']} model ranks' copies of "
+            f"{', '.join(p.split('/', 2)[2] for p in res['copied'])} within "
+            f"{res['worst']:.3e} of its largest entry (limit "
+            f"{TRAIN_GRAD_TOL}); launches {json.dumps(res['counts'])} a "
+            f"rank; {res['secs']:.2f} s")
+    for name in SSM_ARCHS:
+        dec = r0["decode"][name]
+        for r, res in enumerate(ranks):
+            check(res["decode"][name]["ids"] == dec["ids"],
+                  f"ssm mesh decode {name}: rank {r} sampled other ids")
+        log(f"ssm mesh decode {name} x {dec['layers']} layers bf16 on "
+            f"{r0['serve_mesh']}: batch 1, state blocks "
+            f"{json.dumps(dec['cache'])} a rank, {SSM_SERVE_STEPS} greedy "
+            f"steps, {dec['ms']:.2f} ms a step (median; first "
+            f"{dec['first_ms']:.1f} ms), collectives a step by kind: "
+            f"{kinds_text(dec['kinds'])}; ids {dec['ids'][:8]}...; "
+            f"float32 x 2 layers, {SSM_SERVE_CHECK} steps' logits within "
+            f"{dec['f32_worst']:.2e} of one device's (limit {LM_TOL}) "
+            f"({card_line})")
+        e2e[f"ssm decode step[mesh 1x{MESH_RANKS}, {name}, bf16, batch 1]"] \
+            = dec["ms"] / 1e3
+    for r, res in enumerate(ranks):
+        pre = res["prefill"]
+        totals["flash_swa"] += pre["counts"]["flash_swa"]
+        log(f"ssm mesh prefill hymba_15b rank {r} ({res['serve_mesh']}): "
+            f"full depth bf16, S {SSM_PREFILL_S}, {pre['secs']:.2f} s, K7 "
+            f"launches {json.dumps(pre['counts'])}, h block {pre['h']}, "
+            f"collectives {pre['calls']} calls, "
+            f"{pre['bytes'] / 2**20:.1f} MiB, {pre['coll_s'] * 1e3:.1f} ms")
+    e2e[f"ssm prefill[mesh 1x{MESH_RANKS}, hymba_15b, bf16, S "
+        f"{SSM_PREFILL_S}]"] = r0["prefill"]["secs"]
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return totals, e2e
+
+
+def phase_parent_decode(parent_src: str) -> None:
+    """``tools/time_ssm_decode.py`` on another checkout's ``src`` and on
+    this one's, in turns (parent, this, this, parent): the SSM models'
+    decode step on the same ``(1, 4)`` mesh, side by side."""
+    tool = ROOT / "tools" / "time_ssm_decode.py"
+    rows = {}
+    for label, src in (("parent", parent_src), ("this", str(SRC)),
+                       ("this", str(SRC)), ("parent", parent_src)):
+        run_ = subprocess.run([sys.executable, str(tool), "--src", src],
+                              capture_output=True, text=True, timeout=600)
+        check(run_.returncode == 0, f"time_ssm_decode on {src} failed:\n"
+              f"{run_.stderr[-3000:]}")
+        res = json.loads(run_.stdout.strip().splitlines()[-1])
+        for name, row in res["decode"].items():
+            rows.setdefault(name, {}).setdefault(label, []).append(row)
+    for name, by in rows.items():
+        text = "; ".join(
+            f"{label} {', '.join('%.2f' % r['ms'] for r in runs)} ms a step "
+            f"(collectives {kinds_text(runs[-1]['kinds'])})"
+            for label, runs in by.items())
+        log(f"ssm mesh decode {name} on (1, {MESH_RANKS}), parent against "
+            f"this tree in turns: {text}")
+
+
 def dryrun_peak(label: str, t: dict, measured: int) -> None:
     """Log one traced step's peak estimate beside the measured peak and
     hold it within ``DRYRUN_PEAK_TOL``."""
@@ -4249,7 +4678,7 @@ def phase_dryrun_check(cfg) -> None:
                 f"{MESH_MICRO} microbatches; phase 25)", t,
                 MEASURED["mesh_peak"])
 
-    cut = moe_cfg(MOE_MESH_ARCH, MOE_MESH_LAYERS)
+    cut = arch_cfg(MOE_MESH_ARCH, MOE_MESH_LAYERS)
     with fake_world(MESH_RANKS):
         mesh = make_host_mesh(MESH_MODEL_AXIS, device="meta")
         step, args = build_cell(cut, ShapeCase(
@@ -4318,6 +4747,10 @@ def phase_profile(calls) -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--parent-src", default=None,
+                        help="another checkout's src (e.g. the parent "
+                             "commit's): phase 29 also times its SSM "
+                             "decode step on the same (1, 4) mesh")
     parser.add_argument("--profile", action="store_true",
                         help="also print device time by operation for one "
                              "bfs, pagerank, served query stream, "
@@ -4499,6 +4932,19 @@ def run(args, t_start: float) -> int:
             f"sorted prefill and decode, every rank)")
         launches[name] += n
     for name, secs in e2e7.items():
+        log(f"e2e {name}: {secs * 1e3:.1f} ms")
+
+    # tensor parallelism of the SSM blocks: RWKV6-3B and Hymba-1.5B on the
+    # (2, 2) and (1, 4) meshes, K7 and its backward under Hymba's band on
+    # every rank
+    ssm_counts, e2e8 = phase_ssm_mesh(args.seed, card_line)
+    if args.parent_src:
+        phase_parent_decode(args.parent_src)
+    for name, n in ssm_counts.items():
+        log(f"main-path launches {name}: {launches[name]} + {n} (ssm mesh: "
+            f"Hymba's training steps and prefill, every rank)")
+        launches[name] += n
+    for name, secs in e2e8.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
     phase_dryrun_check(get_config(LM_ARCH))
 

@@ -20,7 +20,9 @@ GSPMD derives from the reference's pins:
   row-parallel), :func:`mlp` its ``d_ff / tp`` columns; the input passes
   through :func:`to_tp` (identity, gradient summed over ``model``) and the
   row-parallel output through :func:`from_tp` (summed over ``model``,
-  gradient passed through): Megatron's f/g pair.
+  gradient passed through): Megatron's f/g pair.  The SSM blocks of
+  :mod:`~repro_torch.models.ssm` split the same way over their heads and
+  channels.
 
 With ``mesh=None``, or a mesh whose axes are all of size 1, none of this
 runs: no collective and no copy.  :func:`maybe_constrain` stays the
@@ -146,8 +148,9 @@ def heads_split(num_heads: int, num_kv_heads: int, mesh) -> bool:
     tensor-parallel on ``mesh``.  Where it does not (Danube's 8 KV heads
     on the production mesh's 16), the reference's GSPMD pads the heads;
     the port runs that layer's attention whole on every rank of ``model``
-    (its weights gathered whole, as ``models.lm`` does for the SSM
-    blocks)."""
+    (its weights gathered whole, as ``models.lm`` does for the SSM blocks
+    where ``model`` does not divide their heads or channels:
+    ``models.ssm.splits``)."""
     tp = axis_size(mesh, TP)
     return num_heads % tp == 0 and num_kv_heads % tp == 0
 

@@ -31,13 +31,15 @@ blocks of the parameters (placed by their specs) and its rows of the batch:
 attention and the MLP tensor-parallel (see :mod:`layers`; where ``model``
 does not divide the heads, attention runs whole on every rank of it, its
 weights gathered at the start of the layer, except in decode, whose
-sequence-split cache takes any head count), the MoE layer expert-parallel
+sequence-split cache takes any head count), RWKV6's time and channel mix
+and Hymba's mamba heads tensor-parallel over ``model`` on this rank's
+heads and channels (see :mod:`ssm`; where ``model`` does not divide them,
+:func:`_ssm_mesh`, the block's weights are gathered whole at the start of
+the layer and it runs whole on every rank), the MoE layer expert-parallel
 over ``model`` with its router statistics over the whole batch (see
-:mod:`moe`), the embedding a vocab-parallel lookup, the loss a
+:mod:`moe`), the embedding a vocab-parallel lookup, and the loss a
 vocab-parallel cross-entropy normalised by the token count over every
-batch shard, and every other weight of a layer (the SSM blocks) gathered
-whole at the start of its layer and run whole on every rank.  With
-``mesh=None`` or a one-rank mesh none of this runs.
+batch shard.  With ``mesh=None`` or a one-rank mesh none of this runs.
 """
 from __future__ import annotations
 
@@ -114,9 +116,13 @@ def _layer_init(cfg, generator: torch.Generator, device) -> Tuple[Params,
 
 
 #: Layer subtrees that run tensor-parallel on a mesh (``layers.attention``,
-#: ``layers.mlp``, and ``moe.moe`` expert-parallel); the rest of a layer
-#: runs whole on every rank.
-TP_SUBTREES = ("attn", "mlp", "moe")
+#: ``layers.mlp``, the SSM blocks of ``ssm``, and ``moe.moe``
+#: expert-parallel); the rest of a layer (its norms) runs whole on every
+#: rank.
+TP_SUBTREES = ("attn", "mlp", "moe", "tmix", "cmix", "mamba")
+#: The SSM blocks' subtrees: tensor-parallel where :func:`_ssm_mesh` splits
+#: them, else gathered whole.
+SSM_SUBTREES = ("tmix", "cmix", "mamba")
 
 
 def _attn_mesh(cfg, mesh):
@@ -128,16 +134,36 @@ def _attn_mesh(cfg, mesh):
     return None
 
 
+def _ssm_mesh(cfg, mesh):
+    """The mesh the SSM blocks run tensor-parallel on: ``mesh``, or
+    ``None`` where ``model`` does not divide RWKV6's heads, ``d_ff`` and
+    ``d_model`` (one predicate for its time and channel mix) or Hymba's
+    ``d_inner`` (:func:`ssm.splits`: the blocks then run whole on every
+    rank)."""
+    if mesh is None:
+        return None
+    if cfg.family == "ssm":
+        widths = (cfg.rwkv_num_heads, cfg.d_ff, cfg.d_model)
+    elif cfg.family == "hybrid":
+        widths = (cfg.num_heads * cfg.resolved_head_dim,)
+    else:
+        return mesh
+    return mesh if S.splits(mesh, *widths) else None
+
+
 def _whole(cfg, params: Params, mesh, decode: bool = False) -> Params:
     """Layer ``params`` with every subtree outside :data:`TP_SUBTREES`
     (and ``attn`` where :func:`_attn_mesh` runs it whole, but for
-    ``decode``, whose attention reads this rank's columns either way)
-    gathered whole over the axes its specs cut (no-op without a mesh)."""
+    ``decode``, whose attention reads this rank's columns either way, and
+    the SSM blocks where :func:`_ssm_mesh` runs them whole) gathered whole
+    over the axes its specs cut (no-op without a mesh)."""
     if mesh is None:
         return params
     split = set(TP_SUBTREES)
     if not decode and _attn_mesh(cfg, mesh) is None:
         split.discard("attn")
+    if _ssm_mesh(cfg, mesh) is None:
+        split -= set(SSM_SUBTREES)
     specs = param_specs(cfg)["layers"]        # specs [L, ...]: skip the L
     return {name: (sub if name in split else tree_map(
         lambda w, spec: L.gather_whole(w, spec[1:], mesh), sub,
@@ -280,6 +306,7 @@ def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     state: Dict[str, torch.Tensor] = {}
     params = _whole(cfg, params, mesh)
+    ssm_mesh = _ssm_mesh(cfg, mesh)
     h = L.rmsnorm(params["ln1"], x)
     if cfg.family in ATTENTION_FAMILIES:
         attn = L.attention(
@@ -294,16 +321,18 @@ def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
         tout = S.rwkv6_block(
             params["tmix"], h, num_heads=cfg.rwkv_num_heads,
             head_dim=cfg.rwkv_head_dim, chunk=cfg.ssm_chunk,
-            return_state=with_state)
+            return_state=with_state, mesh=ssm_mesh)
         if with_state:
             tout, (state["xprev_t"], state["wkv"]) = tout
         x = x + tout
     elif cfg.family == "hybrid":
         mout = S.mamba_block(params["mamba"], h, chunk=cfg.ssm_chunk,
-                             return_state=with_state)
+                             return_state=with_state, mesh=ssm_mesh)
         if with_state:
             mout, state["h"] = mout
-        x = x + 0.5 * (attn_out + mout)   # parallel heads, mean-fused
+        # parallel heads, mean-fused: both outputs are whole on every rank
+        # (attention's summed over ``model`` or run whole, mamba's summed)
+        x = x + 0.5 * (attn_out + mout)
     elif cfg.family in ATTENTION_FAMILIES:
         x = x + attn_out
     else:
@@ -314,7 +343,8 @@ def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
         out, aux = _moe(cfg, params["moe"], h2, mesh, rows)
         x = x + out
     elif cfg.family == "ssm":
-        cout = S.rwkv_cmix(params["cmix"], h2, return_state=with_state)
+        cout = S.rwkv_cmix(params["cmix"], h2, return_state=with_state,
+                           mesh=ssm_mesh)
         if with_state:
             cout, state["xprev_c"] = cout
         x = x + cout
@@ -522,6 +552,46 @@ def _emit_kv_cache(k: torch.Tensor, cache_len: int) -> torch.Tensor:
     return torch.roll(tail, s % cache_len, dims=1)
 
 
+#: The placement over ``model`` each SSM state has in a split block's step:
+#: this rank's heads of ``wkv`` ``[B, H, K, V]`` and channels of ``h``
+#: ``[B, D_inner, N]`` (the token-shift states are whole).
+_SPLIT_STATES = {"wkv": (None, L.TP), "h": (None, L.TP)}
+
+
+def _cache_placements(cfg, mesh, cache_sh) -> Dict[str, Tuple[Any, Any]]:
+    """``{name: (work, stored)}`` for each leaf of one layer's cache on
+    ``mesh``: the placement over ``model`` the block reads and returns it
+    in, and the one ``cache_sh`` stores it in (its batch axes dropped: the
+    rows stay this rank's).  ``wkv`` is stored cut on K (the reference's
+    spec) but a split RWKV6 block works on this rank's heads with all of
+    K, so it is resharded around the block; ``h`` is stored as the split
+    mamba works on it.  What a block runs whole (attention where
+    :func:`_attn_mesh` says so, the SSM blocks where :func:`_ssm_mesh`
+    does) it reads and returns whole."""
+    ssm_split = _ssm_mesh(cfg, mesh) is not None
+    attn_split = _attn_mesh(cfg, mesh) is not None
+    out = {}
+    for name, sh in cache_sh.items():
+        stored = NamedSharding(mesh, tuple(a if a == L.TP else None
+                                           for a in sh.spec[1:]))
+        if name in ("k", "v"):
+            work = stored if attn_split else NamedSharding(mesh, ())
+        else:
+            work = NamedSharding(mesh, _SPLIT_STATES.get(name, ())
+                                 if ssm_split else ())
+        out[name] = (work, stored)
+    return out
+
+
+def _reshard(t: torch.Tensor, src, dst) -> torch.Tensor:
+    """``t``, this rank's block as ``src`` places it over ``model``, as
+    ``dst`` places it: gathered over what ``src`` cuts, then cut as ``dst``
+    does (``t`` itself where they agree; the mesh has no all-to-all)."""
+    if all(src.dim_axes(i) == dst.dim_axes(i) for i in range(t.dim())):
+        return t
+    return dst.shard(src.gather(t))
+
+
 def prefill(params: Params, cfg, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None,
             dtype: torch.dtype = torch.bfloat16,
@@ -544,15 +614,9 @@ def prefill(params: Params, cfg, tokens: torch.Tensor,
         cache_len = s
     positions = _positions(b, s, x.device)
     win = min(cache_len, cfg.sliding_window or cache_len)
-    # what a block returns whole (attention run whole, the SSM states) is
-    # cut to this rank's block over ``model``; the rows are this rank's
-    whole = set() if mesh is None else {"wkv", "h", "xprev_t", "xprev_c"}
-    if mesh is not None and _attn_mesh(cfg, mesh) is None:
-        whole |= {"k", "v"}
-    cut = {} if mesh is None else {
-        name: NamedSharding(mesh, tuple(a if a == L.TP else None
-                                        for a in sh.spec[1:]))
-        for name, sh in cache_sh.items() if name in whole}
+    # each cache leaf goes from the placement its block returns it in to
+    # the stored one over ``model``; the rows are this rank's
+    placed = {} if mesh is None else _cache_placements(cfg, mesh, cache_sh)
     rows = _rows(cache_sh)
     caches = []
     for i in range(cfg.num_layers):
@@ -563,7 +627,7 @@ def prefill(params: Params, cfg, tokens: torch.Tensor,
                 cache[name] = _emit_kv_cache(cache[name], win)
         layer = {}
         for name, c in cache.items():
-            c = cut[name].shard(c) if name in cut else c
+            c = _reshard(c, *placed[name]) if name in placed else c
             layer[name] = c if c.dtype == torch.float32 else c.to(dtype)
         caches.append(layer)
     cache = tree_map(lambda *cs: torch.stack(cs), *caches)
@@ -616,6 +680,7 @@ def _block_decode(cfg, params: Params, x: torch.Tensor, pos: int,
                   rows: Tuple[str, ...] = ()):
     new_cache: Dict[str, torch.Tensor] = {}
     params = _whole(cfg, params, mesh, decode=True)
+    ssm_mesh = _ssm_mesh(cfg, mesh)
     h = L.rmsnorm(params["ln1"], x)
     if cfg.family in ATTENTION_FAMILIES:
         attn_out, new_cache["k"], new_cache["v"] = L.attention_decode(
@@ -625,13 +690,14 @@ def _block_decode(cfg, params: Params, x: torch.Tensor, pos: int,
         tout, (xp, wkv) = S.rwkv6_block(
             params["tmix"], h, num_heads=cfg.rwkv_num_heads,
             head_dim=cfg.rwkv_head_dim, use_chunked=False,
-            x_prev=cache["xprev_t"], state=cache["wkv"], return_state=True)
+            x_prev=cache["xprev_t"], state=cache["wkv"], return_state=True,
+            mesh=ssm_mesh)
         new_cache["wkv"], new_cache["xprev_t"] = wkv, xp
         x = x + tout
     elif cfg.family == "hybrid":
         mout, new_cache["h"] = S.mamba_block(
             params["mamba"], h, use_chunked=False, state=cache["h"],
-            return_state=True)
+            return_state=True, mesh=ssm_mesh)
         x = x + 0.5 * (attn_out + mout)
     else:
         x = x + attn_out
@@ -642,7 +708,8 @@ def _block_decode(cfg, params: Params, x: torch.Tensor, pos: int,
         x = x + out
     elif cfg.family == "ssm":
         cout, new_cache["xprev_c"] = S.rwkv_cmix(
-            params["cmix"], h2, x_prev=cache["xprev_c"], return_state=True)
+            params["cmix"], h2, x_prev=cache["xprev_c"], return_state=True,
+            mesh=ssm_mesh)
         x = x + cout
     else:
         x = x + L.mlp(params["mlp"], h2, cfg.activation, mesh)
@@ -660,10 +727,12 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, pos: int,
     On ``mesh``: ``tokens`` are this rank's rows, ``cache`` this rank's
     blocks placed by ``cache_sh`` (``{name: NamedSharding}``, from
     ``serve.decode.cache_pspecs``), and the logits are this rank's rows
-    over the whole padded vocabulary.  The SSM states (``wkv``, ``h``)
-    are gathered whole over ``model`` for their layer's step and cut back
-    after it; the KV caches stay this rank's (see
-    :func:`layers.attention_decode`)."""
+    over the whole padded vocabulary.  The KV caches stay this rank's
+    (see :func:`layers.attention_decode`), and so does ``h`` (the split
+    mamba's channels).  ``wkv`` is stored cut on K: for its layer's step it
+    is gathered over ``model`` and this rank's heads kept, and after the
+    step gathered over the heads and cut on K again (the whole state, each
+    way, where :func:`_ssm_mesh` runs the blocks whole)."""
     mesh = sharded(mesh)
     trivial = mesh is None
     if trivial:
@@ -671,19 +740,19 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, pos: int,
     else:
         x = _token_rows(params, tokens, dtype, mesh)
     states = {} if trivial else {
-        name: NamedSharding(mesh, tuple(a if a == L.TP else None
-                                        for a in sh.spec[1:]))
-        for name, sh in cache_sh.items() if name not in ("k", "v")}
+        name: placed for name, placed in _cache_placements(
+            cfg, mesh, cache_sh).items() if name not in ("k", "v")}
     rows = _rows(cache_sh)
     for i in range(cfg.num_layers):
         layer_cache = {name: c[i] for name, c in cache.items()}
-        work = {name: states[name].gather(c) if name in states else c
+        work = {name: _reshard(c, states[name][1], states[name][0])
+                if name in states else c
                 for name, c in layer_cache.items()}
         x, new = _block_decode(cfg, _layer(params, i), x, int(pos), work,
                                mesh, rows)
         for name, value in new.items():
             if name in states:
-                value = states[name].shard(value)
+                value = _reshard(value, *states[name])
             if value is not layer_cache[name]:
                 layer_cache[name].copy_(value)
     x = L.rmsnorm(params["ln_f"], x)

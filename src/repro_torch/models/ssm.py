@@ -9,6 +9,17 @@ sequential scan (``*_scan``, the oracle and the decode path) and a chunked
 decay ratios <= 1, (B) a scan over the ``S/C`` chunk states, (C) per-chunk
 readout scans of length ``C`` over all chunks at once.  No kernel is
 involved: the scans are Python loops over batched tensor ops.
+
+On a mesh (``mesh=``, where :func:`splits` holds) each block runs
+tensor-parallel over ``model`` on the weight blocks its specs place on
+this rank, as :func:`layers.attention` and :func:`layers.mlp` do: the
+heads (RWKV6's time mix) and the channels (the channel mix's ``d_ff`` and
+gate columns, Mamba's ``d_inner``) are independent through the
+recurrences and norms, so each rank runs its own, with one sum over
+``model`` at the row-parallel output.  Weights that are whole over
+``model`` but read inside a rank's share (``mu``, ``decay_base``,
+``bonus_u``, ``wb``, ``wc``) pass through :func:`layers.to_tp`, so that
+each rank's gradient of them is summed over ``model``.
 """
 from __future__ import annotations
 
@@ -17,8 +28,9 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (FSDP, TP, _uniform, gather_in,
-                                       gather_out)
+from repro_torch.models.layers import (FSDP, TP, _uniform, axis_size,
+                                       from_tp, gather, gather_in,
+                                       gather_out, to_tp)
 
 Params = Dict[str, Any]
 
@@ -30,6 +42,44 @@ def _chunk_len(s: int, chunk: int) -> int:
         return chunk
     return 1 if s < chunk else next(c for c in range(chunk, 0, -1)
                                     if s % c == 0)
+
+
+def splits(mesh, *widths: int) -> bool:
+    """Whether ``model`` divides every one of ``widths`` (RWKV6's heads,
+    ``d_ff`` and ``d_model``; Mamba's ``d_inner``), so that the block runs
+    tensor-parallel on ``mesh``.  Where it does not (RWKV6's 40 heads on
+    the production mesh's 16), the reference's GSPMD cuts heads across
+    ranks; the port runs that block whole on every rank of ``model``, its
+    weights gathered whole (``models.lm``)."""
+    tp = axis_size(mesh, TP)
+    return all(w % tp == 0 for w in widths)
+
+
+def _tp_block(w: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block over ``model`` of dimension 0 of a weight that
+    is whole over ``model`` (``decay_base``, ``bonus_u``), its gradient
+    summed over ``model``; ``w`` itself without a split."""
+    tp = axis_size(mesh, TP)
+    if tp == 1:
+        return w
+    n = w.shape[0] // tp
+    return to_tp(w, mesh).narrow(0, mesh.coord(TP) * n, n)
+
+
+class _ScatterTP(torch.autograd.Function):
+    """The sum over ``model``, this rank's block of ``dim`` (a
+    reduce-scatter); the gradient gathered over ``model`` (what follows
+    is this rank's own, so every rank's gradient is a block of the
+    whole)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.reduce_scatter(x, TP, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g, TP, ctx.dim), None, None
 
 
 # ---------------------------------------------------------------------------
@@ -192,37 +242,58 @@ def _shifted(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([x_prev.to(x.dtype), x[:, :-1]], dim=1)
 
 
-def _rwkv6_inputs(params, x, x_prev, num_heads, head_dim):
-    """Token-shift lerp + projections.  x: ``[B,S,D]``."""
+def _rwkv6_inputs(params, x, x_prev, num_heads, head_dim, mesh=None):
+    """Token-shift lerp + projections.  x: ``[B,S,D]``; on ``mesh`` the
+    projections are this rank's ``num_heads`` (its columns)."""
     b, s, _ = x.shape
     shifted = _shifted(x, x_prev)
-    mu = params["mu"].to(x.dtype)
+    mu = to_tp(params["mu"], mesh).to(x.dtype)
     mix = [x + (shifted - x) * mu[i] for i in range(5)]
 
     def proj(m, w):
-        return (m @ gather_in(params[w], x.dtype)).reshape(
+        return (m @ gather_in(params[w], x.dtype, mesh)).reshape(
             b, s, num_heads, head_dim)
 
     r, k, v, g = (proj(mix[0], "wr"), proj(mix[1], "wk"), proj(mix[2], "wv"),
                   proj(mix[3], "wg"))
     # Finch data-dependent decay: logw in (-inf, 0)
-    wraw = (mix[4] @ params["wdecay"].to(x.dtype)).reshape(
-        b, s, num_heads, head_dim)
-    logw = -torch.exp(torch.clamp(params["decay_base"][None, None].float()
+    wraw = proj(mix[4], "wdecay")
+    base = _tp_block(params["decay_base"], mesh)
+    logw = -torch.exp(torch.clamp(base[None, None].float()
                                   + wraw.float(), -8.0, 6.0))
     return r, k, v, g, logw
 
 
+def _local_heads(num_heads: int, mesh) -> int:
+    """This rank's RWKV6 head count; raises where ``model`` does not
+    divide the heads (see :func:`splits`)."""
+    tp = axis_size(mesh, TP)
+    if num_heads % tp:
+        raise ValueError(f"{num_heads} RWKV6 heads do not split over a model "
+                         f"axis of {tp}; run the block whole")
+    return num_heads // tp
+
+
 def rwkv6_block(params: Params, x: torch.Tensor, *, num_heads: int,
                 head_dim: int, chunk: int = 64, use_chunked: bool = True,
-                x_prev=None, state=None, return_state: bool = False):
+                x_prev=None, state=None, return_state: bool = False,
+                mesh=None):
     """RWKV6 time-mix block. x: ``[B,S,D]`` -> ``[B,S,D]``; with
-    ``return_state`` also ``(last token [B,1,D], wkv state [B,H,K,K])``."""
+    ``return_state`` also ``(last token [B,1,D], wkv state [B,H,K,K])``.
+
+    On ``mesh`` this rank's ``H / tp`` heads (``num_heads`` is the
+    model's): the five projections column-parallel, ``decay_base`` and
+    ``bonus_u`` sliced to those heads, the recurrence, group norm and gate
+    on them, ``wo`` row-parallel and the output summed over ``model``;
+    ``state`` and the returned state are this rank's heads."""
     b, s, d = x.shape
     if x_prev is None:
         x_prev = torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
-    r, k, v, g, logw = _rwkv6_inputs(params, x, x_prev, num_heads, head_dim)
-    u = params["bonus_u"].float()
+    num_heads = _local_heads(num_heads, mesh)
+    xin = to_tp(x, mesh)
+    r, k, v, g, logw = _rwkv6_inputs(params, xin, x_prev, num_heads,
+                                     head_dim, mesh)
+    u = _tp_block(params["bonus_u"], mesh).float()
     if use_chunked:
         out, s_fin = wkv_chunked(r, k, v, logw, u, s0=state, chunk=chunk)
     else:
@@ -235,7 +306,7 @@ def rwkv6_block(params: Params, x: torch.Tensor, *, num_heads: int,
     out = (out - mean) * torch.rsqrt(var + 1e-5)
     out = out.reshape(b, s, hk) * params["ln_x"].float()
     out = out.to(x.dtype) * F.silu(g.reshape(b, s, hk))
-    y = out @ gather_out(params["wo"], x.dtype)
+    y = from_tp(out @ gather_out(params["wo"], x.dtype, mesh), mesh)
     if return_state:
         return y, (x[:, -1:], s_fin)
     return y
@@ -257,18 +328,28 @@ def rwkv_cmix_init(generator: torch.Generator, d_model: int, d_ff: int, *,
 
 
 def rwkv_cmix(params: Params, x: torch.Tensor, x_prev=None,
-              return_state: bool = False):
-    """RWKV6 channel-mix: token-shifted squared-ReLU gated MLP."""
+              return_state: bool = False, mesh=None):
+    """RWKV6 channel-mix: token-shifted squared-ReLU gated MLP.
+
+    On ``mesh`` this rank's ``d_ff / tp`` hidden columns (``wk``
+    column-parallel, ``wv`` row-parallel) and ``d_model / tp`` gate
+    columns (``wr``'s block): ``k @ wv`` is reduce-scattered over
+    ``model`` to this rank's columns, gated, and the product all-gathered
+    (the bytes of one all-reduce)."""
     b, s, d = x.shape
     if x_prev is None:
         x_prev = torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
-    shifted = _shifted(x, x_prev)
-    mu = params["mu"].to(x.dtype)
-    xk = x + (shifted - x) * mu[0]
-    xr = x + (shifted - x) * mu[1]
-    k = torch.square(F.relu(xk @ gather_in(params["wk"], x.dtype)))
-    out = torch.sigmoid(xr @ gather_in(params["wr"], x.dtype)) * (
-        k @ gather_out(params["wv"], x.dtype))
+    xin = to_tp(x, mesh)
+    shifted = _shifted(xin, x_prev)
+    mu = to_tp(params["mu"], mesh).to(x.dtype)
+    xk = xin + (shifted - xin) * mu[0]
+    xr = xin + (shifted - xin) * mu[1]
+    k = torch.square(F.relu(xk @ gather_in(params["wk"], x.dtype, mesh)))
+    r = torch.sigmoid(xr @ gather_in(params["wr"], x.dtype, mesh))
+    kv = k @ gather_out(params["wv"], x.dtype, mesh)
+    if axis_size(mesh, TP) > 1:
+        kv = _ScatterTP.apply(kv, mesh, 2)
+    out = gather(r * kv, mesh, TP, 2)
     if return_state:
         return out, x[:, -1:]
     return out
@@ -306,14 +387,24 @@ def mamba_init(generator: torch.Generator, d_model: int, d_inner: int,
 
 def mamba_block(params: Params, x: torch.Tensor, *, chunk: int = 64,
                 use_chunked: bool = True, state=None,
-                return_state: bool = False):
+                return_state: bool = False, mesh=None):
     """Selective-SSM block. x: ``[B,S,D]`` -> ``[B,S,D]``; with
-    ``return_state`` also the state ``[B, D_inner, N]``."""
-    xin = x @ gather_in(params["win"], x.dtype)                # [B,S,Di]
-    gate = F.silu(x @ gather_in(params["wg"], x.dtype))
-    dt = F.softplus(x @ gather_in(params["wdt"], x.dtype)).float()
-    bmat = (x @ params["wb"].to(x.dtype)).float()              # [B,S,N]
-    cmat = (x @ params["wc"].to(x.dtype)).float()              # [B,S,N]
+    ``return_state`` also the state ``[B, D_inner, N]``.
+
+    On ``mesh`` this rank's ``D_inner / tp`` channels: ``win``/``wg``/
+    ``wdt`` column-parallel, ``a_log``/``dskip`` this rank's blocks, ``B``
+    and ``C`` whole on every rank (``wb``/``wc`` are whole over
+    ``model``), the scan on ``[B,S,Di/tp,N]``, ``wo`` row-parallel and the
+    output summed over ``model``; ``state`` and the returned state are
+    this rank's channels."""
+    x = to_tp(x, mesh)
+    xin = x @ gather_in(params["win"], x.dtype, mesh)          # [B,S,Di]
+    gate = F.silu(x @ gather_in(params["wg"], x.dtype, mesh))
+    dt = F.softplus(x @ gather_in(params["wdt"], x.dtype, mesh)).float()
+    bmat = (x @ gather_in(to_tp(params["wb"], mesh), x.dtype,
+                          mesh)).float()                       # [B,S,N]
+    cmat = (x @ gather_in(to_tp(params["wc"], mesh), x.dtype,
+                          mesh)).float()                       # [B,S,N]
     a = torch.exp(-torch.exp(params["a_log"])[None, None]
                   * dt[..., None])                             # [B,S,Di,N]
     bx = (dt * xin.float())[..., None] * bmat[:, :, None, :]
@@ -322,7 +413,7 @@ def mamba_block(params: Params, x: torch.Tensor, *, chunk: int = 64,
     else:
         y, h_fin = ssm_scan(a, bx, cmat, h0=state)
     y = y.to(x.dtype) + xin * params["dskip"].to(x.dtype)
-    y = (y * gate) @ gather_out(params["wo"], x.dtype)
+    y = from_tp((y * gate) @ gather_out(params["wo"], x.dtype, mesh), mesh)
     if return_state:
         return y, h_fin
     return y

@@ -8,7 +8,11 @@ Decode sharding policy, as the reference's ``serve/decode.py``:
   where each rank's softmax over its slots needs the flash-decode combine
   (``models.layers.attention_decode``; GSPMD emits it in the reference);
 * the SSM states as the reference places them (``wkv``'s K and hybrid
-  ``h``'s inner width over ``model``);
+  ``h``'s inner width over ``model``); where ``model`` splits the SSM
+  blocks (``models.lm._ssm_mesh``) RWKV6's time and channel mix and
+  Hymba's mamba heads run tensor-parallel on this rank's weight blocks,
+  ``h`` as stored and ``wkv`` resharded to this rank's heads around each
+  layer's step (``models.lm.decode_step``);
 * MoE layers expert-parallel over ``model``, their router statistics (and
   the ``capacity`` dispatch's ranks) over the rows of every batch shard
   (``models.moe``).
@@ -75,7 +79,11 @@ def make_serve_step(cfg, mesh=None, *, batch: int, seq_len: int,
     :class:`~repro_torch.launch.mesh.LMMesh`) they are the placements of
     the parameters (``train.step.shard_tree`` cuts a full tree by them) and
     of the cache, the cache is this rank's blocks on the mesh's device,
-    and every rank calls ``step`` with the global tokens."""
+    and every rank calls ``step`` with the global tokens.  Attention, the
+    MLP and the SSM blocks run tensor-parallel over ``model`` on this
+    rank's blocks of the weights (the SSM blocks and attention whole, their
+    weights gathered each step, where ``model`` does not divide their
+    heads or channels), MoE layers expert-parallel."""
     if mesh is None:
         cache = init_cache(cfg, batch, seq_len, dtype, device=device)
 

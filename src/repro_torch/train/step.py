@@ -10,8 +10,9 @@ opt_state, metrics)``:
   rank calls the step with the same global batch; the step takes this
   rank's rows (:func:`_constrain_batch`, split over ``("pod", "data")``).
   FSDP over ``data`` and tensor parallelism over ``model`` run inside the
-  model (:mod:`repro_torch.models.layers`): weight blocks are all-gathered
-  right before use and the gathered weights' gradients reduce-scattered.
+  model (:mod:`repro_torch.models.layers`, :mod:`~repro_torch.models.ssm`):
+  weight blocks are all-gathered right before use and the gathered
+  weights' gradients reduce-scattered.
   After the backward, each leaf's gradient is summed over the batch axes
   it is not cut on (``pod``, and ``data`` for the replicated leaves), so
   every rank holds its block of the whole batch's gradient.  With
@@ -225,7 +226,13 @@ def make_train_step(cfg, opt_cfg: OptConfig, mesh=None, *,
     and every rank calls the step with the same global batch.  Where the
     ``model`` axis does not divide the query and KV heads, attention runs
     whole on every rank of it (``layers.heads_split``; the reference's
-    GSPMD pads the heads).  MoE layers run expert-parallel over ``model``
+    GSPMD pads the heads).  RWKV6's time and channel mix and Hymba's mamba
+    heads run tensor-parallel over ``model`` on this rank's heads and
+    channels, and whole, their weights gathered, where ``model`` does not
+    divide them (``models.ssm.splits``; the reference's GSPMD cuts heads
+    across ranks); the gradients of their weights that are whole over
+    ``model`` are summed over it inside the model (``layers.to_tp``).
+    MoE layers run expert-parallel over ``model``
     (``models.moe``); with ``moe_dispatch="sorted"`` a split batch raises
     ``NotImplementedError``, as the reference's step does."""
     param_sh = None

@@ -324,7 +324,9 @@ def lm_train_job(world: int, data: dict) -> dict:
     """The sharded train step on ``(world // m, m)`` meshes, every case of
     ``data["cases"]``: ``loss_and_grads`` on each batch (the gradients
     gathered whole; an MoE case's router gradient as each rank holds
-    it), then ``make_train_step`` twice (the parameters gathered whole).
+    it, and each rank's copy of every leaf whole over ``model``, gathered
+    over the axes it is cut on), then ``make_train_step`` twice (the
+    parameters gathered whole).
     With ``data["ckpt_dir"]`` the last case's trained state is saved from
     its mesh and restored onto ``(1, world)`` and ``(world, 1)``.  Rank 0
     returns the arrays; every rank its losses."""
@@ -347,6 +349,11 @@ def lm_train_job(world: int, data: dict) -> dict:
         osh = opt_shardings(mesh, psh)
         n = case["microbatches"]
         res = {"mesh": str(mesh), "shape": mesh.shape}
+        placed = _flat(psh)
+        copied = {path for path, sh in placed.items()
+                  if "model" not in sh.spec
+                  and not any(isinstance(a, tuple) and "model" in a
+                              for a in sh.spec)}
         for key, batch in case["batches"].items():
             params = lm_params_from_arrays(case["params"], device="cpu",
                                            shardings=psh)
@@ -356,6 +363,9 @@ def lm_train_job(world: int, data: dict) -> dict:
             res[f"loss/{key}"] = (float(loss), float(metrics["ntokens"]))
             if cfg.family == "moe":      # copied on every rank: its own
                 res[f"router/{key}"] = _np(grads["layers"]["moe"]["router"])
+            res[f"copies/{key}"] = {
+                path: _np(placed[path].gather(g))
+                for path, g in _flat(grads).items() if path in copied}
             if mesh.rank == 0:
                 res[f"grads/{key}"] = whole
         params = lm_params_from_arrays(case["params"], device="cpu",
@@ -414,15 +424,26 @@ def _same(a, b) -> bool:
 def lm_serve_job(world: int, data: dict) -> dict:
     """``make_serve_step`` on ``(world // m, m)`` meshes for every case of
     ``data["cases"]``: the prompt's tokens fed one a step, every step's
-    logits (rank 0 returns them; every rank its last ones' checksum);
-    then ``launch.serve --mesh host`` (and ``launch.train --mesh host``)
-    on the launcher arguments of ``data``."""
+    logits (rank 0 returns them; every rank its last ones' checksum), and
+    of the last step the shapes of what was all-gathered over ``model``
+    and ``mesh.stats``' totals by kind; then ``launch.serve --mesh host``
+    (and ``launch.train --mesh host``) on the launcher arguments of
+    ``data``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.interop import lm_params_from_arrays
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import LMMesh, make_host_mesh
     from repro_torch.serve.decode import make_serve_step
 
+    gathered = []
+    plain_gather = LMMesh.all_gather
+
+    def spied(self, x, axis, dim=0):
+        if axis == "model" and self.axis_size(axis) > 1:
+            gathered.append(tuple(x.shape))
+        return plain_gather(self, x, axis, dim)
+
+    LMMesh.all_gather = spied
     out = {}
     for name, case in data["cases"].items():
         cfg = get_config(case["arch"]).reduced(**case["overrides"])
@@ -435,15 +456,24 @@ def lm_serve_job(world: int, data: dict) -> dict:
                                        shardings=psh)
         logits = []
         for t in range(tokens.shape[1]):
+            if t == tokens.shape[1] - 1:
+                gathered.clear()
+                mesh.stats.reset()
             lg, cache = step(params, torch.from_numpy(tokens[:, t:t + 1]),
                              t, cache)
             logits.append(_np(lg))
         res = {"specs": {k: sh.spec for k, sh in csh.items()},
                "cache_shapes": {k: tuple(c.shape) for k, c in cache.items()},
-               "checksum": float(np.abs(logits[-1]).sum())}
+               "checksum": float(np.abs(logits[-1]).sum()),
+               "model_gathers": list(gathered),
+               "stats": {f"{k}@{n}": list(v)
+                         for (k, n), v in mesh.stats.kinds.items()},
+               "local_shapes": {k: tuple(v.shape)
+                                for k, v in _flat(params).items()}}
         if mesh.rank == 0:
             res["logits"] = np.stack(logits)
         out[name] = res
+    LMMesh.all_gather = plain_gather
     if data.get("serve_argv"):
         import contextlib
         import io

@@ -14,10 +14,13 @@ rank), and ``report.main`` prints the three tables with no failure.
 ``prefill(mesh=)`` (the prefill cells' step) runs on spawned gloo groups
 of 2 CPU ranks on ``(1, 2)`` and ``(2, 1)``, reduced configs whose heads
 split over ``model`` (Qwen) and whose heads do not (Danube, banded, and
-Hymba: attention whole on each rank), with SSM states (RWKV6, Hymba) and
+Hymba: attention whole on each rank), with SSM states (RWKV6 and Hymba,
+their blocks split over ``model``, and RWKV6 with 3 heads, run whole) and
 a frontend prefix (InternVL2), and reduced OLMoE with ``moe_dispatch=
 "sorted"`` (the grouped GEMMs on each rank's experts), against one
-device's ``prefill`` at 1e-5.
+device's ``prefill`` at 1e-5.  At the production mesh's ``model = 16``
+RWKV6-3B's 40 heads do not split (its blocks run whole) and Hymba-1.5B's
+mamba channels do.
 """
 import contextlib
 import dataclasses
@@ -227,6 +230,25 @@ def test_pipeline_stage_traces_on_a_fake_group(stage):
         t["memory"]["argument_size_in_bytes"] > 0
 
 
+@pytest.mark.parametrize("shape", [(16, 16), (2, 2), (1, 4)])
+def test_ssm_blocks_split_where_model_divides_them(shape):
+    """RWKV6-3B (40 heads of 64) and Hymba-1.5B (``d_inner`` 1,600) on a
+    mesh of ``shape``: both split on the card's ``(2, 2)`` and ``(1, 4)``;
+    on the production mesh's ``model = 16`` only Hymba's mamba does (100
+    channels a rank), and RWKV6's time and channel mix run whole, their
+    weights gathered (``models.lm._whole``)."""
+    from repro_torch.launch.mesh import GraphMesh, LMMesh
+    from repro_torch.models.lm import _ssm_mesh
+    cpu = torch.device("cpu")
+    mesh = LMMesh(("data", "model"), tuple(GraphMesh(n, 0, cpu)
+                                           for n in shape), 0, cpu)
+    rwkv, hymba = get_config("rwkv6_3b"), get_config("hymba_15b")
+    assert rwkv.rwkv_num_heads == 40
+    assert hymba.num_heads * hymba.resolved_head_dim == 1600
+    assert _ssm_mesh(hymba, mesh) is mesh
+    assert (_ssm_mesh(rwkv, mesh) is None) == (shape == (16, 16))
+
+
 def test_tracer_follows_storages():
     tr = dryrun.StepTracer()
     with tr:
@@ -252,6 +274,7 @@ PREFILL_ARCHS = {
                                       swa_banded=True)),
     "hymba": ("hymba_15b", {}),
     "rwkv": ("rwkv6_3b", {}),
+    "rwkv-h3": ("rwkv6_3b", dict(d_model=48)),   # 3 heads: run whole
     "internvl": ("internvl2_1b", {}),
     "olmoe-sorted": ("olmoe_1b_7b", dict(moe_dispatch="sorted")),
 }

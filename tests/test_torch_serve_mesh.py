@@ -7,15 +7,22 @@ cover both KV-cache layouts and the SSM states: reduced Qwen (4 KV heads,
 split over ``model``), reduced GLM-4-9B and H2O-Danube3-4B (one KV head
 on a model axis of 2: the cache's ring slots split over ``model``, with
 the flash-decode combine; Danube's 8-slot window ring wraps within the 12
-steps), reduced RWKV6 (``wkv`` cut over ``model``) and reduced Hymba
-(hybrid: split slots plus the ``h`` state); and reduced OLMoE-1B-7B and
+steps), reduced RWKV6 (``wkv`` cut over ``model`` on K; its 4 heads split
+over ``model``, so each step reshards the state to this rank's heads and
+back) and reduced Hymba (hybrid: split slots plus the ``h`` state, its
+mamba channels split over ``model``), and RWKV6 with ``d_model=48`` (3
+heads that a model axis of 2 does not divide: both mixes run whole, their
+weights gathered each step); and reduced OLMoE-1B-7B and
 DeepSeek-MoE-16B (shared experts) with each MoE dispatch (``grouped``,
 ``capacity``, ``sorted``), their experts split over ``model``; on ``(2,
 2)`` the ``capacity`` dispatch's global capacity (one atom an expert for
 the two tokens of a step) drops atoms by their order over both data
 shards.  On ``(2, 2)`` a batch of 2 splits over ``data`` and a batch of 1
 is replicated.  Each step's logits
-must lie within 1e-5 of the largest logit of the one-device step's.  The
+must lie within 1e-5 of the largest logit of the one-device step's.
+Where ``model`` splits the SSM blocks, the last step all-gathers no
+weight of ``tmix``, ``cmix`` or ``mamba`` over ``model`` (the shapes
+gathered, and ``mesh.stats``' all-gather bytes on ``(1, 2)``).  The
 world-2 group also runs ``launch.serve`` and ``launch.train`` with
 ``--mesh host``.  A one-rank mesh is the one-device path: bitwise the same
 logits and no collective.
@@ -45,6 +52,12 @@ DISPATCHES = ("grouped", "capacity", "sorted")
 CASES = {f"1x2/{a}": (2, 2, a, 2, {}) for a in DENSE}
 CASES.update({f"2x2/{a}": (4, 2, a, 2, {}) for a in DENSE})
 CASES["2x2/qwen15_05b/b1"] = (4, 2, "qwen15_05b", 1, {})
+# 3 RWKV6 heads: a model axis of 2 runs both mixes whole
+CASES["1x2/rwkv6_3b/h3"] = (2, 2, "rwkv6_3b", 2, {"d_model": 48})
+#: the SSM cases whose blocks split over ``model`` / run whole
+SSM_SPLIT = ("1x2/rwkv6_3b", "2x2/rwkv6_3b", "1x2/hymba_15b",
+             "2x2/hymba_15b")
+SSM_WHOLE = ("1x2/rwkv6_3b/h3",)
 for _w, _mesh in ((2, "1x2"), (4, "2x2")):
     CASES.update({f"{_mesh}/{a}/{d}": (_w, 2, a, 2, {"moe_dispatch": d})
                   for a in MOE for d in DISPATCHES})
@@ -56,6 +69,11 @@ def _np_tree(t):
     return t.numpy().copy()
 
 
+def _wkey(arch, over):
+    """The weights a case runs on: its arch's, or those of its shape."""
+    return f"{arch}/d{over['d_model']}" if "d_model" in over else arch
+
+
 @pytest.fixture(scope="module")
 def weights():
     out = {}
@@ -64,6 +82,12 @@ def weights():
         params, _ = init_params(cfg, torch.Generator().manual_seed(10 + i),
                                 device="cpu")
         out[arch] = (cfg, params)
+    for _, _, arch, _, over in CASES.values():
+        if _wkey(arch, over) not in out:
+            cfg = get_config(arch).reduced(d_model=over["d_model"])
+            params, _ = init_params(cfg, torch.Generator().manual_seed(30),
+                                    device="cpu")
+            out[_wkey(arch, over)] = (cfg, params)
     return out
 
 
@@ -87,7 +111,7 @@ def groups(weights):
             cases = {}
             for name, (w, m, arch, b, over) in CASES.items():
                 if w == world:
-                    cfg, params = weights[arch]
+                    cfg, params = weights[_wkey(arch, over)]
                     cases[name] = dict(arch=arch, overrides=over,
                                        params=_np_tree(params),
                                        model_axis=m, seq_len=SEQ,
@@ -114,7 +138,7 @@ def _single(cfg, params, tokens):
 def test_logits_match_one_device(groups, weights, case):
     world, m, arch, b, over = CASES[case]
     cfg = get_config(arch).reduced(**over)
-    params = weights[arch][1]
+    params = weights[_wkey(arch, over)][1]
     ranks = groups(world)
     want = _single(cfg, params, _tokens(cfg, b))
     got = ranks[0][case]["logits"]
@@ -150,6 +174,45 @@ def test_cache_blocks(groups, weights, case):
     if "h" in res["cache_shapes"]:
         assert res["cache_shapes"]["h"][1:3] == (
             rows, cfg.num_heads * cfg.resolved_head_dim // m)
+
+
+def _ssm_leaf(path: str) -> bool:
+    return path.split("/")[1:3] in (["layers", "tmix"], ["layers", "cmix"],
+                                    ["layers", "mamba"])
+
+
+def _ssm_blocks(res):
+    """``{shape of a rank's block of one layer: path}`` of the SSM
+    blocks' weights."""
+    return {shape[1:]: path for path, shape in res["local_shapes"].items()
+            if _ssm_leaf(path)}
+
+
+@pytest.mark.parametrize("case", SSM_SPLIT + SSM_WHOLE)
+def test_ssm_weights_stay_on_their_ranks(groups, weights, case):
+    """A decode step where ``model`` splits the SSM blocks all-gathers
+    none of their weights over ``model``: no gathered block has the shape
+    of a weight block, and on ``(1, 2)`` (every group of two is ``model``)
+    ``mesh.stats`` counts fewer all-gathered bytes than one layer's SSM
+    weights.  Where it does not split them (3 RWKV6 heads), they are
+    gathered whole."""
+    world, m, arch, b, over = CASES[case]
+    cfg, params = weights[_wkey(arch, over)]
+    full = dict(tree_leaves(params))
+    for res in (r[case] for r in groups(world)):
+        blocks = _ssm_blocks(res)
+        hits = [blocks[s] for s in res["model_gathers"] if s in blocks]
+        if case in SSM_WHOLE:      # every block cut over model, gathered
+            cut = {shape[1:] for path, shape in res["local_shapes"].items()
+                   if _ssm_leaf(path) and shape != tuple(full[path].shape)}
+            assert cut and cut <= set(res["model_gathers"]), hits
+            continue
+        assert hits == [], hits
+        if world == m:
+            whole = sum(t[0].numel() * t.element_size()
+                        for path, t in full.items() if _ssm_leaf(path))
+            gathered = res["stats"].get("all-gather@2", [0, 0, 0.0])[1]
+            assert 0 < gathered < whole, (gathered, whole)
 
 
 def test_launchers_run_on_a_group(groups):

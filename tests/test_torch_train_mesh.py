@@ -16,8 +16,16 @@ top-2, ``grouped``) on all three meshes, reduced DeepSeek-MoE-16B (shared
 experts) on ``(2, 2)``, and OLMoE with ``moe_dispatch="capacity"`` on
 ``(2, 1)`` and ``(2, 2)``, its router's column 0 raised so that expert 0
 overflows the global capacity and the drops fall on the second data
-shard's rows.  The router's weight is copied on every rank of ``model``:
-each rank's own gradient of it is held to one device.  Every case
+shard's rows.  The SSM families run tensor-parallel over ``model``:
+reduced RWKV6-3B (4 heads of 16, split 2 a rank on ``(1, 2)`` and ``(2,
+2)``; with ``d_model=48``, 3 heads that a model axis of 2 does not divide,
+case ``1x2/rwkv-h3`` runs both mixes whole on each rank) and reduced
+Hymba-1.5B (``sliding_window=4, attn_query_chunk=4, swa_banded=True``,
+remat; one KV head, so its attention runs whole on both ranks of
+``model`` while its mamba heads split their ``d_inner`` of 64).  Every
+leaf that is whole over ``model`` (the router, the norms, the SSM blocks'
+``mu``, ``decay_base``, ``bonus_u``, ``wb``, ``wc``) is copied on every
+rank of it: each rank's own gradient of it is held to one device.  Every case
 starts from the reference's weights, carried to each rank's blocks with
 ``interop.lm_params_from_arrays(shardings=)``, and runs in float32 with
 two microbatches of a global batch of 4.  One batch masks far more labels
@@ -74,11 +82,18 @@ ARCHS = {"qwen": ("qwen15_05b", {}),
              remat=True)),
          "olmoe": ("olmoe_1b_7b", {}),
          "deepseek": ("deepseek_moe_16b", {}),
-         "olmoe-capacity": ("olmoe_1b_7b", dict(moe_dispatch="capacity"))}
+         "olmoe-capacity": ("olmoe_1b_7b", dict(moe_dispatch="capacity")),
+         "rwkv": ("rwkv6_3b", {}),
+         # 3 heads: a model axis of 2 runs both mixes whole on each rank
+         "rwkv-h3": ("rwkv6_3b", dict(d_model=48)),
+         "hymba": ("hymba_15b", dict(
+             sliding_window=4, attn_query_chunk=4, swa_banded=True,
+             remat=True))}
 #: arch keys whose router's column 0 is raised by this much
 ROUTER_RAISE = {"olmoe-capacity": 1.0}
 #: the archs the reference's (2, 2) subprocess runs
-REFERENCE_ARCHS = ("qwen", "danube", "olmoe", "deepseek", "olmoe-capacity")
+REFERENCE_ARCHS = ("qwen", "danube", "olmoe", "deepseek", "olmoe-capacity",
+                   "hymba")
 #: case -> (world, model axis, arch key); the checkpoint case (2x2/danube)
 #: stays the last of world 4
 CASES = {"2x1/olmoe": (2, 1, "olmoe"), "1x2/olmoe": (2, 2, "olmoe"),
@@ -89,6 +104,9 @@ CASES = {"2x1/olmoe": (2, 1, "olmoe"), "1x2/olmoe": (2, 2, "olmoe"),
          "1x2/danube": (2, 2, "danube"),
          "1x2/qwen-chunked-ce": (2, 2, "qwen-chunked-ce"),
          "1x2/danube-kv1": (2, 2, "danube-kv1"),
+         "1x2/rwkv": (2, 2, "rwkv"), "1x2/rwkv-h3": (2, 2, "rwkv-h3"),
+         "1x2/hymba": (2, 2, "hymba"),
+         "2x2/rwkv": (4, 2, "rwkv"), "2x2/hymba": (4, 2, "hymba"),
          "2x2/qwen": (4, 2, "qwen"), "2x2/danube": (4, 2, "danube")}
 B, S = 4, 32
 
@@ -246,6 +264,17 @@ def test_loss_and_grads_match_one_device(groups, single, case, batch):
                 r[case][f"router/{batch}"], want, rtol=0,
                 atol=GRAD_TOL * np.abs(want).max(),
                 err_msg=f"rank {i}'s router gradient")
+    # each rank's copy of every leaf whole over ``model``
+    copies = [r[case][f"copies/{batch}"] for r in ranks]
+    assert copies[0], "no leaf whole over model"
+    for i, c in enumerate(copies):
+        assert c.keys() == copies[0].keys()
+        for path, got in c.items():
+            want = grads[path]
+            np.testing.assert_allclose(
+                got, want, rtol=0,
+                atol=GRAD_TOL * max(np.abs(want).max(), 1e-30),
+                err_msg=f"rank {i}'s gradient of {path}")
 
 
 @pytest.mark.parametrize("case", list(CASES))
