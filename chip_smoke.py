@@ -262,15 +262,18 @@ Phases, in order; any failure exits non-zero:
    (d_model 1,600, 25/5 attention heads of 64, window 1,024, ``d_inner``
    1,600, state 16) at full width, depth cut to 2, S 4,096, global batch
    4 in 2 microbatches, float32 weights and AdamW state, bf16 compute,
-   remat: 3 steps each on one device in this process (freed), then four
+   remat, 10 steps of learning-rate warmup (``SSM_MESH_WARMUP``): 3 steps
+   each on one device in this process (freed), then four
    spawned ranks share this card in one gloo group (300 s timeout) on
    ``(data, model) = (2, 2)``: RWKV6's time mix on 20 heads a rank, its
    channel mix on 4,480 of ``d_ff`` and 1,280 gate columns, Hymba's mamba
-   on 800 channels a rank (its attention whole on every rank): 3 steps
-   each, the loss and grad norm within 2e-2 of one device's at each step,
-   every leaf changed, the gathered parameters finite; on every Hymba
-   rank 8 K7 and 4 backward launches a step, all on the tensor cores; per
-   rank ms a step, tokens/s, peak memory and collectives by kind.  Then
+   on 800 channels a rank, its attention on the rank's block of 13 or 12
+   of its 25 heads (``layers.head_block``): 3 steps each, the loss and
+   grad norm within 2e-2 of one device's at each step, every leaf
+   changed, the gathered parameters finite; on every Hymba rank 8 K7 and
+   4 backward launches a step, all on the tensor cores, every one on the
+   rank's block of heads; per rank ms a step, tokens/s, peak memory and
+   collectives by kind.  Then
    in float32 at depth 2, S 2,048, two sequences (Hymba with window
    1,024 and ``attn_query_chunk`` 512, so that the band runs K7),
    ``loss_and_grads`` on the mesh against one device's on rank 0: the
@@ -279,11 +282,22 @@ Phases, in order; any failure exits non-zero:
    largest entry.  Then ``make_serve_step`` on ``(1, 4)``: both models at
    full width and depth in bf16 (each rank draws its blocks), batch 1, 8
    greedy steps (ids in the vocabulary, logits finite, every rank the
-   same ids; ms a step and collectives by kind); at depth 2 in float32,
-   8 steps' logits within 2e-3 of one device's ``decode_step``.  Then
-   Hymba's ``prefill(mesh=)`` at full depth, S 4,096: K7 once a layer on
-   every rank, on the tensor cores, the states returned as the cache
-   places them.  With ``--parent-src DIR`` (another checkout's ``src``,
+   same ids, no weight all-gathered over ``model`` in any step; ms a step
+   and collectives by kind); at depth 2 in float32, 8 steps' logits
+   within 2e-3 of one device's ``decode_step``.  Then Hymba's
+   ``prefill(mesh=)`` at full depth, S 4,096: K7 once a layer on every
+   rank, on the tensor cores, on the rank's 7, 7, 7 or 4 heads, the
+   states returned as the cache places them.  Then GLM-4-9B (32 query / 2
+   KV heads of 128, d_model 4,096, vocab 151,552) at full width, depth
+   cut to 2, on the same ``(1, 4)`` ranks: 8 query heads a rank on
+   ``wq``'s and ``wo``'s stored blocks, its 2 KV heads gathered whole and
+   narrowed to the one each block reads; float32 ``loss_and_grads`` at S
+   1,024, two sequences, against one device's on rank 0 (loss 1e-5; the
+   attention leaves and norms gathered whole, every other leaf on rank
+   0's block, 1e-4 of its largest entry), then a bf16 prefill of one
+   4,096-token sequence (finite logits, collectives by kind); both fail
+   if ``wq`` or ``wo`` is all-gathered over ``model``.  With
+   ``--parent-src DIR`` (another checkout's ``src``,
    e.g. the parent commit unpacked with ``git archive``),
    ``tools/time_ssm_decode.py`` then times that tree's decode step and
    this one's on the same ``(1, 4)`` mesh, printed side by side.  Four
@@ -464,12 +478,25 @@ SSM_MESH_MICRO = 2
 SSM_MESH_STEPS = 3
 SSM_MESH_SHAPE = (SSM_MESH_SEQ, SSM_MESH_BATCH, SSM_MESH_MICRO,
                   SSM_MESH_STEPS)
+# Learning-rate warmup of the phase's bf16 steps.  At full rate from step 1
+# Hymba's gradient norm leaps from 21.9 to 354.6 at step 2, and the three
+# steps amplify bf16 rounding: on an H100 one device against itself with
+# the embedding moved by a relative 2^-22 read 7.35e-3 apart at step 3,
+# and a (2, 2) rank whose attention sums its heads' partials over
+# ``model`` 2.68e-2 (the whole attention of earlier trees 1.58e-2); with
+# 10 warmup steps 2.31e-3 and 3.59e-3, under MESH_RTOL.
+SSM_MESH_WARMUP = 10
 SSM_F32_S = 2048           # the float32 parity check, two sequences
 SSM_F32_WINDOW = 1024      # Hymba's attn_query_chunk 512: the band runs K7
 SSM_SERVE_STEPS = 8        # bf16 greedy steps at full depth, batch 1 (cut
                            # from 16: the phase's 150 s)
 SSM_SERVE_CHECK = 8        # float32 steps held to one device's decode_step
 SSM_PREFILL_S = 4096       # Hymba's prefill on (1, 4): K7 on every rank
+HEADS_ARCH = "glm4_9b"     # 32 query / 2 KV heads of 128 on (1, 4)
+HEADS_LAYERS = 2           # depth cut from 40: one device's f32 state fits
+HEADS_F32_S = 1024
+HEADS_F32_BATCH = 2
+HEADS_PREFILL_S = 4096
 
 #: what later phases read of earlier ones (the measured peaks of phases
 #: 24, 25, 26 and 28)
@@ -3139,10 +3166,11 @@ def run_slice10(seed: int, profile: bool) -> tuple:
 # the LM on a (data, model) mesh
 # ---------------------------------------------------------------------------
 
-def mesh_one_device(cfg, seed: int, shape: tuple) -> list:
+def mesh_one_device(cfg, seed: int, shape: tuple, warmup: int = 1) -> list:
     """The mesh phase's training steps on one device in this process, at
-    ``shape`` (``MESH_SHAPE``, ``MOE_MESH_SHAPE``): the metrics of each
-    step (the ranks are held to them)."""
+    ``shape`` (``MESH_SHAPE``, ``MOE_MESH_SHAPE``) with ``warmup`` steps of
+    learning-rate warmup: the metrics of each step (the ranks are held to
+    them)."""
     import torch
     from repro_torch.data.synthetic import batch_at, for_model
     from repro_torch.models.lm import init_params
@@ -3153,7 +3181,7 @@ def mesh_one_device(cfg, seed: int, shape: tuple) -> list:
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 13)
     params, _ = init_params(cfg, gen, device=DEVICE)
     opt = init_opt_state(params)
-    step = make_train_step(cfg, OptConfig(warmup_steps=1),
+    step = make_train_step(cfg, OptConfig(warmup_steps=warmup),
                            num_microbatches=micro, dtype=torch.bfloat16)
     dcfg = for_model(cfg, seq_len=seq, global_batch=batch_size, seed=seed)
     out = []
@@ -3167,9 +3195,9 @@ def mesh_one_device(cfg, seed: int, shape: tuple) -> list:
     return out
 
 
-def mesh_train(mesh, cfg, seed: int, shape: tuple) -> dict:
+def mesh_train(mesh, cfg, seed: int, shape: tuple, warmup: int = 1) -> dict:
     """One rank's part of the sharded training steps on ``mesh`` at
-    ``shape`` (as :func:`mesh_one_device`'s): each
+    ``shape`` and ``warmup`` (as :func:`mesh_one_device`'s): each
     step's metrics, time, kernel launches (K7's a layer a microbatch on
     this rank's heads; none of the port's in the MoE cell, whose attention
     has no window and whose experts run ``grouped``) and collectives, in
@@ -3191,13 +3219,12 @@ def mesh_train(mesh, cfg, seed: int, shape: tuple) -> dict:
                .clone() for path, leaf in tree_leaves(params)}
     seq, batch_size, micro, n_steps = shape
     moe = cfg.family == "moe"
-    step = make_train_step(cfg, OptConfig(warmup_steps=1), mesh,
+    step = make_train_step(cfg, OptConfig(warmup_steps=warmup), mesh,
                            num_microbatches=micro, dtype=torch.bfloat16)
     dcfg = for_model(cfg, seq_len=seq, global_batch=batch_size, seed=seed)
-    # a layer a microbatch where the band runs (this rank's heads, or all
-    # of them where attention runs whole): the forward and its remat
-    # recompute, then the backward, all on the tensor cores; none without
-    # a window (RWKV6, OLMoE)
+    # a layer a microbatch where the band runs (on this rank's block of
+    # heads): the forward and its remat recompute, then the backward, all
+    # on the tensor cores; none without a window (RWKV6, OLMoE)
     banded = bool(cfg.swa_banded and cfg.sliding_window
                   and seq > cfg.attn_query_chunk + cfg.sliding_window)
     per_layer = cfg.num_layers * micro if banded else 0
@@ -4283,8 +4310,10 @@ def ssm_f32(mesh, seed: int) -> dict:
         batch = batch_at(for_model(cfg, seq_len=SSM_F32_S, global_batch=2,
                                    seed=seed), 0, cfg, device=dev)
         reset_all_counts()
-        (loss, _, grads), secs = wall_s(lambda: loss_and_grads(
-            params, cfg, batch, 1, f32, mesh=mesh))
+        with k7_heads() as heads:
+            (loss, _, grads), secs = wall_s(lambda: loss_and_grads(
+                params, cfg, batch, 1, f32, mesh=mesh))
+        check_k7_heads(f"ssm mesh f32 {name}", heads, mesh, cfg.num_heads)
         counts = {k: all_counts()[k] for k in ("flash_swa", "flash_swa_bwd")}
         want_counts = ({"flash_swa": 2 * cfg.num_layers,
                         "flash_swa_bwd": cfg.num_layers}
@@ -4352,12 +4381,17 @@ def ssm_decode(mesh, seed: int) -> dict:
         params = cast_params(init_params(cfg, gen, device=dev,
                                          shardings=psh)[0], bf16)
         tok = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        blocks = weight_blocks(params)
         reset_all_counts()
         ids, times, kinds = [], [], {}
         for t in range(SSM_SERVE_STEPS):
             mesh.stats.reset()
-            (logits, cache), secs = wall_s(lambda: step(params, tok, t,
-                                                        cache))
+            with model_gathers() as shapes:
+                (logits, cache), secs = wall_s(lambda: step(params, tok, t,
+                                                            cache))
+            hits = sorted({blocks[x] for x in shapes if x in blocks})
+            check(not hits, f"ssm mesh decode {name} step {t}: weights "
+                  f"{hits} all-gathered over model")
             check(bool(torch.isfinite(logits).all()),
                   f"ssm mesh decode {name} step {t}: non-finite logits")
             tok = sample_logits(None, logits, 0.0, vocab_size=cfg.vocab_size)
@@ -4417,9 +4451,9 @@ def ssm_decode(mesh, seed: int) -> dict:
 def ssm_prefill(mesh, seed: int) -> dict:
     """Hymba's ``prefill(mesh=)`` on ``mesh`` (``(1, 4)``) at full width
     and depth in bfloat16, one sequence of ``SSM_PREFILL_S``: K7 once a
-    layer on every rank (its attention runs whole there), all on the
-    tensor cores; finite logits; the returned states placed as the cache
-    stores them."""
+    layer on every rank (on its block of heads), all on the tensor cores;
+    finite logits; the returned states placed as the cache stores
+    them."""
     import numpy as np
     import torch
     from repro_torch.models.lm import (cache_shape, cast_params,
@@ -4460,6 +4494,165 @@ def ssm_prefill(mesh, seed: int) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def k7_heads():
+    """The query heads of every K7 forward and backward call made inside,
+    ``{"flash_swa": [...], "flash_swa_bwd": [...]}`` (the ops module
+    looks the kernel functions up at call time)."""
+    from repro_torch.kernels.flash_swa import kernel as FK
+    seen = {"flash_swa": [], "flash_swa_bwd": []}
+    fwd, bwd = FK.flash_swa, FK.flash_swa_bwd
+
+    def fwd_seen(q, *a, **kw):
+        seen["flash_swa"].append(int(q.shape[2]))
+        return fwd(q, *a, **kw)
+
+    def bwd_seen(q, *a, **kw):
+        seen["flash_swa_bwd"].append(int(q.shape[2]))
+        return bwd(q, *a, **kw)
+
+    FK.flash_swa, FK.flash_swa_bwd = fwd_seen, bwd_seen
+    try:
+        yield seen
+    finally:
+        FK.flash_swa, FK.flash_swa_bwd = fwd, bwd
+
+
+@contextlib.contextmanager
+def model_gathers():
+    """The shapes of every tensor all-gathered over ``model`` inside."""
+    from repro_torch.launch.mesh import LMMesh
+    shapes = []
+    plain = LMMesh.all_gather
+
+    def spied(self, x, axis, dim=0):
+        if axis == "model" and self.axis_size(axis) > 1:
+            shapes.append(tuple(x.shape))
+        return plain(self, x, axis, dim)
+
+    LMMesh.all_gather = spied
+    try:
+        yield shapes
+    finally:
+        LMMesh.all_gather = plain
+
+
+def weight_blocks(params, names=None) -> dict:
+    """``{shape: path}`` of this rank's weight blocks as a gather over
+    ``model`` would take them (a layer's, without the stacked axis), of
+    the leaves whose path ends in one of ``names`` (all without)."""
+    from repro_torch.models.lm import tree_leaves
+    out = {}
+    for path, t in tree_leaves(params):
+        if names is None or path.rsplit("/", 1)[1] in names:
+            shape = t.shape[1:] if path.startswith("/layers/") else t.shape
+            out[tuple(shape)] = path
+    return out
+
+
+def check_k7_heads(tag: str, heads: dict, mesh, num_heads: int) -> None:
+    """Every K7 call (forward and backward) of ``heads`` ran on this
+    rank's block of ``num_heads`` (``layers.head_block``)."""
+    from repro_torch.models.layers import head_block
+    start, stop = head_block(num_heads, mesh)
+    for name, seen in heads.items():
+        check(set(seen) <= {stop - start}, f"{tag} rank {mesh.rank}: "
+              f"{name} ran on {sorted(set(seen))} heads, expected the "
+              f"rank's block [{start}, {stop})")
+
+
+def glm_heads(mesh, seed: int) -> dict:
+    """GLM-4-9B at full width, depth ``HEADS_LAYERS``, on ``mesh`` (``(1,
+    4)``): 8 query heads a rank on ``wq``'s and ``wo``'s stored blocks,
+    the 2 KV heads gathered whole over ``model`` and narrowed to the one
+    each block reads.  Float32 ``loss_and_grads`` against one device's on
+    rank 0 (the loss; the attention leaves and the norms gathered whole,
+    every other leaf on rank 0's block), then a bf16 prefill of one
+    ``HEADS_PREFILL_S`` sequence (finite logits, collectives by kind);
+    both fail if ``wq`` or ``wo`` is all-gathered over ``model``."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import batch_at, for_model
+    from repro_torch.models.lm import (cast_params, init_params, prefill,
+                                       tree_leaves)
+    from repro_torch.serve.decode import cache_pspecs
+    from repro_torch.train.step import (loss_and_grads, param_specs,
+                                        shardings_for)
+
+    dev, f32, bf16 = mesh.device, torch.float32, torch.bfloat16
+    cfg = arch_cfg(HEADS_ARCH, HEADS_LAYERS)
+    psh = shardings_for(mesh, param_specs(cfg))
+    draw = lambda sh: init_params(cfg, torch.Generator(device=dev)
+                                  .manual_seed(seed + 26), device=dev,
+                                  shardings=sh)[0]
+    params = draw(psh)
+    banned = weight_blocks(params, ("wq", "wo"))
+    batch = batch_at(for_model(cfg, seq_len=HEADS_F32_S,
+                               global_batch=HEADS_F32_BATCH, seed=seed), 0,
+                     cfg, device=dev)
+    mesh.stats.reset()
+    with model_gathers() as shapes:
+        (loss, _, grads), secs = wall_s(lambda: loss_and_grads(
+            params, cfg, batch, 1, f32, mesh=mesh))
+    hits = sorted({banned[x] for x in shapes if x in banned})
+    check(not hits, f"heads mesh f32 {cfg.name} rank {mesh.rank}: "
+          f"{hits} all-gathered over model")
+    kinds = {f"{k}@{n}": list(v) for (k, n), v in mesh.stats.kinds.items()}
+    want = want_loss = None
+    if mesh.rank == 0:
+        full = draw(None)
+        want_loss, _, want = loss_and_grads(full, cfg, batch, 1, f32)
+        want = dict(tree_leaves(want))
+        del full
+    shardings = dict(tree_leaves(psh))
+    worst = 0.0
+    for path, g in tree_leaves(grads):
+        whole = path.startswith("/layers/attn/") or "/ln" in path
+        got = shardings[path].gather(g) if whole else g
+        if want is not None:
+            exp = want[path] if whole else shardings[path].shard(want[path])
+            worst = max(worst, leaf_close(f"heads mesh f32 {cfg.name} grad "
+                                          f"{path}", got, exp,
+                                          TRAIN_GRAD_TOL))
+        del got
+    res = dict(secs=secs, kinds=kinds, worst=worst)
+    if mesh.rank == 0:
+        check(abs(float(loss) - float(want_loss))
+              <= TRAIN_LOSS_RTOL * abs(float(want_loss)),
+              f"heads mesh f32 {cfg.name}: loss {float(loss)!r} vs one "
+              f"device {float(want_loss)!r}")
+        res["loss"] = (float(loss), float(want_loss))
+    del params, grads, want
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    params = cast_params(draw(psh), bf16)
+    csh = shardings_for(mesh, cache_pspecs(cfg, mesh, 1))
+    tokens = torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab_size, (1, HEADS_PREFILL_S)).astype(np.int32)).to(dev)
+    mesh.stats.reset()
+    with model_gathers() as shapes, torch.no_grad():
+        (logits, cache), pre_s = wall_s(lambda: prefill(
+            params, cfg, tokens, dtype=bf16, mesh=mesh, cache_sh=csh))
+    hits = sorted({banned[x] for x in shapes if x in banned})
+    check(not hits, f"heads mesh prefill {cfg.name} rank {mesh.rank}: "
+          f"{hits} all-gathered over model")
+    check(bool(torch.isfinite(logits).all()),
+          f"heads mesh prefill {cfg.name} rank {mesh.rank}: non-finite "
+          f"logits")
+    res.update(prefill_s=pre_s, prefill_kinds={
+        f"{k}@{n}": list(v) for (k, n), v in mesh.stats.kinds.items()},
+        cache={k: tuple(c.shape) for k, c in cache.items()},
+        heads=tuple(shardings["/layers/attn/wq"].local_shape(
+            (cfg.num_layers, cfg.d_model,
+             cfg.num_heads * cfg.resolved_head_dim)))[2]
+        // cfg.resolved_head_dim)
+    del params, cache
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
 def ssm_rank_job(world: int, job: dict) -> dict:
     """Phase 29 on one rank: both models' training steps and the float32
     parity check on ``(data, model) = (2, 2)``, then serving and Hymba's
@@ -4468,17 +4661,26 @@ def ssm_rank_job(world: int, job: dict) -> dict:
     from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh(MESH_MODEL_AXIS, device=DEVICE)
+    hymba = arch_cfg("hymba_15b").num_heads
     out = dict(mesh=str(mesh))
     for name in SSM_ARCHS:
-        out[name] = mesh_train(mesh, arch_cfg(name, SSM_MESH_LAYERS),
-                               job["seed"], SSM_MESH_SHAPE)
+        with k7_heads() as heads:
+            out[name] = mesh_train(mesh, arch_cfg(name, SSM_MESH_LAYERS),
+                                   job["seed"], SSM_MESH_SHAPE,
+                                   SSM_MESH_WARMUP)
+        check_k7_heads(f"ssm mesh train {name}", heads, mesh, hymba)
+        out[name]["k7_heads"] = sorted(set(heads["flash_swa"]))
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
     out["f32"] = ssm_f32(mesh, job["seed"])
     serve = make_host_mesh(world, device=DEVICE)                # (1, 4)
     out["serve_mesh"] = str(serve)
     out["decode"] = ssm_decode(serve, job["seed"])
-    out["prefill"] = ssm_prefill(serve, job["seed"])
+    with k7_heads() as heads:
+        out["prefill"] = ssm_prefill(serve, job["seed"])
+    check_k7_heads("ssm mesh prefill", heads, serve, hymba)
+    out["prefill"]["k7_heads"] = sorted(set(heads["flash_swa"]))
+    out["glm"] = glm_heads(serve, job["seed"])
     return out
 
 
@@ -4500,7 +4702,7 @@ def phase_ssm_mesh(seed: int, card_line: str) -> tuple:
     single = {}
     for name in SSM_ARCHS:
         single[name] = mesh_one_device(arch_cfg(name, SSM_MESH_LAYERS), seed,
-                                       SSM_MESH_SHAPE)
+                                       SSM_MESH_SHAPE, SSM_MESH_WARMUP)
         for i, (m, secs) in enumerate(single[name]):
             log(f"ssm mesh one device {name} step {i + 1}: loss "
                 f"{m['loss']!r}, grad_norm {m['grad_norm']!r}, "
@@ -4545,7 +4747,9 @@ def phase_ssm_mesh(seed: int, card_line: str) -> tuple:
                 f"{last['calls']} calls, {last['bytes'] / 2**20:.1f} MiB, "
                 f"{last['coll_s'] * 1e3:.1f} ms; by kind: "
                 f"{kinds_text(last['kinds'])}; launches a step "
-                f"{json.dumps(last['counts'])}")
+                f"{json.dumps(last['counts'])}"
+                + (f" on {res[name]['k7_heads']} query heads"
+                   if res[name]["k7_heads"] else ""))
             if r == 0:
                 e2e[f"ssm train step[mesh 2x2, {cut.name} x "
                     f"{cut.num_layers}, S {seq}, batch {batch}]"] = step_s
@@ -4572,7 +4776,8 @@ def phase_ssm_mesh(seed: int, card_line: str) -> tuple:
             f"{json.dumps(dec['cache'])} a rank, {SSM_SERVE_STEPS} greedy "
             f"steps, {dec['ms']:.2f} ms a step (median; first "
             f"{dec['first_ms']:.1f} ms), collectives a step by kind: "
-            f"{kinds_text(dec['kinds'])}; ids {dec['ids'][:8]}...; "
+            f"{kinds_text(dec['kinds'])}, no weight all-gathered over "
+            f"model; ids {dec['ids'][:8]}...; "
             f"float32 x 2 layers, {SSM_SERVE_CHECK} steps' logits within "
             f"{dec['f32_worst']:.2e} of one device's (limit {LM_TOL}) "
             f"({card_line})")
@@ -4583,11 +4788,33 @@ def phase_ssm_mesh(seed: int, card_line: str) -> tuple:
         totals["flash_swa"] += pre["counts"]["flash_swa"]
         log(f"ssm mesh prefill hymba_15b rank {r} ({res['serve_mesh']}): "
             f"full depth bf16, S {SSM_PREFILL_S}, {pre['secs']:.2f} s, K7 "
-            f"launches {json.dumps(pre['counts'])}, h block {pre['h']}, "
+            f"launches {json.dumps(pre['counts'])} on {pre['k7_heads']} "
+            f"query heads, h block {pre['h']}, "
             f"collectives {pre['calls']} calls, "
             f"{pre['bytes'] / 2**20:.1f} MiB, {pre['coll_s'] * 1e3:.1f} ms")
     e2e[f"ssm prefill[mesh 1x{MESH_RANKS}, hymba_15b, bf16, S "
         f"{SSM_PREFILL_S}]"] = r0["prefill"]["secs"]
+    glm = r0["glm"]
+    loss, want_loss = glm["loss"]
+    log(f"heads mesh f32 loss_and_grads {HEADS_ARCH} ({HEADS_LAYERS} "
+        f"layers at full width, S {HEADS_F32_S}, {HEADS_F32_BATCH} "
+        f"sequences, {r0['serve_mesh']}: {glm['heads']} query heads a rank "
+        f"on wq's and wo's stored blocks, the 2 KV heads gathered whole "
+        f"and narrowed): loss {loss!r} vs one device {want_loss!r}; the "
+        f"attention leaves and norms gathered, every other leaf rank 0's "
+        f"block, within {glm['worst']:.3e} of its largest entry (limit "
+        f"{TRAIN_GRAD_TOL}); {glm['secs']:.2f} s, collectives "
+        f"{kinds_text(glm['kinds'])}; wq and wo never all-gathered over "
+        f"model ({card_line})")
+    for r, res in enumerate(ranks):
+        g = res["glm"]
+        log(f"heads mesh prefill {HEADS_ARCH} rank {r} ({res['serve_mesh']})"
+            f": {HEADS_LAYERS} layers bf16, S {HEADS_PREFILL_S}, "
+            f"{g['prefill_s']:.2f} s, cache blocks {json.dumps(g['cache'])},"
+            f" collectives {kinds_text(g['prefill_kinds'])}; wq and wo "
+            f"never all-gathered over model")
+    e2e[f"heads prefill[mesh 1x{MESH_RANKS}, {HEADS_ARCH} x "
+        f"{HEADS_LAYERS}, bf16, S {HEADS_PREFILL_S}]"] = glm["prefill_s"]
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return totals, e2e

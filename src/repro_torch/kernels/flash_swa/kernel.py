@@ -41,7 +41,9 @@ the same with the kernel that :func:`bwd_kernel_for` names and with
 return empty outputs of the kernels' shapes, launch nothing and add the
 kernels' useful flop and bytes to :data:`repro_torch.kernels.tally.TALLY`.
 Other devices raise.  Unlike the reference kernel they take GQA operands
-directly (``k``/``v`` with ``Hkv`` heads, ``H % Hkv == 0``).  float32 stays
+directly (``k``/``v`` with ``Hkv`` heads, ``H % Hkv == 0``).  Operands
+without heads (``H = Hkv = 0``: a rank of ``model`` that holds none) give
+empty outputs on every device, with no launch, no count and no tally.  float32 stays
 off the tensor cores: TF32 would round its inputs.  ``ops.py`` ties the two
 into an autograd function.
 """
@@ -122,7 +124,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"fit q {tuple(q.shape)}")
     hkv = k.shape[2]
-    if hkv < 1 or h % hkv:
+    if (hkv < 1 or h % hkv) and (h, hkv) != (0, 0):
         raise ValueError(f"{h} query heads are not a multiple of {hkv} KV "
                          f"heads")
     if qc < 1 or window < 1 or s % qc or window % qc:
@@ -176,6 +178,11 @@ def flash_swa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with ``return_lse`` also each row's log-sum-exp, float32 ``[B, H,
     S]``."""
     b, s, h, hkv, hd = _check(q, k, v, window, qc)
+    if h == 0:                     # a rank without heads: nothing to do
+        out = torch.empty_like(q)
+        lse = (torch.empty((b, 0, s), dtype=torch.float32, device=q.device)
+               if return_lse else None)
+        return (out, lse) if return_lse else out
     if q.device.type == "meta":
         out = torch.empty_like(q)
         lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -286,6 +293,8 @@ def flash_swa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_swa_bwd_mma`` for the first); CPU tensors run
     :func:`flash_swa_bwd_plain`."""
     b, s, h, hkv, hd = _check_bwd(q, k, v, out, lse, dout, window, qc)
+    if h == 0:
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     if q.device.type == "meta":
         grads = tuple(torch.empty_like(t) for t in (q, k, v))
         tally.add("flash_swa_bwd",

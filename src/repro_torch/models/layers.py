@@ -16,13 +16,19 @@ GSPMD derives from the reference's pins:
   dtype); the gradient of the gathered weight is summed over ``data`` and
   cut back to this rank's block (a reduce-scatter);
 * **tensor parallelism over ``model``**: :func:`attention` runs this rank's
-  ``H / tp`` query and ``Hkv / tp`` KV heads (Q/K/V column-parallel, ``wo``
-  row-parallel), :func:`mlp` its ``d_ff / tp`` columns; the input passes
-  through :func:`to_tp` (identity, gradient summed over ``model``) and the
+  block of query heads (:func:`head_block`: ``ceil(H / tp)`` a rank, as
+  GSPMD pads the heads, the even split where ``model`` divides them) and
+  the KV heads they read (Q/K/V column-parallel, ``wo`` row-parallel),
+  :func:`mlp` its ``d_ff / tp`` columns; the input passes through
+  :func:`to_tp` (identity, gradient summed over ``model``) and the
   row-parallel output through :func:`from_tp` (summed over ``model``,
-  gradient passed through): Megatron's f/g pair.  The SSM blocks of
-  :mod:`~repro_torch.models.ssm` split the same way over their heads and
-  channels.
+  gradient passed through): Megatron's f/g pair.  A weight whose stored
+  block is not the rank's heads (KV heads that ``model`` does not divide,
+  query heads that it does not divide) is gathered whole over ``model``
+  and narrowed to them (:func:`tp_cols`, :func:`tp_rows`), its gradient
+  summed over ``model`` and cut back to the stored block.  The SSM blocks
+  of :mod:`~repro_torch.models.ssm` split the same way over their heads
+  and channels.
 
 With ``mesh=None``, or a mesh whose axes are all of size 1, none of this
 runs: no collective and no copy.  :func:`maybe_constrain` stays the
@@ -33,6 +39,7 @@ heads, where the reference computes the same band in jnp.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -64,29 +71,32 @@ def axis_size(mesh, axis: str) -> int:
 
 class _Gather(torch.autograd.Function):
     """All-gather over ``axis`` along ``dim``.  Backward: on a batch axis
-    (``pod``/``data``: the ranks' gradients differ) the sum over the axis,
-    this rank's block of it; on ``model`` (the ranks compute the same
-    thing) this rank's block alone."""
+    (``pod``/``data``: the ranks' gradients differ), or with ``summed``
+    (a weight gathered whole over ``model`` of which each rank reads its
+    own part), the sum over the axis, this rank's block of it (a
+    reduce-scatter); otherwise, on ``model`` (the ranks compute the same
+    thing), this rank's block alone."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis, dim):
-        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+    def forward(ctx, x, mesh, axis, dim, summed):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.summed = mesh, axis, dim, summed
         return mesh.all_gather(x, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
         mesh, axis, dim = ctx.mesh, ctx.axis, ctx.dim
-        if axis in BATCH:
-            return mesh.reduce_scatter(g, axis, dim), None, None, None
+        if axis in BATCH or ctx.summed:
+            return mesh.reduce_scatter(g, axis, dim), None, None, None, None
         n = g.shape[dim] // mesh.axis_size(axis)
-        return g.narrow(dim, mesh.coord(axis) * n, n), None, None, None
+        return g.narrow(dim, mesh.coord(axis) * n, n), None, None, None, None
 
 
-def gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+def gather(x: torch.Tensor, mesh, axis: str, dim: int,
+           summed: bool = False) -> torch.Tensor:
     """:class:`_Gather` where ``axis`` has more than one rank, else ``x``."""
     if axis_size(mesh, axis) == 1:
         return x
-    return _Gather.apply(x, mesh, axis, dim)
+    return _Gather.apply(x, mesh, axis, dim, summed)
 
 
 class _ToTP(torch.autograd.Function):
@@ -144,26 +154,101 @@ def gather_whole(w: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 
 def heads_split(num_heads: int, num_kv_heads: int, mesh) -> bool:
-    """Whether ``model`` divides both head counts, so that attention runs
-    tensor-parallel on ``mesh``.  Where it does not (Danube's 8 KV heads
-    on the production mesh's 16), the reference's GSPMD pads the heads;
-    the port runs that layer's attention whole on every rank of ``model``
-    (its weights gathered whole, as ``models.lm`` does for the SSM blocks
-    where ``model`` does not divide their heads or channels:
-    ``models.ssm.splits``)."""
+    """Whether ``model`` divides both head counts: each rank's stored
+    blocks of ``wq``/``wk``/``wv``/``wo`` are then its own heads, and the
+    KV cache is cut over the KV heads (``serve.decode.cache_pspecs``)."""
     tp = axis_size(mesh, TP)
     return num_heads % tp == 0 and num_kv_heads % tp == 0
 
 
-def local_heads(num_heads: int, num_kv_heads: int, mesh) -> Tuple[int, int]:
-    """This rank's query and KV head counts (``H / tp``, ``Hkv / tp``);
-    raises where they do not split (see :func:`heads_split`)."""
+def head_block(num_heads: int, mesh) -> Tuple[int, int]:
+    """This rank's heads ``[start, stop)`` of ``num_heads`` split over
+    ``model``: blocks of ``c = ceil(H / tp)`` in rank order, GSPMD's
+    padding of ``H`` to ``c tp`` heads without computing the padded ones
+    (25 heads on 4: 7, 7, 7, 4; on 16: twelve ranks of 2, one of 1, three
+    of none).  Where ``model`` divides ``H`` it is the even split."""
     tp = axis_size(mesh, TP)
-    if num_heads % tp or num_kv_heads % tp:
-        raise ValueError(
-            f"{num_heads} query / {num_kv_heads} KV heads do not split over "
-            f"a model axis of {tp}; use a model axis that divides both")
-    return num_heads // tp, num_kv_heads // tp
+    if tp == 1:
+        return 0, num_heads
+    c = -(-num_heads // tp)
+    rank = mesh.coord(TP)
+    return min(num_heads, rank * c), min(num_heads, (rank + 1) * c)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadBlock:
+    """Attention's heads on this rank: query heads ``[q0, q1)``
+    (:func:`head_block`) and the KV heads ``[k0, k1)`` they read (query
+    head ``h`` reads KV head ``h // (H / Hkv)``).  ``q_stored`` / ``kv_stored``:
+    whether ``model`` divides the query / KV heads, so that the stored
+    blocks of ``wq``, ``bq``, ``wo`` / ``wk``, ``wv``, ``bk``, ``bv`` are
+    exactly these heads (else they are gathered whole over ``model`` and
+    narrowed).  ``counts``: how many of the block's query heads each of
+    its KV heads serves, in order."""
+
+    q0: int
+    q1: int
+    k0: int
+    k1: int
+    q_stored: bool
+    kv_stored: bool
+    counts: Tuple[int, ...]
+
+    @property
+    def groups(self) -> Optional[int]:
+        """The local GQA group where every KV head serves as many query
+        heads (1 without heads), else ``None``: K/V are then repeated to
+        one head per query head (:func:`_per_query`)."""
+        if not self.counts:
+            return 1
+        return self.counts[0] if len(set(self.counts)) == 1 else None
+
+
+def attn_block(num_heads: int, num_kv_heads: int, mesh) -> HeadBlock:
+    """:class:`HeadBlock` of this rank of ``mesh``."""
+    q0, q1 = head_block(num_heads, mesh)
+    group = num_heads // num_kv_heads
+    k0, k1 = q0 // group, -(-q1 // group)
+    counts = tuple(min(q1, (j + 1) * group) - max(q0, j * group)
+                   for j in range(k0, k1))
+    tp = axis_size(mesh, TP)
+    return HeadBlock(q0, q1, k0, k1, num_heads % tp == 0,
+                     num_kv_heads % tp == 0, counts)
+
+
+def local_heads(num_heads: int, num_kv_heads: int, mesh) -> Tuple[int, int]:
+    """This rank's query head count and that of the KV heads they read
+    (``H / tp`` and ``Hkv / tp`` where ``model`` divides both)."""
+    blk = attn_block(num_heads, num_kv_heads, mesh)
+    return blk.q1 - blk.q0, blk.k1 - blk.k0
+
+
+def tp_cols(w: torch.Tensor, dtype: torch.dtype, mesh, lo: int, hi: int,
+            stored: bool) -> torch.Tensor:
+    """Columns ``lo:hi`` of the whole ``w`` in ``dtype``, ``w`` an ``[in,
+    out]`` matrix placed ``(FSDP, TP)`` or a vector placed ``(TP,)``:
+    where ``stored`` they are this rank's block (gathered over ``data``
+    only, :func:`gather_in`); else ``w`` is gathered whole over ``model``,
+    its gradient summed over ``model`` and cut back to this rank's block,
+    and narrowed."""
+    if w.dim() == 1:
+        if stored:
+            return w.to(dtype)
+        return gather(w.to(dtype), mesh, TP, 0, summed=True)[lo:hi]
+    if stored:
+        return gather_in(w, dtype, mesh)
+    return gather(gather_in(w, dtype, mesh), mesh, TP, 1,
+                  summed=True)[:, lo:hi]
+
+
+def tp_rows(w: torch.Tensor, dtype: torch.dtype, mesh, lo: int, hi: int,
+            stored: bool) -> torch.Tensor:
+    """Rows ``lo:hi`` of the whole ``w`` placed ``(TP, FSDP)``, as
+    :func:`tp_cols` takes columns."""
+    if stored:
+        return gather_out(w, dtype, mesh)
+    return gather(gather_out(w, dtype, mesh), mesh, TP, 0,
+                  summed=True)[lo:hi]
 
 
 def _uniform(generator: torch.Generator, shape: Tuple[int, ...],
@@ -277,18 +362,40 @@ def _proj(params: Params, x: torch.Tensor, mesh=None):
     return q, k, v
 
 
-def _qkv(params: Params, x: torch.Tensor, num_heads: int, num_kv_heads: int,
-         head_dim: int, mesh=None):
-    """Q/K/V heads (this rank's, on a mesh)."""
+def _qkv_block(params: Params, x: torch.Tensor, blk: HeadBlock,
+               num_kv_heads: int, head_dim: int, all_kv: bool, mesh):
+    """Q of the block's query heads ``[B, S, q1 - q0, hd]`` and K/V of the
+    KV heads they read, or of every KV head with ``all_kv`` where the
+    stored blocks are not the block's (prefill's cache needs them all)."""
     b, s, _ = x.shape
-    q, k, v = _proj(params, x, mesh)
-    return (q.reshape(b, s, num_heads, head_dim),
-            k.reshape(b, s, num_kv_heads, head_dim),
-            v.reshape(b, s, num_kv_heads, head_dim))
+    hd = head_dim
+    kv_lo, kv_hi = ((0, num_kv_heads) if all_kv and not blk.kv_stored
+                    else (blk.k0, blk.k1))
+    cols = {"q": (blk.q0 * hd, blk.q1 * hd, blk.q_stored),
+            "k": (kv_lo * hd, kv_hi * hd, blk.kv_stored),
+            "v": (kv_lo * hd, kv_hi * hd, blk.kv_stored)}
+    out = [x @ tp_cols(params[f"w{n}"], x.dtype, mesh, *cols[n])
+           for n in "qkv"]
+    if "bq" in params:
+        out = [t + tp_cols(params[f"b{n}"], x.dtype, mesh, *cols[n])
+               for t, n in zip(out, "qkv")]
+    return tuple(t.reshape(b, s, t.shape[-1] // hd, hd) for t in out)
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     return k if groups == 1 else k.repeat_interleave(groups, dim=2)
+
+
+def _per_query(k: torch.Tensor, blk: HeadBlock) -> torch.Tensor:
+    """``k`` ``[B, S, k1 - k0, hd]`` with one head per query head of the
+    block, as the reference repeats it: each KV head copied as many times
+    as it serves query heads (expanded copies, whose backward sums them
+    in order)."""
+    if blk.groups is not None:
+        return _repeat_kv(k, blk.groups)
+    b, s, _, hd = k.shape
+    return torch.cat([k[:, :, j:j + 1].expand(b, s, n, hd)
+                      for j, n in enumerate(blk.counts)], dim=2)
 
 
 _NEG = -1e30
@@ -328,9 +435,18 @@ def attention(params: Params, x: torch.Tensor, positions: torch.Tensor, *,
       which assumes positions 0..S-1, as ``forward`` and ``prefill`` pass.
 
     ``return_kv`` also returns the roped ``(k, v)`` (``[B, S, Hkv, hd]``)
-    for prefill cache emission.  On ``mesh`` every branch runs this rank's
-    heads (``num_heads`` and ``num_kv_heads`` are the model's; the GQA group
-    is unchanged) and the output is summed over ``model``.
+    for prefill cache emission.
+
+    On ``mesh`` every branch runs this rank's :class:`HeadBlock`
+    (``num_heads`` and ``num_kv_heads`` are the model's): its query heads
+    against the KV heads they read, K7 on the local GQA group where it is
+    uniform, else on K/V repeated to one head per query head, as the
+    reference repeats them.  A rank without heads runs the same operations
+    on empty tensors and launches no kernel.  The block's output times
+    ``wo``'s rows of its heads is this rank's partial sum, summed over
+    ``model``.  ``return_kv`` returns this rank's KV heads where ``model``
+    divides them, else every KV head (the sequence-split cache keeps its
+    ring slots of all of them).
 
     ``unroll_chunks`` is there for name parity with the reference only,
     where it switches between a ``lax.scan`` over the query chunks and an
@@ -340,22 +456,27 @@ def attention(params: Params, x: torch.Tensor, positions: torch.Tensor, *,
     """
     del unroll_chunks
     b, s, _ = x.shape
-    num_heads, num_kv_heads = local_heads(num_heads, num_kv_heads, mesh)
+    blk = attn_block(num_heads, num_kv_heads, mesh)
     x = to_tp(x, mesh)
-    q, k, v = _qkv(params, x, num_heads, num_kv_heads, head_dim, mesh)
+    q, k, v = _qkv_block(params, x, blk, num_kv_heads, head_dim, return_kv,
+                         mesh)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    groups = num_heads // num_kv_heads
+    cache_kv = (k, v)
+    if k.shape[2] != blk.k1 - blk.k0:       # every KV head: keep the block's
+        k, v = k[:, :, blk.k0:blk.k1], v[:, :, blk.k0:blk.k1]
     scale = head_dim ** -0.5
 
     banded = (swa_banded and sliding_window is not None
               and query_chunk is not None
               and s > query_chunk + sliding_window)
     if banded:
+        if blk.groups is None:
+            k, v = _per_query(k, blk), _per_query(v, blk)
         out = flash_swa_gqa(q, k, v, window=sliding_window, qc=query_chunk)
     else:
-        kk = _repeat_kv(k, groups)
-        vv = _repeat_kv(v, groups)
+        kk = _per_query(k, blk)
+        vv = _per_query(v, blk)
         if query_chunk is None or s <= query_chunk:
             out = _attend(q, kk, vv, positions, positions, scale,
                           sliding_window)
@@ -367,10 +488,11 @@ def attention(params: Params, x: torch.Tensor, positions: torch.Tensor, *,
                         sliding_window)
                 for i in range(0, s, query_chunk)], dim=1)
 
-    out = from_tp(out.reshape(b, s, num_heads * head_dim) @ gather_out(
-        params["wo"], x.dtype, mesh), mesh)
+    lo, hi = blk.q0 * head_dim, blk.q1 * head_dim
+    wo = tp_rows(params["wo"], x.dtype, mesh, lo, hi, blk.q_stored)
+    out = from_tp(out.reshape(b, s, hi - lo) @ wo, mesh)
     if return_kv:
-        return out, k, v
+        return (out, *cache_kv)
     return out
 
 
@@ -403,8 +525,9 @@ def attention_decode(params: Params, x: torch.Tensor, pos: int,
     b = x.shape[0]
     s_cache = cache_k.shape[1]
     pos = int(pos)
-    num_heads, num_kv_heads = local_heads(num_heads, num_kv_heads, mesh)
-    q, k, v = _qkv(params, x, num_heads, num_kv_heads, head_dim, mesh)
+    blk = attn_block(num_heads, num_kv_heads, mesh)
+    q, k, v = _qkv_block(params, x, blk, num_kv_heads, head_dim, False, mesh)
+    num_heads, num_kv_heads = q.shape[2], k.shape[2]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
@@ -449,10 +572,11 @@ def _decode_seq_split(params: Params, x: torch.Tensor, pos: int,
     and each rank attends every query head to its slots.  The flash-decode
     combine joins them: the global max (the ranks' maxima gathered, so a
     NaN on any rank stays), then the rescaled sum-exp and weighted values
-    summed over ``model``.  ``wo`` stays row-parallel: each rank projects
-    its own heads' rows of the combined output (where ``model`` does not
-    divide the query heads either, every rank projects all of them with
-    ``wo`` gathered whole)."""
+    summed over ``model``.  After it every rank holds every head's output
+    ``[B, 1, N = H hd]``: rank ``r`` projects its columns ``[r N / tp, (r
+    + 1) N / tp)`` with its stored rows of ``wo`` (gathered over ``data``
+    only, whatever the head count) and the partials are summed over
+    ``model``, so no weight is gathered over ``model``."""
     b = x.shape[0]
     pos = int(pos)
     tp, rank = mesh.axis_size(TP), mesh.coord(TP)
@@ -484,14 +608,10 @@ def _decode_seq_split(params: Params, x: torch.Tensor, pos: int,
                       p.sum(dim=-1, keepdim=True)], dim=-1)
     part = mesh.all_reduce(part, TP)
     out = (part[..., :head_dim] / part[..., head_dim:]).to(x.dtype)
-    if num_heads % tp:      # the query heads do not split: wo runs whole
-        wo = gather_whole(params["wo"].to(x.dtype), (TP, FSDP), mesh)
-        out = out.transpose(1, 2).reshape(b, 1, num_heads * head_dim) @ wo
-        return out, cache_k, cache_v
-    h_loc = num_heads // tp
-    out = out[:, rank * h_loc:(rank + 1) * h_loc].transpose(1, 2)
-    out = from_tp(out.reshape(b, 1, h_loc * head_dim) @ gather_out(
-        params["wo"], x.dtype, mesh), mesh)
+    cols = num_heads * head_dim // tp
+    out = out.transpose(1, 2).reshape(b, 1, num_heads * head_dim)
+    out = out[..., rank * cols:(rank + 1) * cols].contiguous()
+    out = from_tp(out @ gather_out(params["wo"], x.dtype, mesh), mesh)
     return out, cache_k, cache_v
 
 

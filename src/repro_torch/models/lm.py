@@ -28,18 +28,19 @@ the sequence under checkpoint when ``cfg.loss_seq_chunk`` divides it.
 ``mesh=`` (an :class:`~repro_torch.launch.mesh.LMMesh`) runs
 :func:`lm_loss`, :func:`prefill` and :func:`decode_step` on this rank's
 blocks of the parameters (placed by their specs) and its rows of the batch:
-attention and the MLP tensor-parallel (see :mod:`layers`; where ``model``
-does not divide the heads, attention runs whole on every rank of it, its
-weights gathered at the start of the layer, except in decode, whose
-sequence-split cache takes any head count), RWKV6's time and channel mix
-and Hymba's mamba heads tensor-parallel over ``model`` on this rank's
-heads and channels (see :mod:`ssm`; where ``model`` does not divide them,
-:func:`_ssm_mesh`, the block's weights are gathered whole at the start of
-the layer and it runs whole on every rank), the MoE layer expert-parallel
-over ``model`` with its router statistics over the whole batch (see
-:mod:`moe`), the embedding a vocab-parallel lookup, and the loss a
-vocab-parallel cross-entropy normalised by the token count over every
-batch shard.  With ``mesh=None`` or a one-rank mesh none of this runs.
+attention tensor-parallel on this rank's block of heads for any head
+count (see :mod:`layers`: ``ceil(H / tp)`` query heads a rank, as the
+reference's GSPMD pads them, and the KV heads they read; decode's
+sequence-split cache takes any head count too), the MLP on its ``d_ff /
+tp`` columns, RWKV6's time mix on its block of heads and its channel mix
+and Hymba's mamba heads on their channels (see :mod:`ssm`; where ``model``
+does not divide the channels, :func:`_ssm_mesh`, that block's weights are
+gathered whole at the start of the layer and it runs whole on every
+rank), the MoE layer expert-parallel over ``model`` with its router
+statistics over the whole batch (see :mod:`moe`), the embedding a
+vocab-parallel lookup, and the loss a vocab-parallel cross-entropy
+normalised by the token count over every batch shard.  With ``mesh=None``
+or a one-rank mesh none of this runs.
 """
 from __future__ import annotations
 
@@ -120,50 +121,32 @@ def _layer_init(cfg, generator: torch.Generator, device) -> Tuple[Params,
 #: expert-parallel); the rest of a layer (its norms) runs whole on every
 #: rank.
 TP_SUBTREES = ("attn", "mlp", "moe", "tmix", "cmix", "mamba")
-#: The SSM blocks' subtrees: tensor-parallel where :func:`_ssm_mesh` splits
-#: them, else gathered whole.
+#: The SSM blocks' subtrees, each tensor-parallel on :func:`_ssm_mesh`.
 SSM_SUBTREES = ("tmix", "cmix", "mamba")
 
 
-def _attn_mesh(cfg, mesh):
-    """The mesh attention runs tensor-parallel on: ``mesh``, or ``None``
-    where ``model`` does not divide the heads (:func:`layers.heads_split`:
-    the layer's attention then runs whole on every rank)."""
-    if mesh is None or L.heads_split(cfg.num_heads, cfg.num_kv_heads, mesh):
+def _ssm_mesh(cfg, mesh, block: str):
+    """The mesh SSM subtree ``block`` runs tensor-parallel on: ``mesh``
+    for RWKV6's time mix (on this rank's block of heads, any head count),
+    and for the channel mix where ``model`` divides ``d_ff`` and
+    ``d_model`` and for Hymba's mamba where it divides ``d_inner``
+    (:func:`ssm.splits`); else ``None``: that block runs whole on every
+    rank, its weights gathered (:func:`_whole`)."""
+    if mesh is None or block == "tmix":
         return mesh
-    return None
-
-
-def _ssm_mesh(cfg, mesh):
-    """The mesh the SSM blocks run tensor-parallel on: ``mesh``, or
-    ``None`` where ``model`` does not divide RWKV6's heads, ``d_ff`` and
-    ``d_model`` (one predicate for its time and channel mix) or Hymba's
-    ``d_inner`` (:func:`ssm.splits`: the blocks then run whole on every
-    rank)."""
-    if mesh is None:
-        return None
-    if cfg.family == "ssm":
-        widths = (cfg.rwkv_num_heads, cfg.d_ff, cfg.d_model)
-    elif cfg.family == "hybrid":
-        widths = (cfg.num_heads * cfg.resolved_head_dim,)
-    else:
-        return mesh
+    widths = ((cfg.d_ff, cfg.d_model) if block == "cmix"
+              else (cfg.num_heads * cfg.resolved_head_dim,))
     return mesh if S.splits(mesh, *widths) else None
 
 
-def _whole(cfg, params: Params, mesh, decode: bool = False) -> Params:
-    """Layer ``params`` with every subtree outside :data:`TP_SUBTREES`
-    (and ``attn`` where :func:`_attn_mesh` runs it whole, but for
-    ``decode``, whose attention reads this rank's columns either way, and
-    the SSM blocks where :func:`_ssm_mesh` runs them whole) gathered whole
+def _whole(cfg, params: Params, mesh) -> Params:
+    """Layer ``params`` with every subtree outside :data:`TP_SUBTREES`,
+    and the SSM blocks that :func:`_ssm_mesh` runs whole, gathered whole
     over the axes its specs cut (no-op without a mesh)."""
     if mesh is None:
         return params
-    split = set(TP_SUBTREES)
-    if not decode and _attn_mesh(cfg, mesh) is None:
-        split.discard("attn")
-    if _ssm_mesh(cfg, mesh) is None:
-        split -= set(SSM_SUBTREES)
+    split = set(TP_SUBTREES) - {name for name in SSM_SUBTREES
+                                if _ssm_mesh(cfg, mesh, name) is None}
     specs = param_specs(cfg)["layers"]        # specs [L, ...]: skip the L
     return {name: (sub if name in split else tree_map(
         lambda w, spec: L.gather_whole(w, spec[1:], mesh), sub,
@@ -306,13 +289,12 @@ def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     state: Dict[str, torch.Tensor] = {}
     params = _whole(cfg, params, mesh)
-    ssm_mesh = _ssm_mesh(cfg, mesh)
     h = L.rmsnorm(params["ln1"], x)
     if cfg.family in ATTENTION_FAMILIES:
         attn = L.attention(
             params["attn"], h, positions, query_chunk=cfg.attn_query_chunk,
-            swa_banded=cfg.swa_banded, return_kv=with_state,
-            mesh=_attn_mesh(cfg, mesh), **_attn_kwargs(cfg))
+            swa_banded=cfg.swa_banded, return_kv=with_state, mesh=mesh,
+            **_attn_kwargs(cfg))
         if with_state:
             attn_out, state["k"], state["v"] = attn
         else:
@@ -321,17 +303,18 @@ def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
         tout = S.rwkv6_block(
             params["tmix"], h, num_heads=cfg.rwkv_num_heads,
             head_dim=cfg.rwkv_head_dim, chunk=cfg.ssm_chunk,
-            return_state=with_state, mesh=ssm_mesh)
+            return_state=with_state, mesh=mesh)
         if with_state:
             tout, (state["xprev_t"], state["wkv"]) = tout
         x = x + tout
     elif cfg.family == "hybrid":
         mout = S.mamba_block(params["mamba"], h, chunk=cfg.ssm_chunk,
-                             return_state=with_state, mesh=ssm_mesh)
+                             return_state=with_state,
+                             mesh=_ssm_mesh(cfg, mesh, "mamba"))
         if with_state:
             mout, state["h"] = mout
         # parallel heads, mean-fused: both outputs are whole on every rank
-        # (attention's summed over ``model`` or run whole, mamba's summed)
+        # (attention's summed over ``model``, mamba's summed or run whole)
         x = x + 0.5 * (attn_out + mout)
     elif cfg.family in ATTENTION_FAMILIES:
         x = x + attn_out
@@ -344,7 +327,7 @@ def _block(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
         x = x + out
     elif cfg.family == "ssm":
         cout = S.rwkv_cmix(params["cmix"], h2, return_state=with_state,
-                           mesh=ssm_mesh)
+                           mesh=_ssm_mesh(cfg, mesh, "cmix"))
         if with_state:
             cout, state["xprev_c"] = cout
         x = x + cout
@@ -552,33 +535,57 @@ def _emit_kv_cache(k: torch.Tensor, cache_len: int) -> torch.Tensor:
     return torch.roll(tail, s % cache_len, dims=1)
 
 
-#: The placement over ``model`` each SSM state has in a split block's step:
-#: this rank's heads of ``wkv`` ``[B, H, K, V]`` and channels of ``h``
-#: ``[B, D_inner, N]`` (the token-shift states are whole).
-_SPLIT_STATES = {"wkv": (None, L.TP), "h": (None, L.TP)}
+class _HeadRows:
+    """This rank's heads of ``[B, H, ...]`` (dimension 1) over ``model``:
+    :func:`layers.head_block`'s ``[start, stop)``, every other dimension
+    whole; the :class:`~repro_torch.launch.mesh.NamedSharding` methods
+    :func:`_reshard` uses.  Blocks may differ in size, so :meth:`gather`
+    pads each rank's to ``ceil(H / tp)`` heads, all-gathers and drops
+    the padding."""
+
+    def __init__(self, mesh, num_heads: int):
+        self.mesh, self.num_heads = mesh, num_heads
+        self.h0, self.h1 = L.head_block(num_heads, mesh)
+
+    def dim_axes(self, i: int) -> Tuple[str, ...]:
+        return (L.TP,) if i == 1 else ()
+
+    def shard(self, full: torch.Tensor) -> torch.Tensor:
+        return full[:, self.h0:self.h1]
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        c = -(-self.num_heads // self.mesh.axis_size(L.TP))
+        if local.shape[1] < c:
+            pad = local.new_zeros((local.shape[0], c - local.shape[1],
+                                   *local.shape[2:]))
+            local = torch.cat([local, pad], dim=1)
+        return self.mesh.all_gather(local, L.TP, 1)[:, :self.num_heads]
 
 
 def _cache_placements(cfg, mesh, cache_sh) -> Dict[str, Tuple[Any, Any]]:
     """``{name: (work, stored)}`` for each leaf of one layer's cache on
     ``mesh``: the placement over ``model`` the block reads and returns it
     in, and the one ``cache_sh`` stores it in (its batch axes dropped: the
-    rows stay this rank's).  ``wkv`` is stored cut on K (the reference's
-    spec) but a split RWKV6 block works on this rank's heads with all of
-    K, so it is resharded around the block; ``h`` is stored as the split
-    mamba works on it.  What a block runs whole (attention where
-    :func:`_attn_mesh` says so, the SSM blocks where :func:`_ssm_mesh`
-    does) it reads and returns whole."""
-    ssm_split = _ssm_mesh(cfg, mesh) is not None
-    attn_split = _attn_mesh(cfg, mesh) is not None
+    rows stay this rank's).  Prefill's attention returns this rank's KV
+    heads where ``model`` divides them (stored so), else every KV head
+    (stored cut on the ring's slots).  ``wkv`` is stored cut on K (the
+    reference's spec) but RWKV6's time mix works on this rank's block of
+    heads with all of K (:class:`_HeadRows`), so it is resharded around
+    the block; ``h`` is stored as the split mamba works on it, and read
+    and returned whole where mamba runs whole."""
     out = {}
     for name, sh in cache_sh.items():
         stored = NamedSharding(mesh, tuple(a if a == L.TP else None
                                            for a in sh.spec[1:]))
         if name in ("k", "v"):
-            work = stored if attn_split else NamedSharding(mesh, ())
+            split = L.heads_split(cfg.num_heads, cfg.num_kv_heads, mesh)
+            work = stored if split else NamedSharding(mesh, ())
+        elif name == "wkv":
+            work = _HeadRows(mesh, cfg.rwkv_num_heads)
+        elif name == "h" and _ssm_mesh(cfg, mesh, "mamba") is not None:
+            work = stored
         else:
-            work = NamedSharding(mesh, _SPLIT_STATES.get(name, ())
-                                 if ssm_split else ())
+            work = NamedSharding(mesh, ())
         out[name] = (work, stored)
     return out
 
@@ -679,8 +686,7 @@ def _block_decode(cfg, params: Params, x: torch.Tensor, pos: int,
                   cache: Dict[str, torch.Tensor], mesh=None,
                   rows: Tuple[str, ...] = ()):
     new_cache: Dict[str, torch.Tensor] = {}
-    params = _whole(cfg, params, mesh, decode=True)
-    ssm_mesh = _ssm_mesh(cfg, mesh)
+    params = _whole(cfg, params, mesh)
     h = L.rmsnorm(params["ln1"], x)
     if cfg.family in ATTENTION_FAMILIES:
         attn_out, new_cache["k"], new_cache["v"] = L.attention_decode(
@@ -691,13 +697,13 @@ def _block_decode(cfg, params: Params, x: torch.Tensor, pos: int,
             params["tmix"], h, num_heads=cfg.rwkv_num_heads,
             head_dim=cfg.rwkv_head_dim, use_chunked=False,
             x_prev=cache["xprev_t"], state=cache["wkv"], return_state=True,
-            mesh=ssm_mesh)
+            mesh=mesh)
         new_cache["wkv"], new_cache["xprev_t"] = wkv, xp
         x = x + tout
     elif cfg.family == "hybrid":
         mout, new_cache["h"] = S.mamba_block(
             params["mamba"], h, use_chunked=False, state=cache["h"],
-            return_state=True, mesh=ssm_mesh)
+            return_state=True, mesh=_ssm_mesh(cfg, mesh, "mamba"))
         x = x + 0.5 * (attn_out + mout)
     else:
         x = x + attn_out
@@ -709,7 +715,7 @@ def _block_decode(cfg, params: Params, x: torch.Tensor, pos: int,
     elif cfg.family == "ssm":
         cout, new_cache["xprev_c"] = S.rwkv_cmix(
             params["cmix"], h2, x_prev=cache["xprev_c"], return_state=True,
-            mesh=ssm_mesh)
+            mesh=_ssm_mesh(cfg, mesh, "cmix"))
         x = x + cout
     else:
         x = x + L.mlp(params["mlp"], h2, cfg.activation, mesh)
@@ -729,10 +735,10 @@ def decode_step(params: Params, cfg, tokens: torch.Tensor, pos: int,
     ``serve.decode.cache_pspecs``), and the logits are this rank's rows
     over the whole padded vocabulary.  The KV caches stay this rank's
     (see :func:`layers.attention_decode`), and so does ``h`` (the split
-    mamba's channels).  ``wkv`` is stored cut on K: for its layer's step it
-    is gathered over ``model`` and this rank's heads kept, and after the
-    step gathered over the heads and cut on K again (the whole state, each
-    way, where :func:`_ssm_mesh` runs the blocks whole)."""
+    mamba's channels; gathered whole where mamba runs whole).  ``wkv`` is
+    stored cut on K: for its layer's step it is gathered over ``model``
+    and this rank's block of heads kept (:func:`layers.head_block`), and
+    after the step the blocks are gathered and cut on K again."""
     mesh = sharded(mesh)
     trivial = mesh is None
     if trivial:

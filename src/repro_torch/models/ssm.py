@@ -10,14 +10,18 @@ decay ratios <= 1, (B) a scan over the ``S/C`` chunk states, (C) per-chunk
 readout scans of length ``C`` over all chunks at once.  No kernel is
 involved: the scans are Python loops over batched tensor ops.
 
-On a mesh (``mesh=``, where :func:`splits` holds) each block runs
-tensor-parallel over ``model`` on the weight blocks its specs place on
-this rank, as :func:`layers.attention` and :func:`layers.mlp` do: the
-heads (RWKV6's time mix) and the channels (the channel mix's ``d_ff`` and
-gate columns, Mamba's ``d_inner``) are independent through the
+On a mesh (``mesh=``) each block runs tensor-parallel over ``model``, as
+:func:`layers.attention` and :func:`layers.mlp` do: the heads (RWKV6's
+time mix, on this rank's :func:`layers.head_block` for any head count) and
+the channels (the channel mix's ``d_ff`` and gate columns, Mamba's
+``d_inner``, where :func:`splits` holds) are independent through the
 recurrences and norms, so each rank runs its own, with one sum over
-``model`` at the row-parallel output.  Weights that are whole over
-``model`` but read inside a rank's share (``mu``, ``decay_base``,
+``model`` at the row-parallel output.  The channels run on the weight
+blocks the specs place on this rank; so do the heads where ``model``
+divides them, and elsewhere (RWKV6-3B's 40 heads on 16) the time mix's
+weights are gathered whole over ``model`` and narrowed to the block
+(:func:`layers.tp_cols`, :func:`layers.tp_rows`).  Weights that are whole
+over ``model`` but read inside a rank's share (``mu``, ``decay_base``,
 ``bonus_u``, ``wb``, ``wc``) pass through :func:`layers.to_tp`, so that
 each rank's gradient of them is summed over ``model``.
 """
@@ -30,7 +34,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (FSDP, TP, _uniform, axis_size,
                                        from_tp, gather, gather_in,
-                                       gather_out, to_tp)
+                                       gather_out, head_block, to_tp,
+                                       tp_cols, tp_rows)
 
 Params = Dict[str, Any]
 
@@ -45,25 +50,22 @@ def _chunk_len(s: int, chunk: int) -> int:
 
 
 def splits(mesh, *widths: int) -> bool:
-    """Whether ``model`` divides every one of ``widths`` (RWKV6's heads,
-    ``d_ff`` and ``d_model``; Mamba's ``d_inner``), so that the block runs
-    tensor-parallel on ``mesh``.  Where it does not (RWKV6's 40 heads on
-    the production mesh's 16), the reference's GSPMD cuts heads across
-    ranks; the port runs that block whole on every rank of ``model``, its
-    weights gathered whole (``models.lm``)."""
+    """Whether ``model`` divides every one of ``widths`` (the channel
+    mix's ``d_ff`` and ``d_model``, Mamba's ``d_inner``), so that the
+    block runs tensor-parallel on ``mesh``; where it does not, the block
+    runs whole on every rank of ``model``, its weights gathered whole
+    (``models.lm``)."""
     tp = axis_size(mesh, TP)
     return all(w % tp == 0 for w in widths)
 
 
-def _tp_block(w: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's block over ``model`` of dimension 0 of a weight that
-    is whole over ``model`` (``decay_base``, ``bonus_u``), its gradient
-    summed over ``model``; ``w`` itself without a split."""
-    tp = axis_size(mesh, TP)
-    if tp == 1:
+def _tp_block(w: torch.Tensor, mesh, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``lo:hi`` of a weight that is whole over ``model``
+    (``decay_base``, ``bonus_u``), its gradient summed over ``model``;
+    ``w`` itself without a split."""
+    if axis_size(mesh, TP) == 1:
         return w
-    n = w.shape[0] // tp
-    return to_tp(w, mesh).narrow(0, mesh.coord(TP) * n, n)
+    return to_tp(w, mesh).narrow(0, lo, hi - lo)
 
 
 class _ScatterTP(torch.autograd.Function):
@@ -242,36 +244,30 @@ def _shifted(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([x_prev.to(x.dtype), x[:, :-1]], dim=1)
 
 
-def _rwkv6_inputs(params, x, x_prev, num_heads, head_dim, mesh=None):
+def _rwkv6_inputs(params, x, x_prev, heads, head_dim, stored, mesh=None):
     """Token-shift lerp + projections.  x: ``[B,S,D]``; on ``mesh`` the
-    projections are this rank's ``num_heads`` (its columns)."""
+    projections are the columns of the heads ``heads = (start, stop)``:
+    the stored blocks where ``stored``, else narrowed from the whole
+    weights (:func:`layers.tp_cols`)."""
     b, s, _ = x.shape
+    h0, h1 = heads
     shifted = _shifted(x, x_prev)
     mu = to_tp(params["mu"], mesh).to(x.dtype)
     mix = [x + (shifted - x) * mu[i] for i in range(5)]
 
     def proj(m, w):
-        return (m @ gather_in(params[w], x.dtype, mesh)).reshape(
-            b, s, num_heads, head_dim)
+        cols = tp_cols(params[w], x.dtype, mesh, h0 * head_dim,
+                       h1 * head_dim, stored)
+        return (m @ cols).reshape(b, s, h1 - h0, head_dim)
 
     r, k, v, g = (proj(mix[0], "wr"), proj(mix[1], "wk"), proj(mix[2], "wv"),
                   proj(mix[3], "wg"))
     # Finch data-dependent decay: logw in (-inf, 0)
     wraw = proj(mix[4], "wdecay")
-    base = _tp_block(params["decay_base"], mesh)
+    base = _tp_block(params["decay_base"], mesh, h0, h1)
     logw = -torch.exp(torch.clamp(base[None, None].float()
                                   + wraw.float(), -8.0, 6.0))
     return r, k, v, g, logw
-
-
-def _local_heads(num_heads: int, mesh) -> int:
-    """This rank's RWKV6 head count; raises where ``model`` does not
-    divide the heads (see :func:`splits`)."""
-    tp = axis_size(mesh, TP)
-    if num_heads % tp:
-        raise ValueError(f"{num_heads} RWKV6 heads do not split over a model "
-                         f"axis of {tp}; run the block whole")
-    return num_heads // tp
 
 
 def rwkv6_block(params: Params, x: torch.Tensor, *, num_heads: int,
@@ -281,32 +277,38 @@ def rwkv6_block(params: Params, x: torch.Tensor, *, num_heads: int,
     """RWKV6 time-mix block. x: ``[B,S,D]`` -> ``[B,S,D]``; with
     ``return_state`` also ``(last token [B,1,D], wkv state [B,H,K,K])``.
 
-    On ``mesh`` this rank's ``H / tp`` heads (``num_heads`` is the
-    model's): the five projections column-parallel, ``decay_base`` and
-    ``bonus_u`` sliced to those heads, the recurrence, group norm and gate
-    on them, ``wo`` row-parallel and the output summed over ``model``;
-    ``state`` and the returned state are this rank's heads."""
+    On ``mesh`` this rank's heads ``[start, stop)`` of
+    :func:`layers.head_block` (``num_heads`` is the model's; a rank may
+    hold none): the five projections column-parallel (the stored blocks
+    where ``model`` divides the heads, else the whole weights narrowed to
+    the block's columns), ``decay_base``, ``bonus_u`` and ``ln_x`` sliced
+    to those heads, the recurrence, group norm and gate on them, ``wo``'s
+    rows of them and the output summed over ``model``; ``state`` and the
+    returned state are this rank's heads."""
     b, s, d = x.shape
     if x_prev is None:
         x_prev = torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
-    num_heads = _local_heads(num_heads, mesh)
+    h0, h1 = head_block(num_heads, mesh)
+    stored = num_heads % axis_size(mesh, TP) == 0
+    lo, hi = h0 * head_dim, h1 * head_dim
     xin = to_tp(x, mesh)
-    r, k, v, g, logw = _rwkv6_inputs(params, xin, x_prev, num_heads,
-                                     head_dim, mesh)
-    u = _tp_block(params["bonus_u"], mesh).float()
+    r, k, v, g, logw = _rwkv6_inputs(params, xin, x_prev, (h0, h1),
+                                     head_dim, stored, mesh)
+    u = _tp_block(params["bonus_u"], mesh, h0, h1).float()
     if use_chunked:
         out, s_fin = wkv_chunked(r, k, v, logw, u, s0=state, chunk=chunk)
     else:
         out, s_fin = wkv_scan(r, k, v, logw, u, s0=state)
     # per-head group norm + silu gate
-    hk = num_heads * head_dim
-    out = out.reshape(b, s, num_heads, head_dim)
+    out = out.reshape(b, s, h1 - h0, head_dim)
     mean = out.mean(-1, keepdim=True)
     var = out.var(-1, keepdim=True, correction=0)
     out = (out - mean) * torch.rsqrt(var + 1e-5)
-    out = out.reshape(b, s, hk) * params["ln_x"].float()
-    out = out.to(x.dtype) * F.silu(g.reshape(b, s, hk))
-    y = from_tp(out @ gather_out(params["wo"], x.dtype, mesh), mesh)
+    ln_x = tp_cols(params["ln_x"], torch.float32, mesh, lo, hi, stored)
+    out = out.reshape(b, s, hi - lo) * ln_x
+    out = out.to(x.dtype) * F.silu(g.reshape(b, s, hi - lo))
+    wo = tp_rows(params["wo"], x.dtype, mesh, lo, hi, stored)
+    y = from_tp(out @ wo, mesh)
     if return_state:
         return y, (x[:, -1:], s_fin)
     return y

@@ -7,12 +7,16 @@ Decode sharding policy, as the reference's ``serve/decode.py``:
   sequence axis over ``model`` (GLM-4-9B's 2 KV heads on a wider axis),
   where each rank's softmax over its slots needs the flash-decode combine
   (``models.layers.attention_decode``; GSPMD emits it in the reference);
+* attention on this rank's block of query heads where ``model`` divides
+  the KV heads (``models.layers.head_block``), else every query head
+  against this rank's ring slots, ``wo`` on this rank's stored rows
+  either way: no weight is gathered over ``model``;
 * the SSM states as the reference places them (``wkv``'s K and hybrid
-  ``h``'s inner width over ``model``); where ``model`` splits the SSM
-  blocks (``models.lm._ssm_mesh``) RWKV6's time and channel mix and
-  Hymba's mamba heads run tensor-parallel on this rank's weight blocks,
-  ``h`` as stored and ``wkv`` resharded to this rank's heads around each
-  layer's step (``models.lm.decode_step``);
+  ``h``'s inner width over ``model``); RWKV6's time mix runs on this
+  rank's block of heads, ``wkv`` resharded to them around each layer's
+  step (``models.lm.decode_step``), and its channel mix and Hymba's mamba
+  heads on this rank's channels where ``model`` divides them
+  (``models.lm._ssm_mesh``), ``h`` as stored;
 * MoE layers expert-parallel over ``model``, their router statistics (and
   the ``capacity`` dispatch's ranks) over the rows of every batch shard
   (``models.moe``).
@@ -80,10 +84,11 @@ def make_serve_step(cfg, mesh=None, *, batch: int, seq_len: int,
     the parameters (``train.step.shard_tree`` cuts a full tree by them) and
     of the cache, the cache is this rank's blocks on the mesh's device,
     and every rank calls ``step`` with the global tokens.  Attention, the
-    MLP and the SSM blocks run tensor-parallel over ``model`` on this
-    rank's blocks of the weights (the SSM blocks and attention whole, their
-    weights gathered each step, where ``model`` does not divide their
-    heads or channels), MoE layers expert-parallel."""
+    MLP and the SSM blocks run tensor-parallel over ``model`` (attention
+    and RWKV6's time mix on this rank's block of heads, for any head
+    count; the channel mix and mamba whole, their weights gathered each
+    step, where ``model`` does not divide their channels), MoE layers
+    expert-parallel."""
     if mesh is None:
         cache = init_cache(cfg, batch, seq_len, dtype, device=device)
 

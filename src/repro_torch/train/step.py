@@ -223,14 +223,15 @@ def make_train_step(cfg, opt_cfg: OptConfig, mesh=None, *,
     On a ``mesh`` of more than one rank ``params`` and ``opt_state`` are
     this rank's blocks, placed by :func:`shardings_for` and
     :func:`opt_shardings` (:func:`shard_tree` cuts them from full trees),
-    and every rank calls the step with the same global batch.  Where the
-    ``model`` axis does not divide the query and KV heads, attention runs
-    whole on every rank of it (``layers.heads_split``; the reference's
-    GSPMD pads the heads).  RWKV6's time and channel mix and Hymba's mamba
-    heads run tensor-parallel over ``model`` on this rank's heads and
-    channels, and whole, their weights gathered, where ``model`` does not
-    divide them (``models.ssm.splits``; the reference's GSPMD cuts heads
-    across ranks); the gradients of their weights that are whole over
+    and every rank calls the step with the same global batch.  Attention
+    and RWKV6's time mix run on this rank's block of heads for any head
+    count (``layers.head_block``: ``ceil(H / tp)`` a rank, as the
+    reference's GSPMD pads the heads); where the stored weight blocks are
+    not those heads, the weights are gathered whole over ``model`` and
+    narrowed, and their gradients summed over ``model``.  The channel mix
+    and Hymba's mamba heads run on this rank's channels, and whole, their
+    weights gathered, where ``model`` does not divide them
+    (``models.ssm.splits``); the gradients of weights that are whole over
     ``model`` are summed over it inside the model (``layers.to_tp``).
     MoE layers run expert-parallel over ``model``
     (``models.moe``); with ``moe_dispatch="sorted"`` a split batch raises

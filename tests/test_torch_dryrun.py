@@ -13,14 +13,17 @@ rank), and ``report.main`` prints the three tables with no failure.
 
 ``prefill(mesh=)`` (the prefill cells' step) runs on spawned gloo groups
 of 2 CPU ranks on ``(1, 2)`` and ``(2, 1)``, reduced configs whose heads
-split over ``model`` (Qwen) and whose heads do not (Danube, banded, and
-Hymba: attention whole on each rank), with SSM states (RWKV6 and Hymba,
-their blocks split over ``model``, and RWKV6 with 3 heads, run whole) and
-a frontend prefix (InternVL2), and reduced OLMoE with ``moe_dispatch=
-"sorted"`` (the grouped GEMMs on each rank's experts), against one
-device's ``prefill`` at 1e-5.  At the production mesh's ``model = 16``
-RWKV6-3B's 40 heads do not split (its blocks run whole) and Hymba-1.5B's
-mamba channels do.
+split over ``model`` (Qwen) and whose KV or query heads do not (Danube,
+banded, Hymba, and both with 5 and 6 / 3 heads: each rank attends with
+its block of query heads and returns every KV head for the cache), with
+SSM states (RWKV6 and Hymba, their blocks split over ``model``, and RWKV6
+with 3 heads, its time mix on head blocks 2 + 1) and a frontend prefix
+(InternVL2), and reduced OLMoE with ``moe_dispatch="sorted"`` (the grouped
+GEMMs on each rank's experts), against one device's ``prefill`` at 1e-5.
+At the production mesh's ``model = 16`` RWKV6-3B's 40 heads split on
+blocks of 3 and its channel mix on its channels, Hymba-1.5B's mamba
+channels split, and a Danube-shaped train step (32 / 8 heads) gathers
+neither ``wq`` nor ``wo`` over ``model``.
 """
 import contextlib
 import dataclasses
@@ -101,13 +104,15 @@ def test_records_hold_the_reference_keys(records):
 
 def test_kernel_meta_paths_count_in_the_flops(records):
     """The banded prefill's K7 launches nothing on ``meta`` and tallies
-    ``4 hd H pairs`` a call on this rank's rows."""
+    ``4 hd H pairs`` a call on this rank's rows and heads (rank 0's block
+    of ``ceil(H / 16)``: one of reduced Danube's 4)."""
     _, recs, _ = records
     rec = recs[("h2o_danube3_4b", False)]
     cfg = get_config("h2o_danube3_4b").reduced(**DANUBE)
     assert rec["kernels"] == {"flash_swa": cfg.num_layers}
     rows = PREFILL.global_batch // 16            # batch over data
-    want = (4 * cfg.resolved_head_dim * cfg.num_heads * rows
+    heads = -(-cfg.num_heads // 16)              # rank 0's head block
+    want = (4 * cfg.resolved_head_dim * heads * rows
             * tally.band_pairs(PREFILL.seq_len, cfg.sliding_window))
     assert rec["cost_analysis_raw"]["kernel_flops"] == cfg.num_layers * want
 
@@ -232,12 +237,14 @@ def test_pipeline_stage_traces_on_a_fake_group(stage):
 
 @pytest.mark.parametrize("shape", [(16, 16), (2, 2), (1, 4)])
 def test_ssm_blocks_split_where_model_divides_them(shape):
-    """RWKV6-3B (40 heads of 64) and Hymba-1.5B (``d_inner`` 1,600) on a
-    mesh of ``shape``: both split on the card's ``(2, 2)`` and ``(1, 4)``;
-    on the production mesh's ``model = 16`` only Hymba's mamba does (100
-    channels a rank), and RWKV6's time and channel mix run whole, their
-    weights gathered (``models.lm._whole``)."""
+    """RWKV6-3B (40 heads of 64, ``d_ff`` 8,960, ``d_model`` 2,560) and
+    Hymba-1.5B (``d_inner`` 1,600) on a mesh of ``shape``: every block
+    splits, on the card's ``(2, 2)`` and ``(1, 4)`` and on the production
+    mesh's ``model = 16``, where RWKV6's time mix runs on head blocks of 3
+    (``layers.head_block``: thirteen ranks of 3, one of 1, two of none)
+    and its channel mix on 560 hidden and 160 gate columns a rank."""
     from repro_torch.launch.mesh import GraphMesh, LMMesh
+    from repro_torch.models.layers import head_block
     from repro_torch.models.lm import _ssm_mesh
     cpu = torch.device("cpu")
     mesh = LMMesh(("data", "model"), tuple(GraphMesh(n, 0, cpu)
@@ -245,8 +252,54 @@ def test_ssm_blocks_split_where_model_divides_them(shape):
     rwkv, hymba = get_config("rwkv6_3b"), get_config("hymba_15b")
     assert rwkv.rwkv_num_heads == 40
     assert hymba.num_heads * hymba.resolved_head_dim == 1600
-    assert _ssm_mesh(hymba, mesh) is mesh
-    assert (_ssm_mesh(rwkv, mesh) is None) == (shape == (16, 16))
+    assert _ssm_mesh(hymba, mesh, "mamba") is mesh
+    for block in ("tmix", "cmix"):
+        assert _ssm_mesh(rwkv, mesh, block) is mesh, block
+    tp = shape[1]
+    last = LMMesh(("data", "model"), (GraphMesh(shape[0], 0, cpu),
+                                      GraphMesh(tp, tp - 1, cpu)), 0, cpu)
+    c = -(-40 // tp)
+    assert head_block(40, mesh) == (0, c)
+    assert head_block(40, last) == ((40, 40) if tp == 16
+                                    else (40 - c, 40))
+
+
+def test_danube_shaped_step_gathers_no_wq_or_wo_over_model(monkeypatch):
+    """A train step of reduced Danube with Danube's 32 / 8 heads, traced
+    as rank 0 of a fake ``(16, 16)`` group: 2 query heads a rank on
+    ``wq``'s and ``wo``'s stored blocks, so neither is all-gathered over
+    ``model``; ``wk``/``wv`` (8 KV heads on 16) are, and narrowed to the
+    KV head the block reads."""
+    from repro_torch.launch.mesh import LMMesh, make_production_mesh
+    from repro_torch.models.lm import param_shapes, tree_leaves
+    cfg = get_config("h2o_danube3_4b").reduced(num_heads=32, num_kv_heads=8,
+                                               **DANUBE)
+    gathered = []
+    plain = LMMesh.all_gather
+
+    def spied(self, x, axis, dim=0):
+        if axis == "model" and self.axis_size(axis) > 1:
+            gathered.append(tuple(x.shape))
+        return plain(self, x, axis, dim)
+
+    monkeypatch.setattr(LMMesh, "all_gather", spied)
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device="meta")
+        t = dryrun.trace_step(*dryrun.build_cell(cfg, TRAIN, mesh, 1), mesh)
+    assert not torch.distributed.is_initialized()
+    full = dict(tree_leaves(param_shapes(cfg)))
+    # a layer's weight as the model gather would take it: its data
+    # blocks gathered, its model block this rank's
+    block = {name: (full[f"/layers/attn/{name}"].shape[1],
+                    full[f"/layers/attn/{name}"].shape[2] // 16)
+             for name in ("wq", "wk", "wv")}
+    block["wo"] = (full["/layers/attn/wo"].shape[1] // 16,
+                   full["/layers/attn/wo"].shape[2])
+    assert block["wq"] not in (block["wk"], block["wo"])
+    assert block["wq"] not in gathered and block["wo"] not in gathered
+    assert block["wk"] in gathered
+    assert t["kernels"] == {"flash_swa": cfg.num_layers,
+                            "flash_swa_bwd": cfg.num_layers}
 
 
 def test_tracer_follows_storages():
@@ -268,13 +321,16 @@ def test_tracer_follows_storages():
 # prefill on a mesh
 # ---------------------------------------------------------------------------
 
+BANDED = dict(sliding_window=4, attn_query_chunk=4, swa_banded=True)
 PREFILL_ARCHS = {
     "qwen": ("qwen15_05b", {}),
-    "danube": ("h2o_danube3_4b", dict(sliding_window=4, attn_query_chunk=4,
-                                      swa_banded=True)),
+    "danube": ("h2o_danube3_4b", BANDED),
+    "danube-h6kv3": ("h2o_danube3_4b", dict(num_heads=6, num_kv_heads=3,
+                                            **BANDED)),
     "hymba": ("hymba_15b", {}),
+    "hymba-h5": ("hymba_15b", dict(num_heads=5, **BANDED)),
     "rwkv": ("rwkv6_3b", {}),
-    "rwkv-h3": ("rwkv6_3b", dict(d_model=48)),   # 3 heads: run whole
+    "rwkv-h3": ("rwkv6_3b", dict(d_model=48)),   # 3 heads: blocks 2 + 1
     "internvl": ("internvl2_1b", {}),
     "olmoe-sorted": ("olmoe_1b_7b", dict(moe_dispatch="sorted")),
 }

@@ -174,6 +174,29 @@ def test_banded_attention_grads_match_reference(ref, case):
                                atol=2e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_a_rank_without_heads_launches_and_tallies_nothing(device):
+    """``H = Hkv = 0`` (a rank of ``model`` that holds no head): the
+    forward and the autograd backward give empty tensors of the operands'
+    shapes, launch nothing and tally nothing on ``meta``, and the
+    gradient still reaches every operand (so that the ranks' collectives
+    in the backward line up); one query head and no KV head raises."""
+    from repro_torch.kernels import tally
+    S, _, _, hd, window, qc = SHAPES[0]
+    q, k, v = (torch.zeros((2, S, 0, hd), device=device).requires_grad_()
+               for _ in range(3))
+    before = dict(FK.LAUNCHES)
+    tally.reset()
+    out = flash_swa_gqa(q, k, v, window=window, qc=qc)
+    assert out.shape == q.shape and out.device.type == device
+    grads = torch.autograd.grad(out, (q, k, v), torch.zeros_like(out))
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert FK.LAUNCHES == before and tally.TALLY["calls"] == {}
+    with pytest.raises(ValueError, match="multiple"):
+        FK.flash_swa(torch.zeros((2, S, 1, hd)), torch.zeros((2, S, 0, hd)),
+                     torch.zeros((2, S, 0, hd)), window=window, qc=qc)
+
+
 def test_backward_wrapper_takes_plain_version_only_on_cpu():
     S, H, Hkv, hd, window, qc = SHAPES[0]
     q, k, v, dout = _draw(SHAPES[0], torch.float32, 9)

@@ -2,17 +2,21 @@
 on gloo groups of CPU ranks, against the one-device ``decode_step``.
 
 Two groups run once each (``tests/_torch_shard_group.py``, job
-``lm_serve``): two ranks on ``(1, 2)`` and four on ``(2, 2)``.  The cases
-cover both KV-cache layouts and the SSM states: reduced Qwen (4 KV heads,
-split over ``model``), reduced GLM-4-9B and H2O-Danube3-4B (one KV head
-on a model axis of 2: the cache's ring slots split over ``model``, with
-the flash-decode combine; Danube's 8-slot window ring wraps within the 12
-steps), reduced RWKV6 (``wkv`` cut over ``model`` on K; its 4 heads split
-over ``model``, so each step reshards the state to this rank's heads and
-back) and reduced Hymba (hybrid: split slots plus the ``h`` state, its
-mamba channels split over ``model``), and RWKV6 with ``d_model=48`` (3
-heads that a model axis of 2 does not divide: both mixes run whole, their
-weights gathered each step); and reduced OLMoE-1B-7B and
+``lm_serve``): two ranks on ``(1, 2)`` and four on ``(2, 2)`` and ``(1,
+4)``.  The cases cover both KV-cache layouts and the SSM states: reduced
+Qwen (4 KV heads, split over ``model``), reduced GLM-4-9B and
+H2O-Danube3-4B (one KV head on a model axis of 2: the cache's ring slots
+split over ``model``, with the flash-decode combine; Danube's 8-slot
+window ring wraps within the 12 steps), reduced RWKV6 (``wkv`` cut over
+``model`` on K; its 4 heads split over ``model``, so each step reshards
+the state to this rank's heads and back) and reduced Hymba (hybrid:
+split slots plus the ``h`` state, its mamba channels split over
+``model``), Hymba with 5 query heads on ``(1, 2)`` and ``(2, 2)`` and
+Danube with 3 on ``(1, 4)`` (``wo`` on each rank's stored rows of the
+combined output), and RWKV6 with ``d_model=48`` (3 heads: the time mix
+on the head blocks 2 + 1 on ``(1, 2)`` and 1, 1, 1, 0 on ``(1, 4)``, its
+weights gathered whole over ``model`` and narrowed, the channel mix on
+``d_ff / tp`` columns); and reduced OLMoE-1B-7B and
 DeepSeek-MoE-16B (shared experts) with each MoE dispatch (``grouped``,
 ``capacity``, ``sorted``), their experts split over ``model``; on ``(2,
 2)`` the ``capacity`` dispatch's global capacity (one atom an expert for
@@ -20,13 +24,18 @@ the two tokens of a step) drops atoms by their order over both data
 shards.  On ``(2, 2)`` a batch of 2 splits over ``data`` and a batch of 1
 is replicated.  Each step's logits
 must lie within 1e-5 of the largest logit of the one-device step's.
-Where ``model`` splits the SSM blocks, the last step all-gathers no
-weight of ``tmix``, ``cmix`` or ``mamba`` over ``model`` (the shapes
-gathered, and ``mesh.stats``' all-gather bytes on ``(1, 2)``).  The
+Where ``model`` splits the SSM blocks on their stored blocks, the last
+step all-gathers no weight of ``tmix``, ``cmix`` or ``mamba`` over
+``model`` (the shapes gathered, and ``mesh.stats``' all-gather bytes on
+``(1, 2)``); where the time mix's blocks are not its heads it gathers
+those and no other; and no step all-gathers an attention weight over
+``model``.  The
 world-2 group also runs ``launch.serve`` and ``launch.train`` with
 ``--mesh host``.  A one-rank mesh is the one-device path: bitwise the same
 logits and no collective.
 """
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -52,12 +61,21 @@ DISPATCHES = ("grouped", "capacity", "sorted")
 CASES = {f"1x2/{a}": (2, 2, a, 2, {}) for a in DENSE}
 CASES.update({f"2x2/{a}": (4, 2, a, 2, {}) for a in DENSE})
 CASES["2x2/qwen15_05b/b1"] = (4, 2, "qwen15_05b", 1, {})
-# 3 RWKV6 heads: a model axis of 2 runs both mixes whole
+# 3 RWKV6 heads: the time mix on head blocks 2 + 1 and 1, 1, 1, 0
 CASES["1x2/rwkv6_3b/h3"] = (2, 2, "rwkv6_3b", 2, {"d_model": 48})
-#: the SSM cases whose blocks split over ``model`` / run whole
+CASES["1x4/rwkv6_3b/h3"] = (4, 4, "rwkv6_3b", 2, {"d_model": 48})
+# query heads that model does not divide: 5 on 2, 3 on 4
+CASES["1x2/hymba_15b/h5"] = (2, 2, "hymba_15b", 2, {"num_heads": 5})
+CASES["2x2/hymba_15b/h5"] = (4, 2, "hymba_15b", 2, {"num_heads": 5})
+CASES["1x4/h2o_danube3_4b/h3"] = (4, 4, "h2o_danube3_4b", 2,
+                                  {"num_heads": 3})
+#: the SSM cases whose blocks run on their stored blocks / whose time mix
+#: gathers its weights whole over ``model`` and narrows them
 SSM_SPLIT = ("1x2/rwkv6_3b", "2x2/rwkv6_3b", "1x2/hymba_15b",
-             "2x2/hymba_15b")
-SSM_WHOLE = ("1x2/rwkv6_3b/h3",)
+             "2x2/hymba_15b", "1x2/hymba_15b/h5", "2x2/hymba_15b/h5")
+SSM_NARROWED = ("1x2/rwkv6_3b/h3", "1x4/rwkv6_3b/h3")
+#: overrides that change the weights' shapes (the others share the arch's)
+SHAPED = ("d_model", "num_heads")
 for _w, _mesh in ((2, "1x2"), (4, "2x2")):
     CASES.update({f"{_mesh}/{a}/{d}": (_w, 2, a, 2, {"moe_dispatch": d})
                   for a in MOE for d in DISPATCHES})
@@ -69,9 +87,13 @@ def _np_tree(t):
     return t.numpy().copy()
 
 
+def _shape(over):
+    return {k: v for k, v in sorted(over.items()) if k in SHAPED}
+
+
 def _wkey(arch, over):
     """The weights a case runs on: its arch's, or those of its shape."""
-    return f"{arch}/d{over['d_model']}" if "d_model" in over else arch
+    return arch + "".join(f"/{k}={v}" for k, v in _shape(over).items())
 
 
 @pytest.fixture(scope="module")
@@ -84,7 +106,7 @@ def weights():
         out[arch] = (cfg, params)
     for _, _, arch, _, over in CASES.values():
         if _wkey(arch, over) not in out:
-            cfg = get_config(arch).reduced(d_model=over["d_model"])
+            cfg = get_config(arch).reduced(**_shape(over))
             params, _ = init_params(cfg, torch.Generator().manual_seed(30),
                                     device="cpu")
             out[_wkey(arch, over)] = (cfg, params)
@@ -188,24 +210,27 @@ def _ssm_blocks(res):
             if _ssm_leaf(path)}
 
 
-@pytest.mark.parametrize("case", SSM_SPLIT + SSM_WHOLE)
+@pytest.mark.parametrize("case", SSM_SPLIT + SSM_NARROWED)
 def test_ssm_weights_stay_on_their_ranks(groups, weights, case):
-    """A decode step where ``model`` splits the SSM blocks all-gathers
-    none of their weights over ``model``: no gathered block has the shape
-    of a weight block, and on ``(1, 2)`` (every group of two is ``model``)
-    ``mesh.stats`` counts fewer all-gathered bytes than one layer's SSM
-    weights.  Where it does not split them (3 RWKV6 heads), they are
-    gathered whole."""
+    """A decode step where ``model`` splits the SSM blocks on their stored
+    blocks all-gathers none of their weights over ``model``: no gathered
+    block has the shape of a weight block, and on ``(1, 2)`` (every group
+    of two is ``model``) ``mesh.stats`` counts fewer all-gathered bytes
+    than one layer's SSM weights.  Where the time mix's stored blocks are
+    not its heads (3 RWKV6 heads), each layer gathers each of its cut
+    weights once, and no other SSM weight: the channel mix splits."""
     world, m, arch, b, over = CASES[case]
     cfg, params = weights[_wkey(arch, over)]
     full = dict(tree_leaves(params))
     for res in (r[case] for r in groups(world)):
         blocks = _ssm_blocks(res)
         hits = [blocks[s] for s in res["model_gathers"] if s in blocks]
-        if case in SSM_WHOLE:      # every block cut over model, gathered
-            cut = {shape[1:] for path, shape in res["local_shapes"].items()
-                   if _ssm_leaf(path) and shape != tuple(full[path].shape)}
-            assert cut and cut <= set(res["model_gathers"]), hits
+        if case in SSM_NARROWED:
+            tmix = [shape[1:] for path, shape in res["local_shapes"].items()
+                    if path.startswith("/layers/tmix/")
+                    and shape != tuple(full[path].shape)]
+            got = Counter(s for s in res["model_gathers"] if s in blocks)
+            assert tmix and got == Counter(tmix * cfg.num_layers), hits
             continue
         assert hits == [], hits
         if world == m:
@@ -213,6 +238,21 @@ def test_ssm_weights_stay_on_their_ranks(groups, weights, case):
                         for path, t in full.items() if _ssm_leaf(path))
             gathered = res["stats"].get("all-gather@2", [0, 0, 0.0])[1]
             assert 0 < gathered < whole, (gathered, whole)
+
+
+@pytest.mark.parametrize("case", [c for c, (_, m, a, _, _) in CASES.items()
+                                  if m > 1 and a != "rwkv6_3b"])
+def test_decode_gathers_no_attention_weight(groups, case):
+    """No decode step all-gathers a block of ``wq``, ``wk``, ``wv``,
+    ``wo`` or their biases over ``model``, whatever the head count: the
+    heads split on the stored blocks, or the sequence-split cache's
+    combined output meets each rank's stored rows of ``wo``."""
+    world = CASES[case][0]
+    for res in (r[case] for r in groups(world)):
+        attn = {shape[1:]: path for path, shape in res["local_shapes"].items()
+                if path.startswith("/layers/attn/")}
+        hits = [attn[s] for s in res["model_gathers"] if s in attn]
+        assert attn and hits == [], hits
 
 
 def test_launchers_run_on_a_group(groups):

@@ -401,7 +401,7 @@ def test_meshes_of_more_than_one_device_raise():
     """A one-rank mesh is the one-device path: two steps bitwise equal to
     ``mesh=None``'s, and no collective.  A model axis of more than one
     rank that does not divide the KV heads builds a step whose attention
-    runs whole on every rank of it, with no collective at build time
+    runs on each rank's block of heads, with no collective at build time
     (tests/test_torch_train_mesh.py runs both kinds of mesh)."""
     from repro_torch.data.synthetic import batch_at, for_model
     cfg = get_config("qwen15_05b").reduced()

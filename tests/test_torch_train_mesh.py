@@ -4,13 +4,20 @@ one-device port and against the reference's own ``(2, 2)`` run.
 
 Two groups run once each (``tests/_torch_shard_group.py``, job
 ``lm_train``): two ranks on the meshes ``(2, 1)`` and ``(1, 2)``, four on
-``(2, 2)``, with reduced Qwen and reduced Danube (``sliding_window=4,
-attn_query_chunk=4, swa_banded=True``, so its 32-token sequences take the
-banded branch, with remat, and ``num_kv_heads=2`` so that a model axis of
-2 splits its KV heads; the plain ``reduced()`` has one, so case
-``1x2/danube-kv1`` runs its attention whole on both ranks), and reduced
-Qwen with the sequence-chunked cross-entropy (``loss_seq_chunk=8``) on
-``(1, 2)``; and the MoE configs, expert-parallel over ``model`` with the
+``(2, 2)``, and four on ``(1, 4)``, with reduced Qwen and reduced Danube
+(``sliding_window=4, attn_query_chunk=4, swa_banded=True``, so its
+32-token sequences take the banded branch, with remat, and
+``num_kv_heads=2`` so that a model axis of 2 splits its KV heads), and
+reduced Qwen with the sequence-chunked cross-entropy (``loss_seq_chunk=8``)
+on ``(1, 2)``.  Attention runs on each rank's block of heads
+(``layers.head_block``) where ``model`` does not divide them: case
+``1x2/danube-kv1`` (4 query heads, one KV head gathered whole over
+``model`` and narrowed), ``1x2/danube-h6kv3`` (6 / 3 heads: the blocks'
+query heads read KV heads 0-1 and 1-2, an uneven grouping, so K/V are
+repeated a query head before K7), ``1x4/danube-h3`` (3 / 1 heads on 4:
+blocks 1, 1, 1, 0, a rank without heads), and reduced Hymba with 5 / 1
+heads on ``(1, 2)`` and ``(2, 2)`` (blocks 3 + 2, every projection
+gathered whole and narrowed); and the MoE configs, expert-parallel over ``model`` with the
 router statistics over the whole batch: reduced OLMoE-1B-7B (8 experts,
 top-2, ``grouped``) on all three meshes, reduced DeepSeek-MoE-16B (shared
 experts) on ``(2, 2)``, and OLMoE with ``moe_dispatch="capacity"`` on
@@ -18,11 +25,12 @@ experts) on ``(2, 2)``, and OLMoE with ``moe_dispatch="capacity"`` on
 overflows the global capacity and the drops fall on the second data
 shard's rows.  The SSM families run tensor-parallel over ``model``:
 reduced RWKV6-3B (4 heads of 16, split 2 a rank on ``(1, 2)`` and ``(2,
-2)``; with ``d_model=48``, 3 heads that a model axis of 2 does not divide,
-case ``1x2/rwkv-h3`` runs both mixes whole on each rank) and reduced
-Hymba-1.5B (``sliding_window=4, attn_query_chunk=4, swa_banded=True``,
-remat; one KV head, so its attention runs whole on both ranks of
-``model`` while its mamba heads split their ``d_inner`` of 64).  Every
+2)``; with ``d_model=48``, 3 heads, cases ``1x2/rwkv-h3`` and
+``1x4/rwkv-h3`` run the time mix on the head blocks 2 + 1 and 1, 1, 1, 0,
+and the channel mix on ``d_ff / tp`` columns) and reduced Hymba-1.5B
+(``sliding_window=4, attn_query_chunk=4, swa_banded=True``, remat; its
+one KV head gathered whole over ``model``, its mamba heads split over
+their ``d_inner`` of 64).  Every
 leaf that is whole over ``model`` (the router, the norms, the SSM blocks'
 ``mu``, ``decay_base``, ``bonus_u``, ``wb``, ``wc``) is copied on every
 rank of it: each rank's own gradient of it is held to one device.  Every case
@@ -35,7 +43,8 @@ global.
 
 The reference's ``make_train_step`` runs on a ``(2, 2)`` mesh of four
 forced host devices in one subprocess (``tests/_train_mesh_reference.py``),
-started when the module starts, from the same weights and batches.
+started when the module starts, from the same weights and batches; its
+GSPMD pads Hymba's 5 heads where the port splits them 3 + 2.
 
 Tolerances are ``tests/test_torch_train.py``'s: losses 1e-5 relative,
 every gradient leaf within 2e-5 of its largest entry, parameters after two
@@ -76,24 +85,36 @@ ARCHS = {"qwen": ("qwen15_05b", {}),
              sliding_window=4, attn_query_chunk=4, swa_banded=True,
              num_kv_heads=2, remat=True)),
          "qwen-chunked-ce": ("qwen15_05b", dict(loss_seq_chunk=8)),
-         # one KV head: a model axis of 2 runs attention whole on each rank
+         # one KV head: a model axis of 2 gathers it whole and narrows it
          "danube-kv1": ("h2o_danube3_4b", dict(
              sliding_window=4, attn_query_chunk=4, swa_banded=True,
              remat=True)),
+         # 6 / 3 heads on 2: blocks of 3 query heads read KV heads 2 + 1
+         "danube-h6kv3": ("h2o_danube3_4b", dict(
+             num_heads=6, num_kv_heads=3, sliding_window=4,
+             attn_query_chunk=4, swa_banded=True, remat=True)),
+         # 3 / 1 heads on 4: blocks 1, 1, 1, 0
+         "danube-h3": ("h2o_danube3_4b", dict(
+             num_heads=3, sliding_window=4, attn_query_chunk=4,
+             swa_banded=True, remat=True)),
          "olmoe": ("olmoe_1b_7b", {}),
          "deepseek": ("deepseek_moe_16b", {}),
          "olmoe-capacity": ("olmoe_1b_7b", dict(moe_dispatch="capacity")),
          "rwkv": ("rwkv6_3b", {}),
-         # 3 heads: a model axis of 2 runs both mixes whole on each rank
+         # 3 heads: blocks 2 + 1 on a model axis of 2, 1, 1, 1, 0 on 4
          "rwkv-h3": ("rwkv6_3b", dict(d_model=48)),
          "hymba": ("hymba_15b", dict(
              sliding_window=4, attn_query_chunk=4, swa_banded=True,
-             remat=True))}
+             remat=True)),
+         # 5 / 1 heads: blocks 3 + 2 on a model axis of 2
+         "hymba-h5": ("hymba_15b", dict(
+             num_heads=5, sliding_window=4, attn_query_chunk=4,
+             swa_banded=True, remat=True))}
 #: arch keys whose router's column 0 is raised by this much
 ROUTER_RAISE = {"olmoe-capacity": 1.0}
 #: the archs the reference's (2, 2) subprocess runs
 REFERENCE_ARCHS = ("qwen", "danube", "olmoe", "deepseek", "olmoe-capacity",
-                   "hymba")
+                   "hymba", "hymba-h5")
 #: case -> (world, model axis, arch key); the checkpoint case (2x2/danube)
 #: stays the last of world 4
 CASES = {"2x1/olmoe": (2, 1, "olmoe"), "1x2/olmoe": (2, 2, "olmoe"),
@@ -104,9 +125,13 @@ CASES = {"2x1/olmoe": (2, 1, "olmoe"), "1x2/olmoe": (2, 2, "olmoe"),
          "1x2/danube": (2, 2, "danube"),
          "1x2/qwen-chunked-ce": (2, 2, "qwen-chunked-ce"),
          "1x2/danube-kv1": (2, 2, "danube-kv1"),
+         "1x2/danube-h6kv3": (2, 2, "danube-h6kv3"),
          "1x2/rwkv": (2, 2, "rwkv"), "1x2/rwkv-h3": (2, 2, "rwkv-h3"),
-         "1x2/hymba": (2, 2, "hymba"),
+         "1x2/hymba": (2, 2, "hymba"), "1x2/hymba-h5": (2, 2, "hymba-h5"),
          "2x2/rwkv": (4, 2, "rwkv"), "2x2/hymba": (4, 2, "hymba"),
+         "2x2/hymba-h5": (4, 2, "hymba-h5"),
+         "1x4/danube-h3": (4, 4, "danube-h3"),
+         "1x4/rwkv-h3": (4, 4, "rwkv-h3"),
          "2x2/qwen": (4, 2, "qwen"), "2x2/danube": (4, 2, "danube")}
 B, S = 4, 32
 
@@ -333,22 +358,48 @@ def test_matches_reference_2x2(groups, reference, key):
                                    atol=STEP_ATOL, err_msg=path)
 
 
-def test_heads_that_do_not_split_raise():
-    """Reduced Danube has one KV head: a model axis of 2 cannot split it
-    (the reference's GSPMD pads).  The port builds the step, whose
-    attention runs whole on both ranks (case ``1x2/danube-kv1`` holds it
-    to one device); ``local_heads`` still refuses to split such heads.  An
-    MoE step on a split batch builds; with ``moe_dispatch="sorted"`` it
-    raises, as the reference's train step does."""
-    from repro_torch.models.layers import heads_split, local_heads
+#: (heads, model axis) -> each rank's head count
+HEAD_BLOCKS = {(25, 4): [7, 7, 7, 4], (25, 16): [2] * 12 + [1, 0, 0, 0],
+               (14, 16): [1] * 14 + [0, 0],
+               (40, 16): [3] * 13 + [1, 0, 0], (32, 16): [2] * 16,
+               (3, 4): [1, 1, 1, 0]}
+
+
+@pytest.mark.parametrize("heads,tp", list(HEAD_BLOCKS))
+def test_head_blocks_cover_the_heads_in_order(heads, tp):
+    """``layers.head_block`` on each rank of a model axis of ``tp``: the
+    blocks cover ``[0, H)`` in rank order, none holds more than ``ceil(H
+    / tp)`` heads (GSPMD's padded block), and where ``tp`` divides ``H``
+    they are the even split."""
+    from repro_torch.models.layers import head_block, local_heads
+    cpu = torch.device("cpu")
+    blocks = [head_block(heads, LMMesh(("data", "model"), (
+        GraphMesh(1, 0, cpu), GraphMesh(tp, r, cpu)), 0, cpu))
+        for r in range(tp)]
+    assert blocks[0][0] == 0 and blocks[-1][1] == heads
+    assert all(a[1] == b[0] for a, b in zip(blocks, blocks[1:]))
+    assert all(0 <= stop - start <= -(-heads // tp)
+               for start, stop in blocks)
+    assert [stop - start for start, stop in blocks] == HEAD_BLOCKS[
+        (heads, tp)]
+    if heads % tp == 0:
+        n = heads // tp
+        assert blocks == [(r * n, (r + 1) * n) for r in range(tp)]
+    mesh = LMMesh(("data", "model"), (GraphMesh(1, 0, cpu),
+                                      GraphMesh(tp, tp - 1, cpu)), 0, cpu)
+    assert local_heads(heads, 1, mesh)[0] == HEAD_BLOCKS[(heads, tp)][-1]
+
+
+def test_split_batch_steps_build():
+    """Reduced Danube (one KV head) builds its step on a model axis of 2;
+    an MoE step on a split batch builds, and with
+    ``moe_dispatch="sorted"`` it raises, as the reference's train step
+    does."""
     cpu = torch.device("cpu")
     mesh = LMMesh(("data", "model"), (GraphMesh(1, 0, cpu),
                                       GraphMesh(2, 0, cpu)), 0, cpu)
-    cfg = get_config("h2o_danube3_4b").reduced()
-    assert not heads_split(cfg.num_heads, cfg.num_kv_heads, mesh)
-    assert callable(make_train_step(cfg, OptConfig(), mesh))
-    with pytest.raises(ValueError, match="1 KV heads do not split"):
-        local_heads(cfg.num_heads, cfg.num_kv_heads, mesh)
+    assert callable(make_train_step(get_config("h2o_danube3_4b").reduced(),
+                                    OptConfig(), mesh))
     moe = get_config("olmoe_1b_7b").reduced()
     split = LMMesh(("data", "model"), (GraphMesh(2, 0, cpu),
                                        GraphMesh(1, 0, cpu)), 0, cpu)
