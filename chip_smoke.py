@@ -83,9 +83,10 @@ Phases, in order; any failure exits non-zero:
 12. segmm parity — K5 and K6 at the MoE's ``w1`` shapes (``bm=128``) and at
    the forest's level-GEMM shapes (``bm=8``, ``K=N=128``) against their
    plain versions: bitwise on integer-valued operands, rtol 1e-4 on real
-   ones, and K6 bitwise equal to K5 on real ones; then at the ``w1``
-   shape with tokens and ``w1`` cast once to bf16 (the tensor-core
-   routine, each launch counted in ``segmm_mma``): bitwise on
+   ones, and K6 bitwise equal to K5 on real ones; then with the operands
+   cast once to bf16, at the ``w1`` shape (bm 128: the wgmma + TMA route,
+   each launch counted in ``segmm_wgmma``) and at the level GEMM's (bm 8:
+   the mma.sync route, counted in ``segmm_mma``): bitwise on
    integer-valued operands, every real entry within 2 K 2^-24 sum|ab| of
    the plain version (and rtol 1e-4), K6 bitwise equal to K5;
 13. moe     — counters zeroed; ``MoELayer`` (``moe_sorted``) at both
@@ -94,9 +95,11 @@ Phases, in order; any failure exits non-zero:
    capacity that drops nothing (rtol/atol 2e-3), ``aux`` equal, three
    segmm launches per call, none on the tensor cores; then the same
    layers with bf16 weights and input: outputs bitwise equal, three
-   tensor-core launches per call, within 3e-2 (of each entry plus 3e-2 of
-   the largest) of ``moe_capacity`` in bf16 with a capacity that drops
-   nothing (the two round to bf16 at different places); the counts are
+   launches per call on the wgmma route, within 3e-2 (of each entry plus
+   3e-2 of the largest) of ``moe_capacity`` in bf16 with a capacity that
+   drops nothing (the two round to bf16 at different places), and
+   ``moe_sorted`` on the same layer at ``bm = 64`` (three launches on the
+   mma.sync route, within 3e-2 of the bm 128 output); the counts are
    read, then the bf16 layer is timed beside the ``grouped`` dispatch on
    the same input (launches outside the counted run);
 14. wavefront — counters zeroed; ``treelstm_forest`` with a clip activation
@@ -114,11 +117,11 @@ Phases, in order; any failure exits non-zero:
    partials) against its plain version, beside its bound;
 15. times  — each kernel (CUDA events) beside its bound, its plain version
    and a PyTorch library call where one computes the same thing (K5/K6 at
-   the three segmm shapes, with their TFLOP/s, share of the f32 peak, or
-   of the 989 TFLOP/s bf16 peak for the bf16 ``w1`` shape, whose bound
-   takes flop at that peak and bytes at 3.35 TB/s, ratio to
-   ``torch.bmm`` (bf16 in and out for the bf16 shape) and K6's team and
-   CTA count); end-to-end times of the entry points;
+   the four segmm shapes, with their TFLOP/s, share of the f32 peak, or
+   of the 989 TFLOP/s bf16 peak for the bf16 shapes, whose bound takes
+   flop at that peak and bytes at 3.35 TB/s, ratio to ``torch.bmm``
+   (bf16 in and out for the bf16 shapes) and K6's geometry); end-to-end
+   times of the entry points;
 16. flash parity — K7 (``flash_swa``) against its plain version at
    H2O-Danube3-4B's attention shapes (B 1, S 8192, 32/8 heads of 120,
    window 4096) in float32 (atol/rtol 2e-5) and bfloat16 (rtol 1e-2, atol
@@ -250,10 +253,10 @@ Phases, in order; any failure exits non-zero:
    ``decode_step`` for each of ``grouped``, ``capacity`` and ``sorted``.
    Then ``prefill(mesh=)`` with ``sorted`` at full width, depth 2, S
    4,096, batch 2: K5 launched three times a layer on every rank, on its
-   own experts, every launch on the tensor cores (bf16 x bf16), the
-   logits within 2e-2 (of max(1, max|logit|)) of one device's prefill;
-   each rank's K5 and K6 at its own shape, bitwise equal, on the tensor
-   cores, K5 within the float32 sum-order bound of its plain version
+   own experts, every launch on the wgmma route (bf16 x bf16, bm 128),
+   the logits within 2e-2 (of max(1, max|logit|)) of one device's prefill;
+   each rank's K5 and K6 at its own shape, bitwise equal, on the wgmma
+   route, K5 within the float32 sum-order bound of its plain version
    (bitwise on integer-valued operands), timed beside ``torch.bmm`` on
    the same experts.  Four ranks on one card measure the path's
    overhead, not its scaling;
@@ -303,11 +306,12 @@ Phases, in order; any failure exits non-zero:
    this one's on the same ``(1, 4)`` mesh, printed side by side.  Four
    ranks on one card measure the path's overhead, not its scaling;
 30. the ``kernels:`` summary (K7's launches include every rank's in the
-   mesh, pipeline and ssm mesh phases, K5's the MoE mesh's; ``segmm_mma`` is a
-   route of K5 and K6, not a kernel of its own: it counts again the K5/K6
-   launches that ran on the tensor cores, its row timed as K5 at the bf16
-   ``w1`` shape), the JSON kernels line, and the final ``{"ok":
-   true, ...}`` line.
+   mesh, pipeline and ssm mesh phases, K5's the MoE mesh's;
+   ``segmm_wgmma`` and ``segmm_mma`` are routes of K5 and K6, not kernels
+   of their own: each counts again the K5/K6 launches that ran on it,
+   ``segmm_wgmma``'s row timed as K5 at the bf16 ``w1`` shape,
+   ``segmm_mma``'s at the bf16 level GEMM's), the JSON kernels line, and
+   the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -340,8 +344,11 @@ KERNELS = {   # counter name -> (CUDA source, the Pallas kernel it replaces)
     "segmented_matmul": (f"{SEGMM_CSRC}/segmm.cu", f"{SEGMM_REF}:50"),
     "segmented_matmul_chunked": (f"{SEGMM_CSRC}/segmm.cu",
                                  f"{SEGMM_REF}:128"),
-    # a route of K5 and K6, not a kernel: their launches on bf16 x bf16
-    # operands (the tensor-core routine), counted again here
+    # routes of K5 and K6, not kernels: their launches on bf16 x bf16
+    # operands, counted again here; wgmma + TMA where bm % 128 == 0 and
+    # K % 8 == N % 8 == 0, mma.sync otherwise (segmm.kernel.kernel_for)
+    "segmm_wgmma": (f"{SEGMM_CSRC}/segmm_wgmma.cu",
+                    f"{SEGMM_REF}:50, {SEGMM_REF}:128"),
     "segmm_mma": (f"{SEGMM_CSRC}/segmm.cu",
                   f"{SEGMM_REF}:50, {SEGMM_REF}:128"),
     "flash_swa": ("src/repro_torch/kernels/flash_swa/csrc/flash_swa_mma.cu",
@@ -1682,15 +1689,30 @@ def all_counts() -> dict:
 
 
 def segmm_launches() -> int:
-    """K5 and K6 launches (``segmm_mma`` counts some of them again)."""
+    """K5 and K6 launches (``segmm_wgmma`` and ``segmm_mma`` count some of
+    them again)."""
     from repro_torch.kernels.segmm import kernel as SK
     return (SK.LAUNCHES["segmented_matmul"]
             + SK.LAUNCHES["segmented_matmul_chunked"])
 
 
-def mma_launches() -> int:
+#: K5/K6's tensor-core routes, each counted on top of the kernel's launch.
+SEGMM_ROUTES = ("segmm_wgmma", "segmm_mma")
+
+
+def route_launches() -> dict:
+    """The launches of each tensor-core route of K5/K6 so far."""
     from repro_torch.kernels.segmm import kernel as SK
-    return SK.LAUNCHES["segmm_mma"]
+    return {r: SK.LAUNCHES[r] for r in SEGMM_ROUTES}
+
+
+def check_routes(name: str, before: dict, route: str, n: int) -> None:
+    """Since ``before``, ``n`` launches on ``route`` and none on the other
+    tensor-core route (``route`` "segmm_fma": none on either)."""
+    got = {r: v - before[r] for r, v in route_launches().items()}
+    want = {r: n if r == route else 0 for r in SEGMM_ROUTES}
+    check(got == want, f"{name}: tensor-core route launches {got}, expected "
+          f"{want}")
 
 
 def phase_moe_data(seed: int):
@@ -1831,7 +1853,8 @@ def forest_oracle(forest, node_offsets, h, roots) -> None:
 def segmm_cases(moe, forest, seed: int):
     """(name, tokens, expert ids, rhs, experts, bm) for the parity and
     timing of K5/K6: the MoE layer's w1 GEMM (skew 0 routing) and the
-    forest's level GEMM (integer forest inputs; real ones made here)."""
+    forest's level GEMM (integer forest inputs; real ones made here), in
+    float32 and in bf16 (one case for each tensor-core route)."""
     import torch
     from repro_torch.models.moe import _router
     from repro_torch.models.treelstm import init_treelstm
@@ -1850,10 +1873,14 @@ def segmm_cases(moe, forest, seed: int):
              cfg.num_experts, 128),
             ("forest level", tree_x, torch.from_numpy(forest["ops"]).cuda(),
              tree_w, 2, 8),
-            # tokens and w1 cast once to bf16: the tensor-core routine
+            # tokens and w1 cast once to bf16: the wgmma route (bm 128)
             ("moe w1 bf16", x2d[atom_token].to(torch.bfloat16),
              idx.reshape(-1), params["w1"].to(torch.bfloat16),
-             cfg.num_experts, 128)]
+             cfg.num_experts, 128),
+            # the level GEMM's shape in bf16 (bm 8): the mma.sync route
+            ("forest level bf16", tree_x.to(torch.bfloat16),
+             torch.from_numpy(forest["ops"]).cuda(),
+             tree_w.to(torch.bfloat16), 2, 8)]
 
 
 def sum_order_limit(lhs, rhs, block_expert, bm: int):
@@ -1888,25 +1915,26 @@ def compare_sum_order(name: str, got, want, limit) -> float:
 
 def phase_segmm_parity(cases):
     """K5 and K6 against their plain versions at both paths' shapes, and
-    on bf16 x bf16 operands at the MoE's ``w1`` shape (the tensor-core
-    routine: each launch counted in ``segmm_mma``, real data within the
-    float32 sum-order bound); returns the largest real-valued error of
-    the CUDA-core and of the tensor-core cases, and each case's
-    operands."""
+    on bf16 x bf16 operands at the MoE's ``w1`` shape (the wgmma route)
+    and at the level GEMM's (bm 8: the mma.sync route): each launch
+    counted on its route, real data within the float32 sum-order bound;
+    returns the largest real-valued error of each route
+    (``{"segmm_fma": ..., "segmm_wgmma": ..., "segmm_mma": ...}``) and
+    each case's operands."""
     from repro_torch.kernels.segmm import kernel as SK
     from repro_torch.kernels.segmm import ops as SO
 
-    errs, mma_errs, prepared = [], [], {}
+    errs, prepared = {}, {}
     for name, tokens, experts, rhs, num_experts, bm in cases:
-        mma = SK.kernel_for(tokens.dtype, rhs.dtype) == "segmm_mma"
-        case_errs = mma_errs if mma else errs
+        route = SK.kernel_for(tokens.dtype, rhs.dtype, bm, tokens.shape[1],
+                              rhs.shape[2])
+        mma = route != "segmm_fma"
+        case_errs = errs.setdefault(route, [])
 
         def counted_launch(fn):
-            before = mma_launches()
+            before = route_launches()
             out = fn()
-            check(mma_launches() == before + mma,
-                  f"segmm {name}: {mma_launches() - before} tensor-core "
-                  f"launches counted, expected {int(mma)}")
+            check_routes(f"segmm {name}", before, route, 1)
             return out
 
         def operands(t):
@@ -1954,9 +1982,8 @@ def phase_segmm_parity(cases):
             f"{str(tokens.dtype)[6:]}, M_pad {o5.lhs.shape[0]} "
             f"({o5.num_blocks} M-blocks of {bm}), rhs {tuple(rhs.shape)} "
             f"{str(rhs.dtype)[6:]}, K6 queues {o6.queue[1].numel()} x "
-            f"{o6.queue[2]} blocks, routine "
-            f"{SK.kernel_for(tokens.dtype, rhs.dtype)}")
-    return max(errs), max(mma_errs), prepared
+            f"{o6.queue[2]} blocks, route {route}")
+    return {r: max(e) for r, e in errs.items()}, prepared
 
 
 def phase_moe(moe, e2e):
@@ -2004,13 +2031,13 @@ def phase_moe(moe, e2e):
         log(f"moe skew {skew}: {len(outs)} runs bitwise equal, aux "
             f"{float(first_aux)!r}, max |sorted - capacity| {err!r} "
             f"(atol/rtol {MOE_TOL}); auto picked {auto}")
-    check(mma_launches() == 0, "moe: a float32 layer ran on the tensor "
-          "cores")
+    check(not any(route_launches().values()), "moe: a float32 layer ran on "
+          "the tensor cores")
     phase_moe_bf16(moe, e2e)
     counts = all_counts()
     log("moe launches: " + json.dumps(counts))
     for name in ("segmented_matmul", "segmented_matmul_chunked",
-                 "segmm_mma"):
+                 "segmm_wgmma", "segmm_mma"):
         check(counts[name] > 0, f"{name} was never launched by the MoE path")
     time_moe_bf16(moe)
     return counts
@@ -2019,11 +2046,14 @@ def phase_moe(moe, e2e):
 def phase_moe_bf16(moe, e2e):
     """The bf16 ``MoELayer`` (weights and input cast once to bf16) on every
     policy x path and "auto", both skews: outputs bitwise equal, three
-    tensor-core launches a call, within ``MOE_BF16_TOL`` of the capacity
-    dispatch in bf16 with a capacity that drops nothing."""
+    launches a call on the wgmma route (bm 128), within ``MOE_BF16_TOL``
+    of the capacity dispatch in bf16 with a capacity that drops nothing;
+    then ``moe_sorted`` at ``bm = 64`` on the same layer (a smaller
+    M-block: the mma.sync route), three launches there, within the same
+    tolerance of the bm 128 output."""
     import torch
     from repro_torch.kernels.segmm import ops as SO
-    from repro_torch.models.moe import moe_capacity
+    from repro_torch.models.moe import moe_capacity, moe_sorted
 
     cfg, x = moe["cfg"], moe["x"].to(torch.bfloat16)
     runs = [(s, p) for s in SO.SCHEDULE_POLICIES for p in ("native", "pure")]
@@ -2032,12 +2062,12 @@ def phase_moe_bf16(moe, e2e):
         outs = []
         for schedule, path in runs:
             layer.schedule, layer.execution_path = schedule, path
-            before, before_mma = segmm_launches(), mma_launches()
+            before, before_routes = segmm_launches(), route_launches()
             (out, aux), secs = wall_s(lambda: layer(x))
-            check(segmm_launches() == before + 3
-                  and mma_launches() == before_mma + 3,
-                  f"moe bf16 {schedule}/{path}: expected 3 segmm launches, "
-                  f"all on the tensor cores")
+            check(segmm_launches() == before + 3,
+                  f"moe bf16 {schedule}/{path}: expected 3 segmm launches")
+            check_routes(f"moe bf16 {schedule}/{path}", before_routes,
+                         "segmm_wgmma", 3)
             check(out.shape == x.shape and out.dtype == torch.bfloat16
                   and bool(torch.isfinite(out).all()),
                   f"moe bf16 {schedule}/{path}: bad output")
@@ -2063,9 +2093,27 @@ def phase_moe_bf16(moe, e2e):
               f"{MOE_BF16_TOL} x {scale} (max abs err {err})")
         del cap, diff
         log(f"moe bf16 skew {skew}: {len(outs)} runs bitwise equal, 3 "
-            f"tensor-core launches each, max |sorted - capacity| {err!r} "
+            f"wgmma-route launches each, max |sorted - capacity| {err!r} "
             f"(largest |capacity| {scale!r}; rtol/atol {MOE_BF16_TOL} of "
             f"it)")
+        # the same layer at bm 64: K5/K6 on the mma.sync route
+        before, before_routes = segmm_launches(), route_launches()
+        small, _ = moe_sorted(layer.params(), x, num_experts=cfg.num_experts,
+                              top_k=cfg.top_k, bm=64, schedule="chunked_lpt",
+                              execution_path="native")
+        check(segmm_launches() == before + 3, f"moe bf16 skew {skew} bm 64: "
+              f"expected 3 segmm launches")
+        check_routes(f"moe bf16 skew {skew} bm 64", before_routes,
+                     "segmm_mma", 3)
+        diff = (small.float() - first.float()).abs()
+        scale = float(first.float().abs().max())
+        over = int((diff > MOE_BF16_TOL * first.float().abs()
+                    + MOE_BF16_TOL * scale).sum())
+        check(over == 0, f"moe bf16 skew {skew}: bm 64 differs from bm 128 "
+              f"in {over} entries beyond rtol/atol {MOE_BF16_TOL}")
+        log(f"moe bf16 skew {skew}: moe_sorted at bm 64, 3 mma.sync-route "
+            f"launches, max |bm 64 - bm 128| {float(diff.max())!r}")
+        del small, diff
 
 
 def time_moe_bf16(moe):
@@ -2307,8 +2355,10 @@ def time_segmm_case(name: str, tokens, experts, rhs, bm: int, o5, o6):
     weights, with the achieved TFLOP/s (on the routed rows), its share of
     the peak of the routine's type (67 TFLOP/s float32 on the CUDA cores,
     989 TFLOP/s bf16 on the tensor cores), the ratio to ``torch.bmm``,
-    K6's team and CTA count and the zero fill of K6's output (its wrapper
-    zeroes ``[M_pad, N]`` float32 before the launch; K5's does not).
+    K6's geometry (its team and CTAs, or on the wgmma route its items and
+    persistent CTAs) and the time of a whole-output zero fill of
+    ``[M_pad, N]`` float32 (what K6's wrapper did before its zero pass
+    over the unpopped M-blocks; a port with the older wrapper still does).
     Returns ``{kernel: row}``."""
     from repro_torch.launch import roofline as RL
     import torch
@@ -2336,7 +2386,16 @@ def time_segmm_case(name: str, tokens, experts, rhs, bm: int, o5, o6):
     library = cuda_ms(lambda: torch.bmm(lhs_b, rhs_g), iters=3)
     del rhs_g
     chunks, counts, cmax = o6.queue
-    team, ctas = SK.queues_grid(int(counts.numel()), cmax, bm, n_dim)
+    if hasattr(SK, "wgmma_items") and SK.kernel_for(
+            tokens.dtype, rhs.dtype, bm, k_dim, n_dim) == "segmm_wgmma":
+        items = SK.wgmma_items(int(counts.numel()) * cmax, bm, n_dim)
+        geometry = (f"; K6 {items} items (queue slots x 128-row sub-tiles "
+                    f"x 256-column N tiles) on "
+                    f"{SK.wgmma_grid(items, SK._sms(o6.lhs.device))} "
+                    f"persistent CTAs, route segmm_wgmma")
+    else:
+        team, ctas = SK.queues_grid(int(counts.numel()), cmax, bm, n_dim)
+        geometry = f"; K6 team {team}, {ctas} CTAs"
     zero_ms = cuda_ms(lambda: torch.zeros((o6.lhs.shape[0], n_dim),
                                           dtype=torch.float32,
                                           device=o6.lhs.device), iters=5)
@@ -2357,14 +2416,13 @@ def time_segmm_case(name: str, tokens, experts, rhs, bm: int, o5, o6):
                 if mma else "")
     rows = {}
     for kname, (kernel, plain) in calls.items():
-        row = dict(ms=cuda_ms(kernel, iters=5),
+        row = dict(ms=cuda_ms(kernel, iters=20),
                    plain_ms=cuda_ms(plain, iters=3), library_ms=library,
                    bound_ms=bound, bound_by=bound_by, flops=flops,
                    bytes=nbytes)
         tflops = flops / row["ms"] / 1e9
-        geometry = (f"; K6 team {team}, {ctas} CTAs, its output's zero "
-                    f"fill {zero_ms:.4f} ms of it"
-                    if kname == "segmented_matmul_chunked" else "")
+        notes = (f"{geometry}; a whole-output zero fill {zero_ms:.4f} ms"
+                 if kname == "segmented_matmul_chunked" else "")
         log(f"time {kname} [{name}]: {row['ms']:.4f} ms, "
             f"{tflops:.2f} TFLOP/s ({100 * tflops / (peak / 1e12):.1f}% of "
             f"the {peak / 1e12:.0f} TFLOP/s {peak_name} peak), "
@@ -2373,7 +2431,7 @@ def time_segmm_case(name: str, tokens, experts, rhs, bm: int, o5, o6):
             f"{bound_flops:.4f} ms, {nbytes} bytes at 3.35 TB/s = "
             f"{bound_bytes:.4f} ms; plain {row['plain_ms']:.3f} ms; "
             f"torch.bmm {library:.4f} ms{bmm_note}; {busy} experts hold "
-            f"tokens{geometry})")
+            f"tokens{notes})")
         rows[kname] = row
     return rows
 
@@ -2381,15 +2439,18 @@ def time_segmm_case(name: str, tokens, experts, rhs, bm: int, o5, o6):
 def phase_segmm_times(cases, prepared):
     """:func:`time_segmm_case` at every case's shape; the MoE w1 case's K5
     and K6 rows fill the kernels line for the CUDA-core routine, the bf16
-    case's K5 row for the tensor-core one (``segmm_mma``)."""
+    w1 case's K5 row for the wgmma route (``segmm_wgmma``), the bf16
+    level GEMM's K5 row for the mma.sync route (``segmm_mma``)."""
     rows = {}
     for name, tokens, experts, _, _, bm in cases:
         o5, o6, rhs = prepared[name]
         case = time_segmm_case(name, tokens, experts, rhs, bm, o5, o6)
         if name == "moe w1":
             rows.update(case)
-        elif name == "moe w1 bf16":
+        elif name == "forest level bf16":
             rows["segmm_mma"] = case["segmented_matmul"]
+        elif name == "moe w1 bf16":
+            rows["segmm_wgmma"] = case["segmented_matmul"]
             k5, k6 = (case[k]["ms"] for k in ("segmented_matmul",
                                                "segmented_matmul_chunked"))
             f32 = rows["segmented_matmul"]["ms"]
@@ -3817,10 +3878,10 @@ def arch_cfg(name: str, layers: int = None, **over):
 
 def counted(fn):
     """``(fn(), the segmm launches it made)``: K5, K6 and those of them
-    that ran on the tensor cores."""
+    that ran on each tensor-core route."""
     before = {k: all_counts()[k] for k in ("segmented_matmul",
                                            "segmented_matmul_chunked",
-                                           "segmm_mma")}
+                                           *SEGMM_ROUTES)}
     out = fn()
     return out, {k: all_counts()[k] - v for k, v in before.items()}
 
@@ -3936,7 +3997,7 @@ def moe_decode(mesh, seed: int) -> dict:
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
         MOE_SERVE_BATCH, MOE_SERVE_CHECK)).astype(np.int32)).to(dev)
     launches = {"segmented_matmul": 0, "segmented_matmul_chunked": 0,
-                "segmm_mma": 0}
+                "segmm_wgmma": 0, "segmm_mma": 0}
     worst = {}
     for dispatch in ("grouped", "capacity", "sorted"):
         cut = arch_cfg(MOE_MESH_ARCH, 2, moe_dispatch=dispatch)
@@ -3968,8 +4029,9 @@ def moe_decode(mesh, seed: int) -> dict:
         del params, full, plain, cache
     check(launches["segmented_matmul"] > 0, f"moe mesh decode rank "
           f"{mesh.rank}: the sorted dispatch launched no K5")
-    check(launches["segmm_mma"] == 0, f"moe mesh decode rank {mesh.rank}: "
-          f"a float32 step ran K5/K6 on the tensor cores")
+    check(launches["segmm_mma"] == launches["segmm_wgmma"] == 0,
+          f"moe mesh decode rank {mesh.rank}: a float32 step ran K5/K6 on "
+          f"the tensor cores")
     out.update(decode_f32_worst=worst, decode_launches=launches)
     return out
 
@@ -4017,10 +4079,10 @@ def moe_prefill(mesh, seed: int) -> dict:
     check(n["segmented_matmul"] == 3 * cfg.num_layers,
           f"moe mesh prefill rank {mesh.rank}: K5 launches {n}, expected "
           f"{3 * cfg.num_layers} (three grouped GEMMs a layer)")
-    check(n["segmm_mma"] == n["segmented_matmul"],
-          f"moe mesh prefill rank {mesh.rank}: {n['segmm_mma']} of the "
-          f"{n['segmented_matmul']} K5 launches ran on the tensor cores "
-          f"(bf16 weights and activations: all should)")
+    check(n["segmm_wgmma"] == n["segmented_matmul"] and n["segmm_mma"] == 0,
+          f"moe mesh prefill rank {mesh.rank}: {n['segmm_wgmma']} of the "
+          f"{n['segmented_matmul']} K5 launches ran on the wgmma route "
+          f"(bf16 weights and activations, bm 128: all should)")
     out = dict(prefill_s=secs, prefill_launches=n,
                prefill_calls=mesh.stats.calls, prefill_bytes=
                mesh.stats.bytes, prefill_coll_s=mesh.stats.seconds)
@@ -4062,8 +4124,9 @@ def moe_prefill(mesh, seed: int) -> dict:
         SK.segmented_matmul_chunked(o6.lhs, w1, o6.block_expert, chunks,
                                     counts, bm=128,
                                     max_chunks=cmax)[o6.rows]))
-    check(n["segmm_mma"] == 2, f"moe mesh rank {mesh.rank}: K5/K6 at the "
-          f"rank's bf16 shape did not run on the tensor cores ({n})")
+    check(n["segmm_wgmma"] == 2 and n["segmm_mma"] == 0,
+          f"moe mesh rank {mesh.rank}: K5/K6 at the rank's bf16 shape did "
+          f"not run on the wgmma route ({n})")
     check(torch.equal(y5, y6), f"moe mesh rank {mesh.rank}: K6 differs from "
           f"K5 at the rank's shape")
     # K5 against its plain version on these bf16 operands: within the
@@ -4225,7 +4288,7 @@ def phase_moe_mesh(seed: int) -> tuple:
     e2e[f"moe decode step[mesh 2x2, {MOE_MESH_ARCH}, bf16, batch "
         f"{MOE_SERVE_BATCH}]"] = dec["decode_ms"] / 1e3
     totals = {"segmented_matmul": 0, "segmented_matmul_chunked": 0,
-              "segmm_mma": 0}
+              "segmm_wgmma": 0, "segmm_mma": 0}
     for r, res in enumerate(ranks):
         pre = res["moe_prefill"]
         for k in totals:
@@ -5068,7 +5131,7 @@ def run(args, t_start: float) -> int:
     moe = phase_moe_data(args.seed)
     forest = phase_forest_data(args.seed)
     cases = segmm_cases(moe, forest, args.seed)
-    err, mma_err, prepared = phase_segmm_parity(cases)
+    route_errs, prepared = phase_segmm_parity(cases)
     e2e2 = {}
     moe_counts = phase_moe(moe, e2e2)
     wave_counts, forest_dag = phase_wavefront(forest, args.seed, e2e2)
@@ -5076,7 +5139,7 @@ def run(args, t_start: float) -> int:
     del forest_dag
     seg_rows = phase_segmm_times(cases, prepared)
     for name, row in seg_rows.items():
-        row["err"] = mma_err if name == "segmm_mma" else err
+        row["err"] = route_errs.get(name, route_errs["segmm_fma"])
         rows[name] = row
         launches[name] = moe_counts[name] + wave_counts[name]
         log(f"main-path launches {name}: {moe_counts[name]} (moe) + "

@@ -1,5 +1,6 @@
 // Segmented (grouped) matmul kernels: K5 (a grid over groups of M-blocks)
-// and K6 (a team of CTAs draining each physical queue of M-blocks).
+// and K6 (a team of CTAs draining each physical queue of M-blocks), and the
+// zero pass of K6's wrapper.
 //
 // Replaces: src/repro/kernels/segmm/kernel.py::segmented_matmul
 // (_segmm_kernel) and ::segmented_matmul_chunked (_segmm_chunk_kernel).
@@ -7,10 +8,12 @@
 // Both compute out[i*bm:(i+1)*bm, :] = lhs[i*bm:(i+1)*bm, :] @
 // rhs[block_expert[i]] in float32: lhs [M_pad, K] and rhs [E, K, N] are
 // float32 or bfloat16, out is float32 [M_pad, N].  An M-block whose expert
-// id lies outside [0, E) gets zero rows.  The pair of operand types picks
-// one of two tile routines, which both kernels share:
+// id lies outside [0, E) gets zero rows.  kernel.py::kernel_for picks the
+// route from the operand types, bm, K and N alone; this file holds two of
+// the three tile routines, which both kernels share:
 //
-// * bf16 x bf16: tile_product_mma(), on the tensor cores;
+// * bf16 x bf16 where bm % 128, K % 8 or N % 8 rules out the wgmma route
+//   (segmm_wgmma.cu): tile_product_mma(), mma.sync on the tensor cores;
 // * float32 x float32, float32 x bf16, bf16 x float32: tile_product(), on
 //   the CUDA cores (bf16 operands converted exactly to float32 on the way
 //   into shared memory, as the reference does).
@@ -61,9 +64,11 @@
 // row-major [K, N] slice.  Each thread stores its accumulators straight
 // to out (float2 where N % 8 == 0), columns below N only.  Bound on the
 // H100: the bytes (bf16 operands read once, the float32 output written
-// once, at 3.35 TB/s) at the MoE widths, close to the operations (989
-// TFLOP/s bf16); mma.sync issued from registers reaches only part of that
-// peak, which wgmma and TMA would raise (ROADMAP, queue 2).
+// once, at 3.35 TB/s), close to the operations (989 TFLOP/s bf16);
+// mma.sync issued from registers reaches only part of that peak (228
+// TFLOP/s at the MoE's w1 shape), which is why the shapes the MoE runs
+// (bm 128) go to segmm_wgmma.cu; this routine keeps the level GEMM's bm 8
+// and the shapes TMA cannot take.
 //
 // Work: a CTA takes a group of up to `group` M-blocks (group = 128 / bm
 // for bm < 128, else 1) and one N tile; consecutive group entries with the
@@ -73,9 +78,10 @@
 // lhs block run side by side and read it from L2.  K6: the physical queues
 // keep the schedule's contents and pop order; queue p and N tile n are
 // drained by a team of ceil(max_chunks / group) CTAs, CTA t popping slot
-// group t and writing each of its M-blocks in place.  The wrapper zeroes
-// the output beforehand, so the rows of M-blocks no queue pops stay zero.
-// Grids are 1-D.
+// group t and writing each of its M-blocks in place.  The output comes
+// uninitialised: segmm_zero_unpopped (K6's wrapper, on this file's routes)
+// marks the popped M-blocks and zeroes the rows of the others, instead of
+// a fill of the whole output.  Grids are 1-D.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -655,7 +661,73 @@ int dispatch(int lhs_dtype, int rhs_dtype, int vec, const Params& p,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K6's wrapper on this file's routes, before the launch: popped[b] = 1
+// for every M-block b that some queue pops (slot s < min(counts[q],
+// max_chunks), id in [0, num_blocks)); popped comes zeroed.
+__global__ void mark_popped(const int* __restrict__ chunks,
+                            const int* __restrict__ counts, int num_physical,
+                            int max_chunks, int num_blocks,
+                            unsigned char* __restrict__ popped) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(num_physical) * max_chunks) return;
+  const int q = static_cast<int>(i / max_chunks);
+  const int s = static_cast<int>(i % max_chunks);
+  if (s >= min(counts[q], max_chunks)) return;
+  const int b = chunks[i];
+  if (b >= 0 && b < num_blocks) popped[b] = 1;
+}
+
+// One CTA per M-block: zero its bm x N rows (contiguous in out) unless it
+// is popped.  kVec: bm * N % 4 == 0 (float4 stores).
+template <bool kVec>
+__global__ void zero_unpopped(const unsigned char* __restrict__ popped,
+                              long long block_elems,
+                              float* __restrict__ out) {
+  if (popped[blockIdx.x]) return;
+  float* rows = out + static_cast<size_t>(blockIdx.x) * block_elems;
+  if constexpr (kVec) {
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (long long i = threadIdx.x; i < block_elems / 4; i += blockDim.x)
+      reinterpret_cast<float4*>(rows)[i] = zero;
+  } else {
+    for (long long i = threadIdx.x; i < block_elems; i += blockDim.x)
+      rows[i] = 0.0f;
+  }
+}
+
 }  // namespace
+
+// The rows of the M-blocks that no queue pops, zeroed (K6 writes the
+// others): a memset of `popped` (num_blocks bytes of scratch), the marks,
+// one CTA a block.  Grids are 1-D; out is 16-byte aligned.  (The wgmma
+// route zeroes them inside its kernel: segmm_wgmma.cu.)
+extern "C" int segmm_zero_unpopped(const int* chunks, const int* counts,
+                                   int num_physical, int max_chunks,
+                                   int num_blocks, int bm, int N,
+                                   unsigned char* popped, float* out,
+                                   cudaStream_t stream) {
+  if (num_blocks <= 0) return 0;
+  cudaError_t err = cudaMemsetAsync(popped, 0, num_blocks, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long slots = static_cast<long long>(num_physical) * max_chunks;
+  if (slots > 0) {
+    const long long grid = (slots + 255) / 256;
+    if (grid > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    mark_popped<<<static_cast<unsigned>(grid), 256, 0, stream>>>(
+        chunks, counts, num_physical, max_chunks, num_blocks, popped);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long block_elems = static_cast<long long>(bm) * N;
+  if (block_elems % 4 == 0)
+    zero_unpopped<true><<<num_blocks, 256, 0, stream>>>(popped, block_elems,
+                                                        out);
+  else
+    zero_unpopped<false><<<num_blocks, 256, 0, stream>>>(popped,
+                                                         block_elems, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // vec = 1 when the operands allow 16-byte copies: for the CUDA-core
 // instances K % 4 == 0, N % 4 == 0 and every float32 operand 16-byte
@@ -672,7 +744,8 @@ extern "C" int segmm_blocks(const void* lhs, int lhs_dtype, const void* rhs,
   return dispatch(lhs_dtype, rhs_dtype, vec, p, groups * n_tiles, stream);
 }
 
-// K6 writes only the popped M-blocks: `out` comes zeroed.  Grid: num_physical
+// K6 writes only the popped M-blocks (segmm_zero_unpopped zeroes the
+// others' rows).  Grid: num_physical
 // x ceil(max_chunks / group) x n_tiles CTAs, one slot group each.
 extern "C" int segmm_queues(const void* lhs, int lhs_dtype, const void* rhs,
                             int rhs_dtype, const int* block_expert,

@@ -1,23 +1,39 @@
 """Wrappers of the two segmented-matmul CUDA kernels, each beside its plain
 version.
 
-============================  ==================  ==========================
-launch counter                CUDA source         replaces (reference)
-============================  ==================  ==========================
-``segmented_matmul``          ``csrc/segmm.cu``   ``segmented_matmul``
-``segmented_matmul_chunked``  ``csrc/segmm.cu``   ``segmented_matmul_chunked``
-``segmm_mma``                 ``csrc/segmm.cu``   (either, bf16 x bf16)
-============================  ==================  ==========================
+============================  =========================  ==================
+launch counter                CUDA source                replaces
+============================  =========================  ==================
+``segmented_matmul``          ``csrc/segmm.cu``,         K5, the reference's
+                              ``csrc/segmm_wgmma.cu``    ``segmented_matmul``
+``segmented_matmul_chunked``  the same                   K6, its
+                                                         ``..._chunked``
+``segmm_wgmma``               ``csrc/segmm_wgmma.cu``    (either: a route)
+``segmm_mma``                 ``csrc/segmm.cu``          (either: a route)
+============================  =========================  ==================
 
-Both kernels share one tile routine for each pair of operand types, and
-the pair alone picks it (:func:`kernel_for`): bf16 x bf16 runs on the
-tensor cores (``mma.sync`` m16n8k16, f32 accumulators) and adds one to
-``segmm_mma`` on top of the kernel's own counter; float32 x float32 and
-the mixed pairs run a float32 FMA chain on the CUDA cores.  On the H100
-the bf16 pair is bound by its bytes (bf16 operands read once, the f32
-output written once) at the MoE widths, and the CUDA-core pairs by
-float32 operations (67 TFLOP/s); ``csrc/segmm.cu``'s header says what each
-design does about its bound.
+Each kernel runs one of three tile routines, and :func:`kernel_for` picks
+it from the operand types, ``bm``, ``K`` and ``N`` alone, never from an
+address, so that K5 and K6 (and every policy and path of
+``grouped_matmul``) run the same routine on the same shapes:
+
+* ``"segmm_wgmma"``: bf16 x bf16 with ``bm`` a multiple of
+  :data:`WGMMA_TILE_M` (128), ``K % 8 == 0`` and ``N % 8 == 0`` (TMA's
+  16-byte strides).  Hopper's own tensor-core path (``wgmma`` fed by TMA,
+  a persistent CTA an SM; ``csrc/segmm_wgmma.cu``).  An operand whose base
+  is not 16-byte aligned is first copied into an aligned tensor (counted
+  in :data:`COPIES`);
+* ``"segmm_mma"``: bf16 x bf16 otherwise (the level GEMM's ``bm = 8``):
+  ``mma.sync`` m16n8k16 on the tensor cores (``csrc/segmm.cu``);
+* ``"segmm_fma"``: float32 x float32 and the mixed pairs: a float32 FMA
+  chain on the CUDA cores (``csrc/segmm.cu``).
+
+A launch on a tensor-core route adds one to that route's counter on top of
+the kernel's own.  On the H100 the bf16 pair is bound by its bytes (bf16
+operands read once, the f32 output written once) at the MoE widths, close
+to its operations at 989 TFLOP/s; the CUDA-core pairs by float32 operations
+(67 TFLOP/s).  The headers of ``csrc/segmm_wgmma.cu`` and ``csrc/segmm.cu``
+say what each design does about its bound.
 
 A wrapper checks its operands as the reference does (``m_pad % bm == 0``,
 ``bk = min(bk, K)``, ``bn = min(bn, N)``, ``K % bk == 0``, ``N % bn ==
@@ -30,22 +46,29 @@ output, launches nothing and adds the kernel's flop and bytes to
 ``bn``/``bk`` only have to pass the checks: the kernels pick their own
 tiles.  Every output element is one ascending-k float32 chain whatever
 ``bm``, ``bn``, ``bk``, the policy and the queue are: of FMAs on the CUDA
-cores, of ``mma`` k-steps of 16 exact bf16 products on the tensor cores.
-So K6 is bitwise equal to K5 for every pair of types, and the tensor-core
-result differs from the plain version (``torch.matmul`` in float32) only
-in the order of its float32 additions: within ``2 K 2**-24 sum|a b|``,
-bitwise on integer-valued operands.
+cores, of k-steps of 16 exact bf16 products on the tensor cores.  So K6 is
+bitwise equal to K5 on every route, and a tensor-core result differs from
+the plain version (``torch.matmul`` in float32) only in the order of its
+float32 additions: within ``2 K 2**-24 sum|a b|``, bitwise on
+integer-valued operands.
 
-Launch geometry (plain Python, so the CPU tests reach it): both kernels
-compute 128 x 128 output tiles from groups of :func:`block_group` M-blocks.
-K5 runs one CTA per (group of consecutive M-blocks, N tile).  K6 keeps the
-schedule's physical queues and their pop order, and drains each (queue, N
-tile) pair with a team of CTAs (:func:`queue_team`), CTA ``t`` popping slot
-group ``t`` (:func:`queue_pops`), so that the queues fill the card instead
-of running one CTA each.
+Launch geometry (plain Python, so the CPU tests reach it).  On the
+``segmm.cu`` routes both kernels compute 128 x 128 output tiles from groups
+of :func:`block_group` M-blocks: K5 one CTA per (group of consecutive
+M-blocks, N tile), K6 a team of CTAs per (queue, N tile) (:func:`queue_team`),
+CTA ``t`` popping slot group ``t`` (:func:`queue_pops`).  On the wgmma route
+a work item is a 128 x 256 output tile, and ``min(items, SMs)`` persistent
+CTAs walk them (:func:`wgmma_items`, :func:`wgmma_item`); K6's items are
+every slot of every queue, N tile fastest, so each queue is walked in its
+pop order.  The queues and their order are the schedule's, untouched.
 
 An M-block whose expert id lies outside ``[0, E)`` gets zero rows, and so
-do the rows of M-blocks that no queue pops in the chunked variant.
+do the rows of M-blocks that no queue pops in the chunked variant.  K6's
+output is allocated uninitialised and only those rows are zeroed, not the
+whole output (:func:`popped_mask` in plain Python): on the wgmma route by
+the K6 kernel's idle producer warps, on the others by a pass in
+``csrc/segmm.cu`` before the launch (``segmm_zero_unpopped``: a memset of
+a flag per M-block, the marks, one CTA a block).
 """
 from __future__ import annotations
 
@@ -59,13 +82,19 @@ from repro_torch.kernels import _build, tally
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 
 #: Every CUDA source of this package, built in parallel by :func:`build`.
-SOURCES = (CSRC / "segmm.cu",)
+SOURCES = (CSRC / "segmm.cu", CSRC / "segmm_wgmma.cu")
 
 #: Kernel launches since the last :func:`reset_launch_counts`:
 #: ``segmented_matmul`` (K5) and ``segmented_matmul_chunked`` (K6) count
-#: every launch, ``segmm_mma`` those of either that ran on the tensor cores.
+#: every launch, ``segmm_wgmma`` and ``segmm_mma`` those of either that
+#: ran on that tensor-core route.
 LAUNCHES = {"segmented_matmul": 0, "segmented_matmul_chunked": 0,
-            "segmm_mma": 0}
+            "segmm_wgmma": 0, "segmm_mma": 0}
+
+#: Operands the wgmma route copied into a 16-byte aligned tensor first
+#: (TMA reads from 16-byte aligned bases only), since the last
+#: :func:`reset_launch_counts`.
+COPIES = {"segmm_wgmma": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -81,12 +110,21 @@ _SIGNATURES = {
                      _P],
     "segmm_queues": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _P, _P],
+    "segmm_zero_unpopped": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "segmm_wgmma_blocks": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "segmm_wgmma_queues": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P, _P],
 }
+
+#: The source of each C entry point that ``segmm.cu`` does not hold.
+_SOURCE_OF = {"segmm_wgmma_blocks": "segmm_wgmma.cu",
+              "segmm_wgmma_queues": "segmm_wgmma.cu"}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counter in (LAUNCHES, COPIES):
+        for name in counter:
+            counter[name] = 0
 
 
 def build() -> dict:
@@ -95,7 +133,8 @@ def build() -> dict:
 
 
 def _fn(name: str):
-    fn = getattr(_build.load(CSRC / "segmm.cu"), name)
+    source = CSRC / _SOURCE_OF.get(name, "segmm.cu")
+    fn = getattr(_build.load(source), name)
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
@@ -158,25 +197,100 @@ def queue_pops(cta: int, *, num_physical: int, n_tiles: int, counts,
     return queue, tile, slots
 
 
-def kernel_for(lhs_dtype: torch.dtype, rhs_dtype: torch.dtype) -> str:
-    """The tile routine that K5 and K6 run on operands of these types:
-    ``"segmm_mma"`` (bf16 x bf16: the tensor cores, counted in
-    :data:`LAUNCHES` under that name) or ``"segmm_fma"`` (float32 x
-    float32 and the mixed pairs: the CUDA cores' float32 FMA chain).  The
-    pair of types alone decides."""
-    if lhs_dtype == torch.bfloat16 and rhs_dtype == torch.bfloat16:
-        return "segmm_mma"
-    return "segmm_fma"
+def kernel_for(lhs_dtype: torch.dtype, rhs_dtype: torch.dtype, bm: int,
+               k_dim: int, n_dim: int) -> str:
+    """The tile routine that K5 and K6 run on these operands, from their
+    types, ``bm``, ``K`` and ``N`` alone: ``"segmm_wgmma"`` (bf16 x bf16,
+    ``bm % WGMMA_TILE_M == 0``, ``K % 8 == 0``, ``N % 8 == 0``: wgmma fed
+    by TMA), ``"segmm_mma"`` (bf16 x bf16 otherwise: ``mma.sync``), both
+    counted in :data:`LAUNCHES` under their names, or ``"segmm_fma"``
+    (float32 x float32 and the mixed pairs: the CUDA cores' float32 FMA
+    chain).  No address takes part: an unaligned operand of the wgmma route
+    is copied, not sent elsewhere."""
+    if lhs_dtype != torch.bfloat16 or rhs_dtype != torch.bfloat16:
+        return "segmm_fma"
+    if bm % WGMMA_TILE_M == 0 and k_dim % 8 == 0 and n_dim % 8 == 0:
+        return "segmm_wgmma"
+    return "segmm_mma"
 
 
-def _vector_copies(lhs: torch.Tensor, rhs: torch.Tensor) -> int:
-    """1 when the kernel may copy its operands in 16-byte chunks, else 0
-    (smaller loads and copies, scalar stores: the same arithmetic).  The
-    CUDA-core routine copies quads and stores float4s: K % 4 == 0, N % 4
-    == 0 and every float32 operand 16-byte aligned.  The tensor-core
-    routine copies 8 bf16 at a time and stores float2s: K % 8 == 0, N % 8
-    == 0 and both operands 16-byte aligned."""
-    if kernel_for(lhs.dtype, rhs.dtype) == "segmm_mma":
+def _route(lhs: torch.Tensor, rhs: torch.Tensor, bm: int) -> str:
+    return kernel_for(lhs.dtype, rhs.dtype, bm, lhs.shape[1], rhs.shape[2])
+
+
+#: The wgmma route's work item: 128 rows of one M-block x 256 columns
+#: (``kTM`` x ``kTN`` in ``csrc/segmm_wgmma.cu``).
+WGMMA_TILE_M = 128
+WGMMA_TILE_N = 256
+
+
+def wgmma_items(num_slots: int, bm: int, n_dim: int) -> int:
+    """Work items of the wgmma route: (slot, 128-row sub-tile of its
+    M-block, 256-column N tile) for each slot; K5's slots are its
+    M-blocks, K6's the ``P * max_chunks`` slots of its queues (popped or
+    not)."""
+    return (num_slots * (bm // WGMMA_TILE_M)
+            * -(-n_dim // WGMMA_TILE_N))
+
+
+def wgmma_grid(items: int, sms: int) -> int:
+    """Persistent CTAs of the wgmma route: one an SM, never more than the
+    items; CTA ``c`` walks items ``c, c + grid, c + 2 grid, ...``."""
+    return min(items, sms)
+
+
+def wgmma_item(item: int, *, bm: int, n_dim: int, num_blocks: int,
+               queue=None):
+    """``(queue, slot, M-block, first row, first column)`` of the wgmma
+    route's work item ``item``, or ``None`` when it is no item: the same
+    decode as ``segmm_wgmma.cu``'s.  The N tile is the fastest index, then
+    the 128-row sub-tile of the M-block, then (K5, ``queue=None``) the
+    M-block, or (K6, ``queue=(chunks, counts, max_chunks)``, plain lists)
+    the queue ``q`` and, slowest, the slot ``s``: an item only when ``s <
+    min(counts[q], max_chunks)`` and its id lies in ``[0, num_blocks)``.
+    K5's queue and slot are ``None``."""
+    n_tiles = -(-n_dim // WGMMA_TILE_N)
+    sub_tiles = bm // WGMMA_TILE_M
+    n0 = item % n_tiles * WGMMA_TILE_N
+    rest = item // n_tiles
+    sub, rest = rest % sub_tiles, rest // sub_tiles
+    q = s = None
+    block = rest
+    if queue is not None:
+        chunks, counts, max_chunks = queue
+        q, s = rest % len(counts), rest // len(counts)
+        count = min(int(counts[q]), max_chunks)
+        block = int(chunks[q * max_chunks + s]) if s < count else -1
+    if not 0 <= block < num_blocks:
+        return None
+    return q, s, block, block * bm + sub * WGMMA_TILE_M, n0
+
+
+def popped_mask(block_chunks_flat: torch.Tensor, chunk_counts: torch.Tensor,
+                max_chunks: int, num_blocks: int) -> torch.Tensor:
+    """bool ``[num_blocks]``: the M-blocks some queue pops (slot ``s <
+    min(chunk_counts[q], max_chunks)``, id in ``[0, num_blocks)``), as K6
+    marks them on the card (``segmm_zero_unpopped`` in ``csrc/segmm.cu``,
+    ``zero_unpopped`` in ``csrc/segmm_wgmma.cu``) before it zeroes the
+    others' rows."""
+    mask = torch.zeros(num_blocks, dtype=torch.bool)
+    slots = block_chunks_flat.long().cpu().view(-1, max_chunks)
+    counts = chunk_counts.long().cpu().clamp(max=max_chunks)
+    for q in range(slots.shape[0]):
+        for b in slots[q, :int(counts[q])].tolist():
+            if 0 <= b < num_blocks:
+                mask[b] = True
+    return mask
+
+
+def _vector_copies(lhs: torch.Tensor, rhs: torch.Tensor, bm: int) -> int:
+    """1 when a ``segmm.cu`` routine may copy its operands in 16-byte
+    chunks, else 0 (smaller loads and copies, scalar stores: the same
+    arithmetic).  The CUDA-core routine copies quads and stores float4s: K
+    % 4 == 0, N % 4 == 0 and every float32 operand 16-byte aligned.  The
+    ``mma.sync`` routine copies 8 bf16 at a time and stores float2s: K % 8
+    == 0, N % 8 == 0 and both operands 16-byte aligned."""
+    if _route(lhs, rhs, bm) == "segmm_mma":
         aligned = lhs.data_ptr() % 16 == 0 and rhs.data_ptr() % 16 == 0
         return int(lhs.shape[1] % 8 == 0 and rhs.shape[2] % 8 == 0
                    and aligned)
@@ -185,11 +299,27 @@ def _vector_copies(lhs: torch.Tensor, rhs: torch.Tensor) -> int:
     return int(lhs.shape[1] % 4 == 0 and rhs.shape[2] % 4 == 0 and aligned)
 
 
-def _count(name: str, lhs: torch.Tensor, rhs: torch.Tensor) -> None:
-    """One launch of ``name``, and of ``segmm_mma`` on the tensor cores."""
+def _count(name: str, lhs: torch.Tensor, rhs: torch.Tensor, bm: int) -> None:
+    """One launch of ``name``, and of its route on the tensor cores."""
     LAUNCHES[name] += 1
-    if kernel_for(lhs.dtype, rhs.dtype) == "segmm_mma":
-        LAUNCHES["segmm_mma"] += 1
+    route = _route(lhs, rhs, bm)
+    if route in LAUNCHES:
+        LAUNCHES[route] += 1
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it at a 16-byte aligned base (counted in
+    :data:`COPIES`): TMA reads from aligned bases only.  The caller holds
+    the copy until the launch is queued (its memory is then free for work
+    queued after it on the stream)."""
+    if t.data_ptr() % 16 == 0:
+        return t
+    COPIES["segmm_wgmma"] += 1
+    return t.clone()
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _int32(x: int, what: str) -> int:
@@ -292,15 +422,24 @@ def segmented_matmul(lhs_padded: torch.Tensor, rhs: torch.Tensor,
     out = torch.empty((m_pad, n_dim), dtype=torch.float32,
                       device=lhs_padded.device)
     _int32(m_pad, "M_pad")
-    _grid(blocks_grid(m_pad // bm, bm, n_dim))
-    _launch("segmm_blocks", lhs_padded.data_ptr(),
-            _DTYPE_CODE[lhs_padded.dtype], rhs.data_ptr(),
-            _DTYPE_CODE[rhs.dtype], block_expert.data_ptr(),
-            _int32(m_pad // bm, "M-blocks"), _int32(bm, "bm"),
-            block_group(bm), _int32(k_dim, "K"), _int32(n_dim, "N"),
-            _int32(e_dim, "E"), _vector_copies(lhs_padded, rhs),
-            out.data_ptr())
-    _count("segmented_matmul", lhs_padded, rhs)
+    nblk = _int32(m_pad // bm, "M-blocks")
+    if _route(lhs_padded, rhs, bm) == "segmm_wgmma":
+        items = wgmma_items(nblk, bm, n_dim)
+        lhs_a, rhs_a = _aligned(lhs_padded), _aligned(rhs)   # held: launch
+        _launch("segmm_wgmma_blocks", lhs_a.data_ptr(), rhs_a.data_ptr(),
+                block_expert.data_ptr(), nblk,
+                _int32(bm, "bm"), _int32(k_dim, "K"), _int32(n_dim, "N"),
+                _int32(e_dim, "E"),
+                wgmma_grid(items, _sms(lhs_padded.device)), out.data_ptr())
+    else:
+        _grid(blocks_grid(nblk, bm, n_dim))
+        _launch("segmm_blocks", lhs_padded.data_ptr(),
+                _DTYPE_CODE[lhs_padded.dtype], rhs.data_ptr(),
+                _DTYPE_CODE[rhs.dtype], block_expert.data_ptr(), nblk,
+                _int32(bm, "bm"), block_group(bm), _int32(k_dim, "K"),
+                _int32(n_dim, "N"), _int32(e_dim, "E"),
+                _vector_copies(lhs_padded, rhs, bm), out.data_ptr())
+    _count("segmented_matmul", lhs_padded, rhs, bm)
     return out
 
 
@@ -361,8 +500,10 @@ def segmented_matmul_chunked(lhs_padded: torch.Tensor, rhs: torch.Tensor,
     lengths.  Output rows are in the original M-block order, bitwise equal
     to :func:`segmented_matmul` for every M-block some queue pops, zero
     elsewhere.  On the card each queue is drained by a team of CTAs per N
-    tile (:func:`queues_grid`); the queues and their order are the
-    schedule's, untouched.
+    tile (:func:`queues_grid`), or on the wgmma route walked in pop order
+    by the persistent CTAs (:func:`wgmma_item`); the queues and their
+    order are the schedule's, untouched.  The output starts uninitialised:
+    a pass on the card zeroes the rows of the M-blocks no queue pops.
     """
     m_pad, k_dim, n_dim, e_dim = _check_operands(lhs_padded, rhs,
                                                  block_expert, bm, bn, bk)
@@ -375,21 +516,32 @@ def segmented_matmul_chunked(lhs_padded: torch.Tensor, rhs: torch.Tensor,
         return segmented_matmul_chunked_plain(
             lhs_padded, rhs, block_expert, block_chunks_flat, chunk_counts,
             bm=bm, bn=bn, bk=bk, max_chunks=max_chunks)
-    out = torch.zeros((m_pad, n_dim), dtype=torch.float32,
+    out = torch.empty((m_pad, n_dim), dtype=torch.float32,
                       device=lhs_padded.device)
     _int32(m_pad, "M_pad")
-    _grid(queues_grid(num_physical, max_chunks, bm, n_dim)[1])
-    _launch("segmm_queues", lhs_padded.data_ptr(),
-            _DTYPE_CODE[lhs_padded.dtype], rhs.data_ptr(),
-            _DTYPE_CODE[rhs.dtype], block_expert.data_ptr(),
-            block_chunks_flat.data_ptr(), chunk_counts.data_ptr(),
-            _int32(num_physical, "num_physical"),
-            _int32(max_chunks, "max_chunks"),
-            _int32(m_pad // bm, "M-blocks"), _int32(bm, "bm"),
-            block_group(bm), _int32(k_dim, "K"), _int32(n_dim, "N"),
-            _int32(e_dim, "E"), _vector_copies(lhs_padded, rhs),
-            out.data_ptr())
-    _count("segmented_matmul_chunked", lhs_padded, rhs)
+    nblk = _int32(m_pad // bm, "M-blocks")
+    queue_args = (block_chunks_flat.data_ptr(), chunk_counts.data_ptr(),
+                  _int32(num_physical, "num_physical"),
+                  _int32(max_chunks, "max_chunks"), nblk)
+    if _route(lhs_padded, rhs, bm) == "segmm_wgmma":   # zeroes them itself
+        items = wgmma_items(num_physical * max_chunks, bm, n_dim)
+        lhs_a, rhs_a = _aligned(lhs_padded), _aligned(rhs)   # held: launch
+        _launch("segmm_wgmma_queues", lhs_a.data_ptr(), rhs_a.data_ptr(),
+                block_expert.data_ptr(), *queue_args, _int32(bm, "bm"),
+                _int32(k_dim, "K"), _int32(n_dim, "N"), _int32(e_dim, "E"),
+                wgmma_grid(items, _sms(lhs_padded.device)), out.data_ptr())
+    else:
+        popped = torch.empty(nblk, dtype=torch.uint8, device=out.device)
+        _launch("segmm_zero_unpopped", *queue_args, _int32(bm, "bm"),
+                _int32(n_dim, "N"), popped.data_ptr(), out.data_ptr())
+        _grid(queues_grid(num_physical, max_chunks, bm, n_dim)[1])
+        _launch("segmm_queues", lhs_padded.data_ptr(),
+                _DTYPE_CODE[lhs_padded.dtype], rhs.data_ptr(),
+                _DTYPE_CODE[rhs.dtype], block_expert.data_ptr(),
+                *queue_args, _int32(bm, "bm"), block_group(bm),
+                _int32(k_dim, "K"), _int32(n_dim, "N"), _int32(e_dim, "E"),
+                _vector_copies(lhs_padded, rhs, bm), out.data_ptr())
+    _count("segmented_matmul_chunked", lhs_padded, rhs, bm)
     return out
 
 

@@ -18,9 +18,10 @@ float64 sum within 1e-5 of each segment's absolute sum, bitwise on
 integer-valued data, and bitwise across runs.  The segmented-matmul
 kernels (K5/K6) are held to their plain versions bitwise on integer-valued
 operands and to rtol 1e-4 on real ones (5e-2 for bfloat16), and to each
-other bitwise; on bf16 x bf16 operands (the tensor-core routine, counted
-in ``segmm_mma``) every real entry also lies within ``2 K 2**-24 sum|ab|``
-of the plain version, the float32 sum-order bound.  The banded sliding-window attention kernels (K7) are held
+other bitwise; on bf16 x bf16 operands (the tensor-core routes, counted
+in ``segmm_wgmma`` or ``segmm_mma`` as ``kernel_for`` names them) every
+real entry also lies within ``2 K 2**-24 sum|ab|`` of the plain version,
+the float32 sum-order bound.  The banded sliding-window attention kernels (K7) are held
 to their plain version at atol/rtol 2e-5 in float32, and for bfloat16
 inputs to the float32 plain version on the same bf16-rounded inputs at
 rtol 1e-2, atol 1e-4: the error there is the bf16 rounding of the output
@@ -857,7 +858,23 @@ def test_segmm_bf16(card):
             torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2)
 
 
-def test_segmm_zero_rows_for_bad_experts_and_unpopped_blocks(card):
+@pytest.fixture
+def nan_empty(monkeypatch):
+    """``torch.empty`` that fills floating-point tensors with NaN while the
+    test runs, so that an output row no kernel writes shows as NaN (the
+    wrappers allocate their outputs with ``torch.empty``)."""
+    real = torch.empty
+
+    def empty(*args, **kwargs):
+        t = real(*args, **kwargs)
+        if t.is_floating_point():
+            t.fill_(float("nan"))
+        return t
+    monkeypatch.setattr(torch, "empty", empty)
+
+
+def test_segmm_zero_rows_for_bad_experts_and_unpopped_blocks(card,
+                                                             nan_empty):
     lhs = torch.ones((4 * 8, 8), device=card)
     rhs = torch.ones((2, 8, 8), device=card)
     be = torch.tensor([0, 1, 5, -1], dtype=torch.int32, device=card)
@@ -868,6 +885,7 @@ def test_segmm_zero_rows_for_bad_experts_and_unpopped_blocks(card):
         torch.tensor([1], dtype=torch.int32, device=card), bm=8,
         max_chunks=2)
     assert (chunked[8:16] == 8).all() and (chunked[:8] == 0).all()
+    assert (chunked[16:] == 0).all()
 
 
 # K6's team geometry and K5's tile edges: K6 is held bitwise to K5 on the
@@ -893,19 +911,26 @@ def _sum_order_bound(lhs, rhs, be, **kw):
 
 
 def _check_k5_k6(lhs, rhs, be, chunks, counts, cmax, bm, integer, tag):
-    """K5 and K6 against their plain versions and each other; a bf16 x
-    bf16 launch counted on the tensor cores (``segmm_mma``), any other on
-    the CUDA cores only; two K5 runs bitwise equal."""
+    """K5 and K6 against their plain versions and each other; a launch
+    counted on its tensor-core route (``segmm_wgmma`` or ``segmm_mma``, as
+    ``kernel_for`` names it) and on no other, a CUDA-core one on neither;
+    two K5 runs bitwise equal."""
     k_dim, n_dim = lhs.shape[1], rhs.shape[2]
     kw = dict(bm=bm, bn=n_dim, bk=k_dim)
-    mma = SK.kernel_for(lhs.dtype, rhs.dtype) == "segmm_mma"
-    before = SK.LAUNCHES["segmm_mma"]
+    route = SK.kernel_for(lhs.dtype, rhs.dtype, bm, k_dim, n_dim)
+    mma = route != "segmm_fma"
+    routes = ("segmm_wgmma", "segmm_mma")
+    before = {r: SK.LAUNCHES[r] for r in routes}
+
+    def launched(times):
+        return {r: SK.LAUNCHES[r] - before[r] for r in routes} == {
+            r: times if r == route else 0 for r in routes}
     k5 = SK.segmented_matmul(lhs, rhs, be, **kw)
-    assert SK.LAUNCHES["segmm_mma"] == before + mma, f"{tag}: K5 route"
+    assert launched(1), f"{tag}: K5 route"
     plain = SK.segmented_matmul_plain(lhs, rhs, be, **kw)
     k6 = SK.segmented_matmul_chunked(lhs, rhs, be, chunks, counts,
                                      max_chunks=cmax, **kw)
-    assert SK.LAUNCHES["segmm_mma"] == before + 2 * mma, f"{tag}: K6 route"
+    assert launched(2), f"{tag}: K6 route"
     plain6 = SK.segmented_matmul_chunked_plain(lhs, rhs, be, chunks, counts,
                                                max_chunks=cmax, **kw)
     again = SK.segmented_matmul(lhs, rhs, be, **kw)
@@ -1086,7 +1111,8 @@ def test_segmm_bf16_more_than_65535_m_blocks(card):
                  "bf16 70,001 M-blocks")
 
 
-def test_segmm_bf16_zero_rows_for_bad_experts_and_unpopped_blocks(card):
+def test_segmm_bf16_zero_rows_for_bad_experts_and_unpopped_blocks(
+        card, nan_empty):
     lhs = torch.ones((4 * 8, 8), device=card, dtype=torch.bfloat16)
     rhs = torch.ones((2, 8, 8), device=card, dtype=torch.bfloat16)
     be = torch.tensor([0, 1, 5, -1], dtype=torch.int32, device=card)
@@ -1106,6 +1132,7 @@ def test_segmm_bf16_zero_rows_for_bad_experts_and_unpopped_blocks(card):
 def test_segmm_cuda_core_pairs_never_count_the_tensor_cores(card):
     gen = torch.Generator().manual_seed(9)
     before = SK.LAUNCHES["segmm_mma"]
+    before_wgmma = SK.LAUNCHES["segmm_wgmma"]
     for lt, rt in ((torch.float32, torch.float32),
                    (torch.float32, torch.bfloat16),
                    (torch.bfloat16, torch.float32)):
@@ -1116,9 +1143,143 @@ def test_segmm_cuda_core_pairs_never_count_the_tensor_cores(card):
         SK.segmented_matmul_chunked(
             lhs, rhs, be, torch.arange(4, dtype=torch.int32, device=card),
             torch.tensor([4], dtype=torch.int32, device=card), max_chunks=4)
-        assert SK.kernel_for(lt, rt) == "segmm_fma"
+        assert SK.kernel_for(lt, rt, 128, 64, 128) == "segmm_fma"
     torch.cuda.synchronize()
     assert SK.LAUNCHES["segmm_mma"] == before
+    assert SK.LAUNCHES["segmm_wgmma"] == before_wgmma
+
+
+# The wgmma route (bf16 x bf16, bm a multiple of 128, K % 8 == N % 8 ==
+# 0): bitwise on integer-valued operands, within the float32 sum-order
+# bound on real ones, K6 bitwise equal to K5, through K tails and N tails
+# (TMA's zero fill), two 128-row sub-tiles an M-block, bad experts, and K6
+# queues with junk past their ends.
+
+#: (bm, K, N, E, queue lengths, max_chunks, unpopped M-blocks)
+WGMMA_CASES = [
+    (128, 64, 256, 3, [3, 2, 0, 4], 4, 2),       # one N tile, one k slice
+    (128, 72, 24, 4, [5, 5, 5], 5, 3),           # K tail of 8; N in one box
+    (128, 136, 264, 3, [6, 1, 6, 6], 6, 1),      # N tail of 8 columns
+    (256, 200, 520, 5, [4, 4], 4, 2),            # two sub-tiles, 3 N tiles
+    (128, 2048, 1024, 8, [10] * 4, 10, 4),       # the MoE's w1 widths
+    (128, 1024, 2048, 8, [5] * 8, 6, 3),         # and w2's
+]
+
+
+#: The MoE's widths: integer-valued here (bitwise); real-valued data at K
+#: 1,024-2,048 has entries near zero that no two float32 summation orders
+#: hold to ``_check_k5_k6``'s elementwise rtol 1e-4, so it is held to the
+#: sum-order bound in ``test_segmm_wgmma_real_at_moe_widths``.
+WGMMA_ROUTE_CASES = ([(c, i) for c in WGMMA_CASES[:4] for i in (True, False)]
+                     + [(c, True) for c in WGMMA_CASES[4:]])
+
+
+@pytest.mark.parametrize("case,integer", WGMMA_ROUTE_CASES, ids=str)
+def test_segmm_wgmma_route(card, case, integer):
+    bm, k_dim, n_dim, e_dim, lengths, cmax, spare = case
+    assert SK.kernel_for(torch.bfloat16, torch.bfloat16, bm, k_dim,
+                         n_dim) == "segmm_wgmma"
+    gen = torch.Generator().manual_seed(k_dim + n_dim + integer)
+    nblk = sum(lengths) + spare
+    lhs = _draw((nblk * bm, k_dim), integer, gen, card, **BF16)
+    rhs = _draw((e_dim, k_dim, n_dim), integer, gen, card, **BF16)
+    be = torch.randint(-1, e_dim + 1, (nblk,), generator=gen,
+                       dtype=torch.int32).to(card)
+    chunks, counts = _queues(lengths, cmax, nblk, gen, card)
+    _check_k5_k6(lhs, rhs, be, chunks, counts, cmax, bm, integer,
+                 f"wgmma {case}")
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES[4:], ids=str)
+def test_segmm_wgmma_real_at_moe_widths(card, case):
+    """Real-valued bf16 operands at the MoE's widths: every entry within
+    ``2 K 2**-24 sum|ab|`` of the plain version and within 1e-4 of its
+    largest entry (``chip_smoke``'s parity gates), K6 bitwise equal to K5
+    on the popped M-blocks and zero elsewhere."""
+    bm, k_dim, n_dim, e_dim, lengths, cmax, spare = case
+    gen = torch.Generator().manual_seed(k_dim + n_dim)
+    nblk = sum(lengths) + spare
+    lhs = _draw((nblk * bm, k_dim), False, gen, card, **BF16)
+    rhs = _draw((e_dim, k_dim, n_dim), False, gen, card, **BF16)
+    be = torch.randint(0, e_dim, (nblk,), generator=gen,
+                       dtype=torch.int32).to(card)
+    chunks, counts = _queues(lengths, cmax, nblk, gen, card)
+    kw = dict(bm=bm, bn=n_dim, bk=k_dim)
+    before = SK.LAUNCHES["segmm_wgmma"]
+    k5 = SK.segmented_matmul(lhs, rhs, be, **kw)
+    k6 = SK.segmented_matmul_chunked(lhs, rhs, be, chunks, counts,
+                                     max_chunks=cmax, **kw)
+    assert SK.LAUNCHES["segmm_wgmma"] == before + 2
+    plain = SK.segmented_matmul_plain(lhs, rhs, be, **kw)
+    err = (k5 - plain).abs()
+    assert not bool((err > _sum_order_bound(lhs, rhs, be, **kw)).any())
+    assert float(err.max()) <= 1e-4 * float(plain.abs().max())
+    popped = SK.popped_mask(chunks, counts, cmax, nblk).to(card)
+    rows = popped.repeat_interleave(bm)
+    assert_bitwise(k6[rows], k5[rows], "K6 vs K5")
+    assert bool((k6[~rows] == 0).all())
+
+
+def test_segmm_wgmma_zero_rows_for_bad_experts_and_unpopped_blocks(
+        card, nan_empty):
+    bm, k_dim, n_dim = 128, 64, 264
+    lhs = torch.ones((4 * bm, k_dim), device=card, dtype=torch.bfloat16)
+    rhs = torch.ones((2, k_dim, n_dim), device=card, dtype=torch.bfloat16)
+    be = torch.tensor([0, 1, 5, -1], dtype=torch.int32, device=card)
+    before = SK.LAUNCHES["segmm_wgmma"]
+    out = SK.segmented_matmul(lhs, rhs, be, bm=bm, bn=n_dim)
+    assert_bitwise(out, SK.segmented_matmul_plain(lhs, rhs, be, bm=bm,
+                                                  bn=n_dim))
+    assert (out[:2 * bm] == k_dim).all() and (out[2 * bm:] == 0).all()
+    chunked = SK.segmented_matmul_chunked(
+        lhs, rhs, be, torch.tensor([1, 2, 9, 0], dtype=torch.int32,
+                                   device=card),
+        torch.tensor([3], dtype=torch.int32, device=card), bm=bm,
+        bn=n_dim, max_chunks=4)
+    # pops 1 (expert 1), 2 (expert 5: zero rows) and 9 (no M-block)
+    assert (chunked[bm:2 * bm] == k_dim).all()
+    assert (chunked[:bm] == 0).all() and (chunked[2 * bm:] == 0).all()
+    assert SK.LAUNCHES["segmm_wgmma"] == before + 2
+
+
+def test_segmm_wgmma_copies_unaligned_operands(card):
+    gen = torch.Generator().manual_seed(11)
+    bm, k_dim, n_dim, nblk = 128, 64, 128, 6
+    lhs = _draw((nblk * bm, k_dim), True, gen, card, **BF16)
+    rhs = _draw((3, k_dim, n_dim), True, gen, card, **BF16)
+    be = torch.tensor([0, 2, 1, 1, 0, 2], dtype=torch.int32, device=card)
+    want = SK.segmented_matmul(lhs, rhs, be, bm=bm)
+    shifted = [torch.empty(t.numel() + 1, dtype=t.dtype, device=card)[1:]
+               for t in (lhs, rhs)]
+    for dst, src in zip(shifted, (lhs, rhs)):
+        dst.copy_(src.reshape(-1))
+    lhs_off, rhs_off = (t.view(src.shape) for t, src in
+                        zip(shifted, (lhs, rhs)))
+    assert lhs_off.data_ptr() % 16 and rhs_off.data_ptr() % 16
+    copies, launches = SK.COPIES["segmm_wgmma"], SK.LAUNCHES["segmm_wgmma"]
+    got = SK.segmented_matmul(lhs_off, rhs_off, be, bm=bm)
+    assert SK.COPIES["segmm_wgmma"] == copies + 2
+    assert SK.LAUNCHES["segmm_wgmma"] == launches + 1
+    assert_bitwise(got, want)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("bm", [8, 64])
+def test_segmm_mma_route_below_128_rows(card, bm, integer):
+    """bf16 x bf16 at a bm that is no multiple of 128 stays on the
+    ``mma.sync`` route, whatever K and N."""
+    k_dim, n_dim = 64, 256
+    assert SK.kernel_for(torch.bfloat16, torch.bfloat16, bm, k_dim,
+                         n_dim) == "segmm_mma"
+    gen = torch.Generator().manual_seed(bm + integer)
+    nblk = 40
+    lhs = _draw((nblk * bm, k_dim), integer, gen, card, **BF16)
+    rhs = _draw((3, k_dim, n_dim), integer, gen, card, **BF16)
+    be = torch.randint(0, 3, (nblk,), generator=gen,
+                       dtype=torch.int32).to(card)
+    chunks, counts = _queues([10, 10, 10], 12, nblk, gen, card)
+    _check_k5_k6(lhs, rhs, be, chunks, counts, 12, bm, integer,
+                 f"mma.sync bm={bm}")
 
 
 #: bf16 MoE layer (sorted) against the capacity dispatch in bf16 with a
@@ -1148,7 +1309,9 @@ def test_moe_sorted_bf16_on_the_tensor_cores(card):
         before = dict(SK.LAUNCHES)
         out, aux2 = M.moe_sorted(params, x, schedule=schedule,
                                  execution_path=path, **kw)
-        assert SK.LAUNCHES["segmm_mma"] == before["segmm_mma"] + 3
+        # bm 128, K and N multiples of 8: all three on the wgmma route
+        assert SK.LAUNCHES["segmm_wgmma"] == before["segmm_wgmma"] + 3
+        assert SK.LAUNCHES["segmm_mma"] == before["segmm_mma"]
         assert (SK.LAUNCHES["segmented_matmul"]
                 + SK.LAUNCHES["segmented_matmul_chunked"]
                 == before["segmented_matmul"]

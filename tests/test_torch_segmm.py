@@ -254,14 +254,44 @@ class TestBf16Operands:
     """The bf16 x bf16 pair: the tensor-core routine on the card, the same
     plain versions and ``meta`` tally on the CPU."""
 
-    @pytest.mark.parametrize("lhs_dtype,rhs_dtype,route", [
-        (torch.bfloat16, torch.bfloat16, "segmm_mma"),
-        (torch.float32, torch.float32, "segmm_fma"),
-        (torch.float32, torch.bfloat16, "segmm_fma"),
-        (torch.bfloat16, torch.float32, "segmm_fma")])
-    def test_kernel_for(self, lhs_dtype, rhs_dtype, route):
-        assert TK.kernel_for(lhs_dtype, rhs_dtype) == route
+    @pytest.mark.parametrize("lhs_dtype,rhs_dtype,bm,k_dim,n_dim,route", [
+        # bf16 x bf16, bm a multiple of 128, K % 8 == N % 8 == 0: wgmma
+        (torch.bfloat16, torch.bfloat16, 128, 2048, 1024, "segmm_wgmma"),
+        (torch.bfloat16, torch.bfloat16, 256, 72, 24, "segmm_wgmma"),
+        (torch.bfloat16, torch.bfloat16, 128, 8, 8, "segmm_wgmma"),
+        # bf16 x bf16 otherwise: mma.sync
+        (torch.bfloat16, torch.bfloat16, 64, 2048, 1024, "segmm_mma"),
+        (torch.bfloat16, torch.bfloat16, 8, 128, 128, "segmm_mma"),
+        (torch.bfloat16, torch.bfloat16, 100, 64, 64, "segmm_mma"),
+        (torch.bfloat16, torch.bfloat16, 128, 72, 100, "segmm_mma"),
+        (torch.bfloat16, torch.bfloat16, 128, 3, 24, "segmm_mma"),
+        # float32 and the mixed pairs: the CUDA cores, whatever the shape
+        (torch.float32, torch.float32, 128, 2048, 1024, "segmm_fma"),
+        (torch.float32, torch.bfloat16, 128, 2048, 1024, "segmm_fma"),
+        (torch.bfloat16, torch.float32, 128, 2048, 1024, "segmm_fma"),
+        (torch.float32, torch.float32, 8, 128, 128, "segmm_fma")])
+    def test_kernel_for(self, lhs_dtype, rhs_dtype, bm, k_dim, n_dim,
+                        route):
+        assert TK.kernel_for(lhs_dtype, rhs_dtype, bm, k_dim, n_dim) == route
         assert route == "segmm_fma" or route in TK.LAUNCHES
+
+    @pytest.mark.parametrize("bm,k_dim,n_dim", [(128, 64, 256), (8, 32, 48),
+                                                (128, 72, 100)])
+    def test_alignment_never_changes_the_route(self, bm, k_dim, n_dim):
+        """The route is a function of types and shape: a view whose base
+        is 2 bytes off (as the card tests' misaligned operands are) gets
+        the route of an aligned tensor, so K6 = K5 bitwise whatever the
+        addresses."""
+        lhs = torch.zeros(2 * bm * k_dim + 1, dtype=torch.bfloat16)
+        rhs = torch.zeros(3 * k_dim * n_dim + 1, dtype=torch.bfloat16)
+        aligned = (lhs[:-1].view(2 * bm, k_dim),
+                   rhs[:-1].view(3, k_dim, n_dim))
+        shifted = (lhs[1:].view(2 * bm, k_dim),
+                   rhs[1:].view(3, k_dim, n_dim))
+        assert shifted[0].data_ptr() % 16 != aligned[0].data_ptr() % 16
+        assert (TK._route(*aligned, bm) == TK._route(*shifted, bm)
+                == TK.kernel_for(torch.bfloat16, torch.bfloat16, bm, k_dim,
+                                 n_dim))
 
     @pytest.mark.parametrize("chunked", [False, True])
     def test_meta_tally_of_the_bf16_pair(self, chunked):
@@ -357,6 +387,10 @@ def test_build_key_covers_every_included_header(tmp_path):
     assert _build.library_path(source) in keys
     real = pathlib.Path(TK.__file__).parent / "csrc" / "segmm.cu"
     assert "mma_sync.cuh" in [h.name for h in _build.included_headers(real)]
+    wgmma = pathlib.Path(TK.__file__).parent / "csrc" / "segmm_wgmma.cu"
+    assert wgmma in TK.SOURCES
+    assert {"tma.cuh", "wgmma.cuh"} <= {
+        h.name for h in _build.included_headers(wgmma)}
 
 
 def test_grouped_matmul_oracle_matches_reference(ref):
@@ -443,3 +477,100 @@ class TestLaunchGeometry:
     def test_queues_grid(self, num_physical, cmax, bm, n_dim, team, ctas):
         assert TK.queue_team(cmax, bm) == team
         assert TK.queues_grid(num_physical, cmax, bm, n_dim) == (team, ctas)
+
+
+class TestWgmmaGeometry:
+    """The wgmma route's work decode (plain Python, mirrored by
+    ``csrc/segmm_wgmma.cu``) and K6's popped-block mask, at the MoE's
+    shapes and on queues with junk past their ends."""
+
+    @staticmethod
+    def _walk(items, sms, decode):
+        """Every CTA's items in its walk order: ``[(cta, item, decoded)]``
+        for the items that are work."""
+        grid = TK.wgmma_grid(items, sms)
+        assert grid == min(items, sms)
+        seen = []
+        for cta in range(grid):
+            for item in range(cta, items, grid):
+                got = decode(item)
+                if got is not None:
+                    seen.append((cta, item, got))
+        return seen
+
+    @pytest.mark.parametrize("sms", [132, 58])
+    @pytest.mark.parametrize("shape", ["moe_w1", "moe_w2"])
+    def test_k6_pops_every_slot_once_per_n_tile_in_queue_order(self, shape,
+                                                               sms):
+        nblk, counts, cmax, bm, n_dim = TestLaunchGeometry._queue(shape)
+        rng = np.random.default_rng(sms)
+        order = rng.permutation(nblk)
+        chunks = rng.integers(-2, nblk + 2, (len(counts), cmax))
+        start = 0
+        for q, n in enumerate(counts):
+            chunks[q, :n] = order[start:start + n]
+            start += n
+        queue = (chunks.reshape(-1).tolist(), counts, cmax)
+        items = TK.wgmma_items(len(counts) * cmax, bm, n_dim)
+        n_tiles = -(-n_dim // TK.WGMMA_TILE_N)
+        assert items == len(counts) * cmax * (bm // 128) * n_tiles
+        seen = self._walk(items, sms, lambda i: TK.wgmma_item(
+            i, bm=bm, n_dim=n_dim, num_blocks=nblk, queue=queue))
+        keys = [(q, s, row % bm, n0) for _, _, (q, s, _, row, n0) in seen]
+        assert len(keys) == len(set(keys))
+        assert set(keys) == {(q, s, sub, t * TK.WGMMA_TILE_N)
+                             for q in range(len(counts))
+                             for s in range(counts[q])
+                             for sub in range(0, bm, TK.WGMMA_TILE_M)
+                             for t in range(n_tiles)}
+        for _, _, (q, s, block, row, _) in seen:
+            assert block == chunks[q, s] and row // bm == block
+        # each queue's slots come in pop order along the items
+        by_item = sorted((item, q, s, n0) for _, item, (q, s, _, _, n0)
+                         in seen)
+        last = {}
+        for _, q, s, n0 in by_item:
+            assert last.get((q, n0), -1) <= s
+            last[(q, n0)] = s
+
+    @pytest.mark.parametrize("bm,n_dim", [(128, 1024), (256, 24),
+                                          (128, 264)])
+    def test_k5_walks_every_tile_once(self, bm, n_dim):
+        nblk = 37
+        items = TK.wgmma_items(nblk, bm, n_dim)
+        seen = self._walk(items, 132, lambda i: TK.wgmma_item(
+            i, bm=bm, n_dim=n_dim, num_blocks=nblk))
+        tiles = [(row, n0) for _, _, (q, s, _, row, n0) in seen]
+        assert all(q is None and s is None for _, _, (q, s, *_) in seen)
+        assert sorted(tiles) == sorted(
+            (r, n0) for r in range(0, nblk * bm, TK.WGMMA_TILE_M)
+            for n0 in range(0, n_dim, TK.WGMMA_TILE_N))
+        # the N tile is the fastest index: one lhs tile's N tiles run
+        # side by side
+        n_tiles = -(-n_dim // TK.WGMMA_TILE_N)
+        first = sorted((item, row, n0) for _, item, (*_, row, n0) in seen)
+        assert [(row, n0) for _, row, n0 in first[:n_tiles]] == [
+            (0, t * TK.WGMMA_TILE_N) for t in range(n_tiles)]
+
+    def test_items_at_the_moe_w1_shape(self):
+        nblk, counts, cmax, bm, n_dim = TestLaunchGeometry._queue("moe_w1")
+        assert TK.wgmma_items(nblk, bm, n_dim) == nblk * 4
+        assert TK.wgmma_grid(TK.wgmma_items(nblk, bm, n_dim), 132) == 132
+        assert TK.wgmma_items(0, bm, n_dim) == 0
+
+    @pytest.mark.parametrize("seed", range(4))
+    def test_popped_mask_matches_popped_blocks(self, seed):
+        rng = np.random.default_rng(seed)
+        nblk, queues, cmax = 50, int(rng.integers(1, 9)), 9
+        chunks = torch.from_numpy(rng.integers(
+            -3, nblk + 3, queues * cmax).astype(np.int32))
+        counts = torch.from_numpy(rng.integers(
+            0, cmax + 3, queues).astype(np.int32))   # some past max_chunks
+        mask = TK.popped_mask(chunks, counts, cmax, nblk)
+        assert mask.dtype == torch.bool and mask.shape == (nblk,)
+        assert_bitwise(torch.nonzero(mask).view(-1),
+                       TK._popped_blocks(chunks, counts, cmax, nblk))
+
+    def test_popped_mask_of_no_queue_is_empty(self):
+        empty = torch.zeros(0, dtype=torch.int32)
+        assert not TK.popped_mask(empty, empty, 1, 6).any()

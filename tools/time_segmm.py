@@ -6,13 +6,16 @@ CUDA card at the main paths' shapes, for the port whose sources are under
 Builds ``chip_smoke``'s MoE layer (OLMoE-1B-7B width, one 4,096-token
 sequence, skew-0 routing) and SST-scale forest, and times K5 and K6 with
 ``chip_smoke.time_segmm_case`` (CUDA events, beside the bound, the plain
-version and ``torch.bmm``) at four shapes:
+version and ``torch.bmm``) at five shapes:
 
 * ``moe w1``: the layer's w1 GEMM in float32 (32,768 atoms, 64 experts,
   K 2,048, N 1,024; the CUDA-core routine);
 * ``forest level``: the TreeLSTM's level GEMM in float32 (``bm = 8``,
   K = N = 128);
-* ``moe w1 bf16``: the w1 GEMM with tokens and w1 cast to bf16;
+* ``moe w1 bf16``: the w1 GEMM with tokens and w1 cast to bf16 (``bm =
+  128``: the wgmma route);
+* ``forest level bf16``: the level GEMM with its operands cast to bf16
+  (``bm = 8``: the mma.sync route);
 * ``rank bf16``: the atoms of that routing on experts 0-31 against their
   bf16 w1, the shape of one rank of ``chip_smoke``'s ``(2, 2)`` MoE mesh
   (half the experts, ~16,400 atoms).
