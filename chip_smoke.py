@@ -128,6 +128,8 @@ Phases, in order; any failure exits non-zero:
    1e-4 against the float32 plain version on the same bf16-rounded
    inputs), at the edges ``window == S``, ``S == window == qc`` and
    ``Hkv == H``, at one rank of phase 25's mesh (16/4 heads, S 8,192),
+   at bf16 heads of 100 (not a multiple of 8: the mma.sync kernel; the
+   others take the wgmma kernel), each bf16 case's route counter checked,
    and against the port's own ``_attend`` over the
    whole 8,192-token sequence (8 GiB of float32 scores, freed after);
 17. lm data — H2O-Danube3-4B at full width and depth (24 layers, d_model
@@ -137,7 +139,7 @@ Phases, in order; any failure exits non-zero:
    prompt (the ``prefill_32k`` shape, batch cut from 32 to 1) in bfloat16
    with a 4,096-slot ring cache, then 32 greedy ``decode_step`` +
    ``sample_logits`` steps: K7 launched once per layer in the prefill and
-   never in decode, all 24 on the tensor-core kernel (``flash_swa_mma``),
+   never in decode, all 24 on the wgmma kernel (``flash_swa_wgmma``),
    every id in the vocabulary, every logit finite;
 19. consistency — the reference's prefill/decode check
    (``tests/test_models.py``) at full width, depth cut to 2, float32: a
@@ -145,25 +147,29 @@ Phases, in order; any failure exits non-zero:
    against ``forward`` on all 7,168 tokens, at position 6,143 and every
    128th after it, rtol/atol 2e-3;
 20. swa times — K7 at the prefill's launch shape (S 32,768, bfloat16: the
-   tensor-core kernel) beside its bound, the flop it executes, its plain
-   version and cuDNN's ``scaled_dot_product_attention`` with the band
-   mask; K7's output there held to the float32 plain version (bfloat16
-   limits above) and to SDPA (3e-2); then the float32 K7 (the CUDA-core
-   kernel) at the same shape;
+   wgmma kernel) beside the mma.sync kernel before it at the same shape
+   (called directly; both held to the float32 plain version, bfloat16
+   limits above), its bound, the flop each executes, its plain version
+   and cuDNN's ``scaled_dot_product_attention`` with the band mask (held
+   to K7 at 3e-2); then the float32 K7 (the CUDA-core kernel) at the same
+   shape;
 21. swa backward — K7's backward (``flash_swa_bwd``) against its plain
    version on the same inputs, forward output and log-sum-exp (the
    forward's lse held to the plain forward's at 1e-4): at the training
    shape (S 8,192, 32/8 heads of 120, window 4,096, bfloat16: rtol 1e-2,
    atol 1e-3 of max(1, max|want|)) and at S = qc + window + qc with bf16
-   heads of 64, 120 (operands 2 bytes off 16-byte alignment: the element
-   loads) and 128, all on the tensor-core kernel (``flash_swa_bwd_mma``);
+   heads of 64, 120 (operands 2 bytes off 16-byte alignment: copied to
+   aligned bases) and 128, all on the wgmma kernels
+   (``flash_swa_bwd_wgmma``), and 100 (the mma.sync kernels);
    in float32 at S 2,048 (window 1,024; 2e-5) and at the edge with heads
    of 256 (f32), both on the CUDA-core kernel; at one rank of phase 25's
    mesh (16/4 heads): S 8,192 in bfloat16 and its f32 parity shape (S
    2,048, window 1,024) in float32; every case run twice for
-   the same bits, with the tensor-core counter checked; timed beside its
-   bound, the flop it executes, its plain version, K7's forward with lse
-   and SDPA's backward with the band mask;
+   the same bits, with the route counters checked; timed beside the
+   mma.sync backward at the same shape (called directly, held to the plain
+   version), its bound, the flop each executes, its plain version and
+   SDPA's backward with the band mask; and K7's forward with lse there
+   beside the mma.sync forward;
 22. train consistency — ``loss_and_grads`` of Danube at full width, depth
    cut to 2, float32, one 8,192-token sequence from
    ``synthetic.batch_at``: K7 and its backward launched twice a layer and
@@ -178,8 +184,9 @@ Phases, in order; any failure exits non-zero:
    (``make_train_step`` + ``synthetic.batch_at``) for H2O-Danube3-4B at
    full width and depth: float32 master weights and AdamW state, bf16
    compute, remat, S 8,192, global batch 2 in 2 microbatches, 3 steps;
-   per step 96 K7 launches and 48 backward launches, all on the tensor
-   cores (``flash_swa_mma``, ``flash_swa_bwd_mma``), and each step's time;
+   per step 96 K7 launches and 48 backward launches, all on the wgmma
+   kernels (``flash_swa_wgmma``, ``flash_swa_bwd_wgmma``; none on the
+   mma.sync kernels), and each step's time;
    finite losses, norms and parameters, every leaf changed, the
    optimizer's step 3; ms a step, tokens/s, peak memory and the model
    flop share of the bf16 peak (``--profile``: one more step profiled);
@@ -191,7 +198,7 @@ Phases, in order; any failure exits non-zero:
    stored as each rank's blocks (``param_specs``), bf16 compute, remat, S
    8,192, global batch 4 in 2 microbatches, 3 steps; on every rank per
    step 2 K7 launches and 1 backward launch a layer a microbatch on its
-   16/4 heads, all on the tensor cores; finite losses and norms, each
+   16/4 heads, all on the wgmma kernels; finite losses and norms, each
    within 2e-2 (relative) of the one-device steps, every leaf changed and
    the gathered parameters finite; per rank ms a step, tokens/s, peak
    memory and collective calls, bytes and ms a step.  Then in float32 at
@@ -274,7 +281,7 @@ Phases, in order; any failure exits non-zero:
    of its 25 heads (``layers.head_block``): 3 steps each, the loss and
    grad norm within 2e-2 of one device's at each step, every leaf
    changed, the gathered parameters finite; on every Hymba rank 8 K7 and
-   4 backward launches a step, all on the tensor cores, every one on the
+   4 backward launches a step, all on the wgmma kernels, every one on the
    rank's block of heads; per rank ms a step, tokens/s, peak memory and
    collectives by kind.  Then
    in float32 at depth 2, S 2,048, two sequences (Hymba with window
@@ -289,7 +296,7 @@ Phases, in order; any failure exits non-zero:
    and collectives by kind); at depth 2 in float32, 8 steps' logits
    within 2e-3 of one device's ``decode_step``.  Then Hymba's
    ``prefill(mesh=)`` at full depth, S 4,096: K7 once a layer on every
-   rank, on the tensor cores, on the rank's 7, 7, 7 or 4 heads, the
+   rank, on the wgmma kernels, on the rank's 7, 7, 7 or 4 heads, the
    states returned as the cache places them.  Then GLM-4-9B (32 query / 2
    KV heads of 128, d_model 4,096, vocab 151,552) at full width, depth
    cut to 2, on the same ``(1, 4)`` ranks: 8 query heads a rank on
@@ -310,7 +317,9 @@ Phases, in order; any failure exits non-zero:
    ``segmm_wgmma`` and ``segmm_mma`` are routes of K5 and K6, not kernels
    of their own: each counts again the K5/K6 launches that ran on it,
    ``segmm_wgmma``'s row timed as K5 at the bf16 ``w1`` shape,
-   ``segmm_mma``'s at the bf16 level GEMM's), the JSON kernels line, and
+   ``segmm_mma``'s at the bf16 level GEMM's; ``flash_swa_wgmma`` and
+   ``flash_swa_bwd_wgmma`` are the routes of K7 and its backward that
+   every main-path launch takes, their rows K7's), the JSON kernels line, and
    the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -336,6 +345,9 @@ REF_KERNEL = "src/repro/kernels/spmv_merge/kernel.py"
 CSRC = "src/repro_torch/kernels/spmv_merge/csrc"
 SEGMM_REF = "src/repro/kernels/segmm/kernel.py"
 SEGMM_CSRC = "src/repro_torch/kernels/segmm/csrc"
+SWA_CSRC = "src/repro_torch/kernels/flash_swa/csrc"
+SWA_REF = "src/repro/kernels/flash_swa/kernel.py:79"
+SWA_BWD_REF = "src/repro/models/layers.py:213"
 KERNELS = {   # counter name -> (CUDA source, the Pallas kernel it replaces)
     "spmv_merge_stream": (f"{CSRC}/merge_path.cu", f"{REF_KERNEL}:63"),
     "chunk_walk_tiles": (f"{CSRC}/chunk_walk.cu", f"{REF_KERNEL}:217"),
@@ -351,12 +363,16 @@ KERNELS = {   # counter name -> (CUDA source, the Pallas kernel it replaces)
                     f"{SEGMM_REF}:50, {SEGMM_REF}:128"),
     "segmm_mma": (f"{SEGMM_CSRC}/segmm.cu",
                   f"{SEGMM_REF}:50, {SEGMM_REF}:128"),
-    "flash_swa": ("src/repro_torch/kernels/flash_swa/csrc/flash_swa_mma.cu",
-                  "src/repro/kernels/flash_swa/kernel.py:79"),
+    "flash_swa": (f"{SWA_CSRC}/flash_swa_wgmma.cu", SWA_REF),
     # the reference differentiates its jnp band (K7 has no backward)
-    "flash_swa_bwd": ("src/repro_torch/kernels/flash_swa/csrc/"
-                      "flash_swa_bwd_mma.cu",
-                      "src/repro/models/layers.py:213"),
+    "flash_swa_bwd": (f"{SWA_CSRC}/flash_swa_bwd_wgmma.cu", SWA_BWD_REF),
+    # routes of K7 and its backward, not kernels: their launches on bf16
+    # heads that are a multiple of 8 (every main-path launch), counted again
+    # here (flash_swa.kernel.kernel_for); the mma.sync kernels keep the
+    # other bf16 heads, on no main path (phases 16 and 21 hold them)
+    "flash_swa_wgmma": (f"{SWA_CSRC}/flash_swa_wgmma.cu", SWA_REF),
+    "flash_swa_bwd_wgmma": (f"{SWA_CSRC}/flash_swa_bwd_wgmma.cu",
+                            SWA_BWD_REF),
 }
 REAL_RTOL = 1e-4   # real-valued f32 sums in another order
 # soc-LiveJournal1 scale (SNAP: 4.8M vertices, 69M edges)
@@ -406,6 +422,15 @@ SWA_TOL_F32 = 2e-5         # tests/test_flash_swa.py
 SWA_RTOL_BF16 = 1e-2
 SWA_ATOL_BF16 = 1e-4
 SDPA_TOL = 3e-2            # cuDNN SDPA (bf16 probabilities) against K7
+# a bf16 head that is not a multiple of 8: K7 and its backward stay on the
+# mma.sync kernels there (kernel.kernel_for), held to their plain versions
+MMA_HEAD = 100
+FWD_ROUTES = ("flash_swa_wgmma", "flash_swa_mma")
+BWD_ROUTES = ("flash_swa_bwd_wgmma", "flash_swa_bwd_mma")
+# K7's counters that the kernels line reads from the main path: every
+# launch, and those on the wgmma kernels
+K7_COUNTERS = ("flash_swa", "flash_swa_wgmma", "flash_swa_bwd",
+               "flash_swa_bwd_wgmma")
 CONSIST_LAYERS = 2
 CONSIST_PROMPT = 6144      # banded: > attn_query_chunk + sliding_window
 CONSIST_DECODE = 1024
@@ -2496,6 +2521,14 @@ def band_pairs(s: int, window: int) -> int:
     return n * (n + 1) // 2 + (s - n) * window
 
 
+def k7_routes(fwd: int, bwd: int) -> dict:
+    """K7's route counters when every launch of a bf16 path with heads a
+    multiple of 8 takes the wgmma kernels: ``fwd`` forward and ``bwd``
+    backward launches there, none on the mma.sync kernels."""
+    return dict(flash_swa_wgmma=fwd, flash_swa_mma=0,
+                flash_swa_bwd_wgmma=bwd, flash_swa_bwd_mma=0)
+
+
 def mma_executed_flop(s: int, window: int, heads: int, hd: int) -> int:
     """Flop the tensor-core K7 (``csrc/flash_swa_mma.cu``) executes: per
     (128-row query tile, head), every 64-row KV tile of its band whole —
@@ -2542,6 +2575,57 @@ def bwd_mma_executed_flop(s: int, window: int, heads: int, kv_heads: int,
     return heads * dq_tiles * per_dq + heads * kv_tiles * per_kv
 
 
+def _wgmma_widths(hd: int) -> tuple:
+    """``(DP, NO)`` of the wgmma kernels at heads of ``hd``: the head padded
+    to 64 or 128 for ``Q K^T`` (its k-steps) and the output width of the
+    products that write a head (64, 120 or 128)."""
+    if hd <= 64:
+        return 64, 64
+    return 128, 120 if hd == 120 else 128
+
+
+def wgmma_executed_flop(s: int, window: int, heads: int, hd: int) -> int:
+    """Flop the wgmma K7 (``csrc/flash_swa_wgmma.cu``) executes: per
+    (128-row query tile, head), every 64-row KV tile of its band whole —
+    ``Q K^T`` over the padded head, ``P V`` twice (the split ``P``) at the
+    output width (:func:`_wgmma_widths`)."""
+    bq, bk = 128, 64          # the kernel's kBQ and kBK
+    window = min(window, s)
+    tiles = 0
+    for q0 in range(0, s, bq):
+        q_last = min(q0 + bq, s) - 1
+        kt0 = max(0, q0 - window + 1) // bk * bk
+        tiles += (q_last - kt0) // bk + 1
+    dp, no = _wgmma_widths(hd)
+    return heads * tiles * (2 * bq * bk * dp + 2 * (2 * bq * bk * no))
+
+
+def bwd_wgmma_executed_flop(s: int, window: int, heads: int,
+                            hd: int) -> int:
+    """Flop the wgmma backward (``csrc/flash_swa_bwd_wgmma.cu``) executes:
+    the dq kernel's 128-row query tiles against every 64-row KV tile of
+    their band (``Q K^T`` and ``dO V^T`` over the padded head, ``dS K``
+    twice: the split) and the dk/dv kernel's 64-row KV tiles against every
+    64-row query tile of their band for each head of the group (``K Q^T``
+    in both consumer warpgroups, ``V dO^T``, ``P^T dO`` and ``dS^T Q``, the
+    last two twice), each tile whole (:func:`_wgmma_widths`)."""
+    window = min(window, s)
+    dp, no = _wgmma_widths(hd)
+    dq_tiles = 0
+    for q0 in range(0, s, 128):
+        q_last = min(q0 + 128, s) - 1
+        kt0 = max(0, q0 - window + 1) // 64 * 64
+        dq_tiles += (q_last - kt0) // 64 + 1
+    kv_tiles = 0
+    for kt in range(0, s, 64):
+        q_end = min(s - 1, kt + 64 - 1 + window - 1)
+        kv_tiles += (q_end - kt) // 64 + 1
+    tile = 2 * 64 * 64        # flop of one 64 x 64 x 1 product
+    per_dq = 2 * (2 * tile * dp + 2 * tile * no)      # 128 query rows
+    per_kv = 3 * tile * dp + 4 * tile * no
+    return heads * (dq_tiles * per_dq + kv_tiles * per_kv)
+
+
 def phase_swa_parity(cfg, seed: int) -> float:
     """K7 against its plain version at ``cfg``'s attention shapes, the
     edges, and the model's ``_attend`` core; returns the largest error."""
@@ -2553,29 +2637,37 @@ def phase_swa_parity(cfg, seed: int) -> float:
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     window, qc = cfg.sliding_window, cfg.attn_query_chunk
 
-    def draw(s, heads):
-        return torch.randn((1, s, heads, hd), generator=gen, device=DEVICE)
+    def draw(s, heads, d):
+        return torch.randn((1, s, heads, d), generator=gen, device=DEVICE)
 
     errs = []
-    cases = [(f"S {SWA_PARITY_S}", SWA_PARITY_S, h, hkv, window),
-             ("window == S", 2 * qc, h, hkv, 2 * qc),
-             ("S == window == qc", qc, h, hkv, qc),
-             ("Hkv == H", 2 * qc, hkv, hkv, qc),
+    cases = [(f"S {SWA_PARITY_S}", SWA_PARITY_S, h, hkv, window, hd),
+             ("window == S", 2 * qc, h, hkv, 2 * qc, hd),
+             ("S == window == qc", qc, h, hkv, qc, hd),
+             ("Hkv == H", 2 * qc, hkv, hkv, qc, hd),
              # one rank of the training mesh: its own heads
              (f"mesh rank, S {TRAIN_SEQ}", TRAIN_SEQ, h // MESH_MODEL_AXIS,
-              hkv // MESH_MODEL_AXIS, window)]
-    for name, s, nh, nkv, w in cases:
-        tag = f"flash_swa [{name}, {nh}/{nkv} heads of {hd}, window {w}]"
-        q, k, v = draw(s, nh), draw(s, nkv), draw(s, nkv)
+              hkv // MESH_MODEL_AXIS, window, hd),
+             # a head that is not a multiple of 8: the mma.sync kernel
+             ("mma.sync head", 2 * qc, h, hkv, qc, MMA_HEAD)]
+    for name, s, nh, nkv, w, d in cases:
+        tag = f"flash_swa [{name}, {nh}/{nkv} heads of {d}, window {w}]"
+        q, k, v = draw(s, nh, d), draw(s, nkv, d), draw(s, nkv, d)
         got = FK.flash_swa(q, k, v, window=w, qc=qc)
         errs.append(check_close(f"{tag} f32", got, FK.flash_swa_plain(
             q, k, v, window=w, qc=qc), SWA_TOL_F32))
         qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
         want = FK.flash_swa_plain(qb.float(), kb.float(), vb.float(),
                                   window=w, qc=qc)
-        errs.append(check_close(f"{tag} bf16", FK.flash_swa(
+        route = FK.kernel_for(torch.bfloat16, d)
+        before = all_counts()
+        errs.append(check_close(f"{tag} bf16 ({route})", FK.flash_swa(
             qb, kb, vb, window=w, qc=qc), want, SWA_RTOL_BF16,
             SWA_ATOL_BF16))
+        moved = {r: all_counts()[r] - before[r] for r in FWD_ROUTES}
+        check(moved == {r: int(r == route) for r in FWD_ROUTES},
+              f"{tag} bf16: route launches {moved}, expected one on "
+              f"{route}")
         if name == f"S {SWA_PARITY_S}":
             # the model's masked-softmax core over the whole sequence:
             # [1, H, S, S] float32 scores, freed right after
@@ -2634,10 +2726,11 @@ def phase_serve(model, seed: int, e2e) -> dict:
     check(prefill_counts["flash_swa"] == cfg.num_layers,
           f"serve: {prefill_counts['flash_swa']} K7 launches in the prefill, "
           f"expected one per layer ({cfg.num_layers})")
-    check(prefill_counts["flash_swa_mma"] == cfg.num_layers,
-          f"serve: {prefill_counts['flash_swa_mma']} of the prefill's K7 "
-          f"launches on the tensor-core kernel, expected all "
-          f"{cfg.num_layers}")
+    routes = {k: prefill_counts[k] for k in ("flash_swa_wgmma",
+                                            "flash_swa_mma")}
+    check(routes == {"flash_swa_wgmma": cfg.num_layers, "flash_swa_mma": 0},
+          f"serve: the prefill's K7 launches by route {routes}, expected "
+          f"all {cfg.num_layers} on the wgmma kernel")
     ring = min(PROMPT + DECODE_STEPS, cfg.sliding_window)
     check(tuple(cache["k"].shape) == (cfg.num_layers, 1, ring,
                                       cfg.num_kv_heads,
@@ -2670,14 +2763,15 @@ def phase_serve(model, seed: int, e2e) -> dict:
     e2e[f"decode[{cfg.name}, {DECODE_STEPS} steps]"] = dec_s
     log(f"serve {cfg.name}: prefill {PROMPT} tokens in {pre_s * 1e3:.1f} ms "
         f"({PROMPT / pre_s:.0f} tokens/s), K7 launches {counts['flash_swa']} "
-        f"({counts['flash_swa_mma']} tensor-core); "
+        f"({counts['flash_swa_wgmma']} on the wgmma kernel); "
         f"{DECODE_STEPS} greedy decode steps in {dec_s * 1e3:.1f} ms "
         f"({dec_s * 1e3 / DECODE_STEPS:.2f} ms/token, "
         f"{DECODE_STEPS / dec_s:.1f} tokens/s, batch 1); ring cache {ring} "
         f"slots, {cache_bytes / 2**20:.0f} MiB; peak device memory "
         f"{peak / 2**30:.2f} GiB; ids {ids[0, :8].tolist()}...")
     log("serve launches: " + json.dumps(counts))
-    return dict(prompt=prompt, launches=counts["flash_swa"])
+    return dict(prompt=prompt, launches={k: counts[k] for k in (
+        "flash_swa", "flash_swa_wgmma")})
 
 
 def phase_consistency(cfg, seed: int) -> None:
@@ -2737,9 +2831,37 @@ def sdpa_call(q, k, v, mask):
     return call, backend.name
 
 
+def mma_route(FK, q, k, v, window: int, lse=None, backward=None):
+    """A call of the mma.sync K7 (``csrc/flash_swa_mma.cu``) or, with
+    ``backward = (out, lse, dout, dsum, dq, dk, dv)``, of its backward
+    (``csrc/flash_swa_bwd_mma.cu``) on bf16 operands with heads a multiple
+    of 8 and 16-byte aligned bases, which the wrapper sends to the wgmma
+    kernels: the route before them, timed beside them at the same shape.
+    Returns ``(call, out)``; the call returns the kernel's CUDA error code
+    and counts nothing."""
+    import torch
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+    if backward is None:
+        out = torch.empty_like(q)
+        fn = FK._function(FK.SOURCES[1], "flash_swa_mma_fwd")
+        ptrs = (q, k, v, out)
+        lse_ptr = None if lse is None else lse.data_ptr()
+        return (lambda: fn(*(t.data_ptr() for t in ptrs), lse_ptr, b, s, h,
+                           hkv, hd, min(window, s), hd ** -0.5, 1,
+                           stream)), out
+    fn = FK._function(FK.SOURCES[3], "flash_swa_bwd_mma")
+    o, l, dout, dsum, *grads = backward
+    ptrs = (q, k, v, o, dout, l, dsum, *grads)
+    return (lambda: fn(*(t.data_ptr() for t in ptrs), b, s, h, hkv, hd,
+                       min(window, s), hd ** -0.5, 1, stream)), grads
+
+
 def phase_swa_times(cfg, seed: int) -> dict:
-    """K7 at the prefill's launch shape (CUDA events) beside its bound, its
-    plain version and SDPA with the band mask."""
+    """K7 at the prefill's launch shape (CUDA events) on the wgmma kernel
+    and on the mma.sync kernel before it, beside its bound, the flop each
+    executes, its plain version and SDPA with the band mask."""
     from repro_torch.launch import roofline as RL
     import torch
     from repro_torch.kernels.flash_swa import kernel as FK
@@ -2751,17 +2873,26 @@ def phase_swa_times(cfg, seed: int) -> dict:
     q, k, v = (torch.randn((1, PROMPT, heads, hd), generator=gen,
                            device=DEVICE).to(torch.bfloat16)
                for heads in (h, hkv, hkv))
+    route = FK.kernel_for(q.dtype, hd)
     kernel_ms = cuda_ms(lambda: FK.flash_swa(q, k, v, window=window, qc=qc),
                         warmup=1, iters=5)
+    mma_call, mma_out = mma_route(FK, q, k, v, window)
+    mma_ms = cuda_ms(mma_call, warmup=1, iters=5)
     plain_ms = cuda_ms(lambda: FK.flash_swa_plain(q, k, v, window=window,
                                                   qc=qc), warmup=1, iters=2)
     got = FK.flash_swa(q, k, v, window=window, qc=qc)
-    err = check_close(f"flash_swa [S {PROMPT}] bf16", got, FK.flash_swa_plain(
-        q.float(), k.float(), v.float(), window=window, qc=qc),
-        SWA_RTOL_BF16, SWA_ATOL_BF16)
+    want = FK.flash_swa_plain(q.float(), k.float(), v.float(),
+                              window=window, qc=qc)
+    err = check_close(f"flash_swa [S {PROMPT}] bf16 ({route})", got, want,
+                      SWA_RTOL_BF16, SWA_ATOL_BF16)
+    check(mma_call() == 0, "flash_swa_mma_fwd: launch failed")
+    check_close(f"flash_swa [S {PROMPT}] bf16 (flash_swa_mma)", mma_out, want,
+                SWA_RTOL_BF16, SWA_ATOL_BF16)
+    del want
     pairs = band_pairs(PROMPT, window)
     flops = 4 * hd * h * pairs
-    executed = mma_executed_flop(PROMPT, window, h, hd)
+    executed = wgmma_executed_flop(PROMPT, window, h, hd)
+    mma_executed = mma_executed_flop(PROMPT, window, h, hd)
     nbytes = 2 * PROMPT * hd * (2 * h + 2 * hkv)
     bound_bf16 = flops / RL.PEAK_FLOPS_BF16 * 1e3
     bound_f32 = flops / F32_FLOP_PER_S * 1e3
@@ -2778,11 +2909,14 @@ def phase_swa_times(cfg, seed: int) -> dict:
     library_ms = cuda_ms(call, warmup=1, iters=3)
     del band, got
     log(f"time flash_swa [S {PROMPT}, {h}/{hkv} heads of {hd}, window "
-        f"{window}, bf16, tensor cores]: {kernel_ms:.4f} ms "
+        f"{window}, bf16, {route}]: {kernel_ms:.4f} ms "
         f"({flops / kernel_ms / 1e9:.1f} TFLOP/s useful; executes {executed}"
         f" flop, {executed / flops:.3f}x, {executed / kernel_ms / 1e9:.1f} "
-        f"TFLOP/s executed); bound {bound:.4f} ms by {bound_by} ({pairs} "
-        f"band pairs "
+        f"TFLOP/s executed, {bound / kernel_ms:.1%} of the bound); the "
+        f"mma.sync kernel at the same shape {mma_ms:.4f} ms (executes "
+        f"{mma_executed} flop, {mma_executed / mma_ms / 1e9:.1f} TFLOP/s "
+        f"executed, {bound / mma_ms:.1%} of the bound); bound {bound:.4f} ms "
+        f"by {bound_by} ({pairs} band pairs "
         f"per head, {flops} flop at 989 TFLOP/s bf16 = {bound_bf16:.4f} ms, "
         f"at 67 TFLOP/s f32 = {bound_f32:.4f} ms; {nbytes} bytes at 3.35 "
         f"TB/s = {bound_bytes:.4f} ms); plain {plain_ms:.3f} ms; library "
@@ -2872,7 +3006,7 @@ def bwd_case(tag: str, s: int, heads: int, kv_heads: int, hd: int,
             f", window {window}, {str(dtype).split('.')[-1]}"
             f"{', 2 bytes off alignment' if offset else ''}]")
     errs = [check_close(f"{name} lse", lse, want_lse, LSE_TOL)]
-    before = FK.LAUNCHES["flash_swa_bwd_mma"]
+    before = dict(FK.LAUNCHES)
     got = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
     want = FK.flash_swa_bwd_plain(*f32, lse, dout.float(), window=window,
                                   qc=qc)
@@ -2883,10 +3017,10 @@ def bwd_case(tag: str, s: int, heads: int, kv_heads: int, hd: int,
     again = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{name}: two runs differ")
-    mma = 2 * (route == "flash_swa_bwd_mma")
-    check(FK.LAUNCHES["flash_swa_bwd_mma"] == before + mma,
-          f"{name}: {FK.LAUNCHES['flash_swa_bwd_mma'] - before} tensor-core "
-          f"launches, expected {mma}")
+    moved = {r: FK.LAUNCHES[r] - before[r] for r in BWD_ROUTES}
+    check(moved == {r: 2 * (r == route) for r in BWD_ROUTES},
+          f"{name}: tensor-core route launches {moved}, expected 2 on "
+          f"{route}")
     log(f"determinism {name}: two runs bitwise equal")
     return max(errs), (q, k, v, out, lse, dout)
 
@@ -2914,6 +3048,9 @@ def phase_swa_bwd(cfg, seed: int) -> dict:
                            BWD_TOL_BF16, 1),
                           ("edge", edge_s, 8, 2, 128, window, qc, bf16,
                            BWD_TOL_BF16, 0),
+                          # the mma.sync backward: a head not a multiple of 8
+                          ("edge", edge_s, 8, 2, MMA_HEAD, window, qc, bf16,
+                           BWD_TOL_BF16, 0),
                           ("edge", edge_s, 8, 2, 256, window, qc, f32,
                            BWD_TOL_F32, 0),
                           # one rank of the mesh phase: its own heads, at
@@ -2932,16 +3069,35 @@ def phase_swa_bwd(cfg, seed: int) -> dict:
         gen)
     errs.append(err)
 
+    route = FK.bwd_kernel_for(q.dtype, hd)
     fwd_ms = cuda_ms(lambda: FK.flash_swa(q, k, v, window=window, qc=qc,
                                           return_lse=True), warmup=1,
                      iters=5)
+    mma_lse = torch.empty_like(lse)
+    mma_fwd, _ = mma_route(FK, q, k, v, window, lse=mma_lse)
+    mma_fwd_ms = cuda_ms(mma_fwd, warmup=1, iters=5)
     kernel_ms = cuda_ms(lambda: FK.flash_swa_bwd(
         q, k, v, out, lse, dout, window=window, qc=qc), warmup=1, iters=5)
+    mma_bwd, mma_grads = mma_route(FK, q, k, v, window, backward=(
+        out, lse, dout, torch.empty_like(lse), *(torch.empty_like(t)
+                                                 for t in (q, k, v))))
+    mma_ms = cuda_ms(mma_bwd, warmup=1, iters=5)
+    check(mma_bwd() == 0, "flash_swa_bwd_mma: launch failed")
+    want = FK.flash_swa_bwd_plain(*(t.float() for t in (q, k, v, out)), lse,
+                                  dout.float(), window=window, qc=qc)
+    for label, g, w in zip(("dq", "dk", "dv"), mma_grads, want):
+        check_close(f"flash_swa_bwd_mma [training: S {TRAIN_SEQ}] {label}",
+                    g, w, BWD_TOL_BF16[0],
+                    BWD_TOL_BF16[1] * max(1.0, float(w.abs().max())))
+    del want, mma_grads
     plain_ms = cuda_ms(lambda: FK.flash_swa_bwd_plain(
         q, k, v, out, lse, dout, window=window, qc=qc), warmup=1, iters=2)
     pairs = band_pairs(TRAIN_SEQ, window)
     flops = 10 * hd * h * pairs
-    executed = bwd_mma_executed_flop(TRAIN_SEQ, window, h, hkv, hd)
+    executed = bwd_wgmma_executed_flop(TRAIN_SEQ, window, h, hd)
+    mma_executed = bwd_mma_executed_flop(TRAIN_SEQ, window, h, hkv, hd)
+    fwd_executed = wgmma_executed_flop(TRAIN_SEQ, window, h, hd)
+    mma_fwd_executed = mma_executed_flop(TRAIN_SEQ, window, h, hd)
     nbytes = (2 * TRAIN_SEQ * hd * (3 * h + 2 * hkv)     # q, out, dout, k, v
               + 4 * h * TRAIN_SEQ                        # lse
               + 2 * TRAIN_SEQ * hd * (h + 2 * hkv))      # dq, dk, dv
@@ -2976,11 +3132,16 @@ def phase_swa_bwd(cfg, seed: int) -> dict:
         log(f"sdpa ({backend}) backward with the band mask refused: "
             f"{str(exc).splitlines()[0][:200]}")
     del band, leaves
+    fwd_bound = 4 * hd * h * pairs / RL.PEAK_FLOPS_BF16 * 1e3
     log(f"time flash_swa_bwd [S {TRAIN_SEQ}, {h}/{hkv} heads of {hd}, "
-        f"window {window}, bf16, tensor cores]: {kernel_ms:.4f} ms "
+        f"window {window}, bf16, {route}]: {kernel_ms:.4f} ms "
         f"({flops / kernel_ms / 1e9:.1f} TFLOP/s useful; executes "
         f"{executed} flop, {executed / flops:.3f}x, "
-        f"{executed / kernel_ms / 1e9:.1f} TFLOP/s executed); "
+        f"{executed / kernel_ms / 1e9:.1f} TFLOP/s executed, "
+        f"{bound / kernel_ms:.1%} of the bound); the mma.sync backward at "
+        f"the same shape {mma_ms:.4f} ms (executes {mma_executed} flop, "
+        f"{mma_executed / mma_ms / 1e9:.1f} TFLOP/s executed, "
+        f"{bound / mma_ms:.1%} of the bound); "
         f"bound {bound:.4f} ms by {bound_by} ({pairs} band pairs per head, "
         f"10 hd H pairs = {flops} flop at 989 TFLOP/s bf16 = "
         f"{bound_ops:.4f} ms, at 67 TFLOP/s f32 = "
@@ -2988,7 +3149,14 @@ def phase_swa_bwd(cfg, seed: int) -> dict:
         f"TB/s = {bound_bytes:.4f} ms); plain {plain_ms:.3f} ms; library "
         f"{library_ms} ms (scaled_dot_product_attention's backward, "
         f"{backend}, band mask, enable_gqa; forward + backward "
-        f"{fwd_bwd_ms} ms); K7 forward with lse {fwd_ms:.4f} ms")
+        f"{fwd_bwd_ms} ms)")
+    log(f"time flash_swa with lse [S {TRAIN_SEQ}, {h}/{hkv} heads of {hd}, "
+        f"window {window}, bf16, {FK.kernel_for(q.dtype, hd)}]: "
+        f"{fwd_ms:.4f} ms ({fwd_executed / fwd_ms / 1e9:.1f} TFLOP/s "
+        f"executed, {fwd_bound / fwd_ms:.1%} of the bound {fwd_bound:.4f} "
+        f"ms); the mma.sync kernel at the same shape {mma_fwd_ms:.4f} ms "
+        f"({mma_fwd_executed / mma_fwd_ms / 1e9:.1f} TFLOP/s executed, "
+        f"{fwd_bound / mma_fwd_ms:.1%} of the bound)")
     del q, k, v, out, lse, dout
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
@@ -3031,7 +3199,7 @@ def phase_train_consistency(cfg, seed: int):
     (loss, _, grads), secs = wall_s(lambda: loss_and_grads(
         params, cfg, batch, 1, f32))
     want_counts = dict(flash_swa=2 * cfg.num_layers,
-                       flash_swa_bwd=cfg.num_layers, flash_swa_bwd_mma=0)
+                       flash_swa_bwd=cfg.num_layers, **k7_routes(0, 0))
     counts = {k: all_counts()[k] for k in want_counts}
     check(counts == want_counts,
           f"train consistency: launches {counts}, expected {want_counts} "
@@ -3133,10 +3301,9 @@ def phase_train(cfg, seed: int, profile: bool) -> tuple:
         torch.cuda.reset_peak_memory_stats()
     # a layer a microbatch: the forward and its remat recompute, then the
     # backward
-    per_step = dict(flash_swa=2 * cfg.num_layers * TRAIN_MICRO,
-                    flash_swa_mma=2 * cfg.num_layers * TRAIN_MICRO,
-                    flash_swa_bwd=cfg.num_layers * TRAIN_MICRO,
-                    flash_swa_bwd_mma=cfg.num_layers * TRAIN_MICRO)
+    per_layer = cfg.num_layers * TRAIN_MICRO
+    per_step = dict(flash_swa=2 * per_layer, flash_swa_bwd=per_layer,
+                    **k7_routes(2 * per_layer, per_layer))
     totals = {name: 0 for name in per_step}
     times, losses = [], []
     for i in range(TRAIN_STEPS):
@@ -3289,8 +3456,8 @@ def mesh_train(mesh, cfg, seed: int, shape: tuple, warmup: int = 1) -> dict:
     banded = bool(cfg.swa_banded and cfg.sliding_window
                   and seq > cfg.attn_query_chunk + cfg.sliding_window)
     per_layer = cfg.num_layers * micro if banded else 0
-    per_step = dict(flash_swa=2 * per_layer, flash_swa_mma=2 * per_layer,
-                    flash_swa_bwd=per_layer, flash_swa_bwd_mma=per_layer)
+    per_step = dict(flash_swa=2 * per_layer, flash_swa_bwd=per_layer,
+                    **k7_routes(2 * per_layer, per_layer))
     if moe:
         per_step.update(segmented_matmul=0, segmented_matmul_chunked=0)
     tag = ("moe mesh" if moe else "ssm mesh"
@@ -3529,7 +3696,7 @@ def phase_lm_mesh(cfg, seed: int) -> tuple:
         f"CUDA tensors through the host, so these times are the sharded "
         f"path's overhead, not its scaling")
     tokens = MESH_BATCH * TRAIN_SEQ
-    totals = {"flash_swa": 0, "flash_swa_bwd": 0}
+    totals = dict.fromkeys(K7_COUNTERS, 0)
     e2e = {}
     for r, res in enumerate(ranks):
         for i, (row, (want, _)) in enumerate(zip(res["steps"], single)):
@@ -3637,13 +3804,12 @@ def pipe_step(apply, params, xs):
     return loss.detach(), y.detach()
 
 
-def pipe_counts(ticks: int, layers: int, mma: bool) -> dict:
+def pipe_counts(ticks: int, layers: int, bf16: bool) -> dict:
     """K7 launches of one step: a layer a tick, forward and remat
-    recompute, then the backward."""
+    recompute, then the backward; in bf16 all on the wgmma kernels."""
     out = dict(flash_swa=2 * ticks * layers, flash_swa_bwd=ticks * layers)
-    if mma:
-        out.update(flash_swa_mma=2 * ticks * layers,
-                   flash_swa_bwd_mma=ticks * layers)
+    if bf16:
+        out.update(k7_routes(2 * ticks * layers, ticks * layers))
     return out
 
 
@@ -3818,7 +3984,7 @@ def phase_pipeline(cfg, seed: int) -> tuple:
         f"({ranks[0]['mesh']}), {secs:.1f} s in all; four stages share one "
         f"card and each hop goes through host memory, so these times are "
         f"the pipeline's overhead, not its scaling")
-    totals = {"flash_swa": 0, "flash_swa_bwd": 0}
+    totals = dict.fromkeys(K7_COUNTERS, 0)
     e2e = {}
     for r, res in enumerate(ranks):
         steps = res["steps"]
@@ -4539,8 +4705,9 @@ def ssm_prefill(mesh, seed: int) -> dict:
         (logits, cache), secs = wall_s(lambda: prefill(
             params, cfg, tokens, dtype=bf16, cache_len=cfg.sliding_window,
             mesh=mesh, cache_sh=csh))
-    counts = {k: all_counts()[k] for k in ("flash_swa", "flash_swa_mma")}
-    want = {"flash_swa": cfg.num_layers, "flash_swa_mma": cfg.num_layers}
+    want = dict(flash_swa=cfg.num_layers,
+                **k7_routes(cfg.num_layers, 0))
+    counts = {k: all_counts()[k] for k in want}
     check(counts == want, f"ssm mesh prefill rank {mesh.rank}: launches "
           f"{counts}, expected {want}")
     check(bool(torch.isfinite(logits).all()),
@@ -4777,7 +4944,7 @@ def phase_ssm_mesh(seed: int, card_line: str) -> tuple:
         f"{secs:.1f} s in all; four ranks share one card and gloo moves "
         f"CUDA tensors through the host, so these times are the "
         f"tensor-parallel path's overhead, not its scaling ({card_line})")
-    totals = {"flash_swa": 0, "flash_swa_bwd": 0}
+    totals = dict.fromkeys(K7_COUNTERS, 0)
     e2e = {}
     for name in SSM_ARCHS:
         cut = arch_cfg(name, SSM_MESH_LAYERS)
@@ -4848,7 +5015,8 @@ def phase_ssm_mesh(seed: int, card_line: str) -> tuple:
             = dec["ms"] / 1e3
     for r, res in enumerate(ranks):
         pre = res["prefill"]
-        totals["flash_swa"] += pre["counts"]["flash_swa"]
+        for k in ("flash_swa", "flash_swa_wgmma"):
+            totals[k] += pre["counts"][k]
         log(f"ssm mesh prefill hymba_15b rank {r} ({res['serve_mesh']}): "
             f"full depth bf16, S {SSM_PREFILL_S}, {pre['secs']:.2f} s, K7 "
             f"launches {json.dumps(pre['counts'])} on {pre['k7_heads']} "
@@ -5173,9 +5341,12 @@ def run(args, t_start: float) -> int:
     torch.cuda.empty_cache()
 
     # slice 3: the banded attention kernel under H2O-Danube3-4B serving
-    rows["flash_swa"], launches["flash_swa"], e2e3 = run_slice3(
-        args.seed, args.profile)
-    log(f"main-path launches flash_swa: {launches['flash_swa']} (prefill)")
+    rows["flash_swa"], prefill_launches, e2e3 = run_slice3(args.seed,
+                                                           args.profile)
+    launches.update(prefill_launches)
+    launches.update(flash_swa_bwd=0, flash_swa_bwd_wgmma=0)
+    log(f"main-path launches flash_swa: {launches['flash_swa']} (prefill; "
+        f"{launches['flash_swa_wgmma']} on the wgmma kernel)")
     for name, secs in e2e3.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
 
@@ -5184,8 +5355,8 @@ def run(args, t_start: float) -> int:
                                                      args.profile)
     log(f"main-path launches flash_swa: {launches['flash_swa']} (prefill) "
         f"+ {train['flash_swa']} (training steps)")
-    launches["flash_swa"] += train["flash_swa"]
-    launches["flash_swa_bwd"] = train["flash_swa_bwd"]
+    for name in K7_COUNTERS:
+        launches[name] += train[name]
     for name, secs in e2e4.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
 
@@ -5196,7 +5367,7 @@ def run(args, t_start: float) -> int:
         f"training steps) + {mesh_counts['flash_swa']} (mesh training, "
         f"every rank); flash_swa_bwd: {launches['flash_swa_bwd']} + "
         f"{mesh_counts['flash_swa_bwd']}")
-    for name in mesh_counts:
+    for name in K7_COUNTERS:
         launches[name] += mesh_counts[name]
     for name, secs in e2e5.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
@@ -5208,7 +5379,7 @@ def run(args, t_start: float) -> int:
         f"training steps, mesh training) + {pipe_launches['flash_swa']} "
         f"(pipeline, every rank); flash_swa_bwd: {launches['flash_swa_bwd']}"
         f" + {pipe_launches['flash_swa_bwd']}")
-    for name in pipe_launches:
+    for name in K7_COUNTERS:
         launches[name] += pipe_launches[name]
     for name, secs in e2e6.items():
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
@@ -5238,6 +5409,10 @@ def run(args, t_start: float) -> int:
         log(f"e2e {name}: {secs * 1e3:.1f} ms")
     phase_dryrun_check(get_config(LM_ARCH))
 
+    # every main-path launch of K7 and its backward is on the wgmma kernels
+    # (each phase checks its route counters): the routes' rows are K7's
+    rows["flash_swa_wgmma"] = rows["flash_swa"]
+    rows["flash_swa_bwd_wgmma"] = rows["flash_swa_bwd"]
     kernels = []
     for name, (source_file, replaces) in KERNELS.items():
         row = rows[name]

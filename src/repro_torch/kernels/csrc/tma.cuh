@@ -1,12 +1,13 @@
 // Hopper's Tensor Memory Accelerator and the mbarriers that report its
 // copies, for the port's warp-specialised kernels (K5/K6's bf16 x bf16
-// route, segmm/csrc/segmm_wgmma.cu).
+// route, segmm/csrc/segmm_wgmma.cu; K7 and its backward,
+// flash_swa/csrc/flash_swa_wgmma.cu and flash_swa_bwd_wgmma.cu).
 //
 // * Device: mbarrier init / arrive / arrive.expect_tx / wait on a phase
-//   parity, and 2-D and 3-D tiled TMA loads global -> shared that complete
-//   on an mbarrier.  A wait that sees no progress for kWaitLimitNs traps,
-//   so a pipeline fault ends the launch with an error instead of hanging
-//   the card.
+//   parity, and 2-D, 3-D and 4-D tiled TMA loads global -> shared that
+//   complete on an mbarrier.  A wait that sees no progress for
+//   kWaitLimitNs traps, so a pipeline fault ends the launch with an error
+//   instead of hanging the card.
 // * Host: encode_tiled() fills a CUtensorMap through the driver's
 //   cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint*, so the
 //   library links against the runtime only (no -lcuda).  A map is built
@@ -100,6 +101,18 @@ __device__ __forceinline__ void load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Box at coordinates (c0 innermost, c1, c2, c3) of a 4-D map into `dst`.
+__device__ __forceinline__ void load_4d(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int c0, int c1,
+                                        int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

@@ -1,22 +1,40 @@
 // The wgmma primitives of the port's Hopper kernels (K5/K6's bf16 x bf16
-// route, segmm/csrc/segmm_wgmma.cu): shared-memory matrix descriptors for
-// 128-byte-swizzled tiles, the warpgroup's fence / commit / wait, register
-// hand-over between warpgroups (setmaxnreg), and one product shape,
-// m64n256k16 with bf16 operands and f32 accumulators.
+// route, segmm/csrc/segmm_wgmma.cu; K7 and its backward on bf16 heads,
+// flash_swa/csrc/flash_swa_wgmma.cu and flash_swa_bwd_wgmma.cu):
+// shared-memory matrix descriptors for 128-byte-swizzled tiles, the
+// warpgroup's fence / commit / wait, register hand-over between warpgroups
+// (setmaxnreg), and the product shapes m64nNk16 with bf16 operands and f32
+// accumulators:
+// * mma_m64n256k16_bf16_tn: A K-major, B MN-major, both in shared memory;
+// * mma_ss<64>: A and B K-major, both in shared memory (S = Q K^T, dP =
+//   dO V^T and their transposes);
+// * mma_rs<N> (N = 64, 120, 128): A from registers, B MN-major in shared
+//   memory (P V, dS K, P^T dO, dS^T Q).
 //
 // Operand layouts (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B, from a
 // 1024-byte aligned base):
-// * K-major (A, lhs [rows, K]): a box of 64 k (128 bytes) x R rows, row r
-//   at r * 128 bytes; 8-row groups 1024 bytes apart (SBO).  A k-step of 16
-//   starts 32 bytes further into the rows.
+// * K-major (A, lhs [rows, K]; or B stored [N rows, K]): a box of 64 k (128
+//   bytes) x R rows, row r at r * 128 bytes; 8-row groups 1024 bytes apart
+//   (SBO).  A k-step of 16 starts 32 bytes further into the rows; k past 64
+//   lies in the next box.
 // * MN-major (B, rhs [K, N] row-major): boxes of 64 n (128 bytes) x BK k
 //   rows, one box per 64 columns, `lbo` bytes apart (LBO: the next 64
 //   columns); 8-k-row groups 1024 bytes apart (SBO).  A k-step of 16 starts
 //   16 rows (2,048 bytes) further.
+// * A from registers (mma_rs): warp w of the warpgroup holds rows 16w ..
+//   16w + 15 in mma.sync's m16n8k16 A layout: a[0] = (row g, k 2c, 2c + 1),
+//   a[1] = (row g + 8, k 2c ..), a[2] = (row g, k 2c + 8 ..), a[3] = (row
+//   g + 8, k 2c + 8 ..), g = lane / 4, c = lane % 4, the lower k in the low
+//   half.  That is the accumulator layout below for two n8 groups, so an
+//   f32 accumulator tile packs into A fragments in registers.
 //
 // The accumulators of m64nNk16: thread t of the warpgroup holds, for each
 // n8 column group j, d[4j], d[4j+1] at row 16 (t / 32) + (t % 32) / 4 and
 // columns 8j + 2 (t % 4) + {0, 1}, and d[4j+2], d[4j+3] eight rows below.
+//
+// The register operands of a wgmma (accumulators and A fragments) are read
+// and written asynchronously until its group is waited on: fence_operands
+// them after the wait, before anything else reads or writes them.
 #pragma once
 
 #include <stdint.h>
@@ -62,6 +80,14 @@ template <int kRegs>
 __device__ __forceinline__ void fence_operands(float (&d)[kRegs]) {
 #pragma unroll
   for (int i = 0; i < kRegs; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int kSteps>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[kSteps][4]) {
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
 }
 
 // Raise / lower this warpgroup's register budget (all its warps call it).
@@ -136,5 +162,155 @@ __device__ __forceinline__ void mma_m64n256k16_bf16_tn(float (&d)[128],
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
+
+// d (+)= A B over one k-step of 16, A 64 x 16 and B 16 x N both K-major
+// in shared memory (desc_a, desc_b: B stored as N rows of k), bf16 in, f32
+// accumulate; scale_d 0 overwrites d instead of adding to it.
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                       uint64_t desc_b, int scale_d);
+
+// d (+)= A B over one k-step of 16, A 64 x 16 from registers (a: this
+// thread's fragment), B 16 x N MN-major in shared memory (desc_b), bf16 in,
+// f32 accumulate; scale_d 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4],
+                                       uint64_t desc_b, int scale_d);
+
+template <>
+__device__ __forceinline__ void mma_ss<64>(float (&d)[32],
+                                            uint64_t desc_a,
+                                            uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<120>(float (&d)[60],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %65, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59}, "
+      "{%60, %61, %62, %63}, %64, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_rs<128>(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
 
 }  // namespace wgmma

@@ -43,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -257,15 +259,20 @@ template <typename T>
 int launch_width(const void* q, const void* k, const void* v, void* out,
                  float* lse, int B, int S, int H, int Hkv, int hd,
                  int window, float scale, cudaStream_t stream) {
-  if (hd <= 32)
-    return launch<T, 1>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
-                        stream);
-  if (hd <= 64)
-    return launch<T, 2>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
-                        stream);
-  if (hd <= 128)
-    return launch<T, 4>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
-                        stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    // bf16 heads up to 128 take the tensor-core kernels (kernel.py)
+    if (hd <= 128) return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (hd <= 32)
+      return launch<T, 1>(q, k, v, out, lse, B, S, H, Hkv, hd, window,
+                          scale, stream);
+    if (hd <= 64)
+      return launch<T, 2>(q, k, v, out, lse, B, S, H, Hkv, hd, window,
+                          scale, stream);
+    if (hd <= 128)
+      return launch<T, 4>(q, k, v, out, lse, B, S, H, Hkv, hd, window,
+                          scale, stream);
+  }
   if (hd <= 256)
     return launch<T, 8>(q, k, v, out, lse, B, S, H, Hkv, hd, window, scale,
                         stream);

@@ -57,6 +57,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -465,9 +467,14 @@ int launch_width(const void* q, const void* k, const void* v,
                  float* dsum, void* dq, void* dk, void* dv, int B, int S,
                  int H, int Hkv, int hd, int window, float scale,
                  cudaStream_t stream) {
-  if (hd <= 128)
-    return launch<T, 64>(q, k, v, out, dout, lse, dsum, dq, dk, dv, B, S, H,
-                         Hkv, hd, window, scale, stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    // bf16 heads up to 128 take the tensor-core kernels (kernel.py)
+    if (hd <= 128) return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (hd <= 128)
+      return launch<T, 64>(q, k, v, out, dout, lse, dsum, dq, dk, dv, B, S,
+                           H, Hkv, hd, window, scale, stream);
+  }
   if (hd <= 256)
     return launch<T, 32>(q, k, v, out, dout, lse, dsum, dq, dk, dv, B, S, H,
                          Hkv, hd, window, scale, stream);

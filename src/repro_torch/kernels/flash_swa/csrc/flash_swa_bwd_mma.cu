@@ -1,5 +1,7 @@
 // The backward of banded causal sliding-window attention on the tensor
-// cores: K7's gradient for bfloat16 inputs with head_dim <= 128.
+// cores with mma.sync: K7's gradient for bfloat16 inputs with head_dim <=
+// 128 that is not a multiple of 8 (flash_swa_bwd_wgmma.cu takes the
+// others, every head of the main paths).
 //
 // Replaces: the gradient that JAX takes of the reference's banded attention
 // (src/repro/models/layers.py, attention(swa_banded=True)); the TPU kernel
@@ -67,7 +69,7 @@
 //   multiple of 16 (120 -> 128); rows past S are zeros;
 // * the mask is applied only on tiles that cross the band's edges or the
 //   ragged tail past S; the others are read whole.
-// Later: wgmma, TMA, warp specialisation and a persistent grid.
+// flash_swa_bwd_wgmma.cu is this design's successor on Hopper's own path.
 #include "flash_swa_mma.cuh"
 
 namespace {

@@ -1,9 +1,12 @@
-// Banded causal sliding-window attention on the tensor cores: K7 for
-// bfloat16 inputs with head_dim <= 128.
+// Banded causal sliding-window attention on the tensor cores with
+// mma.sync: K7 for bfloat16 inputs with head_dim <= 128 that is not a
+// multiple of 8 (TMA's 16-byte row strides).
 //
 // Replaces: src/repro/kernels/flash_swa/kernel.py::flash_swa
-// (_flash_swa_kernel), as flash_swa.cu does for float32 and for wider
-// heads; the wrapper (kernel.py::flash_swa) routes between the two.
+// (_flash_swa_kernel), as flash_swa_wgmma.cu (wgmma fed by TMA: bf16 heads
+// that are a multiple of 8, every head of the main paths) and flash_swa.cu
+// (float32, wider heads) do; the wrapper (kernel.py::flash_swa) routes by
+// dtype and head width.
 //
 // Computes what flash_swa.cu computes (its header states the function and
 // the reference's -1e30 fill, which this kernel keeps, with the same
@@ -50,7 +53,7 @@
 // * the mask is applied only on tiles that cross the band's edges (the
 //   diagonal tiles and the lower edge tile; a ragged tail past S lies on
 //   a diagonal tile); the others are read whole.
-// Later: wgmma, TMA, warp specialisation and a persistent grid.
+// flash_swa_wgmma.cu is this design's successor on Hopper's own path.
 #include "flash_swa_mma.cuh"
 
 namespace {

@@ -1,30 +1,35 @@
 """Wrappers of the banded sliding-window attention CUDA kernels (K7) and
 of its backward, beside their plain versions.
 
-======================  ==============================  ===================
-launch counter          CUDA source                     inputs
-======================  ==============================  ===================
-``flash_swa_mma``       ``csrc/flash_swa_mma.cu``       bfloat16, ``hd <=
-                                                        128`` (tensor
-                                                        cores)
-``flash_swa``           ``csrc/flash_swa.cu``           float32, or
-                                                        bfloat16 with ``128
-                                                        < hd <= 256`` (CUDA
-                                                        cores); it also
-                                                        counts every launch
-                                                        of the other
-``flash_swa_bwd_mma``   ``csrc/flash_swa_bwd_mma.cu``   the backward:
-                                                        bfloat16, ``hd <=
-                                                        128`` (tensor
-                                                        cores)
-``flash_swa_bwd``       ``csrc/flash_swa_bwd.cu``       the backward:
-                                                        float32, or
-                                                        bfloat16 with ``128
-                                                        < hd <= 256`` (CUDA
-                                                        cores); it also
-                                                        counts every launch
-                                                        of the other
-======================  ==============================  ===================
+========================  ================================  =================
+launch counter            CUDA source                       inputs
+========================  ================================  =================
+``flash_swa_wgmma``       ``csrc/flash_swa_wgmma.cu``       bfloat16, ``hd <=
+                                                            128``, ``hd % 8
+                                                            == 0`` (wgmma fed
+                                                            by TMA)
+``flash_swa_mma``         ``csrc/flash_swa_mma.cu``         bfloat16, ``hd <=
+                                                            128``, ``hd % 8
+                                                            != 0``
+                                                            (``mma.sync``)
+``flash_swa``             ``csrc/flash_swa.cu``             float32, or
+                                                            bfloat16 with
+                                                            ``128 < hd <=
+                                                            256`` (CUDA
+                                                            cores); it also
+                                                            counts every
+                                                            launch of the
+                                                            others
+``flash_swa_bwd_wgmma``   ``csrc/flash_swa_bwd_wgmma.cu``   the backward, as
+                                                            ``flash_swa_wgmma``
+``flash_swa_bwd_mma``     ``csrc/flash_swa_bwd_mma.cu``     the backward, as
+                                                            ``flash_swa_mma``
+``flash_swa_bwd``         ``csrc/flash_swa_bwd.cu``         the backward, as
+                                                            ``flash_swa``; it
+                                                            also counts every
+                                                            launch of the
+                                                            others
+========================  ================================  =================
 
 The forward kernels replace the reference's
 ``kernels/flash_swa/kernel.py::flash_swa``; the backward computes the
@@ -34,8 +39,11 @@ qc == 0``; ``qc`` is only checked: the kernels pick their own tiles),
 allocates the output (and, with ``return_lse``, the row log-sum-exp the
 backward needs), and for CUDA tensors launches the kernel that
 :func:`kernel_for` names on the current stream and adds one to its counters
-in :data:`LAUNCHES`; for CPU tensors it runs :func:`flash_swa_plain`, which
-is also what the kernels are tested against.  :func:`flash_swa_bwd` does
+in :data:`LAUNCHES` (the wgmma routes read their operands through TMA,
+which takes 16-byte aligned bases only: an operand that is not is copied
+first, counted in :data:`COPIES`, and the route stays the same); for CPU
+tensors it runs :func:`flash_swa_plain`, which is also what the kernels
+are tested against.  :func:`flash_swa_bwd` does
 the same with the kernel that :func:`bwd_kernel_for` names and with
 :func:`flash_swa_bwd_plain`.  For ``meta`` tensors (the dry run) both
 return empty outputs of the kernels' shapes, launch nothing and add the
@@ -60,15 +68,23 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 
 #: Every CUDA source of this package, built in parallel by :func:`build`.
 SOURCES = (CSRC / "flash_swa.cu", CSRC / "flash_swa_mma.cu",
-           CSRC / "flash_swa_bwd.cu", CSRC / "flash_swa_bwd_mma.cu")
+           CSRC / "flash_swa_bwd.cu", CSRC / "flash_swa_bwd_mma.cu",
+           CSRC / "flash_swa_wgmma.cu", CSRC / "flash_swa_bwd_wgmma.cu")
 
 #: Kernel launches since the last :func:`reset_launch_counts`:
-#: ``flash_swa`` counts every K7 forward launch, ``flash_swa_mma`` those of
-#: the tensor-core kernel, ``flash_swa_bwd`` every backward launch (its two
-#: kernels, dq then dk/dv, count as one) and ``flash_swa_bwd_mma`` those of
-#: the tensor-core backward.
-LAUNCHES = {"flash_swa": 0, "flash_swa_mma": 0, "flash_swa_bwd": 0,
+#: ``flash_swa`` counts every K7 forward launch, ``flash_swa_wgmma`` and
+#: ``flash_swa_mma`` those of the two tensor-core kernels, ``flash_swa_bwd``
+#: every backward launch (its two kernels, dq then dk/dv, count as one),
+#: ``flash_swa_bwd_wgmma`` and ``flash_swa_bwd_mma`` those of the two
+#: tensor-core backwards.
+LAUNCHES = {"flash_swa": 0, "flash_swa_wgmma": 0, "flash_swa_mma": 0,
+            "flash_swa_bwd": 0, "flash_swa_bwd_wgmma": 0,
             "flash_swa_bwd_mma": 0}
+
+#: Operands the wgmma routes copied into a 16-byte aligned tensor first
+#: (TMA reads from aligned bases only), since the last
+#: :func:`reset_launch_counts`.
+COPIES = {"flash_swa_wgmma": 0, "flash_swa_bwd_wgmma": 0}
 
 #: Widest head the CUDA-core kernel takes (its accumulators are 8 columns a
 #: lane).
@@ -92,12 +108,17 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _F, _P],
     "flash_swa_bwd_mma": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _I, _I, _F, _I, _P],
+    "flash_swa_wgmma_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                            _P],
+    "flash_swa_bwd_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _F, _P],
 }
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counter in (LAUNCHES, COPIES):
+        for name in counter:
+            counter[name] = 0
 
 
 def build() -> dict:
@@ -135,21 +156,36 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """The counter of the kernel that takes ``dtype`` inputs with heads of
-    ``head_dim``: ``"flash_swa_mma"`` or ``"flash_swa"``."""
+    ``head_dim``: ``"flash_swa_wgmma"`` (bfloat16, ``head_dim <=
+    MMA_MAX_HEAD_DIM`` and a multiple of 8, so that the rows of ``H hd``
+    and ``Hkv hd`` elements are TMA's 16-byte strides), ``"flash_swa_mma"``
+    (the other bfloat16 heads up to ``MMA_MAX_HEAD_DIM``) or
+    ``"flash_swa"`` (float32, which TF32 would round, and wider bfloat16
+    heads: CUDA cores).  The dtype and the head width alone decide: an
+    operand off 16-byte alignment is copied, never sent elsewhere."""
     if dtype == torch.bfloat16 and head_dim <= MMA_MAX_HEAD_DIM:
-        return "flash_swa_mma"
+        return "flash_swa_wgmma" if head_dim % 8 == 0 else "flash_swa_mma"
     return "flash_swa"
 
 
 def bwd_kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """The counter of the backward kernel that takes ``dtype`` inputs with
-    heads of ``head_dim``: ``"flash_swa_bwd_mma"`` (bfloat16 with
-    ``head_dim <= MMA_MAX_HEAD_DIM``: tensor cores) or ``"flash_swa_bwd"``
-    (float32, which TF32 would round, and wider bfloat16 heads: CUDA
-    cores).  The dtype and the head width alone decide."""
-    if dtype == torch.bfloat16 and head_dim <= MMA_MAX_HEAD_DIM:
-        return "flash_swa_bwd_mma"
-    return "flash_swa_bwd"
+    heads of ``head_dim``: ``"flash_swa_bwd_wgmma"``,
+    ``"flash_swa_bwd_mma"`` or ``"flash_swa_bwd"``, on the same rule as
+    :func:`kernel_for`."""
+    return {"flash_swa_wgmma": "flash_swa_bwd_wgmma",
+            "flash_swa_mma": "flash_swa_bwd_mma",
+            "flash_swa": "flash_swa_bwd"}[kernel_for(dtype, head_dim)]
+
+
+def _aligned(t: torch.Tensor, route: str) -> torch.Tensor:
+    """``t``, or a copy of it at a 16-byte aligned base (counted in
+    :data:`COPIES` under ``route``).  The caller holds the copy until the
+    launch is queued."""
+    if t.data_ptr() % 16 == 0:
+        return t
+    COPIES[route] += 1
+    return t.clone()
 
 
 def _function(source: pathlib.Path, name: str):
@@ -207,14 +243,19 @@ def flash_swa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            if return_lse else None)
     lse_ptr = lse.data_ptr() if return_lse else None
     name = kernel_for(q.dtype, hd)
+    if name == "flash_swa_wgmma":
+        q, k, v = (_aligned(t, name) for t in (q, k, v))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if name == "flash_swa_mma":
-        # 16-byte cp.async rows need hd % 8 == 0 and aligned bases
-        vec = int(hd % 8 == 0 and all(p % 16 == 0 for p in ptrs))
+    if name == "flash_swa_wgmma":
+        rc = _function(SOURCES[4], "flash_swa_wgmma_fwd")(
+            *ptrs, lse_ptr, b, s, h, hkv, hd, min(window, s), hd ** -0.5,
+            stream)
+    elif name == "flash_swa_mma":
+        # vec 0: hd % 8 != 0 on this route, so no 16-byte cp.async rows
         rc = _function(SOURCES[1], "flash_swa_mma_fwd")(
             *ptrs, lse_ptr, b, s, h, hkv, hd, min(window, s), hd ** -0.5,
-            vec, stream)
+            0, stream)
     else:
         rc = _function(SOURCES[0], "flash_swa_fwd")(
             *ptrs, lse_ptr, _DTYPE_CODE[q.dtype], b, s, h, hkv, hd,
@@ -223,8 +264,8 @@ def flash_swa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
     LAUNCHES["flash_swa"] += 1
-    if name == "flash_swa_mma":
-        LAUNCHES["flash_swa_mma"] += 1
+    if name != "flash_swa":
+        LAUNCHES[name] += 1
     return (out, lse) if return_lse else out
 
 
@@ -288,10 +329,10 @@ def flash_swa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     type, from the forward's inputs, its output, its row log-sum-exp
     (``return_lse``) and the output's gradient ``dout``.  dk/dv sum the
     query heads of each KV head.  CUDA tensors launch the kernel that
-    :func:`bwd_kernel_for` names (``csrc/flash_swa_bwd_mma.cu`` or
-    ``csrc/flash_swa_bwd.cu``; counter ``flash_swa_bwd``, and
-    ``flash_swa_bwd_mma`` for the first); CPU tensors run
-    :func:`flash_swa_bwd_plain`."""
+    :func:`bwd_kernel_for` names (``csrc/flash_swa_bwd_wgmma.cu``,
+    ``csrc/flash_swa_bwd_mma.cu`` or ``csrc/flash_swa_bwd.cu``; counter
+    ``flash_swa_bwd``, and the route's own for the first two); CPU tensors
+    run :func:`flash_swa_bwd_plain`."""
     b, s, h, hkv, hd = _check_bwd(q, k, v, out, lse, dout, window, qc)
     if h == 0:
         return tuple(torch.empty_like(t) for t in (q, k, v))
@@ -311,15 +352,16 @@ def flash_swa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dsum = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     name = bwd_kernel_for(q.dtype, hd)
-    tensors = (q, k, v, out, dout, lse, dsum, dq, dk, dv)
-    ptrs = [t.data_ptr() for t in tensors]
-    if name == "flash_swa_bwd_mma":
-        # 16-byte cp.async rows need hd % 8 == 0 and aligned bf16 bases
-        vec = int(hd % 8 == 0 and all(t.data_ptr() % 16 == 0
-                                      for t in tensors
-                                      if t.dtype == torch.bfloat16))
+    if name == "flash_swa_bwd_wgmma":
+        q, k, v, out, dout = (_aligned(t, name) for t in (q, k, v, out, dout))
+    ptrs = [t.data_ptr() for t in (q, k, v, out, dout, lse, dsum, dq, dk, dv)]
+    if name == "flash_swa_bwd_wgmma":
+        rc = _function(SOURCES[5], "flash_swa_bwd_wgmma")(
+            *ptrs, b, s, h, hkv, hd, min(window, s), hd ** -0.5, stream)
+    elif name == "flash_swa_bwd_mma":
+        # vec 0: hd % 8 != 0 on this route, so no 16-byte cp.async rows
         rc = _function(SOURCES[3], "flash_swa_bwd_mma")(
-            *ptrs, b, s, h, hkv, hd, min(window, s), hd ** -0.5, vec, stream)
+            *ptrs, b, s, h, hkv, hd, min(window, s), hd ** -0.5, 0, stream)
     else:
         rc = _function(SOURCES[2], "flash_swa_bwd")(
             *ptrs, _DTYPE_CODE[q.dtype], b, s, h, hkv, hd, min(window, s),
@@ -328,8 +370,8 @@ def flash_swa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
     LAUNCHES["flash_swa_bwd"] += 1
-    if name == "flash_swa_bwd_mma":
-        LAUNCHES["flash_swa_bwd_mma"] += 1
+    if name != "flash_swa_bwd":
+        LAUNCHES[name] += 1
     return dq, dk, dv
 
 

@@ -1429,9 +1429,11 @@ def test_flash_swa_matches_plain(card, shape, dtype):
     got = FK.flash_swa(q, k, v, window=window, qc=qc)
     torch.cuda.synchronize()
     assert FK.LAUNCHES["flash_swa"] == before["flash_swa"] + 1
-    # bf16 heads up to 128 wide take the tensor-core kernel, the rest not
-    mma = dtype == torch.bfloat16 and hd <= 128
-    assert FK.LAUNCHES["flash_swa_mma"] == before["flash_swa_mma"] + mma
+    # bf16 heads up to 128 wide take a tensor-core kernel (wgmma where hd %
+    # 8 == 0), the rest not
+    for route in ("flash_swa_wgmma", "flash_swa_mma"):
+        assert FK.LAUNCHES[route] == before[route] + (
+            route == FK.kernel_for(dtype, hd))
     assert got.dtype == dtype and got.shape == q.shape
     want = FK.flash_swa_plain(q.float(), k.float(), v.float(),
                               window=window, qc=qc)
@@ -1439,12 +1441,13 @@ def test_flash_swa_matches_plain(card, shape, dtype):
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
 
 
-#: The tensor-core kernel's own edges (S, H, Hkv, hd, window, qc): a head
-#: not a multiple of 8 (element loads) on a ragged S, each padded width
-#: (24 -> 32, 96, 128), window 1, and rows that start off 16 bytes.
+#: The tensor-core kernels' edges (S, H, Hkv, hd, window, qc): heads not
+#: a multiple of 8 (the mma.sync kernel's element loads) on a ragged S,
+#: each padded width (24 -> 64, 96 -> 128 on the wgmma kernel), window 1,
+#: and rows that start off 16 bytes (copied first on the wgmma route).
 MMA_SHAPES = [(160, 4, 2, 100, 64, 32), (128, 2, 1, 24, 32, 32),
               (256, 4, 4, 96, 128, 64), (192, 4, 2, 128, 64, 64),
-              (128, 2, 1, 64, 1, 1)]
+              (128, 2, 1, 64, 1, 1), (96, 2, 1, 20, 32, 32)]
 
 
 @pytest.mark.parametrize("offset", [0, 1])
@@ -1460,10 +1463,11 @@ def test_flash_swa_mma_edges(card, shape, offset):
         return t.to(card)[offset:].view(2, S, heads, hd)
 
     q, k, v = draw(H), draw(Hkv), draw(Hkv)
-    before = FK.LAUNCHES["flash_swa_mma"]
+    route = FK.kernel_for(torch.bfloat16, hd)
+    before = FK.LAUNCHES[route]
     got = FK.flash_swa(q, k, v, window=window, qc=qc)
     torch.cuda.synchronize()
-    assert FK.LAUNCHES["flash_swa_mma"] == before + 1
+    assert FK.LAUNCHES[route] == before + 1
     want = FK.flash_swa_plain(q.float(), k.float(), v.float(),
                               window=window, qc=qc)
     torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-4)
@@ -1531,10 +1535,10 @@ def test_flash_swa_bwd_matches_plain(card, shape, dtype):
     got = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
     torch.cuda.synchronize()
     assert FK.LAUNCHES["flash_swa_bwd"] == before["flash_swa_bwd"] + 1
-    # bf16 heads up to 128 wide take the tensor-core backward, the rest not
-    mma = dtype == torch.bfloat16 and hd <= 128
-    assert (FK.LAUNCHES["flash_swa_bwd_mma"]
-            == before["flash_swa_bwd_mma"] + mma)
+    # bf16 heads up to 128 wide take a tensor-core backward, the rest not
+    for route in ("flash_swa_bwd_wgmma", "flash_swa_bwd_mma"):
+        assert FK.LAUNCHES[route] == before[route] + (
+            route == FK.bwd_kernel_for(dtype, hd))
     want = FK.flash_swa_bwd_plain(*(t.float() for t in (q, k, v, out)), lse,
                                   dout.float(), window=window, qc=qc)
     rtol, atol = SWA_BWD_TOL[dtype]
@@ -1549,11 +1553,11 @@ def test_flash_swa_bwd_matches_plain(card, shape, dtype):
 def test_flash_swa_bwd_is_deterministic(card, dtype):
     shape = (1024, 8, 2, 120, 256, 128)
     q, k, v, out, lse, dout = _swa_bwd_inputs(shape, dtype, card, 3)
-    before = FK.LAUNCHES["flash_swa_bwd_mma"]
+    route = FK.bwd_kernel_for(dtype, shape[3])
+    before = FK.LAUNCHES[route]
     first = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=256, qc=128)
     second = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=256, qc=128)
-    mma = 2 if dtype == torch.bfloat16 else 0
-    assert FK.LAUNCHES["flash_swa_bwd_mma"] == before + mma
+    assert FK.LAUNCHES[route] == before + 2
     for a, b in zip(first, second):
         assert torch.equal(a.view(torch.int16) if dtype == torch.bfloat16
                            else a.view(torch.int32),
@@ -1561,24 +1565,25 @@ def test_flash_swa_bwd_is_deterministic(card, dtype):
                            else b.view(torch.int32))
 
 
-#: The tensor-core backward's own edges (S, H, Hkv, hd, window, qc): Danube's
-#: head (120: padded to 128, 15 n8 tiles), the widest (128), a head not a
-#: multiple of 8 (element loads) on an S that is not a multiple of the
-#: 64-row tile, each smaller padded width (24 -> 32, 64, 96), window 1, and
-#: S = qc + window + qc.
+#: The tensor-core backwards' edges (S, H, Hkv, hd, window, qc): Danube's
+#: head (120), the widest (128), heads not a multiple of 8 (the mma.sync
+#: kernel's element loads) on an S that is not a multiple of the 64-row
+#: tile, each smaller padded width (24, 64, 96), window 1, and S = qc +
+#: window + qc; each on the route ``bwd_kernel_for`` names.
 BWD_MMA_SHAPES = [(512, 8, 2, 120, 128, 64), (192, 4, 2, 128, 64, 64),
                   (160, 4, 2, 100, 64, 32), (200, 2, 1, 24, 40, 40),
                   (320, 4, 1, 64, 192, 64), (256, 4, 4, 96, 128, 64),
-                  (130, 2, 1, 120, 1, 1)]
+                  (130, 2, 1, 120, 1, 1), (96, 2, 1, 20, 32, 32)]
 
 
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("shape", BWD_MMA_SHAPES, ids=str)
 def test_flash_swa_bwd_mma_edges(card, shape, offset):
-    """bf16 through ``csrc/flash_swa_bwd_mma.cu``, against the float32
+    """bf16 through the route ``bwd_kernel_for`` names, against the float32
     plain backward (``SWA_BWD_TOL``), and twice for the same bits; offset
     1 puts every operand one element (2 bytes) into its storage, so the
-    kernel takes its element loads."""
+    mma.sync kernel takes its element loads and the wgmma route copies
+    the operands first."""
     S, H, Hkv, hd, window, qc = shape
     gen = torch.Generator().manual_seed(S + hd + offset)
 
@@ -1593,8 +1598,127 @@ def test_flash_swa_bwd_mma_edges(card, shape, offset):
     got = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
     again = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
     torch.cuda.synchronize()
-    for name in ("flash_swa_bwd", "flash_swa_bwd_mma"):
+    for name in ("flash_swa_bwd", FK.bwd_kernel_for(torch.bfloat16, hd)):
         assert FK.LAUNCHES[name] == before[name] + 2, name
+    want = FK.flash_swa_bwd_plain(*(t.float() for t in (q, k, v, out)), lse,
+                                  dout.float(), window=window, qc=qc)
+    rtol, atol = SWA_BWD_TOL[torch.bfloat16]
+    for name, g, w, a in zip("qkv", got, want, again):
+        assert g.dtype == torch.bfloat16, name
+        torch.testing.assert_close(g.float(), w, rtol=rtol,
+                                   atol=atol * max(1.0, float(w.abs().max())),
+                                   msg=lambda m: f"d{name}: {m}")
+        assert torch.equal(g.view(torch.int16), a.view(torch.int16)), name
+
+
+# ---------------------------------------------------------------------------
+# K7 and its backward on the wgmma routes (csrc/flash_swa_wgmma.cu and
+# csrc/flash_swa_bwd_wgmma.cu: bf16, hd % 8 == 0, hd <= 128).
+# ---------------------------------------------------------------------------
+
+#: (form, N, K) of the wgmma shapes the two kernels use
+#: (``kernels/csrc/wgmma.cuh``): ``ss`` both operands K-major in shared
+#: memory (S, dP and their transposes; K 64 or 128: heads of one or two
+#: boxes), ``rs`` A from registers and B MN-major (P V, dS K, P^T dO, dS^T
+#: Q; N the head's width, K a 64-row tile).
+WGMMA_FORMS = [("ss", 64, 64), ("ss", 64, 128), ("rs", 64, 64),
+               ("rs", 120, 64), ("rs", 128, 64)]
+
+
+@pytest.mark.parametrize("form", WGMMA_FORMS, ids=str)
+def test_wgmma_shapes_match_matmul(card, form):
+    """Each wgmma shape on operands that TMA loads with the kernels' boxes
+    and swizzle (``tests/csrc/wgmma_probe.cu``), against torch.matmul:
+    integer-valued bf16 operands make every product and sum exact, so a
+    wrong descriptor or fragment order shows as a mismatch."""
+    import ctypes
+    import pathlib
+    from repro_torch.kernels import _build
+    name, n, k = form
+    lib = _build.load(pathlib.Path(__file__).parent / "csrc"
+                      / "wgmma_probe.cu")
+    fn = getattr(lib, f"probe_{name}")
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    gen = torch.Generator().manual_seed(n + k)
+    a = torch.randint(-4, 5, (64, k), generator=gen).to(torch.bfloat16)
+    b = torch.randint(-4, 5, (n, k) if name == "ss" else (k, n),
+                      generator=gen).to(torch.bfloat16)
+    a, b = a.to(card), b.to(card)
+    out = torch.full((64, n), float("nan"), device=card)
+    assert fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, k) == 0
+    torch.cuda.synchronize()
+    want = a.float() @ (b.float().T if name == "ss" else b.float())
+    assert torch.equal(out, want)
+
+
+#: The wgmma routes' edges (S, H, Hkv, hd, window, qc): Danube's 120 and
+#: Hymba's 64 and the widest 128; S not a multiple of the 64- or 128-row
+#: tiles; window 1 and window == S (== qc); GQA 1, 4 and 5; a rank's
+#: 13-head block with K/V repeated a query head (H == Hkv); Hymba's rank of
+#: ``(1, 4)``: 7 heads of 64, window 1,024.
+WGMMA_SHAPES = [(200, 8, 2, 120, 40, 40), (328, 5, 1, 64, 8, 8),
+                (256, 4, 4, 128, 1, 1), (384, 4, 1, 120, 384, 128),
+                (130, 2, 1, 128, 130, 130), (200, 13, 13, 64, 100, 100),
+                (1280, 7, 7, 64, 1024, 128)]
+
+
+def _wgmma_inputs(shape, offset, card):
+    S, H, Hkv, hd, window, qc = shape
+    gen = torch.Generator().manual_seed(S + H + hd + offset)
+
+    def draw(heads):
+        # offset 1: a contiguous view one element (2 bytes) into its
+        # storage, which the wgmma routes copy to an aligned base first
+        n = 2 * S * heads * hd
+        t = torch.randn(n + offset, generator=gen).to(torch.bfloat16)
+        return t.to(card)[offset:].view(2, S, heads, hd)
+
+    return draw(H), draw(Hkv), draw(Hkv), draw(H)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", WGMMA_SHAPES, ids=str)
+def test_flash_swa_wgmma_edges(card, shape, offset):
+    S, H, Hkv, hd, window, qc = shape
+    q, k, v, _ = _wgmma_inputs(shape, offset, card)
+    route = FK.kernel_for(torch.bfloat16, hd)
+    assert route == "flash_swa_wgmma"
+    before, copies = dict(FK.LAUNCHES), dict(FK.COPIES)
+    out, lse = FK.flash_swa(q, k, v, window=window, qc=qc, return_lse=True)
+    torch.cuda.synchronize()
+    for name in ("flash_swa", route):
+        assert FK.LAUNCHES[name] == before[name] + 1, name
+    assert FK.LAUNCHES["flash_swa_mma"] == before["flash_swa_mma"]
+    assert FK.COPIES[route] == copies[route] + 3 * offset
+    want, want_lse = FK.flash_swa_plain(q.float(), k.float(), v.float(),
+                                        window=window, qc=qc,
+                                        return_lse=True)
+    torch.testing.assert_close(out.float(), want, rtol=1e-2, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", WGMMA_SHAPES, ids=str)
+def test_flash_swa_bwd_wgmma_edges(card, shape, offset):
+    """The wgmma backward against the float32 plain backward
+    (``SWA_BWD_TOL``) and twice for the same bits, its counters checked;
+    offset 1 copies the five bf16 inputs to aligned bases first."""
+    S, H, Hkv, hd, window, qc = shape
+    q, k, v, dout = _wgmma_inputs(shape, offset, card)
+    out, lse = FK.flash_swa(q, k, v, window=window, qc=qc, return_lse=True)
+    if offset:   # out, as the backward gets it: off alignment too
+        out = torch.cat([out.new_zeros(1), out.flatten()])[1:].view_as(out)
+    route = FK.bwd_kernel_for(torch.bfloat16, hd)
+    assert route == "flash_swa_bwd_wgmma"
+    before, copies = dict(FK.LAUNCHES), dict(FK.COPIES)
+    got = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
+    again = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
+    torch.cuda.synchronize()
+    for name in ("flash_swa_bwd", route):
+        assert FK.LAUNCHES[name] == before[name] + 2, name
+    assert FK.LAUNCHES["flash_swa_bwd_mma"] == before["flash_swa_bwd_mma"]
+    assert FK.COPIES[route] == copies[route] + 2 * 5 * offset
     want = FK.flash_swa_bwd_plain(*(t.float() for t in (q, k, v, out)), lse,
                                   dout.float(), window=window, qc=qc)
     rtol, atol = SWA_BWD_TOL[torch.bfloat16]
@@ -1620,8 +1744,8 @@ def test_banded_attention_function_matches_autograd_of_plain(card, dtype):
     got = torch.autograd.grad(out, (q, k, v), dout)
     assert FK.LAUNCHES["flash_swa"] == before["flash_swa"] + 1
     assert FK.LAUNCHES["flash_swa_bwd"] == before["flash_swa_bwd"] + 1
-    assert (FK.LAUNCHES["flash_swa_bwd_mma"]
-            == before["flash_swa_bwd_mma"] + (dtype == torch.bfloat16))
+    assert (FK.LAUNCHES["flash_swa_bwd_wgmma"]
+            == before["flash_swa_bwd_wgmma"] + (dtype == torch.bfloat16))
     leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(
         FK.flash_swa_plain(*leaves, window=window, qc=qc), leaves,
@@ -1665,7 +1789,8 @@ def test_banded_danube_layer_backward_reaches_every_leaf(card):
     torch.cuda.synchronize()
     assert FK.LAUNCHES["flash_swa"] == before["flash_swa"] + 1
     assert FK.LAUNCHES["flash_swa_bwd"] == before["flash_swa_bwd"] + 1
-    assert FK.LAUNCHES["flash_swa_bwd_mma"] == before["flash_swa_bwd_mma"] + 1
+    assert (FK.LAUNCHES["flash_swa_bwd_wgmma"]
+            == before["flash_swa_bwd_wgmma"] + 1)
     for path, leaf in leaves.items():
         assert leaf.grad is not None, path
         assert bool(torch.isfinite(leaf.grad).all()), path
@@ -1677,7 +1802,7 @@ def test_banded_danube_layer_backward_reaches_every_leaf(card):
 def test_k7_on_a_ranks_local_heads(card, tp):
     """K7 and its backward at the head counts a rank of a model axis of
     ``tp`` runs for Danube (``32 / tp`` query and ``8 / tp`` KV heads of
-    120, the GQA group of 4 kept), bfloat16 on the tensor cores, against
+    120, the GQA group of 4 kept), bfloat16 on the wgmma routes, against
     their plain versions on the same inputs."""
     shape = (1024, 32 // tp, 8 // tp, 120, 256, 128)
     S, H, Hkv, hd, window, qc = shape
@@ -1688,7 +1813,7 @@ def test_k7_on_a_ranks_local_heads(card, tp):
                                   window=window, qc=qc)
     torch.testing.assert_close(out.float(), want_out, rtol=1e-2, atol=1e-4)
     got = FK.flash_swa_bwd(q, k, v, out, lse, dout, window=window, qc=qc)
-    for name in ("flash_swa_mma", "flash_swa_bwd_mma"):
+    for name in ("flash_swa_wgmma", "flash_swa_bwd_wgmma"):
         assert FK.LAUNCHES[name] == before[name] + 1, name
     want = FK.flash_swa_bwd_plain(*(t.float() for t in (q, k, v, out)), lse,
                                   dout.float(), window=window, qc=qc)

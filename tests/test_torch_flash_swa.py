@@ -246,3 +246,118 @@ def test_bf16_probabilities_alone_miss_the_bf16_check(case):
     """Why the kernel splits P: rounding it to bf16 alone leaves elements
     outside the check's limits."""
     assert _mma_model_error(case, split=False) > 0
+
+
+# ---------------------------------------------------------------------------
+# The routes between K7's kernels, their counters and sources, and the flop
+# the wgmma kernels execute (csrc/flash_swa_wgmma.cu,
+# csrc/flash_swa_bwd_wgmma.cu).
+# ---------------------------------------------------------------------------
+
+#: (dtype, head_dim, forward route, backward route): bf16 heads up to 128
+#: that are a multiple of 8 (TMA's 16-byte row strides) take the wgmma
+#: kernels, the other bf16 heads up to 128 the mma.sync kernels, float32
+#: and wider bf16 heads the CUDA-core kernels.
+ROUTES = [
+    (torch.bfloat16, 8, "flash_swa_wgmma", "flash_swa_bwd_wgmma"),
+    (torch.bfloat16, 64, "flash_swa_wgmma", "flash_swa_bwd_wgmma"),
+    (torch.bfloat16, 120, "flash_swa_wgmma", "flash_swa_bwd_wgmma"),
+    (torch.bfloat16, 128, "flash_swa_wgmma", "flash_swa_bwd_wgmma"),
+    (torch.bfloat16, 100, "flash_swa_mma", "flash_swa_bwd_mma"),
+    (torch.bfloat16, 20, "flash_swa_mma", "flash_swa_bwd_mma"),
+    (torch.bfloat16, 127, "flash_swa_mma", "flash_swa_bwd_mma"),
+    (torch.bfloat16, 136, "flash_swa", "flash_swa_bwd"),
+    (torch.bfloat16, 256, "flash_swa", "flash_swa_bwd"),
+    (torch.float32, 64, "flash_swa", "flash_swa_bwd"),
+    (torch.float32, 120, "flash_swa", "flash_swa_bwd"),
+    (torch.float32, 256, "flash_swa", "flash_swa_bwd"),
+]
+
+
+@pytest.mark.parametrize("dtype,hd,fwd,bwd", ROUTES, ids=str)
+def test_routes_by_dtype_and_head_width(dtype, hd, fwd, bwd):
+    assert TK.kernel_for(dtype, hd) == fwd
+    assert TK.bwd_kernel_for(dtype, hd) == bwd
+
+
+@pytest.mark.parametrize("route", ["flash_swa_wgmma", "flash_swa_bwd_wgmma"])
+def test_alignment_never_changes_the_route(route):
+    """The route is a function of dtype and head width alone; an operand
+    off 16-byte alignment is copied to an aligned base for the wgmma
+    kernels (TMA reads aligned bases only), and the copy is counted."""
+    import inspect
+    assert list(inspect.signature(TK.kernel_for).parameters) == [
+        "dtype", "head_dim"]
+    assert list(inspect.signature(TK.bwd_kernel_for).parameters) == [
+        "dtype", "head_dim"]
+    TK.reset_launch_counts()
+    flat = torch.randn(1 + 4 * 8 * 64).to(torch.bfloat16)
+    aligned = flat[8:8 + 3 * 8 * 64].view(1, 3, 8, 64)
+    assert aligned.data_ptr() % 16 == 0
+    assert TK._aligned(aligned, route) is aligned
+    assert TK.COPIES[route] == 0
+    off = flat[1:1 + 3 * 8 * 64].view(1, 3, 8, 64)
+    assert off.data_ptr() % 16 != 0
+    copy = TK._aligned(off, route)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, off)
+    assert TK.COPIES[route] == 1
+    TK.reset_launch_counts()
+    assert TK.COPIES[route] == 0
+
+
+def test_launch_and_copy_counters():
+    """Every route has its counter; ``flash_swa`` and ``flash_swa_bwd``
+    count every launch beside them; the CPU runs the plain versions and
+    counts nothing."""
+    assert set(TK.LAUNCHES) == {"flash_swa", "flash_swa_wgmma",
+                                "flash_swa_mma", "flash_swa_bwd",
+                                "flash_swa_bwd_wgmma", "flash_swa_bwd_mma"}
+    assert set(TK.COPIES) == {"flash_swa_wgmma", "flash_swa_bwd_wgmma"}
+    for dtype, hd, fwd, bwd in ROUTES:
+        assert fwd in TK.LAUNCHES and bwd in TK.LAUNCHES
+    TK.reset_launch_counts()
+    q, k, v = (torch.from_numpy(t).to(torch.bfloat16)
+               for t in _qkv(64, 4, 2, 64))
+    out, lse = TK.flash_swa(q, k, v, window=32, qc=16, return_lse=True)
+    TK.flash_swa_bwd(q, k, v, out, lse, out, window=32, qc=16)
+    assert set(TK.LAUNCHES.values()) == {0}
+    assert set(TK.COPIES.values()) == {0}
+
+
+def test_sources_include_the_wgmma_kernels_and_headers():
+    from repro_torch.kernels import _build
+    names = {p.name for p in TK.SOURCES}
+    assert {"flash_swa_wgmma.cu", "flash_swa_bwd_wgmma.cu"} <= names
+    for source in TK.SOURCES:
+        if source.stem.endswith("wgmma"):
+            assert {"tma.cuh", "wgmma.cuh"} <= {
+                h.name for h in _build.included_headers(source)}
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_counts", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_wgmma_executed_flop_against_a_hand_count():
+    """``chip_smoke``'s count of the flop the wgmma kernels execute, at S
+    300, window 100, 2 heads of 120 (padded to 128 for Q K^T; 120 wide for
+    the products that write a head).  Forward: 128-row query tiles against
+    64-row KV tiles, 2 + 4 + 3 = 9 tiles.  Backward: the dq kernel's same
+    9 tiles of 128 x 64; the dk/dv kernel's 64-row KV tiles (kt 0, 64,
+    128, 192, 256) against 3 + 3 + 3 + 2 + 1 = 12 query tiles of 64."""
+    C = _chip_smoke()
+    fwd_tile = 2 * 128 * 64 * 128 + 2 * (2 * 128 * 64 * 120)
+    assert C.wgmma_executed_flop(300, 100, 2, 120) == 2 * 9 * fwd_tile
+    dq_tile = 2 * (2 * 128 * 64 * 128) + 2 * (2 * 128 * 64 * 120)
+    kv_tile = 3 * (2 * 64 * 64 * 128) + 4 * (2 * 64 * 64 * 120)
+    assert C.bwd_wgmma_executed_flop(300, 100, 2, 120) == 2 * (
+        9 * dq_tile + 12 * kv_tile)
+    # heads of 64: one 64-column box, products 64 wide; window past S is S
+    assert C.wgmma_executed_flop(64, 1000, 1, 64) == (
+        2 * 128 * 64 * 64 + 2 * (2 * 128 * 64 * 64))

@@ -37,7 +37,8 @@ from repro_torch.sparse import CSR, Graph, random_csr, suite_like_corpus
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "time_k2_forest.py",
-    REPO / "tools" / "probe_gloo_cuda.py"]
+    REPO / "tools" / "probe_gloo_cuda.py",
+    REPO / "tools" / "time_flash_swa.py"]
 
 
 def _forbidden(module: str) -> bool:
