@@ -23,16 +23,21 @@ Phases, in order; any failure exits non-zero:
    run: ``spmv_merge_path`` (``schedule=None`` and ``chunked_lpt``),
    ``bfs`` with parents, ``sssp``, ``delta_stepping`` and ``pagerank``,
    each on ``chunked_lpt`` and ``merge_path`` with ``path="native"``;
-   every kernel's counter must have risen (``segment_sum_sorted``, the
-   ordered float segment sum under every fixup, included).  Then
-   ``schedule="auto"`` once;
+   the counter of every kernel of these drivers must have risen
+   (``segment_sum_fixup``, the ordered float sum of every fixup of K2's
+   partials, included; ``segment_sum_sorted``, the sorted one, is left to
+   the pure path of phase 14).  Then ``schedule="auto"`` once;
 6. determinism — ``pagerank`` and ``spmv_merge_path`` on ``chunked_lpt``
    twice each, bitwise equal (the graph's hub row spans ~100 chunks),
    timed beside the same calls with the float sums on
-   ``index_add_`` (atomic order, as before the ordered sum); and
-   ``segment_sum_sorted`` at PageRank's fixup shape against its plain
-   version (bitwise on integer-valued data, rtol 1e-4 on real data),
-   timed with and without its sort, beside ``index_add_``;
+   ``index_add_`` (atomic order, as before the ordered sums); and at
+   PageRank's fixup shape (``fixup_partials``' bins of one column)
+   ``segment_sum_sorted`` against its plain version (bitwise on
+   integer-valued data, rtol 1e-4 on real data) and ``segment_sum_fixup``
+   bitwise against the sorted route (a stable sort, then
+   ``segment_sum_sorted``) on real data and against its plain version;
+   each timed (the sorted route with its sort too) beside its byte bound
+   and ``index_add_``;
 7. serving — counters zeroed; ``GraphServer`` (8 lanes, pull, the
    ``chunked_lpt`` plan) serves ``run_graph_serving``'s stream of 32
    queries (Poisson, 2 a tick; kinds uniform over BFS/SSSP/PageRank,
@@ -43,7 +48,10 @@ Phases, in order; any failure exits non-zero:
    the lanes laid end to end through the one-column kernel (the step's
    launch) against the B-column launch (min partials bitwise equal to
    the B-column ones, sum partials to each lane's one-column launch),
-   timed;
+   timed; and the fixup of the 8 lanes' sum partials (``segment_sum_fixup``
+   on ``[C, L, 8]``, bitwise equal to the sorted route) timed a launch
+   beside the sorted route with its sort, its byte bound and
+   ``index_add_``;
 8. bfs_multi — counters zeroed; 8 medium-degree sources, one
    ``chunk_walk_tiles`` launch a level, rows bitwise equal to 8
    ``bfs(direction="pull")`` calls;
@@ -59,7 +67,7 @@ Phases, in order; any failure exits non-zero:
    PageRank, ``edge_balanced`` and ``lpt_contiguous`` BFS and SSSP, and
    every rank builds ``mesh="auto"``'s plan (the pick is printed).  Every
    answer, on every rank, bitwise equal to the unsharded drivers' (PageRank
-   at rtol 1e-6, atol 1e-7); K2, K3, K4 and ``segment_sum_sorted`` launched
+   at rtol 1e-6, atol 1e-7); K2, K3, K4 and ``segment_sum_fixup`` launched
    at S = 1 and on every rank; wall ms, iterations, ms and bytes in
    collectives, plan build s, plan bytes and peak memory a rank printed.
    Four ranks share one card, so S = 4 measures the sharded path's
@@ -107,14 +115,22 @@ Phases, in order; any failure exits non-zero:
    ``build_wavefront(path="pure")`` + ``treelstm_embed``: bitwise equal to
    each other and to a sequential per-node NumPy oracle on 256 trees, each
    native call making two ``chunk_walk_tiles`` launches a level (the
-   combine over all 128 columns, the in-degree update); then one ``tanh``
+   combine over all 128 columns, the in-degree update), the native and
+   pure paths' fixups on ``segment_sum_fixup`` and the pure path's
+   partial sums on ``segment_sum_sorted``; then one ``tanh``
    run; then K2 at the forest's shapes against its plain version and
    timed: the one-column launch of the in-degree update and the 128-column
    launch of a level's combine (bitwise equal, column by column, to 128
    one-column launches on integer-valued data), each beside its bound
-   (values counted for unmasked atoms only) and ``index_add_``; and the
-   combine's ordered fixup (``segment_sum_sorted`` on ``[C * L, 128]``
-   partials) against its plain version, beside its bound;
+   (values counted for unmasked atoms only) and ``index_add_``; the
+   combine's fixup (``segment_sum_fixup`` on its ``[C, L, 128]``
+   partials) bitwise equal to the sorted route on integer-valued and on
+   real partials and to its plain version on integer-valued ones, timed
+   beside the sorted route (kernel alone and with its sort), its byte
+   bound and ``index_add_``; and the pure path's partial sums
+   (``segment_sum_sorted`` over the level's ``[A, 128]`` atom values into
+   ``C * L`` bins) against its plain version, timed beside its bound and
+   ``index_add_``;
 15. times  — each kernel (CUDA events) beside its bound, its plain version
    and a PyTorch library call where one computes the same thing (K5/K6 at
    the four segmm shapes, with their TFLOP/s, share of the f32 peak, or
@@ -319,7 +335,10 @@ Phases, in order; any failure exits non-zero:
    ``segmm_wgmma``'s row timed as K5 at the bf16 ``w1`` shape,
    ``segmm_mma``'s at the bf16 level GEMM's; ``flash_swa_wgmma`` and
    ``flash_swa_bwd_wgmma`` are the routes of K7 and its backward that
-   every main-path launch takes, their rows K7's), the JSON kernels line, and
+   every main-path launch takes, their rows K7's; ``segment_sum_sorted``
+   and ``segment_sum_fixup`` replace no Pallas kernel: each row names the
+   reference function whose float sums it keeps in a fixed order, and
+   carries phase 14's times), the JSON kernels line, and
    the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -373,6 +392,13 @@ KERNELS = {   # counter name -> (CUDA source, the Pallas kernel it replaces)
     "flash_swa_wgmma": (f"{SWA_CSRC}/flash_swa_wgmma.cu", SWA_REF),
     "flash_swa_bwd_wgmma": (f"{SWA_CSRC}/flash_swa_bwd_wgmma.cu",
                             SWA_BWD_REF),
+    # port glue, no Pallas kernel: the ordered float sums of the card,
+    # beside the reference functions whose sums they keep in one order
+    # (XLA's scatter-add on the TPU)
+    "segment_sum_sorted": (f"{CSRC}/segsum.cu",
+                           "src/repro/core/segops.py:18"),
+    "segment_sum_fixup": (f"{CSRC}/segsum.cu",
+                          "src/repro/core/execute.py:197"),
 }
 REAL_RTOL = 1e-4   # real-valued f32 sums in another order
 # soc-LiveJournal1 scale (SNAP: 4.8M vertices, 69M edges)
@@ -388,6 +414,8 @@ MULTI_SOURCES = 8          # bfs_multi's batch
 # the sharded traversal: four gloo ranks sharing the card
 SHARD_RANKS = 4
 SHARD_BOUNDARIES = ("equal_width", "edge_balanced", "lpt_contiguous")
+SHARD_KERNELS = ("chunk_walk_tiles", "chunk_walk_atoms", "chunk_walk_compact",
+                 "segment_sum_sorted", "segment_sum_fixup")
 SHARD_TIMEOUT_S = 120      # each group's collective timeout
 SHARD_DEADLINE_S = 600     # the parent joins its ranks by then
 SHARD_PR_RTOL = 1e-6       # tests/test_shard_advance.py,
@@ -1004,29 +1032,38 @@ def phase_main(A, x, g, plans, num_blocks: int, source: int):
     launches = dict(K.LAUNCHES)
     log("main-path launches: " + json.dumps(launches))
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched on the main path")
+        # the drivers' float sums are all fixups (segment_sum_fixup); the
+        # sorted sum runs under the pure path (phase 14)
+        check(n > 0 or name == "segment_sum_sorted",
+              f"kernel {name} was never launched on the main path")
     return launches, e2e, answers
 
 
 @contextlib.contextmanager
 def atomic_sums():
     """The port's float segment sums on the card through ``index_add_``
-    (atomic order), as they were before the ordered sum: the "before"
+    (atomic order), as they were before the ordered sums: the "before"
     of :func:`phase_determinism`."""
     import torch
     from repro_torch.core import segops
-    ordered = segops.ordered_sum
+    from repro_torch.kernels.spmv_merge import kernel as K
+    ordered, fixup = segops.ordered_sum, K.segment_sum_fixup
 
     def atomic(values, segment_ids, num_segments):
-        out = torch.zeros(num_segments, dtype=values.dtype,
-                          device=values.device)
+        out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
+                          dtype=values.dtype, device=values.device)
         return out.index_add_(0, segment_ids.to(torch.int64), values)
 
-    segops.ordered_sum = atomic
+    def atomic_fixup(partials, tile_starts, num_tiles):
+        ids = fixup_ids(tile_starts, int(partials.shape[1]), num_tiles)
+        flat = partials.reshape((ids.shape[0],) + tuple(partials.shape[2:]))
+        return atomic(flat, ids, num_tiles + 1)[:-1]
+
+    segops.ordered_sum, K.segment_sum_fixup = atomic, atomic_fixup
     try:
         yield
     finally:
-        segops.ordered_sum = ordered
+        segops.ordered_sum, K.segment_sum_fixup = ordered, fixup
 
 
 def same_bits(a, b) -> bool:
@@ -1034,15 +1071,127 @@ def same_bits(a, b) -> bool:
     return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
 
+def fixup_ids(tile_starts, local_tiles: int, num_tiles: int):
+    """``fixup_partials``' bins' tile ids, flattened (a bin at or past
+    the last tile in the extra segment ``num_tiles``)."""
+    import torch
+    gtid = tile_starts[:-1, None].long() + torch.arange(
+        local_tiles, device=tile_starts.device)[None, :]
+    return torch.where(gtid < num_tiles, gtid, num_tiles).reshape(-1)
+
+
+def sorted_case(tag: str, vals, ids, num: int) -> dict:
+    """``segment_sum_sorted`` on real ``vals`` ([n] or [n, B]) summed by
+    ``ids`` into ``num`` segments, keys and order from a stable sort:
+    against its plain version (bitwise on the integer-valued stand-ins,
+    rtol 1e-4 on the real values), timed alone and with its sort (the
+    route of ``segops.ordered_sum``) beside its byte bound and
+    ``index_add_``.  Returns its row."""
+    from repro_torch.launch import roofline as RL
+    import torch
+    from repro_torch.core import segops
+    from repro_torch.kernels.spmv_merge import kernel as K
+
+    keys, order = torch.sort(ids.to(torch.int32), stable=True)
+    batch = tuple(vals.shape[1:])
+    width = batch[0] if batch else 1
+    n = int(ids.numel())
+    unit = unit_values(vals)
+    compare(f"segment_sum_sorted {tag} (integer-valued)",
+            K.segment_sum_sorted(unit, keys, num, order=order),
+            K.segment_sum_sorted_ref(unit, keys, num, order=order),
+            exact=True)
+    del unit
+    err = compare(f"segment_sum_sorted {tag} (real)",
+                  K.segment_sum_sorted(vals, keys, num, order=order),
+                  K.segment_sum_sorted_ref(vals, keys, num, order=order),
+                  exact=False)
+    # keys and order (int64) read once, the values once, the output once
+    nbytes = 12 * n + 4 * n * width + 4 * num * width
+    r = dict(err=err, bytes=nbytes, bound_ms=nbytes / RL.HBM_BW * 1e3,
+             bound_by="bytes",
+             ms=cuda_ms(lambda: K.segment_sum_sorted(vals, keys, num,
+                                                     order=order)),
+             sort_ms=cuda_ms(lambda: segops.ordered_sum(vals, ids, num)),
+             plain_ms=cuda_ms(lambda: K.segment_sum_sorted_ref(
+                 vals, keys, num, order=order), iters=3),
+             library_ms=cuda_ms(lambda: torch.zeros(
+                 (num,) + batch, device="cuda").index_add_(0, ids, vals)))
+    log(f"time segment_sum_sorted [{tag}: {n} x {width} values into {num} "
+        f"segments]: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+        f"bytes, {nbytes} B: keys, order, values, output); with its stable "
+        f"sort {r['sort_ms']:.4f} ms; library {r['library_ms']:.4f} ms "
+        f"(index_add_, atomic order); plain {r['plain_ms']:.3f} ms; max abs "
+        f"err {err!r}")
+    return r
+
+
+def fixup_case(tag: str, partials, tile_starts, num_tiles: int) -> dict:
+    """``segment_sum_fixup`` on real ``partials`` ([C, L] or [C, L, B])
+    at ``tile_starts``: bitwise equal to the sorted route (a stable sort of
+    the bins' tile ids, then ``segment_sum_sorted``), and against its
+    plain version (bitwise on the integer-valued stand-ins, rtol 1e-4 on
+    the real values); timed beside the sorted route (its kernel alone and
+    with the sort, as ``fixup_partials`` ran it before), its byte bound
+    and ``index_add_``.  Returns its row."""
+    from repro_torch.launch import roofline as RL
+    import torch
+    from repro_torch.core import segops
+    from repro_torch.kernels.spmv_merge import kernel as K
+
+    chunks, local_tiles = int(partials.shape[0]), int(partials.shape[1])
+    batch = tuple(partials.shape[2:])
+    width = batch[0] if batch else 1
+    ids = fixup_ids(tile_starts, local_tiles, num_tiles)
+    keys, order = torch.sort(ids.to(torch.int32), stable=True)
+    flat = partials.reshape((chunks * local_tiles,) + batch)
+    num = num_tiles + 1
+    fixup = lambda: K.segment_sum_fixup(partials, tile_starts, num_tiles)
+    compare(f"segment_sum_fixup {tag} (real) against the sorted route",
+            fixup(), K.segment_sum_sorted(flat, keys, num,
+                                          order=order)[:-1], exact=True)
+    unit = unit_values(partials)
+    compare(f"segment_sum_fixup {tag} (integer-valued)",
+            K.segment_sum_fixup(unit, tile_starts, num_tiles),
+            K.segment_sum_fixup_ref(unit, tile_starts, num_tiles),
+            exact=True)
+    del unit
+    err = compare(f"segment_sum_fixup {tag} (real)", fixup(),
+                  K.segment_sum_fixup_ref(partials, tile_starts, num_tiles),
+                  exact=False)
+    # tile_starts, the partials of the bins before the last tile, the
+    # output: each once
+    n_valid = int(K.fixup_offsets(tile_starts, local_tiles,
+                                  num_tiles)[0][-1])
+    nbytes = 4 * (chunks + 1) + 4 * n_valid * width + 4 * num_tiles * width
+    r = dict(err=err, bytes=nbytes, bound_ms=nbytes / RL.HBM_BW * 1e3,
+             bound_by="bytes", ms=cuda_ms(fixup),
+             sorted_ms=cuda_ms(lambda: K.segment_sum_sorted(
+                 flat, keys, num, order=order)),
+             sort_ms=cuda_ms(lambda: segops.ordered_sum(flat, ids, num)),
+             plain_ms=cuda_ms(lambda: K.segment_sum_fixup_ref(
+                 partials, tile_starts, num_tiles), iters=3),
+             library_ms=cuda_ms(lambda: torch.zeros(
+                 (num,) + batch, device="cuda").index_add_(0, ids, flat)))
+    log(f"time segment_sum_fixup [{tag}: {chunks} x {local_tiles} x {width} "
+        f"partials, {n_valid} bins before tile {num_tiles}]: "
+        f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by bytes, {nbytes} "
+        f"B: tile_starts, those bins' partials, output); the sorted route "
+        f"{r['sort_ms']:.4f} ms with its stable sort, "
+        f"{r['sorted_ms']:.4f} ms its kernel alone; library "
+        f"{r['library_ms']:.4f} ms (index_add_, atomic order); plain "
+        f"{r['plain_ms']:.3f} ms; max abs err {err!r}")
+    return r
+
+
 def phase_determinism(A, x, g, plans, num_blocks: int, seed: int) -> dict:
     """Ordered float sums: PageRank and the chunked SpMV bitwise across
     two runs, each timed beside the same call on ``index_add_`` sums;
-    ``segment_sum_sorted`` at PageRank's fixup shape against its plain
-    version, timed.  Returns e2e seconds."""
-    from repro_torch.launch import roofline as RL
+    ``segment_sum_sorted`` and ``segment_sum_fixup`` at PageRank's fixup
+    shape against the sorted route and their plain versions, timed.
+    Returns e2e seconds."""
     import torch
     from repro_torch.core import execute as E
-    from repro_torch.core import segops
     from repro_torch.kernels.spmv_merge import kernel as K
     from repro_torch.kernels.spmv_merge import ops as O
     from repro_torch.sparse import pagerank
@@ -1059,9 +1208,9 @@ def phase_determinism(A, x, g, plans, num_blocks: int, seed: int) -> dict:
             A, x, schedule="chunked_lpt", num_blocks=num_blocks)}
     e2e = {}
     for name, call in calls.items():
-        before = K.LAUNCHES["segment_sum_sorted"]
+        before = K.LAUNCHES["segment_sum_fixup"]
         (a, s1), (b, s2) = wall_s(call), wall_s(call)
-        launched = K.LAUNCHES["segment_sum_sorted"] - before
+        launched = K.LAUNCHES["segment_sum_fixup"] - before
         check(same_bits(a, b), f"determinism: {name} differs between two "
               f"runs")
         with atomic_sums():
@@ -1069,43 +1218,23 @@ def phase_determinism(A, x, g, plans, num_blocks: int, seed: int) -> dict:
         e2e[f"{name} ordered sums"] = s1
         e2e[f"{name} index_add_ sums"] = s3
         log(f"determinism {name}: two runs bitwise equal, "
-            f"{launched // 2} segment_sum_sorted launches a call; "
+            f"{launched // 2} segment_sum_fixup launches a call; "
             f"{s1 * 1e3:.3f} / {s2 * 1e3:.3f} ms with the ordered sums, "
             f"{s3 * 1e3:.3f} / {s4 * 1e3:.3f} ms with index_add_ (atomic "
             f"order; its two runs "
             f"{'bitwise equal' if same_bits(c, d) else 'differ'})")
         del a, b, c, d
 
-    # segment_sum_sorted at PageRank's fixup shape (fixup_partials' ids)
+    # the ordered sums at PageRank's fixup shape: fixup_partials' bins of
+    # one column, on the sorted route and on the fixup
     gen = torch.Generator(device="cuda").manual_seed(seed + 10)
-    gtid = part.tile_starts[:-1, None].long() + torch.arange(
-        local_tiles, device="cuda")[None, :]
-    ids = torch.where(gtid < spec.num_tiles, gtid,
-                      spec.num_tiles).reshape(-1)
-    num = spec.num_tiles + 1
-    keys, order = torch.sort(ids.to(torch.int32), stable=True)
-    n = int(ids.numel())
-    vals = torch.randn(n, generator=gen, device="cuda")
-    unit = unit_values(vals)
-    compare("segment_sum_sorted (integer-valued)",
-            K.segment_sum_sorted(unit, keys, num, order=order),
-            K.segment_sum_sorted_ref(unit, keys, num, order=order),
-            exact=True)
-    err = compare("segment_sum_sorted (real)",
-                  K.segment_sum_sorted(vals, keys, num, order=order),
-                  K.segment_sum_sorted_ref(vals, keys, num, order=order),
-                  exact=False)
-    ms = cuda_ms(lambda: K.segment_sum_sorted(vals, keys, num, order=order))
-    # what a fixup now runs: the id cast, the stable sort, the kernel
-    sort_ms = cuda_ms(lambda: segops.ordered_sum(vals, ids, num))
-    nbytes = 4 * n + 8 * n + 4 * n + 4 * num
-    bound = nbytes / RL.HBM_BW * 1e3
-    library = cuda_ms(lambda: torch.zeros(num, device="cuda").index_add_(
-        0, ids, vals))
-    log(f"time segment_sum_sorted [PageRank's fixup: {n} partials into "
-        f"{num} segments]: {ms:.4f} ms (bound {bound:.4f} ms by bytes, "
-        f"{nbytes} B); with its stable sort {sort_ms:.4f} ms; library "
-        f"{library:.4f} ms (index_add_, atomic order); max abs err {err!r}")
+    starts = part.tile_starts.to(torch.int32).contiguous()
+    vals = torch.randn((part.num_blocks, local_tiles), generator=gen,
+                       device="cuda")
+    sorted_case("PageRank's fixup", vals.reshape(-1),
+                fixup_ids(starts, local_tiles, spec.num_tiles),
+                spec.num_tiles + 1)
+    fixup_case("PageRank's fixup", vals, starts, spec.num_tiles)
     return e2e
 
 
@@ -1183,7 +1312,7 @@ def phase_graph_serving(g, plan, seed: int):
           f"{srv.admit_traces}x")
     check(max(per_tick) <= 2, f"serving: {max(per_tick)} chunk_walk_tiles "
           f"launches in one step")
-    for name in ("chunk_walk_tiles", "segment_sum_sorted"):
+    for name in ("chunk_walk_tiles", "segment_sum_fixup"):
         check(counts[name] > 0, f"serving: {name} was never launched")
     lat = sorted(r.latency * 1e3 for r in results)
     p50 = lat[len(lat) // 2]
@@ -1281,6 +1410,11 @@ def lane_layout_times(plan, seed: int) -> None:
         f"{library:.4f} ms (scatter_reduce_ amin per tile); lane partials "
         f"bitwise equal (min: to the B-column launch; sum: to each lane's "
         f"one-column launch)")
+    # the step's fixup of the 8 lanes' sum partials, as LaneLayout.reduce
+    # hands them to fixup_partials
+    partials = sums[:, :num_chunks].permute(1, 2, 0).contiguous()
+    fixup_case(f"serving, {SERVE_LANES} lanes", partials,
+               part.tile_starts.to(torch.int32).contiguous(), spec.num_tiles)
 
 
 def phase_bfs_multi(g, plan, seed: int, source: int):
@@ -1603,7 +1737,7 @@ def phase_sharded(g, plans, num_blocks: int, source: int, sources,
     """The sharded drivers at S = 1 in this process and at S = 4 on four
     spawned gloo ranks sharing this card; answers against the unsharded
     drivers' (bitwise; PageRank at rtol 1e-6, atol 1e-7).  Returns the
-    launches of K2-K4 (S = 1 plus every rank)."""
+    launches of K2-K4 and the ordered sums (S = 1 plus every rank)."""
     import numpy as np
     import torch
     from repro_torch.kernels.spmv_merge import kernel as K
@@ -1625,7 +1759,7 @@ def phase_sharded(g, plans, num_blocks: int, source: int, sources,
     log(f"sharded S=1 launches {json.dumps(counts)}; peak transient "
         f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB")
     for name in ("chunk_walk_tiles", "chunk_walk_atoms",
-                 "chunk_walk_compact", "segment_sum_sorted"):
+                 "chunk_walk_compact", "segment_sum_fixup"):
         check(counts[name] > 0, f"sharded S=1: {name} never launched")
     del splan, dplan
 
@@ -1658,9 +1792,7 @@ def phase_sharded(g, plans, num_blocks: int, source: int, sources,
         f"processes on this card, {secs:.1f} s in all (spawn, load, build, "
         f"drive); four ranks share one card, so these times are the "
         f"sharded path's overhead, not scaling")
-    totals = {"chunk_walk_tiles": counts["chunk_walk_tiles"],
-              "chunk_walk_atoms": counts["chunk_walk_atoms"],
-              "chunk_walk_compact": counts["chunk_walk_compact"]}
+    totals = {name: counts[name] for name in SHARD_KERNELS}
     for r, res in enumerate(ranks):
         for run in res["runs"]:
             tag = f"S={SHARD_RANKS} {run['boundary']} rank {r}"
@@ -1680,7 +1812,7 @@ def phase_sharded(g, plans, num_blocks: int, source: int, sources,
         log(f"sharded S={SHARD_RANKS} rank {r} launches "
             f"{json.dumps(launched)}")
         for name in ("chunk_walk_tiles", "chunk_walk_atoms",
-                     "chunk_walk_compact", "segment_sum_sorted"):
+                     "chunk_walk_compact", "segment_sum_fixup"):
             check(launched[name] > 0, f"sharded rank {r}: {name} never "
                   f"launched")
         for name in totals:
@@ -2240,7 +2372,8 @@ def phase_wavefront(forest, seed: int, e2e):
     counts = all_counts()
     log("wavefront launches: " + json.dumps(counts))
     for name in ("segmented_matmul", "segmented_matmul_chunked",
-                 "chunk_walk_tiles"):
+                 "chunk_walk_tiles", "segment_sum_fixup",
+                 "segment_sum_sorted"):
         check(counts[name] > 0,
               f"{name} was never launched by the wavefront path")
     return counts, packed.dag
@@ -2271,11 +2404,13 @@ def phase_k2_forest(forest, dag, seed: int, *, per_column: bool = False):
     """K2 at the forest's shapes (one level of ``chunked_lpt``): the
     one-column launch of the in-degree update and the 128-column launch of
     the combine, each against its plain version and timed beside its byte
-    bound and ``index_add_``; then the combine's ordered fixup
-    (``segment_sum_sorted`` over its ``[C * L, 128]`` partials) against
-    its plain version, timed beside its byte bound.  With ``per_column``
+    bound and ``index_add_``; then the combine's fixup
+    (``segment_sum_fixup`` over its ``[C, L, 128]`` partials) against the
+    sorted route and its plain version, and the pure path's partial sums
+    (``segment_sum_sorted``) against its plain version, each timed
+    beside its byte bound and ``index_add_``.  With ``per_column``
     (for a port whose K2 takes one column) the combine is timed as 128
-    one-column launches instead, and the fixup is left out.  Returns
+    one-column launches instead, and the sums are left out.  Returns
     ``{name: row}``."""
     from repro_torch.launch import roofline as RL
     import torch
@@ -2348,29 +2483,33 @@ def phase_k2_forest(forest, dag, seed: int, *, per_column: bool = False):
         lambda: K.chunk_walk_reduce(*args, **kw),
         lambda: K.chunk_walk_reduce_ref(*args, **kw))
 
-    # the combine's fixup, as fixup_partials runs it: one stable sort of
-    # the bins' tile ids, then the ordered sum of all 128 columns
-    gtid = part.tile_starts[:-1, None].long() + torch.arange(
-        L, device="cuda")[None, :]
-    gtid = torch.where(gtid < spec.num_tiles, gtid, spec.num_tiles)
-    keys, order = torch.sort(gtid.reshape(-1).to(torch.int32), stable=True)
-    flat = partials.reshape(C * L, FOREST_WIDTH)
-    num = spec.num_tiles + 1
-    compare("segment_sum_sorted forest fixup [C * L, 128] (integer-valued)",
-            K.segment_sum_sorted(flat, keys, num, order=order),
-            K.segment_sum_sorted_ref(flat, keys, num, order), exact=True)
-    n = C * L
-    nbytes = 12 * n + 4 * n * FOREST_WIDTH + 4 * num * FOREST_WIDTH
-    r = dict(ms=cuda_ms(lambda: K.segment_sum_sorted(flat, keys, num,
-                                                     order=order)),
-             plain_ms=cuda_ms(lambda: K.segment_sum_sorted_ref(
-                 flat, keys, num, order), iters=3),
-             bound_ms=nbytes / RL.HBM_BW * 1e3, bytes=nbytes)
-    rows["segment_sum_sorted [forest fixup]"] = r
-    log(f"time segment_sum_sorted [forest fixup, {n} x {FOREST_WIDTH} "
-        f"partials into {num} segments]: {r['ms']:.4f} ms (bound "
-        f"{r['bound_ms']:.4f} ms by bytes, {nbytes} B: keys, order, values, "
-        f"output; plain {r['plain_ms']:.3f} ms)")
+    if not hasattr(K, "segment_sum_fixup"):
+        log("K2 forest: this port has no segment_sum_fixup; the sums are "
+            "left out (tools/time_ordered_sums.py times both routes)")
+        return rows
+    # the combine's fixup, as fixup_partials runs it (segment_sum_fixup),
+    # on the level's integer-valued partials and on real ones
+    starts = part.tile_starts.to(torch.int32).contiguous()
+    ids = fixup_ids(starts, L, spec.num_tiles)
+    keys, order = torch.sort(ids.to(torch.int32), stable=True)
+    compare("segment_sum_fixup forest [C, L, 128] (integer-valued) against "
+            "the sorted route",
+            K.segment_sum_fixup(partials, starts, spec.num_tiles),
+            K.segment_sum_sorted(partials.reshape(C * L, FOREST_WIDTH), keys,
+                                 spec.num_tiles + 1, order=order)[:-1],
+            exact=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    rows["segment_sum_fixup"] = fixup_case(
+        "forest combine", torch.randn(partials.shape, generator=gen,
+                                      device="cuda"),
+        starts, spec.num_tiles)
+    # the pure path's partial sums of the same level (blocked_tile_reduce:
+    # the atoms' values into each chunk's L local bins) on the sorted route
+    bins, _ = E.blocked_bins(spec, part, mask)
+    rows["segment_sum_sorted"] = sorted_case(
+        "forest combine, pure path", torch.randn(values.shape, generator=gen,
+                                                 device="cuda"),
+        bins, C * L + 1)
     return rows
 
 
@@ -5264,11 +5403,15 @@ def run(args, t_start: float) -> int:
         f"{multi_counts['chunk_walk_tiles']} (bfs_multi)")
     launches["chunk_walk_tiles"] += (serve_counts["chunk_walk_tiles"]
                                      + multi_counts["chunk_walk_tiles"])
+    for name in ("segment_sum_sorted", "segment_sum_fixup"):
+        log(f"main-path launches {name}: {launches[name]} (graph drivers) + "
+            f"{serve_counts[name]} (serving) + {multi_counts[name]} "
+            f"(bfs_multi)")
+        launches[name] += serve_counts[name] + multi_counts[name]
     # slice 9: the sharded traversal at S = 1 and on four ranks
     shard_counts = phase_sharded(g, plans["chunked_lpt"], num_blocks, source,
                                  sources, answers["chunked_lpt"], multi_want)
-    for name in ("chunk_walk_tiles", "chunk_walk_atoms",
-                 "chunk_walk_compact"):
+    for name in SHARD_KERNELS:
         log(f"main-path launches {name}: + {shard_counts[name]} (sharded "
             f"phase, every rank)")
         launches[name] += shard_counts[name]
@@ -5303,8 +5446,12 @@ def run(args, t_start: float) -> int:
     e2e2 = {}
     moe_counts = phase_moe(moe, e2e2)
     wave_counts, forest_dag = phase_wavefront(forest, args.seed, e2e2)
-    phase_k2_forest(forest, forest_dag, args.seed)
+    sum_rows = phase_k2_forest(forest, forest_dag, args.seed)
     del forest_dag
+    for name in ("segment_sum_sorted", "segment_sum_fixup"):
+        rows[name] = sum_rows[name]
+        log(f"main-path launches {name}: + {wave_counts[name]} (wavefront)")
+        launches[name] += wave_counts[name]
     seg_rows = phase_segmm_times(cases, prepared)
     for name, row in seg_rows.items():
         row["err"] = route_errs.get(name, route_errs["segmm_fma"])

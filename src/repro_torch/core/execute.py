@@ -165,7 +165,22 @@ def fixup_partials(spec: WorkSpec, part: Partition, partials: torch.Tensor,
     """Combine per-chunk partials (``[C, L]``, or ``[C, L, B]`` for B
     columns) at their global tile offsets (Merrill & Garland's segmented
     fixup); shared by both paths, all columns in one segmented reduce.
-    Untouched bins hold the identity and drop out."""
+    Untouched bins hold the identity and drop out.
+
+    A float ``sum`` on the card goes to ``segment_sum_fixup``, which walks
+    the order a stable sort of the bins' tile ids would give straight from
+    ``part.tile_starts`` (non-decreasing in every partition the schedules
+    build), with the bits of the sorted route and no sort; float16 and
+    bfloat16 partials are summed in float32 and rounded once.  Everything
+    else is one :func:`~repro_torch.core.segops.segment_reduce`."""
+    if (combiner == "sum" and partials.is_floating_point()
+            and partials.device.type == "cuda"):
+        from repro_torch.kernels.spmv_merge.kernel import segment_sum_fixup
+        wide = (partials if partials.dtype in (torch.float32, torch.float64)
+                else partials.float())
+        return segment_sum_fixup(
+            wide.contiguous(), part.tile_starts.to(torch.int32).contiguous(),
+            spec.num_tiles).to(partials.dtype)
     gtid = part.tile_starts[:-1, None].long() + torch.arange(
         local_tiles, device=partials.device)[None, :]
     gtid = torch.where(gtid < spec.num_tiles, gtid, spec.num_tiles)
@@ -190,18 +205,28 @@ def blocked_tile_reduce(spec: WorkSpec, part: Partition, atom_fn: AtomFn,
     values = _atom_values(spec, atom_fn, dtype, batched=True)
     if spec.num_atoms == 0:
         return _identity_tiles(spec, values, identity)
+    bins, L = blocked_bins(spec, part, atom_mask)
+    partials = segment_reduce(combiner, values, bins,
+                              part.num_blocks * L + 1)[:-1]
+    return fixup_partials(spec, part,
+                          partials.view(part.num_blocks, L,
+                                        *values.shape[1:]), L, combiner)
+
+
+def blocked_bins(spec: WorkSpec, part: Partition,
+                 atom_mask: torch.Tensor | None = None
+                 ) -> Tuple[torch.Tensor, int]:
+    """``(bins, L)`` of :func:`blocked_tile_reduce`: atom ``a``'s bin
+    ``block * L + local`` among ``num_blocks * L`` local tile bins, or the
+    extra bin ``num_blocks * L`` where it is masked or outside its block's
+    windows."""
     window, L = _window_sizes(spec, part)
     block, _, ok = window_slots(part.atom_starts, spec.num_atoms, window)
     local = spec.atom_tile_ids().long() - part.tile_starts.long()[block]
     ok &= (local >= 0) & (local < L)
     if atom_mask is not None:
         ok &= atom_mask
-    bins = torch.where(ok, block * L + local, part.num_blocks * L)
-    partials = segment_reduce(combiner, values, bins,
-                              part.num_blocks * L + 1)[:-1]
-    return fixup_partials(spec, part,
-                          partials.view(part.num_blocks, L,
-                                        *values.shape[1:]), L, combiner)
+    return torch.where(ok, block * L + local, part.num_blocks * L), L
 
 
 def _chunk_queue_view(part: Partition

@@ -1,8 +1,9 @@
 // Shared device code of the merge-path and chunk-walk kernels: the
 // combiners of the chunk walk, and what the merge-path passes (the SpMV of
-// merge_path.cu, the ordered segment sum of segsum.cu) share: the diagonal
-// search, the segmented sums over sorted keys that combine their threads'
-// open rows, and the carry kernel.
+// merge_path.cu, the ordered segment sums of segsum.cu) share: the
+// segmented sums over sorted keys that combine their threads' open rows
+// (one column, or N columns with one key), the carry kernel, and the
+// SpMV's diagonal search.
 #pragma once
 
 #include <climits>
@@ -74,6 +75,59 @@ __device__ T block_seg_sum(int key, T val, int* s_key, T* s_val) {
   // this lane's run reaches back across the whole of its own warp
   if (warp > 0 && s_key[warp - 1] == key) val = s_val[warp - 1] + val;
   return val;
+}
+
+// The same N columns at once: every column of val is summed over the
+// same runs of keys with exactly the additions of block_seg_sum, so column
+// c has the bits of the one-column call on column c.  s_val holds N
+// entries per warp.
+template <int NT, int N, typename T>
+__device__ void block_seg_sum_cols(int key, T (&val)[N], int* s_key,
+                                   T (*s_val)[N]) {
+  constexpr int kBlockWarps = NT / 32;
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int k_up = __shfl_up_sync(full, key, off);
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      const T v_up = __shfl_up_sync(full, val[c], off);
+      if (lane >= off && k_up == key) val[c] = v_up + val[c];
+    }
+  }
+  if (lane == 31) {
+    s_key[warp] = key;
+#pragma unroll
+    for (int c = 0; c < N; ++c) s_val[warp][c] = val[c];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int k = lane < kBlockWarps ? s_key[lane] : INT_MAX;
+    T v[N];
+#pragma unroll
+    for (int c = 0; c < N; ++c) v[c] = lane < kBlockWarps ? s_val[lane][c]
+                                                          : T(0);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int k_up = __shfl_up_sync(full, k, off);
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const T v_up = __shfl_up_sync(full, v[c], off);
+        if (lane >= off && k_up == k) v[c] = v_up + v[c];
+      }
+    }
+    if (lane < kBlockWarps) {
+#pragma unroll
+      for (int c = 0; c < N; ++c) s_val[lane][c] = v[c];
+    }
+  }
+  __syncthreads();
+  if (warp > 0 && s_key[warp - 1] == key) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) val[c] = s_val[warp - 1][c] + val[c];
+  }
 }
 
 // The number of sorted entries that come before merge diagonal d:

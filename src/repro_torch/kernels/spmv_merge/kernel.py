@@ -1,4 +1,4 @@
-"""Wrappers of the five CUDA kernels, each beside its plain version.
+"""Wrappers of the six CUDA kernels, each beside its plain version.
 
 ========================  ==========================  =====================
 launch counter            CUDA source                 replaces (reference)
@@ -12,6 +12,10 @@ launch counter            CUDA source                 replaces (reference)
                                                       float segment sum of
                                                       ``core.segops`` on
                                                       the card
+``segment_sum_fixup``     ``csrc/segsum.cu``          none: the float sum
+                                                      of ``core.execute.
+                                                      fixup_partials`` on
+                                                      the card, unsorted
 ========================  ==========================  =====================
 
 A wrapper checks its operands, allocates the output with ``torch.empty``,
@@ -45,7 +49,7 @@ SOURCES = (CSRC / "merge_path.cu", CSRC / "chunk_walk.cu",
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES = {"spmv_merge_stream": 0, "chunk_walk_tiles": 0,
             "chunk_walk_atoms": 0, "chunk_walk_compact": 0,
-            "segment_sum_sorted": 0}
+            "segment_sum_sorted": 0, "segment_sum_fixup": 0}
 
 _COMBINER_CODE = {"sum": 0, "min": 1, "max": 2}
 _EMITS = ("tiles", "atoms", "compact")
@@ -60,7 +64,9 @@ _SIGNATURES = {
     "chunk_walk_atoms": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "chunk_walk_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "segment_sum_sorted": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "segment_sum_sorted_tile": [],
+    "segment_sum_fixup": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _P, _P],
+    "segment_sum_tile": [],
 }
 
 
@@ -403,13 +409,24 @@ def chunk_walk_reduce_ref(vals_padded, tids_padded, atom_starts, tile_starts,
 
 
 # ---------------------------------------------------------------------------
-# The ordered segment sum (port glue: no TPU kernel).
+# The ordered segment sums (port glue: no TPU kernel).
 # ---------------------------------------------------------------------------
 
 @functools.cache
 def segment_sum_tile() -> int:
-    """Path items (segments + items) per CTA of the card's ordered sum."""
-    return int(_function("segsum", "segment_sum_sorted_tile")())
+    """Path items (segments + items) per CTA of the card's ordered sums."""
+    return int(_function("segsum", "segment_sum_tile")())
+
+
+def _carries(total: int, cols: int, dtype: torch.dtype, device):
+    """The scratch of a merge-path pass over ``total`` path items: its
+    tiles' carry rows, their cuts (3 ints each) and carry values."""
+    grid = -(-total // segment_sum_tile())
+    _int32(grid * -(-cols // 32), "tiles x column groups")
+    index = torch.empty(grid + 3 * (grid + 1), dtype=torch.int32,
+                        device=device)
+    return (index[:grid], index[grid:],
+            torch.empty(grid * cols, dtype=dtype, device=device))
 
 
 def segment_sum_sorted(values: torch.Tensor, keys: torch.Tensor,
@@ -421,13 +438,12 @@ def segment_sum_sorted(values: torch.Tensor, keys: torch.Tensor,
 
     ``keys`` int32 ``[n]``, non-decreasing, in ``[0, num_segments)``;
     item ``i``'s value is ``values[order[i]]`` (``order`` int64 ``[n]``:
-    the indices of a stable sort of the unsorted ids that gave ``keys``).
-    ``values`` float32 or float64, ``[n]`` or ``[n, B]``: each of the B
-    columns is summed with the tile cuts and order of the 1-D call, so
-    column ``j`` has the bits of the call on column ``j`` alone.  On the
-    card the sum has the same bits on every run (no atomics); the plain
-    version (:func:`segment_sum_sorted_ref`) is ``index_add_``, which on
-    the CPU adds in item order.
+    the indices of a stable sort of the unsorted ids that gave ``keys``).  ``values`` float32 or float64, ``[n]`` or ``[n, B]``: each
+    of the B columns is summed with the tile cuts and order of the 1-D
+    call, so column ``j`` has the bits of the call on column ``j`` alone.
+    On the card the sum has the same bits on every run (no atomics); the
+    plain version (:func:`segment_sum_sorted_ref`) is ``index_add_``,
+    which on the CPU adds in item order.
     """
     device = keys.device
     n = int(keys.shape[0])
@@ -448,13 +464,12 @@ def segment_sum_sorted(values: torch.Tensor, keys: torch.Tensor,
     if out.numel() == 0:
         return out
     cols = batch[0] if batch else 1
-    grid = -(-(num_segments + n) // segment_sum_tile())
-    _int32(grid * cols, "tiles x columns")
-    carry_row = torch.empty(grid, dtype=torch.int32, device=device)
-    carry_val = torch.empty(grid * cols, dtype=values.dtype, device=device)
+    carry_row, coords, carry_val = _carries(num_segments + n, cols,
+                                            values.dtype, device)
     _launch("segsum", "segment_sum_sorted", keys.data_ptr(), order.data_ptr(),
             values.data_ptr(), _SUM_DTYPE_CODE[values.dtype], n,
-            num_segments, cols, carry_row.data_ptr(), carry_val.data_ptr(),
+            num_segments, cols,
+            carry_row.data_ptr(), coords.data_ptr(), carry_val.data_ptr(),
             out.data_ptr())
     LAUNCHES["segment_sum_sorted"] += 1
     return out
@@ -467,3 +482,114 @@ def segment_sum_sorted_ref(values: torch.Tensor, keys: torch.Tensor,
     out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
                       dtype=values.dtype, device=values.device)
     return out.index_add_(0, keys.long(), values[order])
+
+
+def segment_sum_fixup(partials: torch.Tensor, tile_starts: torch.Tensor,
+                      num_tiles: int) -> torch.Tensor:
+    """The float sum of ``core.execute.fixup_partials`` without a sort:
+    ``out[t]`` = the sum of the bins ``(c, l)`` with ``tile_starts[c] + l
+    == t``, added in ascending chunk ``c``; 0 for a tile no bin reaches.
+    ``[num_tiles]`` (or ``[num_tiles, B]``) in ``partials.dtype``.
+
+    ``partials`` float32 or float64 ``[C, L]`` or ``[C, L, B]`` (chunk
+    ``c``'s ``L`` local tiles from its first tile on; bins at or past
+    ``num_tiles`` are dropped); ``tile_starts`` int32 ``[C + 1]``,
+    **non-decreasing**, as every partition of
+    :mod:`repro_torch.core.schedules` has it (entry ``b`` touches tiles
+    ``[tile_starts[b], tile_starts[b + 1]]``).  The items and their order
+    are those of a stable sort of the bins' tile ids, so the result has
+    the bits of :func:`segment_sum_sorted` on that sort (:func:`fixup_order`
+    gives it), column ``j`` those of the call on column ``j`` alone, at
+    every width.  On the card the kernel walks that order itself from
+    ``tile_starts`` (no sort, no order array, no atomics); the plain
+    version (:func:`segment_sum_fixup_ref`) builds the same order and adds
+    with ``index_add_``.  Unsorted ``tile_starts`` give another result.
+    """
+    device = tile_starts.device
+    if partials.dtype not in _SUM_DTYPE_CODE:
+        raise TypeError(f"partials must be float32 or float64, got "
+                        f"{partials.dtype}")
+    if partials.device != device:
+        raise ValueError(f"partials is on {partials.device}, expected "
+                         f"{device}")
+    if partials.dim() not in (2, 3) or not partials.is_contiguous():
+        raise ValueError(f"partials must be a contiguous [C, L] or [C, L, "
+                         f"B] tensor, got shape {tuple(partials.shape)}")
+    chunks, local_tiles = int(partials.shape[0]), int(partials.shape[1])
+    _check(tile_starts, "tile_starts", torch.int32, device, chunks + 1)
+    if num_tiles < 0:
+        raise ValueError(f"num_tiles={num_tiles} is negative")
+    _int32(chunks * local_tiles + num_tiles, "C * L + num_tiles")
+    if not _on_card(device):
+        return segment_sum_fixup_ref(partials, tile_starts, num_tiles)
+    batch = tuple(partials.shape[2:])
+    out = torch.empty((num_tiles,) + batch, dtype=partials.dtype,
+                      device=device)
+    if out.numel() == 0:
+        return out
+    if local_tiles == 0:
+        return out.zero_()
+    cols = batch[0] if batch else 1
+    carry_row, coords, carry_val = _carries(chunks * local_tiles + num_tiles,
+                                            cols, partials.dtype, device)
+    prefix = torch.empty(chunks + 1, dtype=torch.int64, device=device)
+    events = torch.empty(2 * chunks + 1, dtype=torch.int32, device=device)
+    _launch("segsum", "segment_sum_fixup", partials.data_ptr(),
+            _SUM_DTYPE_CODE[partials.dtype], tile_starts.data_ptr(), chunks,
+            local_tiles, num_tiles, cols, prefix.data_ptr(),
+            events.data_ptr(), events[2 * chunks:].data_ptr(),
+            carry_row.data_ptr(), coords.data_ptr(), carry_val.data_ptr(),
+            out.data_ptr())
+    LAUNCHES["segment_sum_fixup"] += 1
+    return out
+
+
+def fixup_offsets(tile_starts: torch.Tensor, local_tiles: int,
+                  num_tiles: int):
+    """``(off, lo)`` of the fixup's item order, as the kernel computes
+    them: ``off`` int64 ``[num_tiles + 1]``, the items (bins) of the tiles
+    before ``t``; ``lo`` int64 ``[num_tiles]``, the first chunk that
+    reaches tile ``t``.  With ``L = local_tiles``, ``S`` the prefix sums of
+    ``tile_starts[:C]``, ``lo(t) = #{c : tile_starts[c] <= t - L}`` and
+    ``h(t) = #{c : tile_starts[c] < t}``: ``off(t) = L lo(t) + (h(t) -
+    lo(t)) t - (S[h(t)] - S[lo(t)])``, the sum over chunks of ``clamp(t -
+    tile_starts[c], 0, L)``.  Exact integers, for non-decreasing
+    ``tile_starts``."""
+    starts = tile_starts[:-1].long().contiguous()
+    t = torch.arange(num_tiles + 1, dtype=torch.int64,
+                     device=tile_starts.device)
+    lo = torch.searchsorted(starts, t - local_tiles, right=True)
+    h = torch.searchsorted(starts, t - 1, right=True)
+    prefix = torch.cat([starts.new_zeros(1), torch.cumsum(starts, 0)])
+    off = local_tiles * lo + (h - lo) * t - (prefix[h] - prefix[lo])
+    return off, lo[:-1]
+
+
+def fixup_order(tile_starts: torch.Tensor, local_tiles: int,
+                num_tiles: int):
+    """``(keys, rows)`` of the fixup's items in order: item ``i`` is bin
+    ``rows[i]`` of the flattened ``[C * L]`` partials, of tile
+    ``keys[i]`` (int64 both).  Equal to a stable sort of the bins' tile
+    ids (bins at or past ``num_tiles`` left out)."""
+    off, lo = fixup_offsets(tile_starts, local_tiles, num_tiles)
+    counts = off[1:] - off[:-1]
+    device = tile_starts.device
+    keys = torch.repeat_interleave(
+        torch.arange(num_tiles, dtype=torch.int64, device=device), counts)
+    item = torch.arange(keys.shape[0], dtype=torch.int64, device=device)
+    chunk = lo[keys] + (item - off[keys])
+    rows = chunk * local_tiles + (keys - tile_starts.long()[chunk])
+    return keys, rows
+
+
+def segment_sum_fixup_ref(partials: torch.Tensor, tile_starts: torch.Tensor,
+                          num_tiles: int) -> torch.Tensor:
+    """Plain version of :func:`segment_sum_fixup`: the order of
+    :func:`fixup_order`, summed with ``index_add_``."""
+    chunks, local_tiles = int(partials.shape[0]), int(partials.shape[1])
+    batch = tuple(partials.shape[2:])
+    out = torch.zeros((num_tiles,) + batch, dtype=partials.dtype,
+                      device=partials.device)
+    keys, rows = fixup_order(tile_starts, local_tiles, num_tiles)
+    flat = partials.reshape((chunks * local_tiles,) + batch)
+    return out.index_add_(0, keys, flat[rows])

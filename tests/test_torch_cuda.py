@@ -15,7 +15,9 @@ likewise, and the compacted gather (K4)
 bitwise, being a copy.  The ordered segment sum (``segment_sum_sorted``,
 which every float segment sum on the card goes through) is held to a
 float64 sum within 1e-5 of each segment's absolute sum, bitwise on
-integer-valued data, and bitwise across runs.  The segmented-matmul
+integer-valued data, and bitwise across runs; its sort-free form for
+``fixup_partials`` (``segment_sum_fixup``) likewise, and bitwise to the
+sorted route at every width.  The segmented-matmul
 kernels (K5/K6) are held to their plain versions bitwise on integer-valued
 operands and to rtol 1e-4 on real ones (5e-2 for bfloat16), and to each
 other bitwise; on bf16 x bf16 operands (the tensor-core routes, counted
@@ -370,6 +372,100 @@ def test_segment_reduce_sums_through_the_ordered_kernel(card):
     assert int(counts.sum()) == 4000
 
 
+def _fixup_layout(name, card):
+    """(tile_starts int32 [C + 1], local_tiles, num_tiles) of the fixup
+    cases: fixup_partials' layout of 500 chunks (some bins past the last
+    tile), a hub tile that 500 chunks reach, and a real chunked_lpt
+    partition."""
+    if name == "partials":
+        starts = np.arange(501) * 37
+        return (torch.from_numpy(starts.astype(np.int32)).to(card), 40,
+                499 * 37 + 20)
+    if name == "hub_partials":
+        starts = np.array([0] + [7] * 500 + [30, 55])
+        return torch.from_numpy(starts.astype(np.int32)).to(card), 50, 60
+    spec = _spec(SIZES["powerlaw"], card)
+    part = T.schedules.finalize_partition(
+        T.make_partition(spec, "chunked", 64))
+    _, local_tiles = T.execute._window_sizes(spec, part)
+    return part.tile_starts.to(torch.int32), local_tiles, spec.num_tiles
+
+
+FIXUP_CASES = ["partials", "hub_partials", "chunked_lpt"]
+
+
+@pytest.mark.parametrize("width", [1, 3, 8, 128])
+@pytest.mark.parametrize("name", FIXUP_CASES)
+def test_segment_sum_fixup_equals_the_sorted_route(card, name, width):
+    """The sort-free fixup has the bits of the sorted route (a stable sort
+    of the bins' tile ids, then segment_sum_sorted) at every width, one
+    launch a call, the same bits on every run; integer-valued sums are
+    bitwise equal to its plain version, real ones within 1e-5 of each
+    tile's absolute sum of a float64 sum."""
+    starts, local_tiles, num_tiles = _fixup_layout(name, card)
+    chunks = int(starts.shape[0]) - 1
+    rng = np.random.default_rng(17 + width)
+    shape = (chunks, local_tiles) + (() if width == 1 else (width,))
+    reals = rng.standard_normal(shape)
+    reals[rng.random(shape) < 0.3] = 0.0
+    vals = torch.from_numpy(reals.astype(np.float32)).to(card)
+    gtid = starts[:-1, None].long() + torch.arange(
+        local_tiles, device=card)[None, :]
+    gtid = torch.where(gtid < num_tiles, gtid, num_tiles).reshape(-1)
+    keys, order = torch.sort(gtid.to(torch.int32), stable=True)
+    flat = vals.reshape(chunks * local_tiles, *shape[2:])
+    before = dict(TK.LAUNCHES)
+    runs = [TK.segment_sum_fixup(vals, starts, num_tiles) for _ in range(3)]
+    assert TK.LAUNCHES["segment_sum_fixup"] == (
+        before["segment_sum_fixup"] + 3)
+    assert TK.LAUNCHES["segment_sum_sorted"] == before["segment_sum_sorted"]
+    for r in runs[1:]:
+        _same_bits(r, runs[0], name)
+    sorted_route = TK.segment_sum_sorted(flat, keys, num_tiles + 1,
+                                         order=order)[:-1]
+    _same_bits(runs[0], sorted_route.contiguous(), f"{name}/{width}")
+    want = TK.segment_sum_fixup_ref(vals.cpu(), starts.cpu(), num_tiles)
+    exact = np.zeros((num_tiles + 1,) + shape[2:])
+    scale = np.zeros_like(exact)
+    terms = flat.double().cpu().numpy()
+    np.add.at(exact, gtid.cpu().numpy(), terms)
+    np.add.at(scale, gtid.cpu().numpy(), np.abs(terms))
+    err = np.abs(runs[0].double().cpu().numpy() - exact[:num_tiles])
+    assert (err <= 1e-5 * scale[:num_tiles]).all(), float(err.max())
+    assert want.shape == runs[0].shape
+    ints = torch.from_numpy(rng.integers(-8, 9, shape).astype(np.float32)
+                            ).to(card)
+    _same_bits(TK.segment_sum_fixup(ints, starts, num_tiles),
+               TK.segment_sum_fixup_ref(ints.cpu(), starts.cpu(),
+                                        num_tiles).to(card), name)
+
+
+def test_fixup_partials_sums_through_the_fixup_kernel(card):
+    """A float sum of fixup_partials on the card is one fixup launch and
+    no sorted sum (so no sort); float64 and bfloat16 partials too; min
+    stays on scatter_reduce_."""
+    starts, local_tiles, num_tiles = _fixup_layout("chunked_lpt", card)
+    spec = _spec(SIZES["powerlaw"], card)
+    part = T.schedules.finalize_partition(
+        T.make_partition(spec, "chunked", 64))
+    rng = np.random.default_rng(21)
+    partials = torch.from_numpy(rng.standard_normal(
+        (part.num_blocks, local_tiles, 4))).to(card)
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        before = dict(TK.LAUNCHES)
+        got = T.execute.fixup_partials(spec, part, partials.to(dtype),
+                                       local_tiles)
+        assert got.dtype == dtype and got.shape == (num_tiles, 4)
+        assert TK.LAUNCHES["segment_sum_fixup"] == (
+            before["segment_sum_fixup"] + 1)
+        assert TK.LAUNCHES["segment_sum_sorted"] == (
+            before["segment_sum_sorted"])
+    before = dict(TK.LAUNCHES)
+    T.execute.fixup_partials(spec, part, partials.float(), local_tiles,
+                             "min")
+    assert TK.LAUNCHES == before
+
+
 @pytest.mark.parametrize("capacity", [None, 5, 100_000])
 @pytest.mark.parametrize("combiner", ["sum", "min"])
 def test_scatter_reduce_kernels(card, combiner, capacity):
@@ -637,9 +733,9 @@ def test_pagerank_and_chunked_spmv_are_deterministic(card):
                          .astype(np.float32)).to(card)
     for schedule in ("chunked_lpt", "merge_path"):
         kw = dict(schedule=schedule, path="native", num_blocks=264)
-        before = TK.LAUNCHES["segment_sum_sorted"]
+        before = TK.LAUNCHES["segment_sum_fixup"]
         runs = [pagerank(g, **kw) for _ in range(2)]
-        assert TK.LAUNCHES["segment_sum_sorted"] > before
+        assert TK.LAUNCHES["segment_sum_fixup"] > before
         assert_bitwise(runs[1], runs[0], f"pagerank {schedule}")
     ys = [TO.spmv_merge_path(A, x, schedule="chunked_lpt", num_blocks=264)
           for _ in range(2)]

@@ -6,7 +6,10 @@ Builds the SST-scale forest of ``chip_smoke.phase_forest_data`` and runs
 ``chip_smoke.phase_k2_forest`` on one level of its ``chunked_lpt`` plan:
 the one-column launch of the in-degree update and the 128-column launch of
 a level's combine, each against its plain version and beside its byte
-bound and ``index_add_``, then the combine's ordered fixup.
+bound and ``index_add_``, then the ordered sums of the level: the
+combine's fixup (``segment_sum_fixup``) and the pure path's partial sums
+(``segment_sum_sorted``); a port without ``segment_sum_fixup`` skips them
+(``tools/time_ordered_sums.py`` times the sums of two versions).
 ``--per-column`` times the combine as 128 one-column launches instead,
 for a port whose K2 takes one column.  ``--src`` may point at another
 checkout's ``src`` (for instance a parent commit unpacked with ``git
