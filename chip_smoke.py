@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero:
 1. card    — nvidia-smi's name and power limit, torch's device name;
 2. build   — nvcc builds every CUDA source of the port (one process per
    source, all started together) and prints the ``-Xptxas -v`` register /
-   shared-memory lines;
+   shared-memory lines, ptxas's performance notes (C75xx) and each
+   kernel's SASS summary (registers named, local loads and stores);
 3. data    — a scale-free graph at soc-LiveJournal1 scale (2**22 vertices,
    2**26 edges requested, skew 1.3, 30% empty rows: the repo's
    ``scalefree_web`` class), made from ``--seed``; the SpMV uses the same
@@ -162,14 +163,18 @@ Phases, in order; any failure exits non-zero:
    6,144-token prefill (banded) and 1,024 teacher-forced decode steps
    against ``forward`` on all 7,168 tokens, at position 6,143 and every
    128th after it, rtol/atol 2e-3;
-20. swa times — K7 at the prefill's launch shape (S 32,768, bfloat16: the
-   wgmma kernel) beside the mma.sync kernel before it at the same shape
+20. swa times — first a line per wgmma forward kernel from the build's
+   report: its registers at launch and stack / spill bytes (ptxas) and
+   the registers its SASS names with its local loads and stores; then K7
+   at the prefill's launch shape (S 32,768, bfloat16: the wgmma kernel)
+   beside the mma.sync kernel before it at the same shape
    (called directly; both held to the float32 plain version, bfloat16
    limits above), its bound, the flop each executes, its plain version
    and cuDNN's ``scaled_dot_product_attention`` with the band mask (held
    to K7 at 3e-2); then the float32 K7 (the CUDA-core kernel) at the same
    shape;
-21. swa backward — K7's backward (``flash_swa_bwd``) against its plain
+21. swa backward — the same register lines for the wgmma backward's two
+   kernels; then K7's backward (``flash_swa_bwd``) against its plain
    version on the same inputs, forward output and log-sum-exp (the
    forward's lse held to the plain forward's at 1e-4): at the training
    shape (S 8,192, 32/8 heads of 120, window 4,096, bfloat16: rtol 1e-2,
@@ -523,7 +528,8 @@ MOE_MESH_SHAPE = (MOE_MESH_SEQ, MOE_MESH_BATCH, MOE_MESH_MICRO,
                   MOE_MESH_STEPS)
 MOE_MESH_F32_S = 1024      # the float32 parity check, two sequences
 MOE_SERVE_BATCH = 4        # two rows a data rank
-MOE_SERVE_STEPS = 16       # each gathers every layer's weights over data
+MOE_SERVE_STEPS = 8        # each gathers every layer's weights over data
+                           # (cut from 16, ~10 s each: the script's time)
 MOE_SERVE_CACHE = 4096
 MOE_SERVE_CHECK = 8        # float32 steps held to one device's decode_step
 MOE_PREFILL_S = 4096
@@ -737,8 +743,37 @@ def phase_build():
         for line in report.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            elif "registers" in line or "spill" in line:
+            elif line.startswith("sass: "):
+                log(f"  {stem}: {line}")
+            elif ("registers" in line or "spill" in line
+                  or "setmaxnreg" in line or "(C75" in line):
                 log(f"  {stem}: {entry}: {line.strip()}")
+
+
+def kernel_registers(source) -> list:
+    """One line per kernel of a built source (``_build.build``'s report):
+    the registers a thread holds at launch and the stack and spill bytes
+    (ptxas's ``-v`` lines), then the registers its SASS names, which is
+    what a consumer warpgroup runs on after ``setmaxnreg``, and the local
+    loads and stores in its code."""
+    from repro_torch.kernels import _build
+    report = _build.build([source])[source.stem]
+    ptxas, entry = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line and "'" in line:
+            entry = line.split("'")[1]
+            ptxas[entry] = []
+        elif entry and ("bytes stack frame" in line or "Used" in line):
+            ptxas[entry].append(line.split(":", 1)[-1].strip())
+    lines = []
+    for line in report.splitlines():
+        if not line.startswith("sass: "):
+            continue
+        name, rest = line[len("sass: "):].split(": ", 1)
+        launch = "; ".join(ptxas.get(name, [])) or "no ptxas line"
+        lines.append(f"{source.stem} {name}: at launch {launch}; after "
+                     f"setmaxnreg {rest}")
+    return lines
 
 
 def phase_data(seed: int, num_blocks: int):
@@ -2725,18 +2760,17 @@ def _wgmma_widths(hd: int) -> tuple:
 
 def wgmma_executed_flop(s: int, window: int, heads: int, hd: int) -> int:
     """Flop the wgmma K7 (``csrc/flash_swa_wgmma.cu``) executes: per
-    (128-row query tile, head), every 64-row KV tile of its band whole —
-    ``Q K^T`` over the padded head, ``P V`` twice (the split ``P``) at the
-    output width (:func:`_wgmma_widths`)."""
-    bq, bk = 128, 64          # the kernel's kBQ and kBK
+    (128-row query tile, head), every 128-row KV tile of its band whole
+    (the walk of ``kernel.wgmma_band_walk``) — ``Q K^T`` over the padded
+    head, ``P V`` twice (the split ``P``) at the output width
+    (:func:`_wgmma_widths`)."""
+    from repro_torch.kernels.flash_swa import kernel as FK
     window = min(window, s)
-    tiles = 0
-    for q0 in range(0, s, bq):
-        q_last = min(q0 + bq, s) - 1
-        kt0 = max(0, q0 - window + 1) // bk * bk
-        tiles += (q_last - kt0) // bk + 1
+    tiles = sum(len(FK.wgmma_band_walk(q0, s, window))
+                for q0 in range(0, s, FK.WGMMA_FWD_Q))
     dp, no = _wgmma_widths(hd)
-    return heads * tiles * (2 * bq * bk * dp + 2 * (2 * bq * bk * no))
+    tile = 2 * FK.WGMMA_FWD_Q * FK.WGMMA_FWD_KV   # a 128 x 128 x 1 product
+    return heads * tiles * (tile * dp + 2 * tile * no)
 
 
 def bwd_wgmma_executed_flop(s: int, window: int, heads: int,
@@ -2744,25 +2778,27 @@ def bwd_wgmma_executed_flop(s: int, window: int, heads: int,
     """Flop the wgmma backward (``csrc/flash_swa_bwd_wgmma.cu``) executes:
     the dq kernel's 128-row query tiles against every 64-row KV tile of
     their band (``Q K^T`` and ``dO V^T`` over the padded head, ``dS K``
-    twice: the split) and the dk/dv kernel's 64-row KV tiles against every
-    64-row query tile of their band for each head of the group (``K Q^T``
-    in both consumer warpgroups, ``V dO^T``, ``P^T dO`` and ``dS^T Q``, the
-    last two twice), each tile whole (:func:`_wgmma_widths`)."""
+    twice: the split) and, for each head, the dk/dv kernel's 128-row key
+    tiles against the 64-row query tiles of their band, each consumer
+    warpgroup's 64 key rows computing ``K Q^T`` and ``V dO^T`` once and
+    ``P^T dO`` and ``dS^T Q`` twice on every query tile it does not pass
+    over (``kernel.wgmma_dkdv_walk``), each tile whole
+    (:func:`_wgmma_widths`)."""
+    from repro_torch.kernels.flash_swa import kernel as FK
     window = min(window, s)
     dp, no = _wgmma_widths(hd)
-    dq_tiles = 0
-    for q0 in range(0, s, 128):
-        q_last = min(q0 + 128, s) - 1
-        kt0 = max(0, q0 - window + 1) // 64 * 64
-        dq_tiles += (q_last - kt0) // 64 + 1
-    kv_tiles = 0
-    for kt in range(0, s, 64):
-        q_end = min(s - 1, kt + 64 - 1 + window - 1)
-        kv_tiles += (q_end - kt) // 64 + 1
-    tile = 2 * 64 * 64        # flop of one 64 x 64 x 1 product
-    per_dq = 2 * (2 * tile * dp + 2 * tile * no)      # 128 query rows
-    per_kv = 3 * tile * dp + 4 * tile * no
-    return heads * (dq_tiles * per_dq + kv_tiles * per_kv)
+    dq_tiles = sum(len(FK.wgmma_band_walk(q0, s, window, FK.WGMMA_DQ_Q,
+                                          FK.WGMMA_DQ_KV))
+                   for q0 in range(0, s, FK.WGMMA_DQ_Q))
+    kv_steps = sum(state != "skip"
+                   for kt in range(0, s, FK.WGMMA_DKDV_KV)
+                   for _, states in FK.wgmma_dkdv_walk(kt, s, window)
+                   for state in states)
+    dq_tile = 2 * FK.WGMMA_DQ_Q * FK.WGMMA_DQ_KV          # 128 x 64 x 1
+    kv_step = 2 * FK.WGMMA_ROWS * FK.WGMMA_DKDV_Q
+    per_dq = 2 * dq_tile * dp + 2 * dq_tile * no
+    per_kv = 2 * kv_step * dp + 4 * kv_step * no
+    return heads * (dq_tiles * per_dq + kv_steps * per_kv)
 
 
 def phase_swa_parity(cfg, seed: int) -> float:
@@ -3005,6 +3041,8 @@ def phase_swa_times(cfg, seed: int) -> dict:
     import torch
     from repro_torch.kernels.flash_swa import kernel as FK
 
+    for line in kernel_registers(FK.CSRC / "flash_swa_wgmma.cu"):
+        log(f"registers: {line}")
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     window, qc = cfg.sliding_window, cfg.attn_query_chunk
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
@@ -3172,6 +3210,8 @@ def phase_swa_bwd(cfg, seed: int) -> dict:
     import torch
     from repro_torch.kernels.flash_swa import kernel as FK
 
+    for line in kernel_registers(FK.CSRC / "flash_swa_bwd_wgmma.cu"):
+        log(f"registers: {line}")
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     window, qc = cfg.sliding_window, cfg.attn_query_chunk
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 10)

@@ -7,7 +7,10 @@ content of the source and of every header it includes with quotes, in
 its own directory or elsewhere (``kernels/csrc/mma_sync.cuh``), so that an
 edit to a shared header rebuilds every source that includes it.  :func:`build` starts
 one ``nvcc`` per source, all at once, and returns each one's ``-Xptxas -v``
-report (registers, shared memory, spills).
+report (registers, shared memory, spills) followed by :func:`sass_report`'s
+lines.  ptxas's ``-v`` line gives the registers a thread holds at launch;
+a kernel whose warpgroups trade registers with ``setmaxnreg`` runs its
+consumers on more, which only the SASS shows.
 """
 from __future__ import annotations
 
@@ -74,6 +77,58 @@ def library_path(source: pathlib.Path) -> pathlib.Path:
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
+def cuobjdump_path() -> str:
+    """``cuobjdump`` beside ``nvcc``, else on the PATH; "" if neither."""
+    try:
+        beside = pathlib.Path(nvcc_path()).with_name("cuobjdump")
+    except RuntimeError:
+        beside = None
+    if beside is not None and beside.exists():
+        return str(beside)
+    return shutil.which("cuobjdump") or ""
+
+
+_FUNCTION = re.compile(r"^\s*Function : (\S+)", re.MULTILINE)
+_REGISTER = re.compile(r"(?<![A-Za-z_])R(\d+)\b")
+_SETMAXNREG = re.compile(r"USETMAXREG\S*\s[^;]*")
+_LOCAL = re.compile(r"\b(LDL|STL)(?=[.\s])")
+
+
+def sass_summary(sass: str) -> list:
+    """Per function of ``cuobjdump -sass`` output: ``(name, registers,
+    setmaxnreg, local loads, local stores)``, where ``registers`` is one
+    more than the highest register (``R<n>``) its code names, which is
+    what a warp running its widest part holds, and ``setmaxnreg`` the
+    distinct ``USETMAXREG`` instructions."""
+    rows = []
+    parts = _FUNCTION.split(sass)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        regs = [int(r) for r in _REGISTER.findall(body)]
+        local = _LOCAL.findall(body)
+        rows.append((name, max(regs) + 1 if regs else 0,
+                     sorted({" ".join(m.split()) for m in
+                             _SETMAXNREG.findall(body)}),
+                     local.count("LDL"), local.count("STL")))
+    return rows
+
+
+def sass_report(lib: pathlib.Path) -> str:
+    """``sass:`` lines for every kernel of a built library (one per
+    function of :func:`sass_summary`), or "" where ``cuobjdump`` is
+    missing."""
+    tool = cuobjdump_path()
+    if not tool:
+        return ""
+    proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=_NVCC_TIMEOUT_S)
+    if proc.returncode != 0:
+        return f"sass: cuobjdump exit {proc.returncode}: {proc.stderr}\n"
+    return "".join(
+        f"sass: {name}: {regs} registers named; setmaxnreg "
+        f"{'; '.join(setmax) or 'none'}; local loads {ldl}, stores {stl}\n"
+        for name, regs, setmax, ldl, stl in sass_summary(proc.stdout))
+
+
 def build(sources: Sequence[pathlib.Path]) -> Dict[str, str]:
     """Compile every source whose library is missing, all in parallel.
 
@@ -107,6 +162,7 @@ def build(sources: Sequence[pathlib.Path]) -> Dict[str, str]:
             failures.append(f"{source.name}: nvcc exit {proc.returncode}\n"
                             f"{out}")
             continue
+        out += sass_report(tmp)
         lib.with_suffix(".log").write_text(out)
         os.replace(tmp, lib)
         reports[source.stem] = out

@@ -7,7 +7,8 @@
 //   parity, and 2-D, 3-D and 4-D tiled TMA loads global -> shared that
 //   complete on an mbarrier.  A wait that sees no progress for
 //   kWaitLimitNs traps, so a pipeline fault ends the launch with an error
-//   instead of hanging the card.
+//   instead of hanging the card (mbar_wait; mbar_wait_spin spins without a
+//   limit, for consumers whose kernel keeps the guard in its producer).
 // * Host: encode_tiled() fills a CUtensorMap through the driver's
 //   cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint*, so the
 //   library links against the runtime only (no -lcuda).  A map is built
@@ -82,6 +83,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // Box at coordinates (c0 innermost, c1) of a 2-D map into shared `dst`.
+// mbar_wait without the timeout, for the consumer warpgroups of a kernel
+// that raises their registers with setmaxnreg: a trap in their code makes
+// ptxas size their wgmma pipelining by the launch's register budget (168 a
+// thread of a 384-thread CTA) whatever setmaxnreg gives them, so that it
+// serialises the wgmmas and spills.  The kernel keeps its hang guard in
+// the producer, which waits (mbar_wait) until the consumers release the
+// last stages.
+__device__ __forceinline__ void mbar_wait_spin(uint64_t* bar,
+                                               uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  while (!mbar_try_wait(addr, parity)) {
+  }
+}
+
 __device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map,
                                         uint64_t* bar, int c0, int c1) {
   asm volatile(

@@ -2,12 +2,13 @@
 // route, segmm/csrc/segmm_wgmma.cu; K7 and its backward on bf16 heads,
 // flash_swa/csrc/flash_swa_wgmma.cu and flash_swa_bwd_wgmma.cu):
 // shared-memory matrix descriptors for 128-byte-swizzled tiles, the
-// warpgroup's fence / commit / wait, register hand-over between warpgroups
+// warpgroup's fence / commit / wait, two warpgroups' turns at the tensor
+// cores (named barriers), register hand-over between warpgroups
 // (setmaxnreg), and the product shapes m64nNk16 with bf16 operands and f32
 // accumulators:
 // * mma_m64n256k16_bf16_tn: A K-major, B MN-major, both in shared memory;
-// * mma_ss<64>: A and B K-major, both in shared memory (S = Q K^T, dP =
-//   dO V^T and their transposes);
+// * mma_ss<N> (N = 64, 128): A and B K-major, both in shared memory (S =
+//   Q K^T, dP = dO V^T and their transposes);
 // * mma_rs<N> (N = 64, 120, 128): A from registers, B MN-major in shared
 //   memory (P V, dS K, P^T dO, dS^T Q).
 //
@@ -88,6 +89,23 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[kSteps][4]) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
   }
+}
+
+// Turns of two consumer warpgroups at the tensor cores (FlashAttention-3's
+// ping-pong), on named barriers 1 and 2 of 256 threads: warpgroup g waits
+// for its turn before it issues a step's products and passes the turn to
+// the other after them, so that one's softmax runs while the other's
+// products do.  Warpgroup 1 gives warpgroup 0 the first turn
+// (turns_start) and passes every turn but its last, so that each barrier
+// sees as many arrivals as waits.
+__device__ __forceinline__ void turns_start(int g) {
+  if (g == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void turn_wait(int g) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + g) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int g) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - g) : "memory");
 }
 
 // Raise / lower this warpgroup's register budget (all its warps call it).
@@ -202,6 +220,45 @@ __device__ __forceinline__ void mma_ss<64>(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void mma_ss<128>(float (&d)[64],
+                                             uint64_t desc_a,
+                                             uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      " %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

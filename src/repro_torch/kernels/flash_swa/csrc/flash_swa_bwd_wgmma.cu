@@ -15,22 +15,28 @@
 // P^T dO, dS K and dS^T Q, both halves into one f32 accumulator; scale on
 // the dq and dk sums; the outputs rounded to bf16 once), for q, out, dout,
 // dq [B, S, H, hd] and k, v, dk, dv [B, S, Hkv, hd] in bfloat16, lse [B,
-// H, S] float32.  Only the order of the f32 sums inside a product differs.
+// H, S] float32.  Only the order of the f32 sums inside a product differs,
+// and exp2 flushes results under 2^-126 to zero (swa_mma::exp2_ftz).
 //
 // Bound on the H100: operations, 10 hd flop per (query, key) pair of the
 // band and head; at Danube's training shape (S 8,192, window 4,096, 32
 // heads of 120) 0.97 TFLOP, 0.98 ms at 989 TFLOP/s.  The two kernels
-// execute about 2x that (chip_smoke.py::bwd_wgmma_executed_flop): both
+// execute about 2.1x that (chip_smoke.py::bwd_wgmma_executed_flop): both
 // recompute Q K^T and dO V^T, the three split products run twice, Q K^T
 // and dO V^T run over the head padded to 128, and the band's edge tiles
 // are computed whole and masked.
 //
 // Design: the two-kernel, no-atomics structure of flash_swa_bwd_mma.cu, so
 // that two runs give the same bits, each kernel warp-specialised as
-// flash_swa_wgmma.cu is (warpgroup 0 a TMA producer, warpgroups 1 and 2
-// consumers, mbarrier rings; 4-D tensor maps (hd, heads, S, B) read in
-// boxes of 64 head columns, zeros past hd and past S; tiles sized to the
-// 168 registers a thread that ptxas allocates in a 384-thread CTA):
+// flash_swa_wgmma.cu is: warpgroup 0 a TMA producer that hands registers
+// over (setmaxnreg.dec to 24), warpgroups 1 and 2 consumers that take them
+// (setmaxnreg.inc to 240), roles from a warp-uniform index; mbarrier
+// rings; 4-D tensor maps (hd, heads, S, B) read in boxes of 64 head
+// columns, zeros past hd and past S.  The consumers wait with
+// tma::mbar_wait_spin (a trap in their code makes ptxas pipeline their
+// wgmmas as if they had 168 registers: flash_swa_wgmma.cu's header) and
+// the producer keeps the 4 s guard, waiting at its end until the
+// consumers have released the last stages.
 // * dq_kernel, one CTA per (128-row query tile, head, batch), the heads
 //   fastest and the query tiles last to first, as the forward's grid.  The
 //   consumers first compute D for their rows (from global memory; written
@@ -40,25 +46,34 @@
 //   m64n64k16, all operands in shared memory, K and V K-major), P and dS in
 //   the accumulator registers, dS packed into A fragments (hi, lo) for dQ
 //   += dS K with K read again as an MN-major B (one load, two
-//   descriptors);
-// * dkdv_kernel, one CTA per (64-row KV tile, KV head, batch), launched
+//   descriptors).  S and dP are double-buffered against dQ: each step
+//   issues the next tile's S and dP, then this tile's dQ += dS K, and
+//   computes the next dS while dQ's products run (S, dP, dQ and dS's
+//   fragments: 32 + 32 + 64 + 32 registers beside the addresses, ~200 in
+//   all); the two consumers take turns to issue (wgmma::turn_wait /
+//   turn_pass, FlashAttention-3's ping-pong);
+// * dkdv_kernel, one CTA per (128-row KV tile, KV head, batch), launched
 //   after dq_kernel on the stream (it reads D), the KV tiles fastest.  The
 //   producer loads K and V once, then for each query head of the group in
-//   order, each 64-row query tile of the band [kt, min(S - 1, kt + 63 +
-//   window - 1)]: Q and dO by TMA and their rows' lse and D by the
-//   producer warp's 32 lanes (plain loads into the stage, then an arrive on
-//   the stage's full barrier, which counts the TMA bytes and 33 arrivals).
-//   The two consumer warpgroups split the gradient, not the rows: the
-//   first computes S^T = K Q^T (m64n64k16), P^T, and dV += P^T dO; the
-//   second S^T, dP^T = V dO^T, dS^T (lse and D read by query column) and
-//   dK += dS^T Q; both A from registers (split) and dO, Q as MN-major B, so
-//   one TMA load of a Q or dO tile serves its K-major and MN-major reads.
-//   Each keeps one 64 x hd f32 accumulator (64 registers) for the whole
-//   walk: dK and dV together in one warpgroup (128) beside S^T and dP^T
-//   (64) would pass the 168 registers ptxas gives a thread (it spilled and
-//   serialised the wgmmas).  That costs S^T twice, one more product in 7.
+//   order, each 64-row query tile of the band [kt, min(S - 1, kt + 127 +
+//   window - 1)] (kernel.py::wgmma_dkdv_walk mirrors the walk): Q and dO
+//   by TMA and their rows' lse and D by the producer warp's 32 lanes (plain
+//   loads into the stage, then an arrive on the stage's full barrier,
+//   which counts the TMA bytes and 33 arrivals).  Each consumer warpgroup
+//   owns 64 key rows of the tile and holds both dK and dV for them (64 +
+//   64 registers): per query tile it computes S^T = K Q^T and dP^T = V
+//   dO^T (m64n64k16) once, P^T and dS^T (lse and D read by query column)
+//   from them, then dV += P^T dO and dK += dS^T Q in one group, A from
+//   registers (split) and dO, Q as MN-major B, so one TMA load of a Q or dO
+//   tile serves its K-major and MN-major reads and two warpgroups' key
+//   rows.  A query tile with no pair of the band for a warpgroup's 64 key
+//   rows (the diagonal's other half, the band's far end) is passed over.
 //   The GQA sum over the group's heads happens in the CTA, in a fixed
-//   order;
+//   order.  S^T and dP^T go in two groups, and P^T is computed while dP^T
+//   runs: issued in one group and waited on together, they left ptxas
+//   short of registers at ~236 (C7512, part of the wgmmas serialised).
+//   Turns cost this kernel more than they gave (its two warpgroups pass
+//   over different tiles), so it has none;
 // * the mask runs only on tiles that cross the band's edges or S (per
 //   warpgroup's 64 rows); the others are read whole.
 #include <cuda.h>
@@ -71,6 +86,7 @@
 namespace {
 
 using swa_mma::bf16;
+using swa_mma::exp2_ftz;
 using swa_mma::kFull;
 using swa_mma::kLog2e;
 using swa_mma::split;
@@ -78,11 +94,17 @@ using swa_mma::split;
 constexpr int kRowBytes = 128;           // a box row: 64 bf16
 constexpr int kConsumers = 2;            // consumer warpgroups of 64 rows
 constexpr int kThreads = 128 * (1 + kConsumers);
-constexpr int kStages = 2;
+constexpr int kProducerRegs = 24;        // a producer thread after setmaxnreg
+constexpr int kConsumerRegs = 240;       // a consumer thread after setmaxnreg
+constexpr int kStages = 3;
 constexpr int kBQ = 64 * kConsumers;     // query rows a dq CTA: 128
 constexpr int kBK = 64;                  // KV rows a tile of its walk
-constexpr int kBKV = 64;                 // key rows a dk/dv CTA
+constexpr int kBKV = 64 * kConsumers;    // key rows a dk/dv CTA: 128
 constexpr int kBQ2 = 64;                 // query rows a tile of its walk
+constexpr int kSteps = 64 / 16;          // k16 steps of a 64-row product
+static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <=
+                  65536,
+              "the warpgroups' registers exceed the SM's 65,536");
 
 __device__ __forceinline__ void bump(int& stage, uint32_t& phase) {
   if (++stage == kStages) {
@@ -92,7 +114,6 @@ __device__ __forceinline__ void bump(int& stage, uint32_t& phase) {
 }
 
 // P and dS halves as the A fragments of k16 step kk: n8 groups 2kk, 2kk+1
-template <int kSteps>
 __device__ __forceinline__ void split_all(const float (&c)[8 * kSteps],
                                           uint32_t (&hi)[kSteps][4],
                                           uint32_t (&lo)[kSteps][4]) {
@@ -101,6 +122,36 @@ __device__ __forceinline__ void split_all(const float (&c)[8 * kSteps],
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       split(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1], hi[kk][r], lo[kk][r]);
+  }
+}
+
+// d (+)= A B^T over the padded head, A the warpgroup's 64 rows (descriptor
+// da: a box of `a_rows` rows) and B a tile of 64 rows (db: `b_rows`), both
+// K-major; not committed
+template <int DP>
+__device__ __forceinline__ void product_ss(float (&d)[32], uint64_t da,
+                                           int a_rows, uint64_t db,
+                                           int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off_a = (kk / 4) * a_rows * kRowBytes + (kk % 4) * 32;
+    const uint32_t off_b = (kk / 4) * b_rows * kRowBytes + (kk % 4) * 32;
+    wgmma::mma_ss<64>(d, da + (off_a >> 4), db + (off_b >> 4), kk > 0);
+  }
+}
+
+// acc += hi B + lo B, B a 64-row MN-major tile (descriptor db); not
+// committed
+template <int NO>
+__device__ __forceinline__ void product_rs(float (&acc)[NO / 2],
+                                           uint32_t (&hi)[kSteps][4],
+                                           uint32_t (&lo)[kSteps][4],
+                                           uint64_t db) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const uint64_t d = db + ((kk * 16 * kRowBytes) >> 4);
+    wgmma::mma_rs<NO>(acc, hi[kk], d, 1);
+    wgmma::mma_rs<NO>(acc, lo[kk], d, 1);
   }
 }
 
@@ -130,6 +181,67 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
   }
 }
 
+// dS = P (dP - D) of the KV tile at kt into dp, P = exp2(S scale log2 e -
+// lse log2 e) from s, for the rows ra and ra + 8 (ll: their lse log2 e,
+// dd: their D); masked unless the tile is interior to the band
+__device__ __forceinline__ void ds_rows(const float (&s)[32],
+                                        float (&dp)[32], const float (&ll)[2],
+                                        const float (&dd)[2], int kt, int ra,
+                                        int c0, int window, bool interior,
+                                        float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float pr = exp2_ftz(s[4 * j + e] * scale_log2 - ll[e >> 1]);
+      if (!interior) {
+        const int col = kt + j * 8 + c0 + (e & 1);
+        const int row = ra + (e >> 1) * 8;
+        if (!(col <= row && col > row - window)) pr = 0.0f;
+      }
+      dp[4 * j + e] = pr * (dp[4 * j + e] - dd[e >> 1]);
+    }
+  }
+}
+
+// A tile of `rows` keys at kt lies inside the band for every query row
+// r0 .. r0 + 63
+__device__ __forceinline__ bool inside_band(int kt, int rows, int r0,
+                                            int window) {
+  return kt + rows - 1 <= r0 && kt >= r0 + 64 - window;
+}
+
+// S = Q K^T and dP = dO V^T of the K and V tiles at ks and vs (dqa, doa:
+// the warpgroup's 64 rows of Q and dO); issued and committed
+template <int DP>
+__device__ __forceinline__ void issue_s_dp(float (&s)[32], float (&dp)[32],
+                                           uint64_t dqa, uint64_t doa,
+                                           const unsigned char* ks,
+                                           const unsigned char* vs) {
+  wgmma::fence_operands(s);
+  wgmma::fence_operands(dp);
+  wgmma::fence();
+  product_ss<DP>(s, dqa, kBQ, wgmma::desc_sw128(ks, 0, 1024), kBK);
+  product_ss<DP>(dp, doa, kBQ, wgmma::desc_sw128(vs, 0, 1024), kBK);
+  wgmma::commit();
+}
+
+// dQ += dS_hi K + dS_lo K with the K tile at ks read as an MN-major B;
+// issued and committed
+template <int NO>
+__device__ __forceinline__ void issue_dq(float (&acc)[NO / 2],
+                                         uint32_t (&hi)[kSteps][4],
+                                         uint32_t (&lo)[kSteps][4],
+                                         const unsigned char* ks) {
+  wgmma::fence_operands(acc);
+  wgmma::fence_operands(hi);
+  wgmma::fence_operands(lo);
+  wgmma::fence();
+  product_rs<NO>(acc, hi, lo,
+                 wgmma::desc_sw128(ks, kBK * kRowBytes, 1024));
+  wgmma::commit();
+}
+
 // dq for one (128-row query tile, head, batch); writes D for its rows.
 // DP: the head padded to 64 or 128 (DP / 64 boxes); NO: the head's width
 // as a wgmma N (64, 120 or 128).
@@ -146,8 +258,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kBoxes = DP / 64;
   constexpr int kQBytes = kBoxes * kBQ * kRowBytes;      // Q or dO
   constexpr int kTileBytes = kBoxes * kBK * kRowBytes;   // K or V
-  constexpr int kQSteps = DP / 16;
-  constexpr int kSSteps = kBK / 16;                      // of dS K
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, full_k[kStages], full_v[kStages],
       empty_k[kStages], empty_v[kStages];
@@ -163,6 +273,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q_last = min(q0 + kBQ, S) - 1;
   const int kt0 = max(0, q0 - window + 1) / kBK * kBK;
   const int ntiles = (q_last - kt0) / kBK + 1;
+  const int role = __shfl_sync(kFull, threadIdx.x / 128, 0);
   if (threadIdx.x == 0) {
     tma::mbar_init(&bar_q, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -175,7 +286,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {   // producer
+  if (role == 0) {   // producer
+    wgmma::reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
       tma::mbar_arrive_expect_tx(&bar_q, 2 * kQBytes);
       for (int x = 0; x < kBoxes; ++x) {
@@ -200,12 +312,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                        &full_v[stage], x * 64, hk, kt, b);
         bump(stage, phase);
       }
+      // the hang guard of the consumers' waits: the last tiles released
+      for (int it = max(0, ntiles - kStages); it < ntiles; ++it)
+        tma::mbar_wait(&empty_k[it % kStages], (it / kStages) & 1);
     }
     return;
   }
 
-  const int tid = threadIdx.x - 128;
-  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  wgmma::reg_alloc<kConsumerRegs>();
+  const int wg = role - 1, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
   const int r0 = q0 + wg * 64;
   const int ra = r0 + warp * 16 + lane / 4;   // rows ra and ra + 8
   const int c0 = 2 * (lane % 4);              // columns c0, c0 + 1
@@ -248,202 +364,68 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float scale_log2 = scale * kLog2e;
   const uint64_t dqa = wgmma::desc_sw128(sq + wg * 64 * kRowBytes, 0, 1024);
   const uint64_t doa = wgmma::desc_sw128(sdo + wg * 64 * kRowBytes, 0, 1024);
-
   float s[kBK / 2], dp[kBK / 2], acc[NO / 2];
-  uint32_t hi[kSSteps][4], lo[kSSteps][4];
+  uint32_t hi[kSteps][4], lo[kSteps][4];
 #pragma unroll
   for (int i = 0; i < NO / 2; ++i) acc[i] = 0.0f;
 
-  tma::mbar_wait(&bar_q, 0);
+  // the two warpgroups take turns to issue a step's products (ntiles
+  // turns each; the last dQ += dS K takes none)
+  wgmma::turns_start(wg);
+  tma::mbar_wait_spin(&bar_q, 0);
+  tma::mbar_wait_spin(&full_k[0], 0);
+  tma::mbar_wait_spin(&full_v[0], 0);
+  wgmma::turn_wait(wg);
+  issue_s_dp<DP>(s, dp, dqa, doa, sk, sv);
+  if (wg == 0 || ntiles > 1) wgmma::turn_pass(wg);
+  wgmma::wait<0>();
+  wgmma::fence_operands(s);
+  wgmma::fence_operands(dp);
+  tma::mbar_arrive(&empty_v[0]);
+  ds_rows(s, dp, ll, dd, kt0, ra, c0, window,
+          inside_band(kt0, kBK, r0, window), scale_log2);
+  split_all(dp, hi, lo);
   int stage = 0;
   uint32_t phase = 0;
-  for (int it = 0; it < ntiles; ++it) {
-    const int kt = kt0 + it * kBK;
-    const unsigned char* ks = sk + stage * kTileBytes;
-    const unsigned char* vs = sv + stage * kTileBytes;
-
-    // S = Q K^T and dP = dO V^T
-    tma::mbar_wait(&full_k[stage], phase);
-    const uint64_t dkb = wgmma::desc_sw128(ks, 0, 1024);
+  for (int it = 0; it + 1 < ntiles; ++it) {
+    int next = stage;
+    uint32_t next_phase = phase;
+    bump(next, next_phase);
+    tma::mbar_wait_spin(&full_k[next], next_phase);
+    tma::mbar_wait_spin(&full_v[next], next_phase);
+    wgmma::turn_wait(wg);
+    issue_s_dp<DP>(s, dp, dqa, doa, sk + next * kTileBytes,
+                   sv + next * kTileBytes);
+    issue_dq<NO>(acc, hi, lo, sk + stage * kTileBytes);
+    if (wg == 0 || it + 2 < ntiles) wgmma::turn_pass(wg);
+    wgmma::wait<1>();                  // the next S and dP
     wgmma::fence_operands(s);
     wgmma::fence_operands(dp);
-    wgmma::fence();
-#pragma unroll
-    for (int kk = 0; kk < kQSteps; ++kk) {
-      const uint32_t off_a = (kk / 4) * kBQ * kRowBytes + (kk % 4) * 32;
-      const uint32_t off_b = (kk / 4) * kBK * kRowBytes + (kk % 4) * 32;
-      wgmma::mma_ss<kBK>(s, dqa + (off_a >> 4), dkb + (off_b >> 4), kk > 0);
-    }
-    tma::mbar_wait(&full_v[stage], phase);
-    const uint64_t dvb = wgmma::desc_sw128(vs, 0, 1024);
-#pragma unroll
-    for (int kk = 0; kk < kQSteps; ++kk) {
-      const uint32_t off_a = (kk / 4) * kBQ * kRowBytes + (kk % 4) * 32;
-      const uint32_t off_b = (kk / 4) * kBK * kRowBytes + (kk % 4) * 32;
-      wgmma::mma_ss<kBK>(dp, doa + (off_a >> 4), dvb + (off_b >> 4), kk > 0);
-    }
-    wgmma::commit();
-    wgmma::wait<0>();
-    wgmma::fence_operands(s);
-    wgmma::fence_operands(dp);
-    tma::mbar_arrive(&empty_v[stage]);
-
-    // P, then dS = P (dP - D) in dp; masked only on the band's edge tiles
-    const bool interior = kt + kBK - 1 <= r0 && kt >= r0 + 64 - window;
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pr = exp2f(s[4 * j + e] * scale_log2 - ll[e >> 1]);
-        if (!interior) {
-          const int col = kt + j * 8 + c0 + (e & 1);
-          const int row = ra + (e >> 1) * 8;
-          if (!(col <= row && col > row - window)) pr = 0.0f;
-        }
-        dp[4 * j + e] = pr * (dp[4 * j + e] - dd[e >> 1]);
-      }
-    }
-    split_all<kSSteps>(dp, hi, lo);
-
-    // dQ += dS_hi K + dS_lo K, K as an MN-major B, waited on before the
-    // next tile's products: S, dP and dQ (32 + 32 + 64 registers) beside
-    // dS's A fragments (32) would pass the 168 registers ptxas gives a
-    // thread
-    const uint64_t dkn = wgmma::desc_sw128(ks, kBK * kRowBytes, 1024);
-    wgmma::fence_operands(acc);
-    wgmma::fence_operands(hi);
-    wgmma::fence_operands(lo);
-    wgmma::fence();
-#pragma unroll
-    for (int kk = 0; kk < kSSteps; ++kk) {
-      const uint64_t d = dkn + ((kk * 16 * kRowBytes) >> 4);
-      wgmma::mma_rs<NO>(acc, hi[kk], d, 1);
-      wgmma::mma_rs<NO>(acc, lo[kk], d, 1);
-    }
-    wgmma::commit();
-    wgmma::wait<0>();
+    tma::mbar_arrive(&empty_v[next]);
+    const int kt = kt0 + (it + 1) * kBK;
+    ds_rows(s, dp, ll, dd, kt, ra, c0, window,
+            inside_band(kt, kBK, r0, window), scale_log2);
+    wgmma::wait<0>();                  // this tile's dQ
     wgmma::fence_operands(acc);
     wgmma::fence_operands(hi);
     wgmma::fence_operands(lo);
     tma::mbar_arrive(&empty_k[stage]);
-    bump(stage, phase);
+    split_all(dp, hi, lo);
+    stage = next;
+    phase = next_phase;
   }
+  issue_dq<NO>(acc, hi, lo, sk + stage * kTileBytes);
+  wgmma::wait<0>();
+  wgmma::fence_operands(acc);
+  wgmma::fence_operands(hi);
+  wgmma::fence_operands(lo);
+  tma::mbar_arrive(&empty_k[stage]);
   store_rows<NO>(dq + static_cast<size_t>(b) * S * q_stride +
                      static_cast<size_t>(h) * hd,
                  q_stride, acc, r0 + warp * 16, S, hd, scale);
 }
 
-// One consumer warpgroup of dkdv_kernel over the CTA's walk: kDK false
-// accumulates dV += P^T dO, true dK += dS^T Q, for the CTA's 64 key rows.
-template <int DP, int NO, bool kDK>
-__device__ __forceinline__ void kv_consumer(
-    const unsigned char* sk, const unsigned char* sv, const unsigned char* sq,
-    const unsigned char* sdo, const float (*sl)[kBQ2],
-    const float (*sd)[kBQ2], uint64_t* full, uint64_t* empty,
-    bf16* __restrict__ dst, int kt, int nq, int steps, int S, int hd,
-    int window, float scale, size_t kv_stride) {
-  constexpr int kTileBytes = DP / 64 * kBQ2 * kRowBytes;   // Q or dO
-  constexpr int kQSteps = DP / 16;
-  constexpr int kSSteps = kBQ2 / 16;
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int kr = kt + warp * 16 + lane / 4;   // key rows kr and kr + 8
-  const int c0 = 2 * (lane % 4);              // query columns c0, c0 + 1
-  const float scale_log2 = scale * kLog2e;
-  const uint64_t dka = wgmma::desc_sw128(sk, 0, 1024);
-  const uint64_t dva = wgmma::desc_sw128(sv, 0, 1024);
-
-  float st[kBQ2 / 2], dpt[kBQ2 / 2], acc[NO / 2];
-  uint32_t hi[kSSteps][4], lo[kSSteps][4];
-#pragma unroll
-  for (int i = 0; i < NO / 2; ++i) acc[i] = 0.0f;
-
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int step = 0; step < steps; ++step) {
-    const int qs = kt + (step % nq) * kBQ2;
-    const unsigned char* qt = sq + stage * kTileBytes;
-    const unsigned char* dot = sdo + stage * kTileBytes;
-
-    // S^T = K Q^T, and for dK dP^T = V dO^T, Q and dO K-major
-    tma::mbar_wait(&full[stage], phase);
-    const uint64_t dqb = wgmma::desc_sw128(qt, 0, 1024);
-    const uint64_t dob = wgmma::desc_sw128(dot, 0, 1024);
-    wgmma::fence_operands(st);
-    if (kDK) wgmma::fence_operands(dpt);
-    wgmma::fence();
-#pragma unroll
-    for (int kk = 0; kk < kQSteps; ++kk) {
-      const uint32_t off_a = (kk / 4) * kBKV * kRowBytes + (kk % 4) * 32;
-      const uint32_t off_b = (kk / 4) * kBQ2 * kRowBytes + (kk % 4) * 32;
-      wgmma::mma_ss<kBQ2>(st, dka + (off_a >> 4), dqb + (off_b >> 4),
-                          kk > 0);
-    }
-    if (kDK) {
-#pragma unroll
-      for (int kk = 0; kk < kQSteps; ++kk) {
-        const uint32_t off_a = (kk / 4) * kBKV * kRowBytes + (kk % 4) * 32;
-        const uint32_t off_b = (kk / 4) * kBQ2 * kRowBytes + (kk % 4) * 32;
-        wgmma::mma_ss<kBQ2>(dpt, dva + (off_a >> 4), dob + (off_b >> 4),
-                            kk > 0);
-      }
-    }
-    wgmma::commit();
-    wgmma::wait<0>();
-    wgmma::fence_operands(st);
-    if (kDK) wgmma::fence_operands(dpt);
-    wgmma::fence_operands(acc);
-
-    // P^T, and for dK dS^T = P^T (dP^T - D), into st; lse and D by
-    // query column
-    const bool interior = kt + kBKV - 1 <= qs &&
-                          kt >= qs + kBQ2 - window && qs + kBQ2 <= S;
-#pragma unroll
-    for (int j = 0; j < kBQ2 / 8; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(sl[stage] + j * 8 +
-                                                         c0);
-      const float2 d2 = kDK ? *reinterpret_cast<const float2*>(
-                                  sd[stage] + j * 8 + c0)
-                            : make_float2(0.0f, 0.0f);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pr = exp2f(st[4 * j + e] * scale_log2 -
-                         ((e & 1) ? l2.y : l2.x) * kLog2e);
-        if (!interior) {
-          const int col = qs + j * 8 + c0 + (e & 1);
-          const int row = kr + (e >> 1) * 8;
-          if (!(col < S && row <= col && row > col - window)) pr = 0.0f;
-        }
-        st[4 * j + e] =
-            kDK ? pr * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x)) : pr;
-      }
-    }
-    split_all<kSSteps>(st, hi, lo);
-
-    // dV += P^T dO or dK += dS^T Q, dO and Q as MN-major B
-    const uint64_t db = wgmma::desc_sw128(kDK ? qt : dot, kBQ2 * kRowBytes,
-                                          1024);
-    wgmma::fence_operands(hi);
-    wgmma::fence_operands(lo);
-    wgmma::fence();
-#pragma unroll
-    for (int kk = 0; kk < kSSteps; ++kk) {
-      const uint32_t off = (kk * 16 * kRowBytes) >> 4;
-      wgmma::mma_rs<NO>(acc, hi[kk], db + off, 1);
-      wgmma::mma_rs<NO>(acc, lo[kk], db + off, 1);
-    }
-    wgmma::commit();
-    wgmma::wait<0>();
-    wgmma::fence_operands(acc);
-    wgmma::fence_operands(hi);
-    wgmma::fence_operands(lo);
-    tma::mbar_arrive(&empty[stage]);
-    bump(stage, phase);
-  }
-  store_rows<NO>(dst, kv_stride, acc, kt + warp * 16, S, hd,
-                 kDK ? scale : 1.0f);
-}
-
-// dk and dv for one (64-row KV tile, KV head, batch), over the group's
+// dk and dv for one (128-row KV tile, KV head, batch), over the group's
 // query heads and the query tiles whose band holds the tile's keys.
 template <int DP, int NO>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -474,6 +456,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q_end = min(S - 1, kt + kBKV - 1 + window - 1);
   const int nq = (q_end - kt) / kBQ2 + 1;
   const int steps = groups * nq;
+  const int role = __shfl_sync(kFull, threadIdx.x / 128, 0);
   if (threadIdx.x == 0) {
     tma::mbar_init(&bar_kv, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -484,7 +467,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {   // producer: warp 0
+  if (role == 0) {   // producer: warp 0
+    wgmma::reg_dealloc<kProducerRegs>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
@@ -520,22 +504,123 @@ __global__ void __launch_bounds__(kThreads, 1)
         tma::mbar_arrive(&full[stage]);
         bump(stage, phase);
       }
+      // the hang guard of the consumers' waits: the last steps released
+      for (int t = max(0, steps - kStages); t < steps; ++t)
+        tma::mbar_wait(&empty[t % kStages], (t / kStages) & 1);
     }
     return;
   }
 
+  // consumers: warpgroup wg owns key rows kr0 .. kr0 + 63 and both of
+  // their gradients
+  wgmma::reg_alloc<kConsumerRegs>();
+  const int wg = role - 1, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int kr0 = kt + wg * 64;
+  const int kr = kr0 + warp * 16 + lane / 4;  // key rows kr and kr + 8
+  const int c0 = 2 * (lane % 4);              // query columns c0, c0 + 1
+  const float scale_log2 = scale * kLog2e;
+  const uint64_t dka = wgmma::desc_sw128(sk + wg * 64 * kRowBytes, 0, 1024);
+  const uint64_t dva = wgmma::desc_sw128(sv + wg * 64 * kRowBytes, 0, 1024);
+
+  float ak[NO / 2], av[NO / 2];
+  uint32_t ph[kSteps][4], pl[kSteps][4], dh[kSteps][4], dl[kSteps][4];
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) {
+    ak[i] = 0.0f;
+    av[i] = 0.0f;
+  }
+
+  tma::mbar_wait_spin(&bar_kv, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int step = 0; step < steps; ++step) {
+    const int qs = kt + (step % nq) * kBQ2;
+    tma::mbar_wait_spin(&full[stage], phase);
+    // a query tile without a pair of the band for these key rows
+    if (qs + kBQ2 - 1 < kr0 || qs > kr0 + 63 + window - 1) {
+      tma::mbar_arrive(&empty[stage]);
+      bump(stage, phase);
+      continue;
+    }
+    const unsigned char* qt = sq + stage * kTileBytes;
+    const unsigned char* dot = sdo + stage * kTileBytes;
+
+    // S^T = K Q^T and dP^T = V dO^T, Q and dO K-major, in two groups into
+    // accumulators new to this step (so that no value of the last step's
+    // stays live)
+    float st[kBQ2 / 2], dpt[kBQ2 / 2];
+    wgmma::fence_operands(st);
+    wgmma::fence_operands(dpt);
+    wgmma::fence();
+    product_ss<DP>(st, dka, kBKV, wgmma::desc_sw128(qt, 0, 1024), kBQ2);
+    wgmma::commit();
+    product_ss<DP>(dpt, dva, kBKV, wgmma::desc_sw128(dot, 0, 1024), kBQ2);
+    wgmma::commit();
+    wgmma::wait<1>();
+    wgmma::fence_operands(st);
+
+    // P^T into st while dP^T is on the tensor cores, then dS^T = P^T (dP^T
+    // - D) into dpt; lse and D by query column
+    const bool interior = kr0 + 63 <= qs && kr0 >= qs + kBQ2 - window &&
+                          qs + kBQ2 <= S;
+#pragma unroll
+    for (int j = 0; j < kBQ2 / 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sl[stage] + j * 8 +
+                                                         c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pr = exp2_ftz(st[4 * j + e] * scale_log2 -
+                         ((e & 1) ? l2.y : l2.x) * kLog2e);
+        if (!interior) {
+          const int col = qs + j * 8 + c0 + (e & 1);
+          const int row = kr + (e >> 1) * 8;
+          if (!(col < S && row <= col && row > col - window)) pr = 0.0f;
+        }
+        st[4 * j + e] = pr;
+      }
+    }
+    wgmma::wait<0>();
+    wgmma::fence_operands(dpt);
+#pragma unroll
+    for (int j = 0; j < kBQ2 / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(sd[stage] + j * 8 +
+                                                         c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dpt[4 * j + e] =
+            st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+    split_all(st, ph, pl);
+    split_all(dpt, dh, dl);
+
+    // dV += P^T dO and dK += dS^T Q, dO and Q as MN-major B
+    wgmma::fence_operands(av);
+    wgmma::fence_operands(ak);
+    wgmma::fence_operands(ph);
+    wgmma::fence_operands(pl);
+    wgmma::fence_operands(dh);
+    wgmma::fence_operands(dl);
+    wgmma::fence();
+    product_rs<NO>(av, ph, pl, wgmma::desc_sw128(dot, kBQ2 * kRowBytes, 1024));
+    product_rs<NO>(ak, dh, dl, wgmma::desc_sw128(qt, kBQ2 * kRowBytes, 1024));
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operands(av);
+    wgmma::fence_operands(ak);
+    wgmma::fence_operands(ph);
+    wgmma::fence_operands(pl);
+    wgmma::fence_operands(dh);
+    wgmma::fence_operands(dl);
+    tma::mbar_arrive(&empty[stage]);
+    bump(stage, phase);
+  }
   const size_t kv_stride = static_cast<size_t>(Hkv) * hd;
   const size_t kv_off = static_cast<size_t>(b) * S * kv_stride +
                         static_cast<size_t>(hk) * hd;
-  tma::mbar_wait(&bar_kv, 0);
-  if (threadIdx.x < 256)
-    kv_consumer<DP, NO, false>(sk, sv, sq, sdo, sl, sd, full, empty,
-                               dv + kv_off, kt, nq, steps, S, hd, window,
-                               scale, kv_stride);
-  else
-    kv_consumer<DP, NO, true>(sk, sv, sq, sdo, sl, sd, full, empty,
-                              dk + kv_off, kt, nq, steps, S, hd, window,
-                              scale, kv_stride);
+  store_rows<NO>(dv + kv_off, kv_stride, av, kr0 + warp * 16, S, hd, 1.0f);
+  store_rows<NO>(dk + kv_off, kv_stride, ak, kr0 + warp * 16, S, hd, scale);
 }
 
 // A 4-D map (hd, heads, S, B) over a [B, S, heads, hd] bf16 tensor, read

@@ -33,6 +33,16 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// 2^x on the special-function unit with results below 2^-126 flushed to
+// zero (ex2.approx.ftz): exp2f's own ex2.approx without the steps that make
+// such results denormal, which a softmax probability of under 1e-38 never
+// needs (the wgmma kernels' P)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // (x0, x1) -> hi = bf16(x), lo = bf16(x - hi), packed (x0 in the low half)
 __device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
                                       uint32_t& lo) {

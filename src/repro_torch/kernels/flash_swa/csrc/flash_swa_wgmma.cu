@@ -13,7 +13,8 @@
 // * S = Q K^T: bf16 products exact in f32, accumulated in f32;
 // * the scale folded with log2 e into one multiply, the band's outside
 //   filled with -1e30 (the reference's fill), the online softmax in f32 in
-//   the base-2 domain (exp2f), the normaliser l summing the f32 P;
+//   the base-2 domain (ex2.approx, as exp2f, with results under 2^-126
+//   flushed to zero: swa_mma::exp2_ftz), the normaliser l summing the f32 P;
 // * P V: P split into P_hi = bf16(P) and P_lo = bf16(P - P_hi), both
 //   through the tensor cores into one f32 accumulator (P rounded to bf16
 //   alone misses the check against the f32 plain version, as
@@ -26,30 +27,41 @@
 // Bound on the H100: operations.  4 hd flop per (query, key) pair of the
 // band and head; at Danube's prefill (S 32,768, window 4,096, 32 heads of
 // 120) 1.93 TFLOP, 1.95 ms at the 989 TFLOP/s dense bf16 peak.  This
-// kernel executes about 1.5x that (chip_smoke.py::wgmma_executed_flop):
+// kernel executes about 1.6x that (chip_smoke.py::wgmma_executed_flop):
 // Q K^T over the head padded to 128, P V twice (the split; at hd 120 over
 // 120 columns), and the band's edge tiles computed whole and masked.
 //
 // Design (wgmma + TMA, warp-specialised, one CTA an SM):
 // * one CTA of three warpgroups per (128-row query tile, query head,
-//   batch).  In warpgroup 0, the producer, one thread issues the TMA
-//   loads: the query tile once, then the KV tiles of the band, [max(0, q0
-//   - window + 1), q_last] in 64-row tiles, into a ring of kStages stages,
-//   K and V each with a full and an empty mbarrier (so Q K^T starts before
-//   V lands).  Warpgroups 1 and 2, the consumers, each own 64 query rows;
-// * registers: ptxas allocates every thread of a 384-thread CTA at most
-//   168 registers, with or without setmaxnreg (its report on the card
-//   reads the same spills either way), so the tiles fit 168: S and P of a
-//   64-row KV tile (32 + 32) beside O (64) stay in registers while one
-//   tile's P V and the next tile's Q K^T are in flight.  A 128-row KV
-//   tile (192) made ptxas serialise the wgmmas (C7512, "insufficient
-//   register resources") and spill;
+//   batch), each warpgroup's role from a warp-uniform index (__shfl_sync
+//   of threadIdx.x / 128, as CUTLASS does).  Warpgroup 0, the producer,
+//   hands registers over (setmaxnreg.dec to 24) and one thread of it
+//   issues the TMA loads: the query tile once, then the KV tiles of the
+//   band, [max(0, q0 - window + 1), q_last] in 128-row tiles
+//   (kernel.py::wgmma_band_walk mirrors the walk), into a ring of kStages
+//   stages, K and V each with a full and an empty mbarrier (so Q K^T
+//   starts before V lands).  Warpgroups 1 and 2, the consumers, take them
+//   (setmaxnreg.inc to 240) and each own 64 query rows;
+// * registers: the launch gives a thread of a 384-thread CTA 168 (ptxas's
+//   -v line reads that figure), setmaxnreg gives a consumer 240, and its
+//   SASS names up to ~232 with no local loads or stores
+//   (kernels/_build.py::sass_report).  ptxas honours the 240 only where
+//   the consumers' code holds no trap: with tma::mbar_wait's 4 s timeout
+//   trap in their waits it pipelined the wgmmas as if 168 were all (C7512,
+//   "wgmma.mma_async instructions are serialized due to insufficient
+//   register resources") and spilled, whatever setmaxnreg asked.  So the
+//   consumers wait with tma::mbar_wait_spin, and the producer keeps the
+//   guard: after its last load it waits (mbar_wait) until the consumers
+//   have released the last stages, so a stalled pipeline still traps.  A
+//   consumer holds S of a 128-row KV tile (64 registers), P's hi and lo A
+//   fragments (64) and O (64) while the next tile's Q K^T and this tile's
+//   P V are in flight;
 // * the loads are 4-D tensor maps whose innermost dimension is the head,
 //   (hd, H, S, B) for q and (hd, Hkv, S, B) for k/v, read in boxes of 64
 //   head columns (128 bytes, 128-byte swizzle) x rows: a box past hd reads
 //   TMA's zeros (120 -> 128 without the next head's columns), and so do
 //   rows past S;
-// * per KV tile: S = Q K^T as wgmma m64n64k16 with both operands in
+// * per KV tile: S = Q K^T as wgmma m64n128k16 with both operands in
 //   shared memory (K K-major); the online softmax in the accumulator
 //   registers (row max and sum over the quad of lanes that share a row);
 //   P's accumulators packed in registers into wgmma A fragments (hi and
@@ -59,7 +71,11 @@
 //   issues the next tile's Q K^T and this tile's P V, runs the next tile's
 //   softmax while P V is on the tensor cores, and packs the next P once
 //   P V is done; O takes each tile's correction just before its P V.  The
-//   other consumer warpgroup's products fill the gaps;
+//   two consumers take turns to issue their products (wgmma::turn_wait /
+//   turn_pass, named barriers: FlashAttention-3's ping-pong), so that one's
+//   softmax runs while the other's products do.  A 128-row tile halves the
+//   tiles of a band (65 -> 33 at window 4,096) and with them the rescales,
+//   barrier waits and wgmma waits a query tile pays;
 // * the mask runs only on tiles that cross the band's edges (per
 //   warpgroup's 64 rows); the others are read whole;
 // * the grid runs the heads fastest, so the H / Hkv query heads of one KV
@@ -67,7 +83,7 @@
 //   band from L2; the query tiles go last to first, so the shorter bands
 //   of the sequence's start fill the end of the launch.  A CTA keeps its
 //   tiles for one query tile (no persistent grid: a query tile's band is
-//   65 KV tiles at Danube's window, so its prologue and epilogue are a
+//   33 KV tiles at Danube's window, so its prologue and epilogue are a
 //   few per cent of it).
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -79,19 +95,25 @@
 namespace {
 
 using swa_mma::bf16;
+using swa_mma::exp2_ftz;
 using swa_mma::kFull;
 using swa_mma::kLog2e;
 using swa_mma::split;
 
 constexpr int kBQ = 128;                 // query rows a CTA
-constexpr int kBK = 64;                  // KV rows a tile
+constexpr int kBK = 128;                 // KV rows a tile
 constexpr int kStages = 2;
 constexpr int kConsumers = kBQ / 64;     // consumer warpgroups
 constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kProducerRegs = 24;        // a producer thread after setmaxnreg
+constexpr int kConsumerRegs = 240;       // a consumer thread after setmaxnreg
 constexpr int kRowBytes = 128;           // a box row: 64 bf16
 constexpr int kKSteps = kBK / 16;        // k16 steps of P V
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
+static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <=
+                  65536,
+              "the warpgroups' registers exceed the SM's 65,536");
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
@@ -101,6 +123,126 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(kFull, v, 1);
   return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+// The KV tile at kt lies inside the band for every query row r0 .. r0 + 63
+__device__ __forceinline__ bool inside_band(int kt, int r0, int window) {
+  return kt + kBK - 1 <= r0 && kt >= r0 + 64 - window;
+}
+
+// S = Q K^T of the K tile at `ktile` into s (issued and committed, not
+// waited on); dq: the warpgroup's 64 query rows in the first box
+template <int DP>
+__device__ __forceinline__ void issue_s(float (&s)[kBK / 2], uint64_t dq,
+                                        const unsigned char* ktile) {
+  const uint64_t dk = wgmma::desc_sw128(ktile, 0, 1024);
+  wgmma::fence_operands(s);
+  wgmma::fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off_q = (kk / 4) * kBQ * kRowBytes + (kk % 4) * 32;
+    const uint32_t off_k = (kk / 4) * kBK * kRowBytes + (kk % 4) * 32;
+    wgmma::mma_ss<kBK>(s, dq + (off_q >> 4), dk + (off_k >> 4), kk > 0);
+  }
+  wgmma::commit();
+}
+
+// The online softmax of the S in s of the tile at kt for the rows ra and
+// ra + 8 (c0: this lane's first column), scaled (base 2) and, unless the
+// tile is interior to the band for the warpgroup's rows, masked: P (f32)
+// in s, the row max m and this lane's share l of the row sum updated,
+// corr the factor O has yet to take.
+__device__ __forceinline__ void softmax(float (&s)[kBK / 2], float (&m)[2],
+                                        float (&l)[2], float (&corr)[2],
+                                        int kt, int ra, int c0, int window,
+                                        bool interior, float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * scale_log2;
+      if (!interior) {
+        const int col = kt + j * 8 + c0 + (e & 1);
+        const int row = ra + (e >> 1) * 8;
+        if (!(col <= row && col > row - window)) x = kNegInf;
+      }
+      s[4 * j + e] = x;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  corr[0] = exp2_ftz(m[0] - mx[0]);
+  corr[1] = exp2_ftz(m[1] - mx[1]);
+  m[0] = mx[0];
+  m[1] = mx[1];
+  float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = exp2_ftz(s[4 * j + e] - mx[e >> 1]);
+      rs[e >> 1] += s[4 * j + e];
+    }
+  }
+  l[0] = l[0] * corr[0] + rs[0];
+  l[1] = l[1] * corr[1] + rs[1];
+}
+
+// P's accumulators as A fragments: k16 step kk is n8 groups 2kk, 2kk+1
+__device__ __forceinline__ void split_p(const float (&s)[kBK / 2],
+                                        uint32_t (&ph)[kKSteps][4],
+                                        uint32_t (&pl)[kKSteps][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kKSteps; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], ph[kk][r], pl[kk][r]);
+  }
+}
+
+// O += P_hi V + P_lo V with the V tile at `vtile` (issued, not waited on)
+template <int NO>
+__device__ __forceinline__ void issue_pv(float (&o)[NO / 2],
+                                         uint32_t (&ph)[kKSteps][4],
+                                         uint32_t (&pl)[kKSteps][4],
+                                         const unsigned char* vtile) {
+  const uint64_t dv = wgmma::desc_sw128(vtile, kBK * kRowBytes, 1024);
+  wgmma::fence_operands(o);
+  wgmma::fence_operands(ph);
+  wgmma::fence_operands(pl);
+  wgmma::fence();
+#pragma unroll
+  for (int kk = 0; kk < kKSteps; ++kk) {
+    const uint64_t d = dv + ((kk * 16 * kRowBytes) >> 4);
+    wgmma::mma_rs<NO>(o, ph[kk], d, 1);
+    wgmma::mma_rs<NO>(o, pl[kk], d, 1);
+  }
+  wgmma::commit();
+}
+
+template <int NO>
+__device__ __forceinline__ void correct_o(float (&o)[NO / 2],
+                                          const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < NO / 8; ++j) {
+    o[4 * j] *= corr[0];
+    o[4 * j + 1] *= corr[0];
+    o[4 * j + 2] *= corr[1];
+    o[4 * j + 3] *= corr[1];
+  }
+}
+
+__device__ __forceinline__ void bump(int& stage, uint32_t& phase) {
+  if (++stage == kStages) {
+    stage = 0;
+    phase ^= 1;
+  }
 }
 
 // DP: the head padded to 64 or 128 in shared memory (DP / 64 boxes); NO:
@@ -116,7 +258,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kBoxes = DP / 64;
   constexpr int kQBytes = kBoxes * kBQ * kRowBytes;
   constexpr int kTileBytes = kBoxes * kBK * kRowBytes;   // K or V
-  constexpr int kQSteps = DP / 16;         // k16 steps of Q K^T
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar_q, full_k[kStages], full_v[kStages],
       empty_k[kStages], empty_v[kStages];
@@ -132,6 +273,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q_last = min(q0 + kBQ, S) - 1;
   const int kt0 = max(0, q0 - window + 1) / kBK * kBK;
   const int ntiles = (q_last - kt0) / kBK + 1;
+  const int role = __shfl_sync(kFull, threadIdx.x / 128, 0);
   if (threadIdx.x == 0) {
     tma::mbar_init(&bar_q, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -144,7 +286,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {   // producer
+  if (role == 0) {   // producer
+    wgmma::reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
       tma::mbar_arrive_expect_tx(&bar_q, kQBytes);
       for (int x = 0; x < kBoxes; ++x)
@@ -164,18 +307,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int x = 0; x < kBoxes; ++x)
           tma::load_4d(sv + stage * kTileBytes + x * kBK * kRowBytes, &v_map,
                        &full_v[stage], x * 64, hk, kt, b);
-        if (++stage == kStages) {
-          stage = 0;
-          phase ^= 1;
-        }
+        bump(stage, phase);
       }
+      // the hang guard of the consumers' waits: the last tiles released
+      for (int it = max(0, ntiles - kStages); it < ntiles; ++it)
+        tma::mbar_wait(&empty_v[it % kStages], (it / kStages) & 1);
     }
     return;
   }
 
   // consumers: warpgroup wg owns query rows r0 .. r0 + 63
-  const int tid = threadIdx.x - 128;
-  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  wgmma::reg_alloc<kConsumerRegs>();
+  const int wg = role - 1, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
   const int r0 = q0 + wg * 64;
   const int ra = r0 + warp * 16 + lane / 4;   // rows ra and ra + 8
   const int c0 = 2 * (lane % 4);              // columns c0, c0 + 1
@@ -188,143 +332,61 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < NO / 2; ++i) o[i] = 0.0f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.0f, 0.0f};         // this lane's share of the row sums
-
-  // S = Q K^T of the tile in K stage stage_k into s (issued and
-  // committed, not waited on)
-  auto issue_s = [&](int stage_k, uint32_t phase_k) {
-    tma::mbar_wait(&full_k[stage_k], phase_k);
-    const uint64_t dk = wgmma::desc_sw128(sk + stage_k * kTileBytes, 0, 1024);
-    wgmma::fence_operands(s);
-    wgmma::fence();
-#pragma unroll
-    for (int kk = 0; kk < kQSteps; ++kk) {
-      const uint32_t off_q = (kk / 4) * kBQ * kRowBytes + (kk % 4) * 32;
-      const uint32_t off_k = (kk / 4) * kBK * kRowBytes + (kk % 4) * 32;
-      wgmma::mma_ss<kBK>(s, dq + (off_q >> 4), dk + (off_k >> 4), kk > 0);
-    }
-    wgmma::commit();
-  };
-  // the online softmax of the S in s of the tile at kt, scaled (base 2)
-  // and, on tiles that cross the band's edges, masked: P (f32) in s, the
-  // row max and sum updated, corr the factor O has yet to take
-  auto softmax = [&](int kt, float (&corr)[2]) {
-    const bool interior = kt + kBK - 1 <= r0 && kt >= r0 + 64 - window;
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[4 * j + e] * scale_log2;
-        if (!interior) {
-          const int col = kt + j * 8 + c0 + (e & 1);
-          const int row = ra + (e >> 1) * 8;
-          if (!(col <= row && col > row - window)) x = kNegInf;
-        }
-        s[4 * j + e] = x;
-      }
-    }
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
-    }
-    mx[0] = quad_max(mx[0]);
-    mx[1] = quad_max(mx[1]);
-    corr[0] = exp2f(m[0] - mx[0]);
-    corr[1] = exp2f(m[1] - mx[1]);
-    m[0] = mx[0];
-    m[1] = mx[1];
-    float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[4 * j + e] = exp2f(s[4 * j + e] - mx[e >> 1]);
-        rs[e >> 1] += s[4 * j + e];
-      }
-    }
-    l[0] = l[0] * corr[0] + rs[0];
-    l[1] = l[1] * corr[1] + rs[1];
-  };
-  // P's accumulators as A fragments: k16 step kk is n8 groups 2kk, 2kk+1
-  auto split_p = [&]() {
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        split(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], ph[kk][r], pl[kk][r]);
-    }
-  };
-  // O += P_hi V + P_lo V with the tile in V stage stage_v (not waited on)
-  auto issue_pv = [&](int stage_v, uint32_t phase_v) {
-    tma::mbar_wait(&full_v[stage_v], phase_v);
-    const uint64_t dv =
-        wgmma::desc_sw128(sv + stage_v * kTileBytes, kBK * kRowBytes, 1024);
-    wgmma::fence_operands(o);
-    wgmma::fence_operands(ph);
-    wgmma::fence_operands(pl);
-    wgmma::fence();
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      const uint64_t d = dv + ((kk * 16 * kRowBytes) >> 4);
-      wgmma::mma_rs<NO>(o, ph[kk], d, 1);
-      wgmma::mma_rs<NO>(o, pl[kk], d, 1);
-    }
-    wgmma::commit();
-  };
-
   float corr[2];
-  auto correct_o = [&]() {
-#pragma unroll
-    for (int j = 0; j < NO / 8; ++j) {
-      o[4 * j] *= corr[0];
-      o[4 * j + 1] *= corr[0];
-      o[4 * j + 2] *= corr[1];
-      o[4 * j + 3] *= corr[1];
-    }
-  };
 
-  tma::mbar_wait(&bar_q, 0);
+  tma::mbar_wait_spin(&bar_q, 0);
   // tile 0's S and P; then each step issues the next tile's S and this
   // tile's P V, runs the next softmax while P V is on the tensor cores,
-  // and packs the next P once P V is done
-  issue_s(0, 0);
+  // and packs the next P once P V is done.  The two warpgroups take turns
+  // to issue a step's products (ntiles turns each; the last P V takes
+  // none).
+  wgmma::turns_start(wg);
+  tma::mbar_wait_spin(&full_k[0], 0);
+  wgmma::turn_wait(wg);
+  issue_s<DP>(s, dq, sk);
+  if (wg == 0 || ntiles > 1) wgmma::turn_pass(wg);
   wgmma::wait<0>();
   wgmma::fence_operands(s);
   tma::mbar_arrive(&empty_k[0]);
-  softmax(kt0, corr);
-  split_p();
+  softmax(s, m, l, corr, kt0, ra, c0, window, inside_band(kt0, r0, window),
+          scale_log2);
+  split_p(s, ph, pl);
   int stage = 0;
   uint32_t phase = 0;
   for (int it = 0; it + 1 < ntiles; ++it) {
-    int next = stage + 1;
+    int next = stage;
     uint32_t next_phase = phase;
-    if (next == kStages) {
-      next = 0;
-      next_phase ^= 1;
-    }
-    issue_s(next, next_phase);
-    correct_o();
-    issue_pv(stage, phase);
+    bump(next, next_phase);
+    tma::mbar_wait_spin(&full_k[next], next_phase);
+    tma::mbar_wait_spin(&full_v[stage], phase);
+    wgmma::turn_wait(wg);
+    issue_s<DP>(s, dq, sk + next * kTileBytes);
+    correct_o<NO>(o, corr);
+    issue_pv<NO>(o, ph, pl, sv + stage * kTileBytes);
+    if (wg == 0 || it + 2 < ntiles) wgmma::turn_pass(wg);
     wgmma::wait<1>();
     wgmma::fence_operands(s);
     tma::mbar_arrive(&empty_k[next]);
-    softmax(kt0 + (it + 1) * kBK, corr);
+    const int kt = kt0 + (it + 1) * kBK;
+    softmax(s, m, l, corr, kt, ra, c0, window, inside_band(kt, r0, window),
+            scale_log2);
     wgmma::wait<0>();
     wgmma::fence_operands(o);
     wgmma::fence_operands(ph);
     wgmma::fence_operands(pl);
     tma::mbar_arrive(&empty_v[stage]);
-    split_p();
+    split_p(s, ph, pl);
     stage = next;
     phase = next_phase;
   }
-  correct_o();
-  issue_pv(stage, phase);
+  correct_o<NO>(o, corr);
+  tma::mbar_wait_spin(&full_v[stage], phase);
+  issue_pv<NO>(o, ph, pl, sv + stage * kTileBytes);
   wgmma::wait<0>();
   wgmma::fence_operands(o);
   wgmma::fence_operands(ph);
   wgmma::fence_operands(pl);
+  tma::mbar_arrive(&empty_v[stage]);
 
   // out = O / max(l, 1e-30), rounded to bf16 once
   const float denom[2] = {fmaxf(quad_sum(l[0]), 1e-30f),

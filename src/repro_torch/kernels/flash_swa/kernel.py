@@ -96,6 +96,16 @@ MMA_MAX_HEAD_DIM = 128
 
 NEG_INF = -1e30
 
+#: Rows a consumer warpgroup of the wgmma kernels owns.
+WGMMA_ROWS = 64
+#: The wgmma kernels' tiles (``csrc/flash_swa_wgmma.cu``, ``csrc/
+#: flash_swa_bwd_wgmma.cu``): query rows a forward or dq CTA, KV rows a tile
+#: of the forward's and of the dq kernel's walk, key rows a dk/dv CTA and
+#: query rows a tile of its walk.
+WGMMA_FWD_Q, WGMMA_FWD_KV = 128, 128
+WGMMA_DQ_Q, WGMMA_DQ_KV = 128, 64
+WGMMA_DKDV_KV, WGMMA_DKDV_Q = 128, 64
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -176,6 +186,54 @@ def bwd_kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     return {"flash_swa_wgmma": "flash_swa_bwd_wgmma",
             "flash_swa_mma": "flash_swa_bwd_mma",
             "flash_swa": "flash_swa_bwd"}[kernel_for(dtype, head_dim)]
+
+
+def _in_band(rows: range, keys: range, window: int) -> bool:
+    """Every (row, key) pair of ``rows`` x ``keys`` lies in the band."""
+    return keys[-1] <= rows[0] and keys[0] > rows[-1] - window
+
+
+def wgmma_band_walk(q0: int, s: int, window: int, rows_q: int = WGMMA_FWD_Q,
+                    rows_kv: int = WGMMA_FWD_KV) -> list:
+    """The KV tiles a query tile of a wgmma kernel reads, as the kernel
+    walks them: for the ``rows_q`` query rows at ``q0``, ``[(kt,
+    masked), ...]`` in order, ``kt`` each ``rows_kv``-row tile's first key
+    and ``masked`` one flag per consumer warpgroup's 64 rows, True where
+    the tile is not inside the band for all of them (the kernel masks it).
+    The forward (defaults) and the dq kernel (``rows_kv =
+    WGMMA_DQ_KV``); ``window`` as the wrapper passes it (``min(window,
+    s)``)."""
+    q_last = min(q0 + rows_q, s) - 1
+    kt0 = max(0, q0 - window + 1) // rows_kv * rows_kv
+    return [(kt, tuple(not _in_band(range(r0, r0 + WGMMA_ROWS),
+                                    range(kt, kt + rows_kv), window)
+                       for r0 in range(q0, q0 + rows_q, WGMMA_ROWS)))
+            for kt in range(kt0, q_last + 1, rows_kv)]
+
+
+def wgmma_dkdv_walk(kt: int, s: int, window: int) -> list:
+    """The query tiles the dk/dv kernel visits for the key tile at ``kt``
+    (one query head; the kernel repeats the walk for each head of the GQA
+    group, in order): ``[(qs, states), ...]``, one state per consumer
+    warpgroup's 64 key rows: ``"skip"`` where no pair of the band falls in
+    the tile (the warpgroup passes it over), ``"whole"`` where every pair
+    does and the queries lie below ``s``, else ``"masked"``."""
+    q_end = min(s - 1, kt + WGMMA_DKDV_KV - 1 + window - 1)
+    walk = []
+    for qs in range(kt, q_end + 1, WGMMA_DKDV_Q):
+        states = []
+        for kr0 in range(kt, kt + WGMMA_DKDV_KV, WGMMA_ROWS):
+            if (qs + WGMMA_DKDV_Q - 1 < kr0
+                    or qs > kr0 + WGMMA_ROWS - 1 + window - 1):
+                states.append("skip")
+            elif (_in_band(range(qs, qs + WGMMA_DKDV_Q),
+                           range(kr0, kr0 + WGMMA_ROWS), window)
+                  and qs + WGMMA_DKDV_Q <= s):
+                states.append("whole")
+            else:
+                states.append("masked")
+        walk.append((qs, tuple(states)))
+    return walk
 
 
 def _aligned(t: torch.Tensor, route: str) -> torch.Tensor:

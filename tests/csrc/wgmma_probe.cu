@@ -3,12 +3,12 @@
 // kernels load them: TMA 2-D boxes of 64 bf16 columns with the 128-byte
 // swizzle.  One warpgroup computes one 64 x N product and writes it as
 // float32 [64, N] from the accumulator layout.
-// * probe_ss: out = A B^T, A [64, K] and B [N = 64, K] K-major in shared
-//   memory (mma_ss<64>; K = 64 or 128: one or two boxes);
-// * probe_rs: out = A B, A [64, 64] from registers in the m16n8k16 A
-//   layout, B [64, N] MN-major in shared memory (mma_rs<N>, N = 64, 120 or
-//   128; 64 rows a box, LBO = 64 * 128 bytes between 64-column boxes, as
-//   every B tile of the kernels).
+// * probe_ss: out = A B^T, A [64, K] and B [N, K] K-major in shared
+//   memory (mma_ss<N>, N = 64 or 128; K = 64 or 128: one or two boxes);
+// * probe_rs: out = A B, A [64, K] from registers in the m16n8k16 A
+//   layout, B [K, N] MN-major in shared memory (mma_rs<N>, N = 64, 120 or
+//   128; K = 64 or 128 rows a box, LBO = K * 128 bytes between 64-column
+//   boxes, as every B tile of the kernels).
 // tests/test_torch_cuda.py holds both to torch.matmul on integer-valued
 // operands (exact in float32), so any layout fault shows as a mismatch.
 #include <cuda.h>
@@ -139,21 +139,26 @@ int prepare(Kernel kernel) {
 // out [64, N] = a [64, K] @ b [N, K]^T; returns a cudaError_t code.
 extern "C" int probe_ss(const void* a, const void* b, float* out, int N,
                         int K) {
-  if (N != 64 || (K != 64 && K != 128))
+  if ((N != 64 && N != 128) || (K != 64 && K != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap a_map, b_map;
   int err = map_2d(&a_map, a, K, 64, 64);
   if (!err) err = map_2d(&b_map, b, K, N, N);
   if (err) return err;
-  if ((err = prepare(ss_kernel<64>))) return err;
-  ss_kernel<64><<<1, 128, kSmem>>>(a_map, b_map, K, out);
+  if (N == 64) {
+    if ((err = prepare(ss_kernel<64>))) return err;
+    ss_kernel<64><<<1, 128, kSmem>>>(a_map, b_map, K, out);
+  } else {
+    if ((err = prepare(ss_kernel<128>))) return err;
+    ss_kernel<128><<<1, 128, kSmem>>>(a_map, b_map, K, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // out [64, N] = a [64, K] @ b [K, N]; returns a cudaError_t code.
 extern "C" int probe_rs(const void* a, const void* b, float* out, int N,
                         int K) {
-  if ((N != 64 && N != 120 && N != 128) || K != 64)
+  if ((N != 64 && N != 120 && N != 128) || (K != 64 && K != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap b_map;
   int err = map_2d(&b_map, b, N, K, K);

@@ -56,6 +56,37 @@ def _per_column(run, vals):
                         for j in range(vals.shape[1])], dim=1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run this module's many small CPU ops on one intra-op thread: beside
+    the other test workers a thread pool per op spends most of its time
+    waiting for cores (a width-128 case took ~30 s in a loaded run, ~0.2 s
+    alone).  Every comparison here is between calls made under the same
+    setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+#: ``T.tile_reduce`` on the batched values and column by column, by
+#: ``(width, combiner, masked)``: ``test_tile_reduce``'s second oracle does
+#: not depend on the schedule, policy or path, so 18 keys serve its 108
+#: cases.
+_TILE_REDUCE = {}
+
+
+def _tile_reduce_pair(spec, vals, mask, width, combiner, masked):
+    key = (width, combiner, masked)
+    if key not in _TILE_REDUCE:
+        _TILE_REDUCE[key] = (
+            T.tile_reduce(spec, lambda a: vals[a], combiner=combiner,
+                          atom_mask=mask),
+            _per_column(lambda fn: T.tile_reduce(
+                spec, fn, combiner=combiner, atom_mask=mask), vals))
+    return _TILE_REDUCE[key]
+
+
 class TestExecutorBatch:
     @pytest.mark.parametrize("path", PATHS)
     @pytest.mark.parametrize("masked", [False, True])
@@ -76,11 +107,8 @@ class TestExecutorBatch:
         got = run(lambda a: vals[a])
         assert got.shape == (spec.num_tiles, width)
         assert_bitwise(got, _per_column(run, vals), name)
-        assert_bitwise(T.tile_reduce(spec, lambda a: vals[a],
-                                     combiner=combiner, atom_mask=mask),
-                       _per_column(lambda fn: T.tile_reduce(
-                           spec, fn, combiner=combiner, atom_mask=mask),
-                           vals))
+        assert_bitwise(*_tile_reduce_pair(spec, vals, mask, width, combiner,
+                                          masked))
 
     @pytest.mark.parametrize("path", PATHS)
     def test_no_atoms(self, path):

@@ -1714,11 +1714,13 @@ def test_flash_swa_bwd_mma_edges(card, shape, offset):
 
 #: (form, N, K) of the wgmma shapes the two kernels use
 #: (``kernels/csrc/wgmma.cuh``): ``ss`` both operands K-major in shared
-#: memory (S, dP and their transposes; K 64 or 128: heads of one or two
-#: boxes), ``rs`` A from registers and B MN-major (P V, dS K, P^T dO, dS^T
-#: Q; N the head's width, K a 64-row tile).
-WGMMA_FORMS = [("ss", 64, 64), ("ss", 64, 128), ("rs", 64, 64),
-               ("rs", 120, 64), ("rs", 128, 64)]
+#: memory (S, dP and their transposes; N 64 or 128 key rows, K 64 or 128:
+#: heads of one or two boxes), ``rs`` A from registers and B MN-major (P
+#: V, dS K, P^T dO, dS^T Q; N the head's width, K a 64- or 128-row tile).
+WGMMA_FORMS = [("ss", 64, 64), ("ss", 64, 128), ("ss", 128, 64),
+               ("ss", 128, 128), ("rs", 64, 64), ("rs", 120, 64),
+               ("rs", 128, 64), ("rs", 64, 128), ("rs", 120, 128),
+               ("rs", 128, 128)]
 
 
 @pytest.mark.parametrize("form", WGMMA_FORMS, ids=str)
@@ -1749,14 +1751,17 @@ def test_wgmma_shapes_match_matmul(card, form):
 
 
 #: The wgmma routes' edges (S, H, Hkv, hd, window, qc): Danube's 120 and
-#: Hymba's 64 and the widest 128; S not a multiple of the 64- or 128-row
-#: tiles; window 1 and window == S (== qc); GQA 1, 4 and 5; a rank's
-#: 13-head block with K/V repeated a query head (H == Hkv); Hymba's rank of
-#: ``(1, 4)``: 7 heads of 64, window 1,024.
+#: Hymba's 64 and the widest 128; S and the window not multiples of the
+#: 64- or 128-row tiles, at each head width with a GQA group of 4; window
+#: 1 and window == S (== qc); GQA 1, 4 and 5; a rank's 13-head block with
+#: K/V repeated a query head (H == Hkv); Hymba's rank of ``(1, 4)``: 7
+#: heads of 64, window 1,024, at S 1,280 and at its S 4,096.
 WGMMA_SHAPES = [(200, 8, 2, 120, 40, 40), (328, 5, 1, 64, 8, 8),
                 (256, 4, 4, 128, 1, 1), (384, 4, 1, 120, 384, 128),
                 (130, 2, 1, 128, 130, 130), (200, 13, 13, 64, 100, 100),
-                (1280, 7, 7, 64, 1024, 128)]
+                (1280, 7, 7, 64, 1024, 128), (4096, 7, 7, 64, 1024, 128),
+                (300, 8, 2, 120, 100, 100), (712, 4, 1, 120, 328, 8),
+                (456, 8, 2, 64, 152, 8), (520, 8, 2, 128, 200, 40)]
 
 
 def _wgmma_inputs(shape, offset, card):

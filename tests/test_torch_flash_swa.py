@@ -348,16 +348,66 @@ def test_wgmma_executed_flop_against_a_hand_count():
     """``chip_smoke``'s count of the flop the wgmma kernels execute, at S
     300, window 100, 2 heads of 120 (padded to 128 for Q K^T; 120 wide for
     the products that write a head).  Forward: 128-row query tiles against
-    64-row KV tiles, 2 + 4 + 3 = 9 tiles.  Backward: the dq kernel's same
-    9 tiles of 128 x 64; the dk/dv kernel's 64-row KV tiles (kt 0, 64,
-    128, 192, 256) against 3 + 3 + 3 + 2 + 1 = 12 query tiles of 64."""
+    128-row KV tiles, 1 + 2 + 2 = 5 tiles.  Backward: the dq kernel's
+    128-row query tiles against 64-row KV tiles, 2 + 4 + 3 = 9; the dk/dv
+    kernel's 128-row key tiles (kt 0, 128, 256) against query tiles of 64
+    (4 + 3 + 1), its two warpgroups' 64 key rows passing over the tiles
+    without a pair of the band: 6 + 5 + 1 = 12 warpgroup steps."""
     C = _chip_smoke()
-    fwd_tile = 2 * 128 * 64 * 128 + 2 * (2 * 128 * 64 * 120)
-    assert C.wgmma_executed_flop(300, 100, 2, 120) == 2 * 9 * fwd_tile
+    fwd_tile = 2 * 128 * 128 * 128 + 2 * (2 * 128 * 128 * 120)
+    assert C.wgmma_executed_flop(300, 100, 2, 120) == 2 * 5 * fwd_tile
     dq_tile = 2 * (2 * 128 * 64 * 128) + 2 * (2 * 128 * 64 * 120)
-    kv_tile = 3 * (2 * 64 * 64 * 128) + 4 * (2 * 64 * 64 * 120)
+    kv_step = 2 * (2 * 64 * 64 * 128) + 4 * (2 * 64 * 64 * 120)
     assert C.bwd_wgmma_executed_flop(300, 100, 2, 120) == 2 * (
-        9 * dq_tile + 12 * kv_tile)
+        9 * dq_tile + 12 * kv_step)
     # heads of 64: one 64-column box, products 64 wide; window past S is S
     assert C.wgmma_executed_flop(64, 1000, 1, 64) == (
-        2 * 128 * 64 * 64 + 2 * (2 * 128 * 64 * 64))
+        2 * 128 * 128 * 64 + 2 * (2 * 128 * 128 * 64))
+
+
+def _in_band(queries, keys, window):
+    return (keys <= queries) & (keys > queries - window)
+
+
+@pytest.mark.parametrize("window", [1, 40, 64, 100, 128, 200, 1024])
+@pytest.mark.parametrize("s", [1, 64, 100, 128, 200, 257, 300, 520])
+def test_wgmma_walks_cover_the_band_once(s, window):
+    """``kernel.wgmma_band_walk`` (the forward's and the dq kernel's walk)
+    and ``wgmma_dkdv_walk`` against brute force: every (query, key) pair of
+    the band lies in exactly one tile a kernel computes, a tile is masked
+    for a warpgroup's 64 rows exactly where one of its pairs lies outside
+    the band (or, for dk/dv, past S), and a dk/dv warpgroup passes over
+    exactly the query tiles without a pair of the band."""
+    w = min(window, s)          # what the wrapper passes
+    q = np.arange(s)[:, None]
+    band = _in_band(q, q.T, w)
+    rows = np.arange(TK.WGMMA_ROWS)
+    for rows_q, rows_kv in ((TK.WGMMA_FWD_Q, TK.WGMMA_FWD_KV),
+                            (TK.WGMMA_DQ_Q, TK.WGMMA_DQ_KV)):
+        cover = np.zeros((s, s), np.int64)
+        for q0 in range(0, s, rows_q):
+            walk = TK.wgmma_band_walk(q0, s, w, rows_q, rows_kv)
+            for kt, masked in walk:
+                assert kt % rows_kv == 0
+                keys = np.arange(kt, kt + rows_kv)[None, :]
+                assert masked == tuple(
+                    not _in_band(r0 + rows[:, None], keys, w).all()
+                    for r0 in range(q0, q0 + rows_q, TK.WGMMA_ROWS))
+                cover[q0:q0 + rows_q, kt:kt + rows_kv] += 1
+        assert cover.max() <= 1 and (cover[band] == 1).all(), (rows_q,
+                                                               rows_kv)
+    cover = np.zeros((s, s), np.int64)
+    for kt in range(0, s, TK.WGMMA_DKDV_KV):
+        for qs, states in TK.wgmma_dkdv_walk(kt, s, w):
+            queries = qs + np.arange(TK.WGMMA_DKDV_Q)[:, None]
+            want = []
+            for kr0 in range(kt, kt + TK.WGMMA_DKDV_KV, TK.WGMMA_ROWS):
+                pairs = _in_band(queries, kr0 + rows[None, :], w) & (
+                    queries < s)
+                want.append("skip" if not pairs.any() else
+                            "whole" if pairs.all() else "masked")
+                if want[-1] != "skip":
+                    cover[qs:qs + TK.WGMMA_DKDV_Q,
+                          kr0:kr0 + TK.WGMMA_ROWS] += 1
+            assert states == tuple(want), (kt, qs)
+    assert cover.max() <= 1 and (cover[band] == 1).all()

@@ -189,6 +189,35 @@ def test_build_needs_nvcc():
     assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
 
 
+#: Two functions of ``cuobjdump -sass`` output, cut to the lines that
+#: matter: the registers they name (uniform registers and ``R2UR`` aside),
+#: the setmaxnreg instructions and the local loads and stores.
+SASS = """
+        Function : _Z8consumerv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   USETMAXREG.DEALLOC.CTAPOOL 0x18 ;
+        /*0020*/                   USETMAXREG.TRY_ALLOC.CTAPOOL UP0, 0xf0 ;
+        /*0030*/                   R2UR UR4, R3 ;
+        /*0040*/                   IMAD R231, -R5.reuse, |R12|, UR7 ;
+        /*0050*/                   STL [R1+0x8], R3 ;
+        /*0060*/                   LDL.LU R4, [R1+0x8] ;
+        /*0070*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ ;
+        Function : _Z8producerv
+        /*0000*/                   MOV R7, UR5 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_sass_summary_reads_registers_and_local_memory(monkeypatch):
+    assert _build.sass_summary(SASS) == [
+        ("_Z8consumerv", 232, ["USETMAXREG.DEALLOC.CTAPOOL 0x18",
+                               "USETMAXREG.TRY_ALLOC.CTAPOOL UP0, 0xf0"],
+         1, 1),
+        ("_Z8producerv", 8, [], 0, 0)]
+    monkeypatch.setattr(_build, "cuobjdump_path", lambda: "")
+    assert _build.sass_report(pathlib.Path("missing.so")) == ""
+
+
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
     alone = tmp_path / "chip_smoke.py"
     shutil.copy(REPO / "chip_smoke.py", alone)

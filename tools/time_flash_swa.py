@@ -16,7 +16,8 @@ Each case is timed with CUDA events (``chip_smoke.cuda_ms``) and printed
 beside its bound (useful flop at 989 TFLOP/s bf16, or bytes at 3.35 TB/s,
 the larger), the flop the route executes (``chip_smoke``'s
 ``wgmma_executed_flop`` / ``mma_executed_flop`` and their backward
-twins) and ``scaled_dot_product_attention`` with the band mask on cuDNN
+twins, from the timed tree's own ``chip_smoke.py``) and
+``scaled_dot_product_attention`` with the band mask on cuDNN
 (its backward alone for the backward), timed once.  With ``--src DIR``
 the turns are DIR / this / this / DIR (a parent commit unpacked with ``git
 archive`` under ``build/``, say), each a subprocess, since two trees'
@@ -45,8 +46,12 @@ def one_turn(src: str, seed: int, library: bool) -> int:
     """Time every case on the port under ``src``; one ``RESULT`` JSON line
     each."""
     import torch
-    sys.path.insert(0, str(pathlib.Path(src).resolve()))
-    sys.path.insert(1, str(ROOT))
+    src = pathlib.Path(src).resolve()
+    sys.path.insert(0, str(src))
+    # the tree's own chip_smoke, whose executed-flop counts follow its
+    # kernels' tiles
+    sys.path.insert(1, str(src.parent if (src.parent / "chip_smoke.py")
+                           .exists() else ROOT))
     import chip_smoke as C
     from repro_torch.kernels.flash_swa import kernel as FK
     from repro_torch.launch import roofline as RL
