@@ -1,0 +1,6 @@
+"""Peak device memory over the window of graph queries, GiB."""
+from portbench.harness.readers import peak_gib
+
+
+def read(run):
+    return peak_gib(run)
